@@ -1,0 +1,70 @@
+"""Client-side local training: E epochs of minibatch SGD (PyTorch port of
+``repro.fl.client``).
+
+The whole fleet trains in one batched loop over (epoch, batch): every
+parameter leaf carries a leading ``[N]`` client axis, and one backward pass
+of the summed per-client mean losses gives each client exactly its own
+gradient (the clients share no parameter), which is what ``vmap(grad)``
+computes in the JAX package.  Unscheduled clients train too; the mask only
+enters the Eq. (2) aggregation, as in the JAX engine's ``compute="full"``.
+
+Client i's epoch-e batches come from
+``permutation(split(key_i, epochs)[e], n_i)[:n_used]``, as in the JAX
+package, so both packages visit the same samples in the same order.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch import rng
+from repro_torch.models import cnn
+from repro_torch.tree import Params, tree_leaves, tree_map, tree_unflatten
+
+
+def fleet_local_sgd(global_params: Params, x_all: torch.Tensor,
+                    y_all: torch.Tensor, keys: torch.Tensor, epochs: int,
+                    batch_size: int, lr: float,
+                    losses: Callable = cnn.client_losses) -> Params:
+    """E epochs of SGD on every client, all starting from ``global_params``.
+
+    x_all [N, n_i, ...], y_all [N, n_i], keys [N, 2].  Returns the client
+    models, leaves [N, ...].  ``losses(params, x, y) -> [N]`` is each
+    client's mean loss on its batch.
+    """
+    n_clients, n = x_all.shape[0], x_all.shape[1]
+    n_batches = n // batch_size
+    if n_batches == 0:
+        raise ValueError(
+            f"batch_size={batch_size} exceeds the {n} samples per client — "
+            f"local SGD would silently train nothing; shrink batch_size or "
+            f"grow n_train/shards")
+    n_used = n_batches * batch_size
+    params = tree_map(
+        lambda g: g.detach()[None].repeat((n_clients,) + (1,) * g.dim()),
+        global_params)
+    ekeys = rng.split(keys, epochs)                        # [N, E, 2]
+    rows = torch.arange(n_clients, device=x_all.device)[:, None]
+    for e in range(epochs):
+        perm = rng.permutation(ekeys[:, e], n)[:, :n_used].long()
+        xb = x_all[rows, perm].reshape(
+            (n_clients, n_batches, batch_size) + tuple(x_all.shape[2:]))
+        yb = y_all[rows, perm].reshape(n_clients, n_batches, batch_size)
+        for b in range(n_batches):
+            leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+            loss = losses(params, xb[:, b], yb[:, b]).sum()
+            grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                params = tree_unflatten(
+                    params, [p - lr * g for p, g in zip(leaves, grads)])
+    return params
+
+
+def local_sgd(params: Params, x: torch.Tensor, y: torch.Tensor,
+              key: torch.Tensor, epochs: int, batch_size: int,
+              lr: float) -> Params:
+    """E epochs of minibatch SGD on ONE client's data (x [n_i, ...])."""
+    out = fleet_local_sgd(params, x[None], y[None], key[None], epochs,
+                          batch_size, lr)
+    return tree_map(lambda p: p[0], out)

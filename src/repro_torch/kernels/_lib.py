@@ -1,0 +1,157 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The sources in ``repro_torch/csrc/`` expose plain C entry points.  On first
+use this module compiles each ``.cu`` with ``nvcc`` for ``sm_90a`` (all
+sources at once, in parallel), links them into one shared library keyed on
+a hash of the sources and flags, and loads it with ``ctypes``.  The library
+lands in ``build/repro_torch_kernels/`` at the root of the checkout, or in
+``$REPRO_TORCH_BUILD_DIR``.  Nothing is built or loaded at import, so the
+CPU-only tests import every module freely.
+
+Each kernel wrapper adds one to its entry of :data:`LAUNCHES` where it
+launches its kernel, so a run can show that its main path went through the
+kernels; :func:`reset_launches` zeroes the counts.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+
+LAUNCHES = {"bandwidth_solve": 0, "masked_bs_argmax": 0,
+            "best_bs_argmax": 0, "fedavg_reduce": 0}
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "bandwidth_solve_f32": (_P, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "masked_bs_argmax_f32": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    "best_bs_argmax_f32": (_P, _I, _I, _P, _P),
+    "fedavg_reduce_f32": (_P, _P, _LL, _LL, _P, _P),
+}
+
+_lib: ctypes.CDLL | None = None
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def build_dir() -> Path:
+    """``$REPRO_TORCH_BUILD_DIR``, else ``build/repro_torch_kernels`` at the
+    root of the checkout (beside ``src/``), else inside the installed
+    package."""
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    pkg = Path(__file__).resolve().parents[1]
+    root = pkg.parents[1] if pkg.parent.name == "src" else pkg
+    return root / "build" / "repro_torch_kernels"
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").is_file():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the port's CUDA kernels build "
+                           "on a machine with the CUDA toolkit")
+    return found
+
+
+def _sources() -> tuple[list[Path], str]:
+    srcs = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return srcs, h.hexdigest()[:16]
+
+
+def _build(out: Path, srcs: list[Path]) -> None:
+    nvcc = _nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [Path(tmp) / (s.stem + ".o") for s in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o",
+                                   str(o)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        for s, p, log in zip(srcs, procs, logs):
+            if p.returncode:
+                raise RuntimeError(f"nvcc failed on {s.name}:\n{log}")
+        so = Path(tmp) / out.name
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(so),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
+                               f"{link.stderr}")
+        os.replace(so, out)
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            srcs, digest = _sources()
+            path = build_dir() / f"librepro_torch_kernels_{digest}.so"
+            if not path.is_file():
+                _build(path, srcs)
+            lib = ctypes.CDLL(str(path))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(args)
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on a CUDA device, False when all lie on
+    the CPU (the plain version's device); raises on anything else."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        if len({t.device for t in tensors}) != 1:
+            raise ValueError("kernel inputs lie on different CUDA devices")
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"kernel inputs must all lie on one CUDA device or all "
+                     f"on the CPU, got {sorted(kinds)}")
+
+
+def stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype,
+            shape: tuple) -> None:
+    """Validate a kernel operand before its pointer crosses into C."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

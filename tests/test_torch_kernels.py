@@ -1,0 +1,176 @@
+"""The port's four kernels against the JAX package's Pallas kernels.
+
+On the CPU each wrapper runs its plain version; here that plain version is
+held against the Pallas kernel in interpret mode (as the JAX package's own
+tests run it) and against ``repro.kernels.ref``.  Index outputs must be
+exactly equal; float outputs agree within rtol=1e-5 (the reductions sum in
+another order).  The CUDA kernels themselves run only on the card:
+tests/test_torch_cuda.py and ``chip_smoke.py`` hold them against the plain
+versions there.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels import ref  # noqa: E402
+from repro.kernels.bandwidth_solve import bandwidth_solve as j_bw  # noqa: E402
+from repro.kernels.fedavg_reduce import fedavg_reduce as j_fedavg  # noqa: E402
+from repro.kernels.select_topk import best_bs_argmax as j_best  # noqa: E402
+from repro.kernels.select_topk import masked_bs_argmax as j_masked  # noqa: E402
+from repro_torch.kernels import _lib  # noqa: E402
+from repro_torch.kernels import bandwidth_solve as kb  # noqa: E402
+from repro_torch.kernels import fedavg_reduce as kf  # noqa: E402
+from repro_torch.kernels import select_topk as ks  # noqa: E402
+
+T = torch.from_numpy
+
+
+def _bw_case(seed, k, u):
+    rs = np.random.default_rng(seed)
+    snr = (10.0 ** rs.uniform(-1, 4, (k, u))).astype(np.float32)
+    coeff = (0.5 / np.log2(1.0 + snr)).astype(np.float32)
+    tcomp = rs.uniform(0.10, 0.11, (u,)).astype(np.float32)
+    mask = rs.random((k, u)) < 0.4
+    mask[k // 2] = False                          # an empty row
+    bw = rs.uniform(0.5, 1.5, (k,)).astype(np.float32)
+    return coeff, tcomp, mask, bw
+
+
+@pytest.mark.parametrize("method", ["newton", "bisect"])
+@pytest.mark.parametrize("k,u,seed", [(8, 50, 0), (11, 37, 1), (3, 200, 2)])
+def test_bandwidth_solve_matches_pallas_and_oracle(method, k, u, seed):
+    coeff, tcomp, mask, bw = _bw_case(seed, k, u)
+    tc_rows = np.broadcast_to(tcomp, (k, u)).copy()
+    want = np.asarray(j_bw(coeff, tc_rows, mask, bw, method=method,
+                           interpret=True))
+    oracle = np.asarray(ref.bandwidth_solve(coeff, tc_rows, mask, bw,
+                                            method=method))
+    shared = kb.bandwidth_solve(T(coeff), T(tcomp), T(mask), T(bw),
+                                method=method).numpy()
+    per_row = kb.bandwidth_solve(T(coeff), T(tc_rows), T(mask), T(bw),
+                                 method=method).numpy()
+    np.testing.assert_allclose(shared, want, rtol=1e-5)
+    np.testing.assert_allclose(shared, oracle, rtol=1e-5)
+    np.testing.assert_array_equal(shared, per_row)
+    assert shared[k // 2] == 0.0 and want[k // 2] == 0.0
+
+
+def test_bandwidth_solve_warm_start_lo():
+    coeff, tcomp, mask, bw = _bw_case(3, 8, 50)
+    tc_rows = np.broadcast_to(tcomp, (8, 50)).copy()
+    cold = kb.bandwidth_solve(T(coeff), T(tcomp), T(mask), T(bw)).numpy()
+    lo = (cold * np.float32(0.9)).astype(np.float32)
+    lo[1] = 1e6                                  # above hi: clipped to hi
+    want = np.asarray(j_bw(coeff, tc_rows, mask, bw, lo=lo, interpret=True))
+    got = kb.bandwidth_solve(T(coeff), T(tcomp), T(mask), T(bw),
+                             lo=T(lo)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    keep = np.arange(8) != 1                     # a lo below the root is inert
+    np.testing.assert_allclose(got[keep], cold[keep], rtol=1e-5)
+
+
+def _snr_with_ties(seed, n, m):
+    rs = np.random.default_rng(seed)
+    snr = (10.0 ** rs.uniform(-1, 5, (n, m))).astype(np.float32)
+    snr[n // 3] = snr[n // 5]                    # tied users
+    snr[:, m - 1] = snr[:, 0]                    # tied BSs
+    snr[7, 2] = snr[:, 2].max()                  # a tie at a column's max
+    rem = rs.random(n) < 0.5
+    return snr, rem
+
+
+@pytest.mark.parametrize("n,m,seed", [(50, 8, 0), (37, 5, 1), (130, 3, 2)])
+def test_masked_bs_argmax_matches_pallas_exactly(n, m, seed):
+    snr, rem = _snr_with_ties(seed, n, m)
+    rem[7] = True
+    for mask in (rem, np.zeros(n, bool), np.eye(1, n, n - 1, dtype=bool)[0]):
+        ji, jv = j_masked(snr, mask, user_block=16)      # 16 ∤ n
+        ri, rv = ref.masked_bs_argmax(snr, mask)
+        ti, tv = ks.masked_bs_argmax(T(snr), T(mask))
+        assert ti.dtype == torch.int32
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ri))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(rv))
+    _, tv = ks.masked_bs_argmax(T(snr), T(np.zeros(n, bool)))
+    assert np.isneginf(tv.numpy()).all()
+
+
+@pytest.mark.parametrize("n,m,seed", [(50, 8, 0), (37, 5, 1), (130, 3, 2)])
+def test_best_bs_argmax_matches_pallas_exactly(n, m, seed):
+    snr, _ = _snr_with_ties(seed, n, m)
+    got = ks.best_bs_argmax(T(snr))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(j_best(snr, user_block=16)))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(ref.best_bs_argmax(snr)))
+
+
+def _fleet_params(seed, n):
+    rs = np.random.default_rng(seed)
+    g = {"a": {"w": rs.normal(size=(3, 3, 1, 4)).astype(np.float32),
+               "b": rs.normal(size=(4,)).astype(np.float32)},
+         "f": {"w": rs.normal(size=(20, 7)).astype(np.float32)}}
+    c = {k: {leaf: (v[None] + rs.normal(size=(n,) + v.shape))
+             .astype(np.float32) for leaf, v in sub.items()}
+         for k, sub in g.items()}
+    return g, c
+
+
+def _to_torch(tree):
+    return {k: {leaf: T(np.array(v)) for leaf, v in sub.items()}
+            for k, sub in tree.items()}
+
+
+@pytest.mark.parametrize("case", ["plain", "poisoned", "clip", "weights",
+                                  "empty"])
+def test_fedavg_reduce_matches_pallas_and_oracle(case):
+    n = 13                                       # not a multiple of 8
+    g, c = _fleet_params(4, n)
+    rs = np.random.default_rng(5)
+    sel = rs.random(n) < 0.6
+    sizes = rs.integers(10, 50, n).astype(np.int32)
+    kwargs = {}
+    if case == "poisoned":
+        sel[[2, 5]] = True
+        c["a"]["w"][2, 0, 0, 0, 1] = np.nan
+        c["f"]["w"][5, 3, 3] = np.inf
+    if case == "clip":
+        kwargs["clip_norm"] = 2.5
+    if case == "weights":
+        kwargs["weights"] = rs.uniform(0.2, 1.0, n).astype(np.float32)
+    if case == "empty":
+        sel[:] = False
+    want = j_fedavg(g, c, sel, sizes, client_block=8, feature_block=128,
+                    interpret=True, **kwargs)
+    oracle = ref.fedavg_reduce(g, c, sel, sizes, **kwargs)
+    t_kwargs = {k: (T(v) if isinstance(v, np.ndarray) else v)
+                for k, v in kwargs.items()}
+    got = kf.fedavg_reduce(_to_torch(g), _to_torch(c), T(sel), T(sizes),
+                           **t_kwargs)
+    for k in g:
+        for leaf in g[k]:
+            out = got[k][leaf].numpy()
+            assert np.isfinite(out).all()
+            np.testing.assert_allclose(out, np.asarray(want[k][leaf]),
+                                       rtol=1e-5, atol=1e-6)
+            np.testing.assert_allclose(out, np.asarray(oracle[k][leaf]),
+                                       rtol=1e-5, atol=1e-6)
+            if case == "empty":
+                np.testing.assert_array_equal(out, g[k][leaf])
+
+
+def test_reduce_leaf_screens_non_finite_entries():
+    x = torch.tensor([[1.0, float("nan")], [float("inf"), 2.0]])
+    w = torch.tensor([0.5, 0.25])
+    np.testing.assert_array_equal(kf.reduce_leaf(w, x).numpy(), [0.5, 0.5])
+
+
+def test_wrappers_refuse_mixed_devices():
+    snr = torch.zeros((4, 2))
+    with pytest.raises(ValueError):
+        ks.masked_bs_argmax(snr, torch.zeros(4, dtype=torch.bool,
+                                             device="meta"))
+    assert _lib.on_cuda(snr) is False

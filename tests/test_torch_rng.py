@@ -1,0 +1,113 @@
+"""repro_torch.rng against jax.random (threefry2x32, partitionable mode).
+
+Integer outputs (keys, bits, randint, permutation) and uniforms must be
+bit-exact.  normal and exponential go through erfinv / log1p, whose last
+ulp differs between XLA and torch, so they compare within float32
+rtol=1e-6, atol=1e-6.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro_torch import rng  # noqa: E402
+from repro_torch.interop import key_from_numpy  # noqa: E402
+
+SEEDS = (0, 7, 12345, 2**31 - 1, -3)
+
+
+def _keys(seed, n=5):
+    """The same batch of keys in both packages: jax [n, 2] uint32, torch."""
+    with jax.threefry_partitionable(True):
+        jk = jax.random.split(jax.random.PRNGKey(seed), n)
+    return jk, key_from_numpy(np.asarray(jk))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_prngkey_split_fold_in_bit_exact(seed):
+    with jax.threefry_partitionable(True):
+        jk = jax.random.PRNGKey(seed)
+        tk = rng.PRNGKey(seed)
+        assert np.array_equal(np.asarray(jk), tk.numpy())
+        for num in (2, 5, 6):
+            assert np.array_equal(np.asarray(jax.random.split(jk, num)),
+                                  rng.split(tk, num).numpy())
+        for data in (0, 1, 7, 13, 2**32 - 1):
+            assert np.array_equal(np.asarray(jax.random.fold_in(jk, data)),
+                                  rng.fold_in(tk, data).numpy())
+
+
+def test_batched_keys_split_and_bits():
+    jk, tk = _keys(3, n=4)
+    with jax.threefry_partitionable(True):
+        want = np.asarray(jax.vmap(lambda k: jax.random.split(k, 3))(jk))
+        assert np.array_equal(want, rng.split(tk, 3).numpy())
+        bits = np.asarray(jax.vmap(
+            lambda k: jax.random.bits(k, (3, 5), jnp.uint32))(jk))
+        assert np.array_equal(bits.astype(np.int64),
+                              rng.random_bits(tk, (3, 5)).numpy())
+
+
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (0.10, 0.11),
+                                   (0.0, 2 * np.pi), (-0.05, 0.05),
+                                   (0.0, 1000.0)])
+def test_uniform_bit_exact(lo, hi):
+    jk, tk = _keys(11, n=3)
+    with jax.threefry_partitionable(True):
+        want = np.asarray(jax.vmap(lambda k: jax.random.uniform(
+            k, (257, 3), minval=lo, maxval=hi))(jk))
+    got = rng.uniform(tk, (257, 3), lo, hi).numpy()
+    assert got.dtype == np.float32
+    assert np.array_equal(want, got)
+
+
+@pytest.mark.parametrize("m", range(2, 9))
+def test_randint_bit_exact_small_spans(m):
+    jk, tk = _keys(m, n=64)
+    with jax.threefry_partitionable(True):
+        want = np.asarray(jax.vmap(
+            lambda k: jax.random.randint(k, (), 0, m))(jk))
+    assert np.array_equal(want, rng.randint(tk, (), 0, m).numpy())
+
+
+def test_randint_bit_exact_wide_and_negative_spans():
+    jk, tk = _keys(5, n=2)
+    for lo, hi in ((-5, 100000), (0, 2**31 - 1), (-2**31, 2**31 - 1),
+                   (7, 7), (3, 1)):
+        with jax.threefry_partitionable(True):
+            want = np.asarray(jax.vmap(
+                lambda k: jax.random.randint(k, (333,), lo, hi))(jk))
+        assert np.array_equal(want, rng.randint(tk, (333,), lo, hi).numpy()), \
+            (lo, hi)
+
+
+@pytest.mark.parametrize("n", (1, 12, 100, 4000))
+def test_permutation_bit_exact(n):
+    jk, tk = _keys(n, n=3)
+    with jax.threefry_partitionable(True):
+        want = np.asarray(jax.vmap(lambda k: jax.random.permutation(k, n))(jk))
+        arr = jnp.arange(n) * 3 + 1
+        want_arr = np.asarray(jax.random.permutation(jk[0], arr))
+    assert np.array_equal(want, rng.permutation(tk, n).numpy())
+    got_arr = rng.permutation(tk[0], torch.arange(n) * 3 + 1).numpy()
+    assert np.array_equal(want_arr, got_arr)
+
+
+def test_normal_and_exponential_within_ulps():
+    jk, tk = _keys(9, n=2)
+    with jax.threefry_partitionable(True):
+        n_want = np.asarray(jax.vmap(
+            lambda k: jax.random.normal(k, (20000,)))(jk))
+        e_want = np.asarray(jax.vmap(
+            lambda k: jax.random.exponential(k, (20000,)))(jk))
+    np.testing.assert_allclose(rng.normal(tk, (20000,)).numpy(), n_want,
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(rng.exponential(tk, (20000,)).numpy(), e_want,
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_prngkey_rejects_out_of_range_seed():
+    with pytest.raises(ValueError):
+        rng.PRNGKey(2**31)

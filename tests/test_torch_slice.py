@@ -1,0 +1,139 @@
+"""The whole slice: repro_torch's FL round engine against a live run of the
+JAX engine, plus the port's package rules.
+
+The run is the ``engine_sync`` config of test_golden_trajectories.py (12
+users, 4 BSs, 120/40 samples, 1 local epoch, batch 10, seed 7, dagsa_jit,
+3 rounds; JAX in ``mode="step"``).  Decisions (``n_selected``,
+``min_part_rate``) must match exactly; ``t_round`` and ``wall_clock`` within
+rtol=1e-5; the final global parameters within rtol=1e-4, atol=1e-5.
+``test_acc`` may differ by one of the 40 test samples: a sample whose two
+top logits tie within float32 rounding can take either class.
+"""
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+
+from repro.core.types import WirelessConfig as JWireless  # noqa: E402
+from repro.fl.rounds import FLConfig as JConfig  # noqa: E402
+from repro.fl.rounds import FLSimulation as JSimulation  # noqa: E402
+from repro_torch.core import mobility  # noqa: E402
+from repro_torch.core.types import WirelessConfig  # noqa: E402
+from repro_torch.fl.rounds import FLConfig, FLSimulation  # noqa: E402
+from repro_torch.interop import params_to_numpy  # noqa: E402
+from repro_torch.launch import fl_sim  # noqa: E402
+
+PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+ENGINE_SYNC = dict(n_train=120, n_test=40, local_epochs=1, batch_size=10,
+                   eval_every=1, seed=7)
+
+
+def test_engine_sync_slice_matches_live_jax_run():
+    with jax.threefry_partitionable(True):
+        jsim = JSimulation(JConfig(wireless=JWireless(n_users=12, n_bs=4),
+                                   scheduler="dagsa_jit", **ENGINE_SYNC))
+        want = jsim.run(3, mode="step")
+        j_params = jax.tree.map(np.asarray, jsim.params)
+    tsim = FLSimulation(FLConfig(wireless=WirelessConfig(n_users=12, n_bs=4),
+                                 scheduler="dagsa_jit", **ENGINE_SYNC),
+                        device="cpu")
+    got = tsim.run(3)
+    assert [r.round_idx for r in got] == [1, 2, 3]
+    for g, w in zip(got, want):
+        assert g.n_selected == w.n_selected
+        assert g.min_part_rate == w.min_part_rate
+        np.testing.assert_allclose(g.t_round, w.t_round, rtol=1e-5)
+        np.testing.assert_allclose(g.wall_clock, w.wall_clock, rtol=1e-5)
+        assert abs(g.test_acc - w.test_acc) <= 1.0 / 40 + 1e-7
+    t_params = params_to_numpy(tsim.params)
+    for k in j_params:
+        for leaf in j_params[k]:
+            np.testing.assert_allclose(t_params[k][leaf], j_params[k][leaf],
+                                       rtol=1e-4, atol=1e-5,
+                                       err_msg=f"{k}.{leaf}")
+
+
+def test_run_resumes_where_it_stopped():
+    cfg = FLConfig(wireless=WirelessConfig(n_users=12, n_bs=4), **ENGINE_SYNC)
+    whole = FLSimulation(cfg, device="cpu").run(3)
+    sim = FLSimulation(cfg, device="cpu")
+    parts = sim.run(1) + sim.run(2)
+    assert sim.run(0) == []
+    for a, b in zip(whole, parts):
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 15
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), \
+                f"{path.relative_to(PKG.parent)} imports {mod}"
+
+
+def test_importing_the_engine_loads_no_jax():
+    code = ("import sys; import repro_torch.fl.rounds, "
+            "repro_torch.launch.fl_sim; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; "
+            "assert not bad, bad; print('clean')")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(PKG.parent)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = FLConfig(wireless=WirelessConfig(n_users=12, n_bs=4), **ENGINE_SYNC)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FLSimulation(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fl_sim.main(["--rounds", "1"])
+
+
+def test_config_rejects_what_the_port_lacks():
+    with pytest.raises(ValueError, match="not ported"):
+        FLConfig(scheduler="fedcs_low")
+    with pytest.raises(ValueError, match="unknown scheduler"):
+        FLConfig(scheduler="nope")
+    with pytest.raises(ValueError, match="bs_layout"):
+        FLConfig(bs_layout="hex")
+    with pytest.raises(ValueError, match="not ported"):
+        mobility.step_named("waypoint", torch.tensor([0, 1]),
+                            torch.zeros((3, 2)), {}, WirelessConfig())
+
+
+def test_static_mobility_keeps_users_in_place():
+    pos = torch.rand((5, 2)) * 1000
+    new, _ = mobility.step_named("static", torch.tensor([0, 1]), pos, {},
+                                 WirelessConfig())
+    assert torch.equal(new, pos)
+
+
+def test_cli_runs_on_cpu(capsys):
+    fl_sim.main(["--device", "cpu", "--rounds", "2", "--n-train", "200",
+                 "--n-test", "40", "--batch-size", "4", "--local-epochs",
+                 "1", "--bs-layout", "uniform"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].split()[:2] == ["round", "t_round"]
+    assert [ln.split()[0] for ln in lines[1:]] == ["1", "2"]
