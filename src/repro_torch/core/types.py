@@ -9,7 +9,7 @@ step.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -48,7 +48,10 @@ class SchedulingProblem:
     snr [N, M] linear uplink SNR; tcomp [N] local compute latency (s);
     bs_bw [M] per-BS bandwidth (MHz); coeff [N, M] ``S / log2(1 + snr)``
     (MHz*s); necessary [N] bool, users Eq. (8g) forces in;
-    min_participants, the Eq. (8h) floor ``ceil(rho2 * N)``.
+    min_participants, the Eq. (8h) floor ``ceil(rho2 * N)``;
+    payload_mbit, the optional [N] per-user uplink payload s_k (Mbit) of a
+    compressed uplink.  ``coeff`` is already payload-scaled, so this field
+    is bookkeeping only; ``None`` means every user uploads ``model_mbit``.
     """
 
     snr: torch.Tensor
@@ -57,6 +60,7 @@ class SchedulingProblem:
     coeff: torch.Tensor
     necessary: torch.Tensor
     min_participants: int
+    payload_mbit: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -100,13 +104,19 @@ class ClientState:
     """Per-client bookkeeping the server carries across rounds."""
 
     counts: torch.Tensor    # [N] f32 Eq. (8g) participation counts
+    prev_bs: Optional[torch.Tensor] = None  # [N] i32 last round's serving
+                                            # BS (hierarchical runs only)
 
 
 @dataclasses.dataclass(frozen=True)
 class ServerState:
-    """The global model: a dict of parameter tensors."""
+    """The global model (a dict of parameter tensors) and, on hierarchical
+    runs, the per-BS edge models and the data mass each aggregated since
+    the last global sync (``None`` otherwise)."""
 
     params: Any
+    edge_params: Any = None                     # leaves [M, ...]
+    edge_weight: Optional[torch.Tensor] = None  # [M] f32
 
 
 @dataclasses.dataclass(frozen=True)

@@ -23,11 +23,34 @@ from repro_torch.models import cnn
 from repro_torch.tree import Params, tree_leaves, tree_map, tree_unflatten
 
 
+def gather_client_tree(tree: Params, idx: torch.Tensor) -> Params:
+    """Rows ``idx`` of every leaf: ``[len(idx), ...]`` (e.g. each client's
+    serving edge model out of the ``[M, ...]`` edge models)."""
+    return tree_map(lambda a: a[idx.long()], tree)
+
+
 def fleet_local_sgd(global_params: Params, x_all: torch.Tensor,
                     y_all: torch.Tensor, keys: torch.Tensor, epochs: int,
                     batch_size: int, lr: float,
                     losses: Callable = cnn.client_losses) -> Params:
-    """E epochs of SGD on every client, all starting from ``global_params``.
+    """E epochs of SGD on every client, all starting from ``global_params``
+    (broadcast into :func:`fleet_local_sgd_per_client`)."""
+    n_clients = x_all.shape[0]
+    init = tree_map(
+        lambda g: g.detach()[None].repeat((n_clients,) + (1,) * g.dim()),
+        global_params)
+    return fleet_local_sgd_per_client(init, x_all, y_all, keys, epochs,
+                                      batch_size, lr, losses)
+
+
+def fleet_local_sgd_per_client(init_params: Params, x_all: torch.Tensor,
+                               y_all: torch.Tensor, keys: torch.Tensor,
+                               epochs: int, batch_size: int, lr: float,
+                               losses: Callable = cnn.client_losses
+                               ) -> Params:
+    """E epochs of SGD on every client, client i starting from row i of
+    ``init_params`` (leaves [N, ...]; the hierarchical engine's serving
+    edge models).
 
     x_all [N, n_i, ...], y_all [N, n_i], keys [N, 2].  Returns the client
     models, leaves [N, ...].  ``losses(params, x, y) -> [N]`` is each
@@ -41,9 +64,7 @@ def fleet_local_sgd(global_params: Params, x_all: torch.Tensor,
             f"local SGD would silently train nothing; shrink batch_size or "
             f"grow n_train/shards")
     n_used = n_batches * batch_size
-    params = tree_map(
-        lambda g: g.detach()[None].repeat((n_clients,) + (1,) * g.dim()),
-        global_params)
+    params = tree_map(lambda p: p.detach(), init_params)
     ekeys = rng.split(keys, epochs)                        # [N, E, 2]
     rows = torch.arange(n_clients, device=x_all.device)[:, None]
     for e in range(epochs):

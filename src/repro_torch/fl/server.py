@@ -1,5 +1,11 @@
 """Server-side aggregation — paper Eq. (2), masked weighted FedAvg (PyTorch
-port of ``repro.fl.server``, single tier).
+port of ``repro.fl.server``).
+
+Two granularities share the math: :func:`fedavg`, the single-tier Eq. (2),
+and :func:`fedavg_segmented`, the hierarchical edge step (Eq. (2) per BS
+over the ``[N, M]`` assignment; a BS that aggregated nobody keeps its edge
+model), whose edge models :func:`edge_global_sync` mixes into the global
+model every ``tau_global`` rounds.
 
 Parameters are dicts of tensors (nested one level, as the CNN's); client
 parameters carry a leading ``[N]`` axis.  The weighted sum accumulates in
@@ -9,9 +15,10 @@ because ``0 * NaN = NaN``.  With ``clip_norm`` each update's L2 distance
 from the global model is clipped through the reweighting identity
 ``ref + sum_i w_i s_i (x_i - ref) / sum_i w_i``, still one weighted sum.
 
-:func:`fedavg` is the plain version; the round engine aggregates through
-:func:`repro_torch.kernels.fedavg_reduce.fedavg_reduce`, whose per-leaf sum
-is a CUDA kernel on the card.
+:func:`fedavg` and :func:`fedavg_segmented` are the plain versions; the
+round engine aggregates through
+:mod:`repro_torch.kernels.fedavg_reduce`, whose per-leaf sums are CUDA
+kernels on the card.
 """
 from __future__ import annotations
 
@@ -87,3 +94,61 @@ def fedavg(global_params: Params, client_params: Params,
         return torch.where(total > 0, avg, g)
 
     return tree_map(agg, global_params, client_params)
+
+
+def segment_weights(assign: torch.Tensor, data_sizes: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(client, BS) Eq. (2) weights a_{i,k} |D_i| ([N, M] float32) and
+    the per-BS totals ([M])."""
+    w = assign.float() * data_sizes.float()[:, None]
+    return w, w.sum(dim=0)
+
+
+def fedavg_segmented(edge_params: Params, client_params: Params,
+                     assign: torch.Tensor, data_sizes: torch.Tensor,
+                     clip_norm=None) -> Params:
+    """Per-BS edge aggregation: Eq. (2) restricted to each BS's users.
+
+    Edge leaves [M, ...], client leaves [N, ...], assign [N, M] bool.  A BS
+    with no (finite) assigned update keeps its edge model.  With
+    ``clip_norm`` each update's deviation is measured against its assigned
+    BS's edge model.
+    """
+    ok = finite_update_mask(client_params)
+    w, totals = segment_weights(assign & ok[:, None], data_sizes)
+    if clip_norm is not None:
+        client_bs = assign.to(torch.int8).argmax(dim=1)   # 0 for unassigned
+        ref = tree_map(lambda e: e[client_bs], edge_params)
+        v = w * clip_scales(ref, client_params, clip_norm)[:, None]
+        v_totals = v.sum(dim=0)
+    else:
+        v, v_totals = w, totals
+    safe = torch.clamp(totals, min=1e-9)
+
+    def agg(e, c):
+        n = c.shape[0]
+        acc = v.t() @ _screen(c).reshape(n, -1)                 # [M, D]
+        if clip_norm is not None:
+            acc = acc + (totals - v_totals)[:, None] \
+                * e.float().reshape(e.shape[0], -1)
+        avg = (acc / safe[:, None]).to(c.dtype).reshape(e.shape)
+        keep = (totals > 0).reshape((-1,) + (1,) * (e.dim() - 1))
+        return torch.where(keep, avg, e)
+
+    return tree_map(agg, edge_params, client_params)
+
+
+def edge_global_sync(global_params: Params, edge_params: Params,
+                     edge_weight: torch.Tensor) -> Params:
+    """Tier 2 of hierarchical Eq. (2): the edge models weighted by the data
+    mass each aggregated since the last sync ([M]).  Keeps the global model
+    when nothing was aggregated anywhere."""
+    total = edge_weight.sum()
+    safe = torch.clamp(total, min=1e-9)
+
+    def agg(g, e):
+        wb = edge_weight.reshape((-1,) + (1,) * (e.dim() - 1))
+        acc = (wb * e.float()).sum(dim=0)
+        return torch.where(total > 0, (acc / safe).to(g.dtype), g)
+
+    return tree_map(agg, global_params, edge_params)

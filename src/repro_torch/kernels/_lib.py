@@ -30,7 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"bandwidth_solve": 0, "masked_bs_argmax": 0,
-            "best_bs_argmax": 0, "fedavg_reduce": 0}
+            "best_bs_argmax": 0, "fedavg_reduce": 0, "fedavg_reduce_int8": 0,
+            "fedavg_segment_reduce": 0, "fedavg_segment_reduce_int8": 0,
+            "sparsify_quantize": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -38,6 +40,10 @@ _SIGNATURES = {
     "masked_bs_argmax_f32": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     "best_bs_argmax_f32": (_P, _I, _I, _P, _P),
     "fedavg_reduce_f32": (_P, _P, _LL, _LL, _P, _P),
+    "fedavg_reduce_i8": (_P, _P, _LL, _LL, _P, _P),
+    "fedavg_segment_reduce_f32": (_P, _P, _LL, _I, _LL, _P, _P),
+    "fedavg_segment_reduce_i8": (_P, _P, _LL, _I, _LL, _P, _P),
+    "sparsify_quantize_f32": (_P, _P, _P, _P, _LL, _LL, _I, _P, _P),
 }
 
 _lib: ctypes.CDLL | None = None

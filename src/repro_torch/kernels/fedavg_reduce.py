@@ -1,44 +1,91 @@
-"""Masked FedAvg (paper Eq. 2) with the per-leaf weighted sum in a kernel.
+"""Masked FedAvg (paper Eq. 2) with the per-leaf weighted sums in kernels.
 
-PyTorch port of ``repro.kernels.fedavg_reduce.fedavg_reduce``.  The weight
-math stays here, as in the JAX wrapper: the finite-update mask, the Eq. (2)
-weights ``a_i |D_i|``, the optional per-client multipliers, the norm-clip
-reweighting identity, the division by the total and the empty-selection
-guard.  Each leaf's ``sum_n w[n] * screen(x[n, :])`` is :func:`reduce_leaf`:
-the hand-written kernel ``csrc/fedavg_reduce.cu`` on CUDA tensors, the
-plain torch sum on CPU tensors.
+PyTorch port of ``repro.kernels.fedavg_reduce``: :func:`fedavg_reduce`
+(single tier) and :func:`fedavg_segment_reduce` (the hierarchical edge
+step, M edge models in one pass).  The weight math stays here, as in the
+JAX wrappers: the finite-update mask, the Eq. (2) weights ``a_i |D_i|``,
+the optional per-client multipliers, the norm-clip reweighting identity,
+the division by the totals and the empty-selection / empty-BS guards.
+
+Each leaf's sum is :func:`reduce_leaf` (``sum_n w[n] * screen(x[n, :])``)
+or :func:`segment_reduce_leaf` (``w.T @ screen(x)``): the hand-written
+kernels of ``csrc/fedavg_reduce.cu`` on CUDA tensors, the plain torch
+versions on CPU tensors.  Both take ``x`` as float32 or as the int8 codes
+of the compressed uplink (:mod:`repro_torch.kernels.compress_topk`), and
+count int8 launches under their own :data:`~repro_torch.kernels._lib.
+LAUNCHES` keys.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.fl.server import (clip_scales, fedavg_weights,
-                                   finite_update_mask)
+                                   finite_update_mask, segment_weights)
 from repro_torch.kernels import _lib
 from repro_torch.tree import Params, tree_map
 
+_X_DTYPES = (torch.float32, torch.int8)
+
+
+def _screened(x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    return torch.where(torch.isfinite(xf), xf, 0.0)
+
 
 def reduce_leaf_plain(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    xf = x.float()
-    xf = torch.where(torch.isfinite(xf), xf, 0.0)
-    return (w.float()[:, None] * xf).sum(dim=0)
+    return (w.float()[:, None] * _screened(x)).sum(dim=0)
+
+
+def segment_reduce_leaf_plain(w: torch.Tensor,
+                              x: torch.Tensor) -> torch.Tensor:
+    return w.float().t() @ _screened(x)
+
+
+def _x_kind(x: torch.Tensor) -> str:
+    if x.dtype not in _X_DTYPES:
+        raise TypeError(f"x must be float32 or int8, got {x.dtype}")
+    return "i8" if x.dtype == torch.int8 else "f32"
 
 
 def reduce_leaf(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """w [N] float32, x [N, D] float32 -> [D] float32 weighted sum of the
-    screened rows (non-finite entries count as 0)."""
+    """w [N] float32, x [N, D] float32 or int8 -> [D] float32 weighted sum
+    of the screened rows (non-finite entries count as 0)."""
     if not _lib.on_cuda(w, x):
         return reduce_leaf_plain(w, x)
     n, d = x.shape
+    kind = _x_kind(x)
     _lib.require(w, "w", torch.float32, (n,))
-    _lib.require(x, "x", torch.float32, (n, d))
+    _lib.require(x, "x", x.dtype, (n, d))
     out = torch.empty((d,), dtype=torch.float32, device=x.device)
-    lib = _lib.library()
+    fn = getattr(_lib.library(), f"fedavg_reduce_{kind}")
     with torch.cuda.device(x.device):
-        rc = lib.fedavg_reduce_f32(w.data_ptr(), x.data_ptr(), n, d,
-                                   out.data_ptr(), _lib.stream(x))
-    _lib.check(rc, "fedavg_reduce")
-    _lib.LAUNCHES["fedavg_reduce"] += 1
+        rc = fn(w.data_ptr(), x.data_ptr(), n, d, out.data_ptr(),
+                _lib.stream(x))
+    name = "fedavg_reduce_int8" if kind == "i8" else "fedavg_reduce"
+    _lib.check(rc, name)
+    _lib.LAUNCHES[name] += 1
+    return out
+
+
+def segment_reduce_leaf(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """w [N, M] float32, x [N, D] float32 or int8 -> [M, D] float32 per-BS
+    weighted sums of the screened rows."""
+    if not _lib.on_cuda(w, x):
+        return segment_reduce_leaf_plain(w, x)
+    n, d = x.shape
+    m = w.shape[1] if w.dim() == 2 else -1
+    kind = _x_kind(x)
+    _lib.require(w, "w", torch.float32, (n, m))
+    _lib.require(x, "x", x.dtype, (n, d))
+    out = torch.empty((m, d), dtype=torch.float32, device=x.device)
+    fn = getattr(_lib.library(), f"fedavg_segment_reduce_{kind}")
+    with torch.cuda.device(x.device):
+        rc = fn(w.data_ptr(), x.data_ptr(), n, m, d, out.data_ptr(),
+                _lib.stream(x))
+    name = ("fedavg_segment_reduce_int8" if kind == "i8"
+            else "fedavg_segment_reduce")
+    _lib.check(rc, name)
+    _lib.LAUNCHES[name] += 1
     return out
 
 
@@ -70,3 +117,35 @@ def fedavg_reduce(global_params: Params, client_params: Params,
         return torch.where(total > 0, avg, g)
 
     return tree_map(agg, global_params, client_params)
+
+
+def fedavg_segment_reduce(edge_params: Params, client_params: Params,
+                          assign: torch.Tensor, data_sizes: torch.Tensor,
+                          clip_norm=None) -> Params:
+    """Same contract as :func:`repro_torch.fl.server.fedavg_segmented`:
+    edge leaves [M, ...], client leaves [N, ...], assign [N, M] bool; one
+    :func:`segment_reduce_leaf` per leaf.  ``clip_norm`` clips each
+    update's deviation from its assigned BS's edge model."""
+    ok = finite_update_mask(client_params)
+    w, totals = segment_weights(assign & ok[:, None], data_sizes)
+    if clip_norm is not None:
+        client_bs = assign.to(torch.int8).argmax(dim=1)   # 0 for unassigned
+        ref = tree_map(lambda e: e[client_bs], edge_params)
+        v = w * clip_scales(ref, client_params, clip_norm)[:, None]
+        v_totals = v.sum(dim=0)
+    else:
+        v, v_totals = w, totals
+    v = v.contiguous()
+    safe = torch.clamp(totals, min=1e-9)
+
+    def agg(e, c):
+        n = c.shape[0]
+        s = segment_reduce_leaf(v, c.reshape(n, -1).float().contiguous())
+        if clip_norm is not None:
+            s = s + (totals - v_totals)[:, None] \
+                * e.float().reshape(e.shape[0], -1)
+        avg = (s / safe[:, None]).to(c.dtype).reshape(e.shape)
+        keep = (totals > 0).reshape((-1,) + (1,) * (e.dim() - 1))
+        return torch.where(keep, avg, e)
+
+    return tree_map(agg, edge_params, client_params)

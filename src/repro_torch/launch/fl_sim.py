@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.fl_sim \
         --scheduler dagsa_jit --dataset mnist --rounds 20
+    PYTHONPATH=src python -m repro_torch.launch.fl_sim --aggregation \
+        hierarchical --tau-global 2 --compress topk-int8 --topk-frac 0.1
 
 Runs on CUDA by default (``--device cpu`` to run on the CPU) and prints one
 line per round once the run ends.
@@ -12,7 +14,8 @@ import argparse
 
 from repro_torch.core.scheduler import SCHEDULERS
 from repro_torch.data.synthetic import DATASETS
-from repro_torch.fl.rounds import BS_LAYOUTS, FLConfig, FLSimulation
+from repro_torch.fl.rounds import (AGGREGATIONS, BS_LAYOUTS, COMPRESS_MODES,
+                                   FLConfig, FLSimulation)
 from repro_torch.models.cnn import CNNConfig
 
 
@@ -34,6 +37,20 @@ def main(argv=None) -> None:
     ap.add_argument("--paper-cnn", action="store_true",
                     help="the 16/32/64 CNN (CNNConfig.paper_scale) instead "
                          "of the small default")
+    ap.add_argument("--aggregation", default=None, choices=AGGREGATIONS,
+                    help="hierarchical: per-BS edge aggregation with a "
+                         "global sync every --tau-global rounds (default: "
+                         "single-tier)")
+    ap.add_argument("--tau-global", type=int, default=None,
+                    help="global sync period in rounds (hierarchical only)")
+    ap.add_argument("--compress", default=None, choices=COMPRESS_MODES,
+                    help="uplink update compression: top-k sparsification "
+                         "(topk) or top-k + int8 stochastic rounding "
+                         "(topk-int8); the per-user payload s_k feeds the "
+                         "Eq. (1)/(3)/(11) latency model (default: off)")
+    ap.add_argument("--topk-frac", type=float, default=None, metavar="F",
+                    help="fraction of model coordinates kept per client "
+                         "update (requires --compress)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without it)")
     args = ap.parse_args(argv)
@@ -47,13 +64,18 @@ def main(argv=None) -> None:
                    lr=args.lr, shards_per_user=args.shards_per_user,
                    eval_every=args.eval_every, seed=args.seed,
                    n_train=args.n_train, n_test=args.n_test, cnn=cnn_cfg,
-                   bs_layout=args.bs_layout)
+                   bs_layout=args.bs_layout, aggregation=args.aggregation,
+                   tau_global=args.tau_global, compress=args.compress,
+                   topk_frac=args.topk_frac)
     recs = FLSimulation(cfg, device=args.device).run(args.rounds)
+    hier = cfg.aggregation == "hierarchical"
     print(f"{'round':>5} {'t_round':>8} {'clock':>8} {'users':>5} "
-          f"{'acc':>6} {'min_fair':>8}")
+          f"{'acc':>6} {'min_fair':>8}" + (f" {'handover':>8}" if hier
+                                           else ""))
     for r in recs:
         print(f"{r.round_idx:5d} {r.t_round:8.3f} {r.wall_clock:8.2f} "
-              f"{r.n_selected:5d} {r.test_acc:6.3f} {r.min_part_rate:8.2f}")
+              f"{r.n_selected:5d} {r.test_acc:6.3f} {r.min_part_rate:8.2f}"
+              + (f" {r.handover_rate:8.3f}" if hier else ""))
 
 
 if __name__ == "__main__":

@@ -21,6 +21,7 @@ from repro_torch.core.types import WirelessConfig  # noqa: E402
 from repro_torch.fl.rounds import FLConfig, FLSimulation  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels import bandwidth_solve as kb  # noqa: E402
+from repro_torch.kernels import compress_topk as ct  # noqa: E402
 from repro_torch.kernels import fedavg_reduce as kf  # noqa: E402
 from repro_torch.kernels import select_topk as ks  # noqa: E402
 
@@ -91,6 +92,63 @@ def test_fedavg_reduce_leaf(dev, n, d):
     assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
 
 
+@pytest.mark.parametrize("n,d", [(50, 100352), (13, 1000), (1, 7)])
+def test_fedavg_reduce_leaf_int8(dev, n, d):
+    x = torch.randint(-127, 128, (n, d), dtype=torch.int8, device=dev)
+    w = torch.rand((n,), device=dev)
+    before = _lib.LAUNCHES["fedavg_reduce_int8"]
+    got, want = kf.reduce_leaf(w, x), kf.reduce_leaf_plain(w, x)
+    assert _lib.LAUNCHES["fedavg_reduce_int8"] == before + 1
+    scale = kf.reduce_leaf_plain(w, x.float().abs())
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+@pytest.mark.parametrize("n,m,d", [(50, 8, 100352), (13, 5, 1000),
+                                   (300, 100, 777), (1, 1, 7)])
+def test_segment_reduce_leaf(dev, dtype, n, m, d):
+    if dtype == torch.int8:
+        x = torch.randint(-127, 128, (n, d), dtype=torch.int8, device=dev)
+    else:
+        x = torch.randn((n, d), device=dev)
+        x[0, d // 2] = float("nan")
+        x[n - 1, 0] = float("-inf")
+    w = torch.rand((n, m), device=dev) * (torch.rand((n, m), device=dev)
+                                          < 0.5)
+    w[:, m // 2] = 0.0                           # an empty BS column
+    key = ("fedavg_segment_reduce_int8" if dtype == torch.int8
+           else "fedavg_segment_reduce")
+    before = _lib.LAUNCHES[key]
+    got = kf.segment_reduce_leaf(w, x)
+    assert _lib.LAUNCHES[key] == before + 1
+    want = kf.segment_reduce_leaf_plain(w, x)
+    scale = kf.segment_reduce_leaf_plain(w, x.float().abs())
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+    assert bool((got[m // 2] == 0).all())
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("n,d,k", [(50, 100352, 10036), (13, 1000, 7),
+                                   (70000, 3, 1)])
+def test_sparsify_quantize_exact(dev, quantize, n, d, k):
+    x = torch.randn((n, d), device=dev)
+    x[0] = 0.25                                  # a row of magnitude ties
+    x[0, -1] = -0.25
+    x[1] = 0.0                                   # an all-zero row
+    x[n - 1, 0] = float("nan")
+    xs = torch.where(torch.isfinite(x), x, 0.0)
+    thresh, rowmax = ct.topk_threshold(xs, k)
+    scale = ct.quant_scale(rowmax) if quantize else torch.ones_like(rowmax)
+    u = torch.rand((n, d), device=dev) if quantize else None
+    got = ct.sparsify_quantize(x, thresh, scale, u, quantize=quantize)
+    want = ct.sparsify_quantize_plain(x, thresh, scale, u,
+                                      quantize=quantize)
+    assert got.dtype == want.dtype
+    assert torch.equal(got, want)
+    assert bool((got[0] != 0).all())             # every tie survives
+    assert bool((got[1] == 0).all())
+
+
 def test_wrappers_validate_and_count(dev):
     before = _lib.LAUNCHES["best_bs_argmax"]
     ks.best_bs_argmax(torch.rand((5, 3), device=dev))
@@ -133,10 +191,29 @@ def test_small_run_on_card_matches_cpu(dev):
                    n_test=40, local_epochs=1, batch_size=10, seed=7)
     _lib.reset_launches()
     gpu = FLSimulation(cfg, device=dev).run(3)
-    assert all(v > 0 for v in _lib.LAUNCHES.values()), _lib.LAUNCHES
+    for name in ("bandwidth_solve", "masked_bs_argmax", "best_bs_argmax",
+                 "fedavg_reduce"):                 # the sync path's kernels
+        assert _lib.LAUNCHES[name] > 0, _lib.LAUNCHES
     cpu = FLSimulation(cfg, device="cpu").run(3)
     for g, c in zip(gpu, cpu):
         assert (g.n_selected, g.min_part_rate) == (c.n_selected,
                                                    c.min_part_rate)
+        assert math.isclose(g.t_round, c.t_round, rel_tol=1e-5)
+        assert abs(g.test_acc - c.test_acc) <= 1.0 / 40 + 1e-9
+
+
+def test_small_hierarchical_compressed_run_on_card_matches_cpu(dev):
+    cfg = FLConfig(wireless=WirelessConfig(n_users=12, n_bs=4), n_train=120,
+                   n_test=40, local_epochs=1, batch_size=10, seed=7,
+                   aggregation="hierarchical", tau_global=2,
+                   compress="topk-int8", topk_frac=0.1)
+    _lib.reset_launches()
+    gpu = FLSimulation(cfg, device=dev).run(3)
+    for name in ("sparsify_quantize", "fedavg_segment_reduce_int8"):
+        assert _lib.LAUNCHES[name] > 0, _lib.LAUNCHES
+    cpu = FLSimulation(cfg, device="cpu").run(3)
+    for g, c in zip(gpu, cpu):
+        assert (g.n_selected, g.min_part_rate, g.handover_rate) == \
+            (c.n_selected, c.min_part_rate, c.handover_rate)
         assert math.isclose(g.t_round, c.t_round, rel_tol=1e-5)
         assert abs(g.test_acc - c.test_acc) <= 1.0 / 40 + 1e-9
