@@ -25,7 +25,23 @@
 6. profiles one more synchronous round and one more hierarchical +
    compressed round (torch.profiler: host and device time per round
    phase, the busiest device ops, the device's busy share);
-7. prints one JSON line with every kernel's numbers, then, as the last
+7. the LM serving slice (Zamba2-1.2B, 38 Mamba2 layers + one shared
+   attention block every 6, at full width and full depth):
+   a. holds kernels 7-9 (flash_attention, rmsnorm, ssd_scan) against their
+      plain versions in float32 and bfloat16 at the prefill shapes B=4,
+      S=512 ("main") and B=8, S=2048 ("long"), flash also at S=200 and
+      rmsnorm at the decode shape [4, 2048], with the tolerances of
+      tests/test_kernels.py, and times kernel, plain version and yardstick;
+   b. runs the two reduced float32 configs of the tests on the card and on
+      the CPU (prefill + 8 decode steps), within 1e-4;
+   c. at full width in float32 holds ``lm.forward`` over 200 tokens
+      against 200 cached ``decode_step`` logits within 5e-3;
+   d. serves in the published bfloat16 (``zamba2_serve``, launch counts
+      zeroed just before and read just after): ``serve_decode.serve`` at
+      B=4, prompt 512, 32 new tokens, and ``api.prefill_fn`` on the same
+      prompts and at B=8, S=2048;
+   e. profiles one bfloat16 prefill (B=4, S=512) and one decode step;
+8. prints one JSON line with every kernel's numbers, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line.  TF32 is turned off for
@@ -46,6 +62,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 PEAK_F32_OPS_S = 67e12      # H100 SXM float32 outside the tensor cores
+PEAK_BF16_OPS_S = 989e12    # H100 SXM bfloat16 tensor cores, dense
 RTOL = 1e-5
 
 # Every kernel: (source, the TPU kernel it replaces, the full-width path
@@ -70,6 +87,13 @@ KERNELS = {
     "sparsify_quantize": ("src/repro_torch/csrc/sparsify_quantize.cu",
                           "src/repro/kernels/compress_topk.py:172",
                           "hier_int8"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:82",
+                        "zamba2_serve"),
+    "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:40", "zamba2_serve"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:72", "zamba2_serve"),
 }
 
 
@@ -88,8 +112,9 @@ def _time_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_OPS_S
+def _bound_ms(n_bytes: float, n_ops: float,
+              peak_ops: float = PEAK_F32_OPS_S) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / peak_ops
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
@@ -476,6 +501,332 @@ def profile_round(sim, label: str) -> dict:
     return out
 
 
+# ------------------------------------------------------- the LM slice ------
+# Tolerances of tests/test_kernels.py (float32, bfloat16), which the Pallas
+# kernels are held to against their oracles.
+LM_TOL = {"rmsnorm": (1e-6, 2e-2), "flash_attention": (2e-5, 2e-2),
+          "ssd_scan": (2e-4, 5e-2)}
+
+
+def _close_tol(name, got, want, tol) -> float:
+    """Max abs err of got vs want; raises past |d| <= tol + tol * |want|."""
+    got, want = got.detach().float(), want.detach().float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    err = (got - want).abs()
+    bad = err > tol + tol * want.abs()
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: {int(bad.sum())} of {err.numel()} "
+                             f"entries past tol {tol}, max abs err "
+                             f"{err.max().item():.3e}")
+    return float(err.max())
+
+
+def _ssd_ops(b, s, h, p, n, q) -> float:
+    """Multiply-adds x 2 of the chunked SSD: per chunk and head the causal
+    C B^T scores and their product with x (q(q+1)/2 pairs each), the
+    carried-in term and the state update (q n p each)."""
+    pairs = q * (q + 1) // 2
+    return 2.0 * b * h * (s // q) * (pairs * (n + p) + 2 * q * n * p)
+
+
+def check_lm_kernels(dev, main=(4, 512), long=(8, 2048), ragged=200,
+                     decode_rows=4) -> dict:
+    """Kernels 7-9 against their plain versions on the card at Zamba2's
+    widths (d_model 2048; 32 heads of 64; 64 SSM heads of 64, state 64,
+    chunk 128), float32 and bfloat16.  Labels: "main" (bfloat16, B x S =
+    4 x 512, the serving path's type and prompt), "long" (8 x 2048), the
+    "_f32" twins, flash "ragged" (S = 200) and rmsnorm "decode" ([4, 2048],
+    one token per sequence)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rmsnorm as krn
+    from repro_torch.kernels import ssd_scan as kss
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    results = {"flash_attention": {}, "rmsnorm": {}, "ssd_scan": {}}
+    d_model, heads, hd, ssm_h, ssm_p, ssm_n, chunk = 2048, 32, 64, 64, 64, \
+        64, 128
+
+    def normal(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def record(kernel, label, shape, err, fn, plain, lib, n_bytes, n_ops,
+               peak, reps):
+        ms = _time_ms(fn, reps)
+        plain_ms = _time_ms(plain, max(1, reps // 4))
+        lib_ms = None if lib is None else _time_ms(lib, reps)
+        bound, by = _bound_ms(n_bytes, n_ops, peak)
+        row = {"name": kernel, "shape": shape, "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+               "library_ms": lib_ms}
+        results[kernel][label] = row
+        print(json.dumps({"check": label, **row}), flush=True)
+
+    for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        esize = 2 if dtype == torch.bfloat16 else 4
+        tol = 1 if dtype == torch.bfloat16 else 0
+        peak = PEAK_BF16_OPS_S if dtype == torch.bfloat16 else PEAK_F32_OPS_S
+
+        # -- 8 rmsnorm: rows = B*S in prefill, B in decode -----------------
+        for label, rows, reps in (("main", main[0] * main[1], 50),
+                                  ("long", long[0] * long[1], 20),
+                                  ("decode", decode_rows, 200)):
+            x = normal((rows, d_model), dtype)
+            scale = (1.0 + 0.1 * normal((d_model,), torch.float32)).to(dtype)
+            err = _close_tol(f"rmsnorm {label}{suffix}", krn.rmsnorm(x, scale),
+                             krn.rmsnorm_plain(x, scale),
+                             LM_TOL["rmsnorm"][tol])
+            record("rmsnorm", label + suffix, [rows, d_model], err,
+                   lambda: krn.rmsnorm(x, scale),
+                   lambda: krn.rmsnorm_plain(x, scale),
+                   lambda: F.rms_norm(x, (d_model,), weight=scale, eps=1e-6),
+                   2 * rows * d_model * esize + d_model * esize,
+                   4.0 * rows * d_model, PEAK_F32_OPS_S, reps)
+
+        # -- 7 flash attention: the shared block's causal self-attention ---
+        for label, (b, s), reps in (("main", main, 20), ("long", long, 5),
+                                    ("ragged", (main[0], ragged), 20)):
+            q, k, v = (normal((b, s, heads, hd), dtype) for _ in range(3))
+            err = _close_tol(f"flash_attention {label}{suffix}",
+                             kfa.flash_attention(q, k, v, causal=True),
+                             kfa.flash_attention_plain(q, k, v, causal=True),
+                             LM_TOL["flash_attention"][tol])
+            pairs = s * (s + 1) // 2
+            record("flash_attention", label + suffix, [b, s, heads, hd], err,
+                   lambda: kfa.flash_attention(q, k, v, causal=True),
+                   lambda: kfa.flash_attention_plain(q, k, v, causal=True),
+                   lambda: F.scaled_dot_product_attention(
+                       q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), is_causal=True),
+                   4 * b * s * heads * hd * esize,
+                   4.0 * b * heads * pairs * hd, peak, reps)
+            del q, k, v
+
+        # -- 9 ssd scan: one Mamba2 layer's chunked scan -------------------
+        for label, (b, s), reps in (("main", main, 10), ("long", long, 3)):
+            x = normal((b, s, ssm_h, ssm_p), dtype)
+            dt = F.softplus(normal((b, s, ssm_h), torch.float32))
+            A = -torch.exp(normal((ssm_h,), torch.float32) * 0.5)
+            Bm, Cm = (normal((b, s, 1, ssm_n), dtype) for _ in range(2))
+            y = kss.ssd_scan(x, dt, A, Bm, Cm, chunk)
+            if y.dtype != torch.float32:
+                raise AssertionError("ssd_scan must return float32")
+            err = _close_tol(f"ssd_scan {label}{suffix}", y,
+                             kss.ssd_scan_plain(x, dt, A, Bm, Cm, chunk),
+                             LM_TOL["ssd_scan"][tol])
+            record("ssd_scan", label + suffix, [b, s, ssm_h, ssm_p], err,
+                   lambda: kss.ssd_scan(x, dt, A, Bm, Cm, chunk),
+                   lambda: kss.ssd_scan_plain(x, dt, A, Bm, Cm, chunk), None,
+                   b * s * ssm_h * ssm_p * (esize + 4) + b * s * ssm_h * 4
+                   + ssm_h * 4 + 2 * b * s * ssm_n * esize,
+                   _ssd_ops(b, s, ssm_h, ssm_p, ssm_n, chunk), peak, reps)
+            del x, dt, Bm, Cm, y
+    torch.cuda.synchronize()
+    return results
+
+
+def _zamba(**changes):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("zamba2_1_2b"), **changes)
+
+
+def check_zamba_small(dev) -> None:
+    """The two reduced float32 configs of tests/test_torch_zamba.py (one
+    group; two groups + a tail layer), prefill + 8 decode steps, on the
+    card against the CPU (plain versions) within 1e-4."""
+    import dataclasses
+
+    from repro_torch import rng
+    from repro_torch.models import api, lm
+    from repro_torch.tree import tree_map
+
+    base = _zamba().reduced()
+    for cfg in (base, dataclasses.replace(base, n_layers=5)):
+        params = api.init_params(rng.PRNGKey(0), cfg)
+        toks = rng.randint(rng.PRNGKey(1), (2, 41), 0, cfg.vocab)
+        out = {}
+        for d in ("cpu", dev):
+            p = tree_map(lambda w: w.to(d), params)
+            t = toks.to(d)
+            logits, _ = lm.forward(p, cfg, {"tokens": t})
+            pre = api.prefill_fn(p, cfg, {"tokens": t[:, :40]})
+            cache = api.init_cache(cfg, 2, 8, device=d)
+            steps = torch.stack([api.decode_step(p, cfg, cache, t[:, i:i + 1],
+                                                 i)[0] for i in range(8)])
+            out[str(d)] = (logits, pre, steps)
+        errs = [_close_tol(f"zamba small n_layers={cfg.n_layers} {what}",
+                           g.cpu(), c, 1e-4)
+                for what, g, c in zip(("forward", "prefill", "decode"),
+                                      out[str(dev)], out["cpu"])]
+        print(f"zamba small n_layers={cfg.n_layers}: card vs CPU max abs err "
+              f"forward {errs[0]:.3e} prefill {errs[1]:.3e} decode "
+              f"{errs[2]:.3e}", flush=True)
+
+
+def check_zamba_full_f32(dev, b: int = 2, t: int = 200) -> None:
+    """Full width and depth in float32: ``lm.forward`` logits over ``t``
+    tokens against the ``t`` stacked cached ``decode_step`` logits, within
+    rtol=atol=5e-3 (tests/test_models.py's forward-vs-decode tolerance).
+    The prefill path runs kernels 7-9, the decode path the recurrences."""
+    from repro_torch import rng
+    from repro_torch.models import api, lm
+
+    cfg = _zamba(dtype="float32")
+    t0 = time.perf_counter()
+    params = api.init_params(rng.PRNGKey(0, device=dev), cfg)
+    torch.cuda.synchronize()
+    print(f"zamba f32: init {time.perf_counter() - t0:.2f} s, "
+          f"{lm.n_params(params)} params", flush=True)
+    toks = rng.randint(rng.PRNGKey(1, device=dev), (b, t + 1), 0, cfg.vocab)
+    fwd, _ = lm.forward(params, cfg, {"tokens": toks})
+    cache = api.init_cache(cfg, b, t, device=dev)
+    t0 = time.perf_counter()
+    steps = torch.stack([api.decode_step(params, cfg, cache,
+                                         toks[:, i:i + 1], i)[0]
+                         for i in range(t)], dim=1)
+    torch.cuda.synchronize()
+    err = (steps - fwd).abs()
+    lim = 5e-3 + 5e-3 * fwd.abs()
+    print(f"zamba f32 forward vs {t} decode steps: max abs err "
+          f"{err.max().item():.3e} (logit scale {fwd.abs().max().item():.3f})"
+          f", decode {(time.perf_counter() - t0) / t * 1e3:.2f} ms/step",
+          flush=True)
+    if not bool(torch.isfinite(fwd).all()) or bool((err > lim).any()):
+        raise AssertionError("zamba f32: forward and cached decode disagree "
+                             "past rtol=atol=5e-3")
+
+
+def run_zamba_serve(dev, batch=4, prompt_len=512, gen_len=32,
+                    long=(8, 2048)) -> tuple:
+    """The serving path in the published bfloat16: ``serve_decode.serve``
+    then ``api.prefill_fn`` on the same prompts and at ``long``; returns
+    (params, cfg, prompt, launch counts of the path)."""
+    from repro_torch import rng
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import serve_decode
+    from repro_torch.models import api, lm
+
+    cfg = _zamba()
+    t0 = time.perf_counter()
+    params = api.init_params(rng.PRNGKey(0, device=dev), cfg)
+    torch.cuda.synchronize()
+    print(f"path zamba2_serve: set-up {time.perf_counter() - t0:.2f} s, "
+          f"{lm.n_params(params)} params in {cfg.dtype}", flush=True)
+    _lib.reset_launches()
+    res = serve_decode.serve(cfg, "zamba2_serve", batch=batch,
+                             prompt_len=prompt_len, gen_len=gen_len,
+                             device=dev, params=params)
+
+    def prefill(tokens):
+        return api.prefill_fn(params, cfg, {"tokens": tokens})
+
+    def timed(tokens, reps):
+        prefill(tokens)                              # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = prefill(tokens)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / reps * 1e3
+
+    pre, pre_ms = timed(res.prompt, 3)
+    long_toks = rng.randint(rng.PRNGKey(2, device=dev), long, 0, cfg.vocab)
+    pre_long, long_ms = timed(long_toks, 2)
+    launches = dict(_lib.LAUNCHES)
+    print(f"path zamba2_serve launches: {json.dumps(launches)}", flush=True)
+    for name in ("flash_attention", "rmsnorm", "ssd_scan"):
+        if launches[name] <= 0:
+            raise AssertionError(f"path zamba2_serve never launched {name}")
+    for name, x in (("prefill", pre), ("prefill long", pre_long),
+                    ("stepped prompt", res.prompt_logits)):
+        if not bool(torch.isfinite(x.float()).all()):
+            raise AssertionError(f"zamba2_serve: {name} logits not finite")
+    toks = res.tokens
+    if not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError("zamba2_serve: a greedy token outside the vocab")
+    delta = (pre.float() - res.prompt_logits.float()).abs().max().item()
+    print(json.dumps({"zamba2_serve": {
+        "batch": batch, "prompt_len": prompt_len, "gen_len": gen_len,
+        "prefill_ms": pre_ms, "prefill_tok_per_s": batch * prompt_len
+        / pre_ms * 1e3, "fill_by_steps_s": res.fill_s,
+        "decode_ms_per_token": res.decode_s / gen_len * 1e3,
+        "decode_tok_per_s": batch * gen_len / res.decode_s,
+        "serve_tok_per_s": res.tok_per_s,
+        "prefill_long_shape": list(long), "prefill_long_ms": long_ms,
+        "prefill_long_tok_per_s": long[0] * long[1] / long_ms * 1e3,
+        "max_abs_prefill_vs_stepped": delta,
+        "sample": toks[0, :8].tolist()}}), flush=True)
+    return params, cfg, res.prompt, launches
+
+
+def _device_ops(prof) -> dict:
+    from torch.autograd import DeviceType
+    ops = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t, c = ops.get(e.name, (0.0, 0))
+            ops[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    return ops
+
+
+_LM_KERNEL_NAMES = {"flash_attention": "flash_fwd_kernel",
+                    "rmsnorm": "rmsnorm_kernel", "ssd_scan": "ssd_scan_kernel"}
+_MATMUL_MARKS = ("gemm", "nvjet", "xmma", "cutlass", "matmul", "splitk")
+
+
+def profile_zamba(params, cfg, prompt, dev) -> dict:
+    """One bfloat16 prefill and one decode step under torch.profiler: the
+    device time of kernels 7-9, of the matmuls and of the rest, the
+    device's busy share of the wall time, the number of device ops, and
+    the launches of kernels 7-9."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _lib
+    from repro_torch.models import api
+
+    cache = api.init_cache(cfg, prompt.shape[0], prompt.shape[1] + 1,
+                           device=dev)
+    out = {}
+    for label, fn in (
+            ("prefill", lambda: api.prefill_fn(params, cfg,
+                                               {"tokens": prompt})),
+            ("decode_step", lambda: api.decode_step(
+                params, cfg, cache, prompt[:, :1], 0))):
+        fn()                                         # warm-up
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: _lib.LAUNCHES[k] for k in _LM_KERNEL_NAMES}
+        ops = _device_ops(prof)
+        busy = sum(t for t, _ in ops.values())
+        kern = {k: sum(t for name, (t, _) in ops.items() if mark in name)
+                for k, mark in _LM_KERNEL_NAMES.items()}
+        mm = sum(t for name, (t, _) in ops.items()
+                 if any(m in name.lower() for m in _MATMUL_MARKS))
+        top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:10]
+        out[label] = {"wall_ms": wall_ms, "device_busy_ms": busy,
+                      "device_busy_share": busy / wall_ms,
+                      "device_ops": sum(c for _, c in ops.values()),
+                      "kernel_ms": kern, "matmul_ms": mm,
+                      "other_ms": busy - mm - sum(kern.values()),
+                      "launches": launches,
+                      "top_device_ops": [{"name": k[:80], "ms": t, "calls": c}
+                                         for k, (t, c) in top]}
+    print(json.dumps({"profile_zamba": {"batch": prompt.shape[0],
+                                        "prompt_len": prompt.shape[1],
+                                        **out}}), flush=True)
+    return out
+
+
 def kernel_rows(results: dict, launches: dict) -> list:
     """One row per kernel for the ``{"kernels": [...]}`` line: the main
     shape's numbers, the launches of the path named in KERNELS (and of
@@ -525,13 +876,21 @@ def main() -> int:
           f"from {_lib.CSRC}", flush=True)
 
     results = check_kernels(dev)
+    results.update(check_lm_kernels(dev))
     check_small_runs(dev)
+    check_zamba_small(dev)
     sims, launches = {}, {}
     for label, extra, rounds, required in PATHS:
         sims[label], launches[label] = run_path(dev, label, extra, rounds,
                                                 required)
     profile_round(sims["sync"], "sync")
     profile_round(sims["hier_int8"], "hier_int8")
+    del sims
+
+    check_zamba_full_f32(dev)
+    torch.cuda.empty_cache()
+    params, cfg, prompt, launches["zamba2_serve"] = run_zamba_serve(dev)
+    profile_zamba(params, cfg, prompt, dev)
 
     print(json.dumps({"kernels": kernel_rows(results, launches)}))
     print(json.dumps({"ok": True, "device": {

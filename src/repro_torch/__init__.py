@@ -6,3 +6,17 @@ and so on.  It imports torch and numpy only.  The hand-written Hopper
 kernels of its hot path live in ``csrc/`` and build on first use
 (:mod:`repro_torch.kernels._lib`).
 """
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as given, else CUDA; raises when CUDA is absent and no
+    device was given.  Every entry point of the port resolves its device
+    here, so none falls back to the CPU on its own."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("repro_torch runs on CUDA by default and no CUDA "
+                           "device is available; pass device='cpu' to run "
+                           "on the CPU")
+    return torch.device("cuda")

@@ -44,7 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch import rng
+from repro_torch import resolve_device, rng
 from repro_torch.core import channel, mobility
 from repro_torch.core import scheduler as sched
 from repro_torch.core.types import (ClientState, MobilityState, RoundState,
@@ -138,18 +138,6 @@ class RoundRecord:
     handover_rate: float = float("nan")  # fraction of users whose serving
                                          # BS changed this round
                                          # (hierarchical runs only)
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as given, else CUDA; raises when CUDA is absent and no
-    device was given."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("repro_torch runs on CUDA by default and no CUDA "
-                           "device is available; pass device='cpu' to run "
-                           "on the CPU")
-    return torch.device("cuda")
 
 
 def camped_bs(dist: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Carry weights and keys between the JAX package and the port.
 
-Both packages keep the CNN's parameters as ``{"conv1": {"w", "b"}, ...}``
-in the same layouts, so moving a model across is a leaf-by-leaf copy of
-numpy arrays.  The tests use these to run both packages on identical
-parameters; nothing here imports JAX.
+Both packages keep their parameters as nested dicts in the same layouts
+(the CNN's ``{"conv1": {"w", "b"}, ...}``, the LM's ``{"embed":
+{"table"}, "layers": {...}, ...}``), so moving a model across is a
+leaf-by-leaf copy of numpy arrays.  The tests use these to run both
+packages on identical parameters; nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -13,11 +14,26 @@ import torch
 from repro_torch.tree import Params, tree_map
 
 
-def params_from_numpy(tree, device="cpu") -> Params:
+def _leaf_to_torch(a, device) -> torch.Tensor:
+    """One array in its own dtype.  numpy has no bfloat16 of its own: the
+    ``ml_dtypes`` bfloat16 of a JAX array crosses through float32, which
+    holds every bfloat16 value exactly."""
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        return torch.tensor(arr.astype(np.float32),
+                            device=device).to(torch.bfloat16)
+    return torch.tensor(arr, device=device)
+
+
+def params_from_numpy(tree, device="cpu", keep_dtype: bool = False) -> Params:
     """Nested dicts of arrays (e.g. ``jax.tree.map(np.asarray, params)``)
-    -> the same dicts of float32 tensors on ``device``."""
-    return tree_map(lambda a: torch.tensor(np.asarray(a), dtype=torch.float32,
-                                           device=device), tree)
+    -> the same dicts of tensors on ``device``: float32 by default, or each
+    leaf in its own dtype with ``keep_dtype`` (bfloat16 weights beside the
+    float32 ``A_log`` / ``D`` / ``dt_bias`` of an LM)."""
+    if keep_dtype:
+        return tree_map(lambda a: _leaf_to_torch(a, device), tree)
+    return tree_map(lambda a: _leaf_to_torch(a, device).to(torch.float32),
+                    tree)
 
 
 def params_to_numpy(params: Params):

@@ -32,10 +32,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"bandwidth_solve": 0, "masked_bs_argmax": 0,
             "best_bs_argmax": 0, "fedavg_reduce": 0, "fedavg_reduce_int8": 0,
             "fedavg_segment_reduce": 0, "fedavg_segment_reduce_int8": 0,
-            "sparsify_quantize": 0}
+            "sparsify_quantize": 0, "flash_attention": 0, "rmsnorm": 0,
+            "ssd_scan": 0}
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
 _SIGNATURES = {
+    **{f"rmsnorm_{t}": (_P, _P, _P, _LL, _I, _F, _P) for t in ("f32", "bf16")},
+    **{f"flash_attention_{t}": (_P, _P, _P, _P) + (_I,) * 7 + (_F, _P)
+       for t in ("f32", "bf16")},
+    **{f"ssd_scan_{t}": (_P,) * 6 + (_I,) * 7 + (_P,)
+       for t in ("f32", "bf16")},
     "bandwidth_solve_f32": (_P, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "masked_bs_argmax_f32": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     "best_bs_argmax_f32": (_P, _I, _I, _P, _P),
@@ -149,6 +156,17 @@ def stream(t: torch.Tensor) -> int:
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+# The storage types of the kernels templated on float32 and bfloat16, by
+# the suffix of their C entry points.
+FLOAT_KINDS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def float_kind(t: torch.Tensor, name: str) -> str:
+    if t.dtype not in FLOAT_KINDS:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    return FLOAT_KINDS[t.dtype]
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

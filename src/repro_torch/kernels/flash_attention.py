@@ -1,0 +1,71 @@
+"""Flash attention, forward (PyTorch port of
+``repro.kernels.flash_attention``).
+
+On CUDA tensors :func:`flash_attention` launches the hand-written kernel in
+``csrc/flash_attention.cu`` (online softmax in float32, GQA by head index,
+any S and T); on CPU tensors it runs :func:`flash_attention_plain`, the
+oracle ``repro.kernels.ref.flash_attention``.  q [B, S, H, D], k/v
+[B, T, KV, D], all float32 or all bfloat16, D in {64, 128}.
+
+The TPU kernel's causal mask is start-aligned (``k_pos > q_pos``) while the
+oracle's is end-aligned (``tril(k=T-S)``); they agree only when S == T, so
+:func:`flash_attention` takes ``causal=True`` only with S == T, which is
+what self-attention over a prompt gives.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _lib
+
+HEAD_DIMS = (64, 128)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True,
+                          scale: float | None = None) -> torch.Tensor:
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    sc = scale if scale is not None else 1.0 / (d ** 0.5)
+    qg = q.reshape(b, s, kv, g, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * sc
+    if causal:
+        mask = torch.tril(torch.ones((s, t), dtype=torch.bool,
+                                     device=q.device), diagonal=t - s)
+        scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, h, d)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q [B, S, H, D], k/v [B, T, KV, D] -> [B, S, H, D] in q's dtype."""
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    if causal and s != t:
+        raise ValueError(f"causal flash_attention needs S == T (the kernel's "
+                         f"mask is start-aligned), got S={s}, T={t}")
+    if not _lib.on_cuda(q, k, v):
+        return flash_attention_plain(q, k, v, causal=causal)
+    kind = _lib.float_kind(q, "q")
+    if d not in HEAD_DIMS or kv < 1 or h % kv:
+        raise ValueError(f"flash_attention needs D in {HEAD_DIMS} and H a "
+                         f"multiple of KV, got D={d}, H={h}, KV={kv}")
+    _lib.require(q, "q", q.dtype, (b, s, h, d))
+    _lib.require(k, "k", q.dtype, (b, t, kv, d))
+    _lib.require(v, "v", q.dtype, (b, t, kv, d))
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    scale = 1.0 / math.sqrt(d)
+    with torch.cuda.device(q.device):
+        rc = getattr(_lib.library(), f"flash_attention_{kind}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t,
+            h, kv, d, int(causal), scale, _lib.stream(q))
+    _lib.check(rc, "flash_attention")
+    _lib.LAUNCHES["flash_attention"] += 1
+    return out

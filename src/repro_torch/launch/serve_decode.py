@@ -1,0 +1,107 @@
+"""Batched serving loop of the PyTorch port (counterpart of
+``examples/serve_decode.py``): fill the decode cache by stepping the prompt
+through it, then decode greedily.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_decode \
+        --device cpu --reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve_decode \
+        --config zamba2_1_2b --batch 4 --prompt-len 512 --gen-len 32
+
+Runs on CUDA by default (``--device cpu`` to run on the CPU) and raises
+without it.  The weights and the prompt both come from ``PRNGKey(0)``, as
+in the JAX example, so the port serves the same model the same tokens.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch import resolve_device, rng
+from repro_torch.configs import get_config
+from repro_torch.models import api
+from repro_torch.models.config import ModelConfig
+
+
+@dataclasses.dataclass
+class ServeResult:
+    tokens: torch.Tensor          # [B, gen_len] the greedy tokens
+    prompt: torch.Tensor          # [B, prompt_len] int32
+    prompt_logits: torch.Tensor   # [B, V] logits after the last prompt step
+    fill_s: float                 # wall seconds stepping the prompt
+    decode_s: float               # wall seconds of the greedy steps
+    tok_per_s: float              # batch * (prompt_len + gen_len) / total
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve(cfg: ModelConfig, label: str, batch: int = 4, prompt_len: int = 32,
+          gen_len: int = 16, device=None, params=None) -> ServeResult:
+    """Serve one batch; ``params`` defaults to ``api.init_params`` of
+    ``PRNGKey(0)`` (pass the same weights to skip drawing them again)."""
+    dev = resolve_device(device)
+    key = rng.PRNGKey(0, device=dev)
+    if params is None:
+        params = api.init_params(key, cfg)
+    max_len = prompt_len + gen_len
+    cache = api.init_cache(cfg, batch, max_len, device=dev)
+    prompt = rng.randint(key, (batch, prompt_len), 0, cfg.vocab)
+
+    # prefill by stepping the prompt through the cache, as the JAX example
+    # does (api.prefill_fn is the one-shot prompt forward)
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits = None
+    for t in range(prompt_len):
+        logits, cache = api.decode_step(params, cfg, cache,
+                                        prompt[:, t:t + 1], t)
+    prompt_logits = logits
+    _sync(dev)
+    t1 = time.perf_counter()
+    toks = []
+    for t in range(prompt_len, max_len):
+        nxt = torch.argmax(logits[:, :cfg.vocab], dim=-1)[:, None]
+        toks.append(nxt)
+        logits, cache = api.decode_step(params, cfg, cache,
+                                        nxt.to(torch.int32), t)
+    _sync(dev)
+    t2 = time.perf_counter()
+    out = torch.cat(toks, dim=1)
+    tok_per_s = batch * max_len / (t2 - t0)
+    print(f"{label:28s} {tok_per_s:8.1f} tok/s   "
+          f"sample: {out[0, :8].tolist()}")
+    return ServeResult(tokens=out, prompt=prompt, prompt_logits=prompt_logits,
+                       fill_s=t1 - t0, decode_s=t2 - t1, tok_per_s=tok_per_s)
+
+
+def main(argv=None) -> ServeResult:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config", default="zamba2_1_2b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the config's smoke-test variant (2 layers, d<=256)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--dtype", default=None,
+                    choices=["bfloat16", "float32"],
+                    help="parameter dtype (default: the config's)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; raises without it)")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    cfg = get_config(args.config)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
+    return serve(cfg, cfg.name, batch=args.batch, prompt_len=args.prompt_len,
+                 gen_len=args.gen_len, device=dev)
+
+
+if __name__ == "__main__":
+    main()

@@ -7,6 +7,9 @@ imports no JAX, so it also runs on a machine without it:
 
 Indices must match exactly; floats within rtol=1e-5 (sums in another
 order; for a reduction, relative to the sum of its terms' magnitudes).
+The LM kernels (7-9) are held to the float32 / bfloat16 tolerances that
+tests/test_kernels.py grants their Pallas counterparts: rmsnorm 1e-6 /
+2e-2, flash attention 2e-5 / 2e-2, the SSD scan 2e-4 / 5e-2.
 """
 import math
 
@@ -23,7 +26,10 @@ from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels import bandwidth_solve as kb  # noqa: E402
 from repro_torch.kernels import compress_topk as ct  # noqa: E402
 from repro_torch.kernels import fedavg_reduce as kf  # noqa: E402
+from repro_torch.kernels import flash_attention as kfa  # noqa: E402
+from repro_torch.kernels import rmsnorm as krn  # noqa: E402
 from repro_torch.kernels import select_topk as ks  # noqa: E402
+from repro_torch.kernels import ssd_scan as kss  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -217,3 +223,169 @@ def test_small_hierarchical_compressed_run_on_card_matches_cpu(dev):
             (c.n_selected, c.min_part_rate, c.handover_rate)
         assert math.isclose(g.t_round, c.t_round, rel_tol=1e-5)
         assert abs(g.test_acc - c.test_acc) <= 1.0 / 40 + 1e-9
+
+
+# ------------------------------------------------ the LM kernels (7-9) --
+_TOL = {"rmsnorm": (1e-6, 2e-2), "flash": (2e-5, 2e-2), "ssd": (2e-4, 5e-2)}
+
+
+def _assert_close(got, want, kernel, dtype):
+    tol = _TOL[kernel][dtype == torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _normal(gen, shape, dev, dtype=torch.float32):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 2048), (16384, 2048), (4, 1, 2048),
+                                   (3, 7, 256), (1000, 512)])
+def test_rmsnorm(dev, dtype, shape):
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = _normal(gen, shape, dev, dtype)
+    scale = (1.0 + 0.1 * _normal(gen, shape[-1:], dev)).to(dtype)
+    before = _lib.LAUNCHES["rmsnorm"]
+    got = krn.rmsnorm(x, scale)
+    assert _lib.LAUNCHES["rmsnorm"] == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    _assert_close(got, krn.rmsnorm_plain(x, scale), "rmsnorm", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,d", [
+    (4, 512, 32, 32, 64),     # Zamba2's shared block
+    (2, 256, 8, 2, 64),       # GQA 4:1
+    (1, 200, 4, 4, 64),       # ragged S = T = 200
+    (2, 300, 16, 8, 128),     # GQA G = 2, D = 128 (Qwen3's head)
+    (1, 128, 2, 2, 128),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention(dev, dtype, b, s, h, kv, d, causal):
+    gen = torch.Generator(device=dev).manual_seed(b * s + h)
+    q = _normal(gen, (b, s, h, d), dev, dtype)
+    k = _normal(gen, (b, s, kv, d), dev, dtype)
+    v = _normal(gen, (b, s, kv, d), dev, dtype)
+    before = _lib.LAUNCHES["flash_attention"]
+    got = kfa.flash_attention(q, k, v, causal=causal)
+    assert _lib.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype
+    _assert_close(got, kfa.flash_attention_plain(q, k, v, causal=causal),
+                  "flash", dtype)
+
+
+def test_flash_attention_cross_shape(dev):
+    """Non-causal with T != S (keys past a ragged T masked)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = _normal(gen, (1, 100, 4, 64), dev)
+    k = _normal(gen, (1, 333, 4, 64), dev)
+    v = _normal(gen, (1, 333, 4, 64), dev)
+    _assert_close(kfa.flash_attention(q, k, v, causal=False),
+                  kfa.flash_attention_plain(q, k, v, causal=False), "flash",
+                  torch.float32)
+
+
+def _ssd_inputs(gen, dev, b, s, h, p, n, dtype, g=1):
+    x = _normal(gen, (b, s, h, p), dev, dtype)
+    dt = torch.nn.functional.softplus(_normal(gen, (b, s, h), dev))
+    A = -torch.exp(_normal(gen, (h,), dev) * 0.5)
+    B = _normal(gen, (b, s, g, n), dev, dtype)
+    C = _normal(gen, (b, s, g, n), dev, dtype)
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (4, 512, 64, 64, 64, 128),     # Zamba2's Mamba2 layer
+    (2, 256, 4, 64, 16, 64),
+    (1, 128, 2, 32, 8, 32),
+    (2, 64, 16, 32, 16, 32),       # the reduced config's shape
+])
+def test_ssd_scan(dev, dtype, b, s, h, p, n, chunk):
+    gen = torch.Generator(device=dev).manual_seed(b * s + h + n)
+    x, dt, A, B, C = _ssd_inputs(gen, dev, b, s, h, p, n, dtype)
+    before = _lib.LAUNCHES["ssd_scan"]
+    got = kss.ssd_scan(x, dt, A, B, C, chunk)
+    assert _lib.LAUNCHES["ssd_scan"] == before + 1
+    assert got.dtype == torch.float32
+    _assert_close(got, kss.ssd_scan_plain(x, dt, A, B, C, chunk), "ssd",
+                  dtype)
+
+
+def test_ssd_scan_groups_and_chunk_continuity(dev):
+    """G = 2 groups read by head; chunk 32 equals chunk 128."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x, dt, A, B, C = _ssd_inputs(gen, dev, 1, 256, 4, 32, 16,
+                                 torch.float32, g=2)
+    y32 = kss.ssd_scan(x, dt, A, B, C, 32)
+    y128 = kss.ssd_scan(x, dt, A, B, C, 128)
+    plain = kss.ssd_scan_plain(x, dt, A, B.repeat_interleave(2, dim=2),
+                               C.repeat_interleave(2, dim=2), 32)
+    _assert_close(y32, plain, "ssd", torch.float32)
+    _assert_close(y32, y128, "ssd", torch.float32)
+
+
+def test_lm_wrappers_validate(dev):
+    q = torch.rand((1, 64, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="S == T"):
+        kfa.flash_attention(q, q[:, :32], q[:, :32], causal=True)
+    with pytest.raises(TypeError):
+        kfa.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):
+        kfa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                            q, q)
+    with pytest.raises(ValueError, match="D in"):
+        kfa.flash_attention(q[..., :32].contiguous(), q[..., :32].contiguous(),
+                            q[..., :32].contiguous())
+    x = torch.rand((8, 256), device=dev)
+    with pytest.raises(TypeError):
+        krn.rmsnorm(x.double(), torch.ones(256, device=dev).double())
+    with pytest.raises(ValueError):
+        krn.rmsnorm(x.t(), torch.ones(8, device=dev))
+    with pytest.raises(TypeError):
+        krn.rmsnorm(x, torch.ones(256, device=dev, dtype=torch.bfloat16))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xs, dt, A, B, C = _ssd_inputs(gen, dev, 1, 64, 2, 32, 8, torch.float32)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        kss.ssd_scan(xs, dt, A, B, C, 48)
+    with pytest.raises(TypeError):
+        kss.ssd_scan(xs, dt.double(), A, B, C, 32)
+    with pytest.raises(ValueError):
+        kss.ssd_scan(xs.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
+                     B, C, 32)
+    with pytest.raises(ValueError, match="shared memory"):
+        x2, dt2, A2, B2, C2 = _ssd_inputs(gen, dev, 1, 128, 1, 128, 128,
+                                          torch.float32)
+        kss.ssd_scan(x2, dt2, A2, B2, C2, 128)
+
+
+def test_zamba_small_run_on_card_matches_cpu(dev):
+    """The reduced Zamba2 (and a 5-layer variant with a tail group), f32:
+    prefill and 8 cached decode steps on the card against the CPU."""
+    import dataclasses
+
+    from repro_torch import rng
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, lm
+    from repro_torch.tree import tree_map
+
+    base = get_config("zamba2_1_2b").reduced()
+    for cfg in (base, dataclasses.replace(base, n_layers=5)):
+        params = api.init_params(rng.PRNGKey(0), cfg)
+        toks = rng.randint(rng.PRNGKey(1), (2, 41), 0, cfg.vocab)
+        out = {}
+        for d in ("cpu", dev):
+            p = tree_map(lambda w: w.to(d), params)
+            t = toks.to(d)
+            _lib.reset_launches()
+            logits, _ = lm.forward(p, cfg, {"tokens": t})
+            pre = api.prefill_fn(p, cfg, {"tokens": t[:, :40]})
+            cache = api.init_cache(cfg, 2, 8, device=d)
+            steps = [api.decode_step(p, cfg, cache, t[:, i:i + 1], i)[0]
+                     for i in range(8)]
+            if str(d) != "cpu":
+                for name in ("flash_attention", "rmsnorm", "ssd_scan"):
+                    assert _lib.LAUNCHES[name] > 0, _lib.LAUNCHES
+            out[str(d)] = [logits, pre, torch.stack(steps)]
+        for c, g in zip(out["cpu"], out[str(dev)]):
+            torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-4)

@@ -1,0 +1,158 @@
+"""The port's LM kernels (7 flash_attention, 8 rmsnorm, 9 ssd_scan) against
+the JAX package's Pallas kernels.
+
+On the CPU each wrapper runs its plain version; here that plain version is
+held against the Pallas kernel in interpret mode (as tests/test_kernels.py
+runs it) and against ``repro.kernels.ref``, at that file's shapes and
+tolerances: float32 rmsnorm 1e-6, flash 2e-5, ssd 2e-4; bfloat16 2e-2,
+2e-2, 5e-2.  Inputs are numpy draws from a seed, cast to bfloat16 the same
+way (round to nearest even) on both sides.  The CUDA kernels themselves
+run only on the card (tests/test_torch_cuda.py, ``chip_smoke.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels import ref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as j_flash  # noqa: E402
+from repro.kernels.rmsnorm import rmsnorm as j_rmsnorm  # noqa: E402
+from repro.kernels.ssd_scan import ssd_scan as j_ssd  # noqa: E402
+from repro_torch.kernels import _lib  # noqa: E402
+from repro_torch.kernels import flash_attention as kfa  # noqa: E402
+from repro_torch.kernels import rmsnorm as krn  # noqa: E402
+from repro_torch.kernels import ssd_scan as kss  # noqa: E402
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+TOL = {"rmsnorm": {"float32": 1e-6, "bfloat16": 2e-2},
+       "flash": {"float32": 2e-5, "bfloat16": 2e-2},
+       "ssd": {"float32": 2e-4, "bfloat16": 5e-2}}
+
+
+def _both(a: np.ndarray, dtype: str):
+    """The same array as a JAX and a torch tensor of ``dtype``."""
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(a).astype(jd), torch.tensor(a).to(td)
+
+
+def _close(got_t, want_j, tol):
+    np.testing.assert_allclose(got_t.float().numpy(),
+                               np.asarray(want_j, dtype=np.float32),
+                               rtol=tol, atol=tol)
+
+
+# ------------------------------------------------------------------ rmsnorm --
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 128), (3, 7, 256), (1000, 512),
+                                   (2, 16, 2048)])
+def test_rmsnorm_matches_pallas_and_oracle(shape, dtype):
+    rs = np.random.default_rng(sum(shape))
+    xj, xt = _both(rs.normal(size=shape).astype(np.float32), dtype)
+    sj, st = _both((1.0 + 0.1 * rs.normal(size=shape[-1:])).astype(
+        np.float32), dtype)
+    before = dict(_lib.LAUNCHES)
+    got = krn.rmsnorm(xt, st)
+    assert _lib.LAUNCHES == before              # CPU tensors: plain version
+    assert got.dtype == DTYPES[dtype][1] and got.shape == xt.shape
+    tol = TOL["rmsnorm"][dtype]
+    _close(got, j_rmsnorm(xj, sj, interpret=True), tol)
+    _close(got, ref.rmsnorm(xj, sj), tol)
+
+
+# ---------------------------------------------------------- flash attention --
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kv,d", [
+    (1, 256, 4, 4, 64),     # MHA
+    (2, 256, 8, 2, 64),     # GQA 4:1
+    (1, 512, 4, 1, 128),    # MQA, d=128
+    (1, 128, 2, 2, 128),    # single kv block
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_pallas_and_oracle(b, s, h, kv, d, dtype,
+                                                   causal):
+    rs = np.random.default_rng(b * s + h * kv + d)
+    qj, qt = _both(rs.normal(size=(b, s, h, d)).astype(np.float32), dtype)
+    kj, kt = _both(rs.normal(size=(b, s, kv, d)).astype(np.float32), dtype)
+    vj, vt = _both(rs.normal(size=(b, s, kv, d)).astype(np.float32), dtype)
+    got = kfa.flash_attention(qt, kt, vt, causal=causal)
+    assert got.dtype == DTYPES[dtype][1]
+    tol = TOL["flash"][dtype]
+    _close(got, j_flash(qj, kj, vj, causal=causal, q_block=128, kv_block=128,
+                        interpret=True), tol)
+    _close(got, ref.flash_attention(qj, kj, vj, causal=causal), tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_ragged_matches_oracle(causal):
+    """S = T = 200: no multiple of the Pallas blocks, which assert on it;
+    the oracle only."""
+    rs = np.random.default_rng(200)
+    q, k, v = (rs.normal(size=(2, 200, 4, 64)).astype(np.float32)
+               for _ in range(3))
+    got = kfa.flash_attention(torch.tensor(q), torch.tensor(k),
+                              torch.tensor(v), causal=causal)
+    _close(got, ref.flash_attention(q, k, v, causal=causal),
+           TOL["flash"]["float32"])
+
+
+def test_flash_attention_refuses_causal_with_s_not_t():
+    """The kernel's causal mask is start-aligned, the oracle's end-aligned:
+    they agree only when S == T, so the wrapper refuses the rest on any
+    device."""
+    q = torch.zeros((1, 4, 2, 64))
+    k = torch.zeros((1, 8, 2, 64))
+    with pytest.raises(ValueError, match="S == T"):
+        kfa.flash_attention(q, k, k, causal=True)
+    assert kfa.flash_attention(q, k, k, causal=False).shape == q.shape
+
+
+# ----------------------------------------------------------------- ssd scan --
+def _ssd_case(seed, b, s, h, p, n, dtype):
+    rs = np.random.default_rng(seed)
+    x = rs.normal(size=(b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rs.normal(size=(b, s, h)))).astype(np.float32)
+    A = (-np.exp(rs.normal(size=(h,)) * 0.5)).astype(np.float32)
+    B = rs.normal(size=(b, s, 1, n)).astype(np.float32)
+    C = rs.normal(size=(b, s, 1, n)).astype(np.float32)
+    xj, xt = _both(x, dtype)
+    Bj, Bt = _both(B, dtype)
+    Cj, Ct = _both(C, dtype)
+    return ((xj, jnp.asarray(dt), jnp.asarray(A), Bj, Cj),
+            (xt, torch.tensor(dt), torch.tensor(A), Bt, Ct))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 256, 4, 64, 16, 64),
+    (1, 128, 2, 32, 8, 32),
+    (1, 512, 3, 64, 64, 128),
+    (1, 128, 1, 128, 128, 128),   # mamba2-2.7b head shape
+])
+def test_ssd_scan_matches_pallas_and_oracle(b, s, h, p, n, chunk, dtype):
+    jin, tin = _ssd_case(b * s + h + n, b, s, h, p, n, dtype)
+    got = kss.ssd_scan(*tin, chunk)
+    assert got.dtype == torch.float32          # the model's path is f32
+    tol = TOL["ssd"][dtype]
+    _close(got, j_ssd(*jin, chunk=chunk, interpret=True), tol)
+    _close(got, ref.ssd_scan(*jin, chunk=chunk), tol)
+
+
+def test_ssd_scan_chunk_boundaries_are_invisible():
+    _, tin = _ssd_case(5, 1, 256, 2, 32, 16, "float32")
+    np.testing.assert_allclose(kss.ssd_scan(*tin, 32).numpy(),
+                               kss.ssd_scan(*tin, 128).numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_scan_refuses_a_ragged_sequence():
+    _, tin = _ssd_case(6, 1, 96, 2, 32, 16, "float32")
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        kss.ssd_scan(*tin, 64)
+
+
+def test_wrappers_refuse_mixed_devices():
+    x = torch.zeros((4, 64))
+    with pytest.raises(ValueError):
+        krn.rmsnorm(x, torch.ones(64, device="meta"))

@@ -29,7 +29,9 @@ from repro_torch.core import mobility  # noqa: E402
 from repro_torch.core.types import WirelessConfig  # noqa: E402
 from repro_torch.fl.rounds import FLConfig, FLSimulation  # noqa: E402
 from repro_torch.interop import params_to_numpy  # noqa: E402
-from repro_torch.launch import fl_sim  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch import fl_sim, serve_decode  # noqa: E402
+from repro_torch.models.api import init_cache  # noqa: E402
 
 PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 ENGINE_SYNC = dict(n_train=120, n_test=40, local_epochs=1, batch_size=10,
@@ -92,7 +94,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_importing_the_engine_loads_no_jax():
     code = ("import sys; import repro_torch.fl.rounds, "
-            "repro_torch.launch.fl_sim; "
+            "repro_torch.launch.fl_sim, repro_torch.models.lm, "
+            "repro_torch.launch.serve_decode; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('clean')")
@@ -110,6 +113,10 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
         FLSimulation(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fl_sim.main(["--rounds", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_decode.main(["--reduced", "--batch", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache(get_config("zamba2_1_2b").reduced(), 1, 4)
 
 
 def test_config_rejects_what_the_port_lacks():
