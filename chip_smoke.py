@@ -9,10 +9,10 @@
 3. holds each kernel against its plain PyTorch version on the card, at the
    main path's shapes (N=50 users, M=8 BSs, every leaf of the paper-scale
    CNN) and at a fleet shape (N=1e6 users x M=100 BSs; the Eq. (11) solve
-   on [100, 1e6] rows; FedAvg, per-BS FedAvg (M=8 and M=100) and the
-   uplink compressor over 1,000 clients of the fc1 leaf), in float32 and
-   over int8 codes, and times the kernel, the plain version and one
-   PyTorch call as a yardstick;
+   on [100, 1e6] rows; FedAvg, per-BS FedAvg (M=8 and M=100, 50%-dense
+   and the path's one-hot weights) and the uplink compressor over 1,000
+   clients of the fc1 leaf), in float32 and over int8 codes, and times the
+   kernel, the plain version and one PyTorch call as a yardstick;
 4. checks small runs on the card against the same runs on the CPU (the
    plain versions): the synchronous round, hierarchical aggregation, and
    hierarchical aggregation over the top-k + int8 compressed uplink;
@@ -158,14 +158,14 @@ def check_kernels(dev, fleet_users=1_000_000, fleet_bs=100,
     results = {k: {} for k in KERNELS}
 
     def record(kernel, label, shape, err, fn, plain, lib, n_bytes, n_ops,
-               reps):
+               reps, extra=None):
         ms = _time_ms(fn, reps)
         plain_ms = _time_ms(plain, max(1, reps // 4))
         lib_ms = None if lib is None else _time_ms(lib, reps)
         bound, by = _bound_ms(n_bytes, n_ops)
         row = {"name": kernel, "shape": shape, "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-               "library_ms": lib_ms}
+               "library_ms": lib_ms, **(extra or {})}
         results[kernel][label] = row
         print(json.dumps({"check": label, **row}), flush=True)
 
@@ -281,12 +281,25 @@ def check_kernels(dev, fleet_users=1_000_000, fleet_bs=100,
                lambda: w @ q.float(), n * d + n * 4 + d * 4, 2 * n * d, reps)
 
     # -- hierarchical Eq. (2): per-BS sums, float32 and int8 ---------------
-    def segment_case(n, m, int8):
+    from repro_torch.fl.server import segment_weights
+
+    def segment_case(n, m, int8, onehot=False):
+        """x, and a w that is 50% dense with an empty BS column or, with
+        ``onehot``, what segment_weights gives the path for a random
+        assignment (one BS a client, ~10% unassigned, BS m // 2 empty)."""
         x = int8_codes(n, d) if int8 else torch.randn(
             (n, d), generator=gen, device=dev)
         if not int8:
             x[3 % n, d // 2] = float("nan")         # poisoned entries
             x[(7 % n), 0] = float("-inf")
+        if onehot:
+            bs = torch.randint(0, m, (n,), generator=gen, device=dev)
+            bs[bs == m // 2] = (m // 2 + 1) % m     # an empty BS
+            assigned = torch.rand((n,), generator=gen, device=dev) >= 0.1
+            sizes = torch.randint(50, 150, (n,), generator=gen, device=dev)
+            w, _ = segment_weights(torch.nn.functional.one_hot(bs, m).bool()
+                                   & assigned[:, None], sizes)
+            return w.contiguous(), x
         w = torch.rand((n, m), generator=gen, device=dev)
         w = w * (torch.rand((n, m), generator=gen, device=dev) < 0.5)
         w[:, m // 2] = 0.0                          # an empty BS column
@@ -295,15 +308,21 @@ def check_kernels(dev, fleet_users=1_000_000, fleet_bs=100,
     for kernel, int8 in (("fedavg_segment_reduce", False),
                          ("fedavg_segment_reduce_int8", True)):
         for leaf, shp in shapes.items():            # every leaf, M = 8
-            w, x = segment_case(50, 8, int8)
-            x = x[:, : math.prod(shp)].contiguous()
-            _close(f"{kernel} {leaf}", kf.segment_reduce_leaf(w, x),
-                   kf.segment_reduce_leaf_plain(w, x),
-                   scale=kf.segment_reduce_leaf_plain(w, x.float().abs()))
-        for label, n, m, reps in (("main", 50, 8, 200),
-                                  ("fleet", fleet_clients, 8, 20),
-                                  ("fleet_m100", fleet_clients, 100, 10)):
-            w, x = segment_case(n, m, int8)
+            for onehot in (False, True):
+                w, x = segment_case(50, 8, int8, onehot)
+                x = x[:, : math.prod(shp)].contiguous()
+                _close(f"{kernel} {leaf} onehot={onehot}",
+                       kf.segment_reduce_leaf(w, x),
+                       kf.segment_reduce_leaf_plain(w, x),
+                       scale=kf.segment_reduce_leaf_plain(w,
+                                                          x.float().abs()))
+        for label, n, m, onehot, reps in (
+                ("main", 50, 8, False, 200),
+                ("fleet", fleet_clients, 8, False, 20),
+                ("fleet_m100", fleet_clients, 100, False, 10),
+                ("fleet_onehot", fleet_clients, 8, True, 20),
+                ("fleet_m100_onehot", fleet_clients, 100, True, 20)):
+            w, x = segment_case(n, m, int8, onehot)
             got = kf.segment_reduce_leaf(w, x)
             err = _close(f"{kernel} {label}", got,
                          kf.segment_reduce_leaf_plain(w, x),
@@ -312,12 +331,20 @@ def check_kernels(dev, fleet_users=1_000_000, fleet_bs=100,
             if bool((got[m // 2] != 0).any()):
                 raise AssertionError(f"{kernel}: an empty BS column must "
                                      f"sum to 0")
+            # The bound counts the products this w needs (2 nnz(w) D, a
+            # sparse product), beside the dense 2 N M D of the last BS tile
+            # walking every client; the bytes read x once.
             x_bytes = n * d * (1 if int8 else 4)
+            n_bytes = x_bytes + n * m * 4 + m * d * 4
+            nnz = int((w != 0).sum())
             record(kernel, label, [n, m, d], err,
                    lambda: kf.segment_reduce_leaf(w, x),
                    lambda: kf.segment_reduce_leaf_plain(w, x),
-                   lambda: w.t() @ x.float(),
-                   x_bytes + n * m * 4 + m * d * 4, 2 * n * m * d, reps)
+                   lambda: w.t() @ x.float(), n_bytes, 2 * nnz * d, reps,
+                   extra={"nnz_w": nnz,
+                          "bound_bytes_ms": _bound_ms(n_bytes, 0)[0],
+                          "bound_dense_ops_ms": _bound_ms(
+                              0, 2 * n * m * d)[0]})
             del w, x, got
 
     # -- the uplink compressor: top-k mask (+ int8 stochastic round) -------
@@ -773,7 +800,7 @@ def _device_ops(prof) -> dict:
     return ops
 
 
-_LM_KERNEL_NAMES = {"flash_attention": "flash_fwd_kernel",
+_LM_KERNEL_NAMES = {"flash_attention": "flash_fwd_",
                     "rmsnorm": "rmsnorm_kernel", "ssd_scan": "ssd_scan_kernel"}
 _MATMUL_MARKS = ("gemm", "nvjet", "xmma", "cutlass", "matmul", "splitk")
 

@@ -20,25 +20,48 @@
 // in the JAX package.  The screen is in the kernel because a zero weight
 // cannot stop 0 * NaN.
 //
-// What bounds them on the H100: the [N, D] client plane is read once per
-// output tile (4N bytes per column in f32, N in int8) for 2N flops per
-// output, so memory, except for the segmented sum with many BSs, where the
-// 2NMD flops (off the tensor cores) take over.
+// What bounds them on the H100: the [N, D] client plane, read once (4N
+// bytes per column in f32, N in int8), for 2N flops per output column of
+// fedavg_reduce and 2 nnz(w) per column of the segmented sum.  Memory,
+// except for the segmented sum over a dense w with many BSs, where the
+// flops (off the tensor cores) take over.
 //
-// Design, simple first: one thread per feature column walks the clients in
-// index order and accumulates in float32.  Neighbouring threads read
+// fedavg_reduce: one thread per feature column walks the clients in index
+// order and accumulates in float32.  Neighbouring threads read
 // neighbouring addresses, every column sums in the same order on every run
-// (deterministic, no atomics, no second pass).  The segmented kernel holds a
-// tile of MT BS rows in registers, gridDim.y covers the BS tiles (so any M
-// works), and each client chunk's w[n, m-tile] is staged in shared memory,
-// where all threads of the block read the same word (a broadcast).  Each BS
-// tile re-reads the client plane: ceil(M / MT) passes over x.
+// (deterministic, no atomics, no second pass).
+//
+// fedavg_segment_reduce: a block owns 512 columns (128 threads x 4
+// columns, one float4 or char4 load per client row) and a tile of MT BS
+// rows, the 4 x MT sums in registers; the grid covers (BS tile, column
+// block) pairs, BS tiles fastest, so any M works and the tiles of one
+// column block run side by side.  Clients are staged up to 1024 at a
+// time: the block reads their w[n, m-tile] rows and lists, in client
+// order (ballot + prefix), the clients with a nonzero weight in its tile,
+// then walks only that list.  The path's w is one-hot per client (Eq. (8):
+// a user has at most one BS; clip factors and dequant scales keep it so),
+// so each client is walked by one BS tile and x is read once in all; a
+// dense w does the work of every tile.  Skipping a zero weight changes no
+// sum: x is screened to finite values, so fmaf(0, v, acc) == acc.  Two
+// groups of 128 threads walk alternate list entries (twice the loads in
+// flight), each in client order, and their sums are added in group order:
+// deterministic, no atomics, no second pass.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 256;  // clients per staged weight chunk
+constexpr int kThreads = 256;     // fedavg_reduce: a column a thread
+// fedavg_segment_reduce, shapes chosen on the H100 (chip_smoke.py's fleet
+// rows): 4 columns a thread, 512 a block; two client groups of 128
+// threads; 8 rows of x in flight a thread; two blocks an SM (128
+// registers); 32 KB of staged w rows.
+constexpr int kColThreads = 128;
+constexpr int kCols = 4;
+constexpr int kSegCols = kColThreads * kCols;
+constexpr int kGroups = 2;
+constexpr int kSegThreads = kColThreads * kGroups;
+constexpr int kLoads = 8;
+constexpr int kStagedFloats = 8192;
 
 __device__ __forceinline__ float load_screened(const float* p) {
   const float v = *p;
@@ -61,41 +84,176 @@ fedavg_reduce_kernel(const float* __restrict__ w, const T* __restrict__ x,
   out[col] = acc;
 }
 
-template <typename T, int MT>
-__global__ void __launch_bounds__(kThreads)
+// Four screened columns [col, col + 4) of one client row as float32: one
+// float4 / char4 load when rows are 16-byte (f32) or 4-byte (int8) aligned
+// (the caller keeps col inside the row: no branch between the loads it
+// keeps in flight), else guarded loads of single columns.
+template <bool kVec>
+__device__ __forceinline__ void load4(const float* row, long long col,
+                                      long long d, float v[4]) {
+  if (kVec) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(row + col));
+    v[0] = isfinite(q.x) ? q.x : 0.0f;
+    v[1] = isfinite(q.y) ? q.y : 0.0f;
+    v[2] = isfinite(q.z) ? q.z : 0.0f;
+    v[3] = isfinite(q.w) ? q.w : 0.0f;
+  } else {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      v[c] = col + c < d ? load_screened(row + col + c) : 0.0f;
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void load4(const int8_t* row, long long col,
+                                      long long d, float v[4]) {
+  if (kVec) {
+    const char4 q = __ldg(reinterpret_cast<const char4*>(row + col));
+    v[0] = static_cast<float>(q.x);
+    v[1] = static_cast<float>(q.y);
+    v[2] = static_cast<float>(q.z);
+    v[3] = static_cast<float>(q.w);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      v[c] = col + c < d ? load_screened(row + col + c) : 0.0f;
+  }
+}
+
+// acc[t][c] += wrow[t] * v[c]: one listed client into the 4 x MT sums.
+template <int MT>
+__device__ __forceinline__ void accumulate(float (&acc)[MT][kCols],
+                                           const float* wrow,
+                                           const float v[kCols]) {
+#pragma unroll
+  for (int t = 0; t < MT; t += 4) {
+    const float4 w4 = *reinterpret_cast<const float4*>(wrow + t);
+    const float ws[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        acc[t + u][c] = fmaf(ws[u], v[c], acc[t + u][c]);
+  }
+}
+
+// Client group g walks list entries g, g + kGroups, ... (client order
+// within the group) and the groups' sums are added in group order at the
+// end.  Each thread stages R clients' w rows, kChunk clients a chunk.
+template <typename T, int MT, bool kVec>
+__global__ void __launch_bounds__(kSegThreads, 2)
 fedavg_segment_reduce_kernel(const float* __restrict__ w,
                              const T* __restrict__ x, long long n, int m,
-                             long long d, float* __restrict__ out) {
-  __shared__ float sw[kChunk * MT];
-  const long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int m0 = blockIdx.y * MT;
-  const bool live = col < d;
-  float acc[MT];
-#pragma unroll
-  for (int t = 0; t < MT; ++t) acc[t] = 0.0f;
+                             long long d, int n_tiles,
+                             float* __restrict__ out) {
+  constexpr int G = kGroups, U = kLoads, kBlock = kSegThreads;
+  constexpr int kWarps = kBlock / 32, kChunk = kStagedFloats / MT;
+  constexpr int R = kChunk / kBlock;
+  __shared__ __align__(16) float sw[kChunk * MT];  // listed clients' w rows
+  __shared__ int sidx[kChunk];                     // and their chunk offsets
+  __shared__ int scount[kChunk / 32];              // listed per 32 clients
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ct = tid % kColThreads, grp = tid / kColThreads;
+  const int m0 = (blockIdx.x % n_tiles) * MT;
+  const long long col =
+      (long long)(blockIdx.x / n_tiles) * kSegCols + ct * kCols;
+  // Vector loads: columns past d read the row's last 4 (never stored).
+  const long long lcol = kVec ? min(col, d - kCols) : col;
 
-  for (long long c0 = 0; c0 < n; c0 += kChunk) {
-    const long long rest = n - c0;
-    const int len = rest < kChunk ? (int)rest : kChunk;
-    __syncthreads();  // the previous chunk's weights are consumed
-    for (int j = threadIdx.x; j < kChunk * MT; j += blockDim.x) {
-      const int i = j / MT, t = j % MT;
-      sw[j] = (i < len && m0 + t < m) ? w[(c0 + i) * m + m0 + t] : 0.0f;
-    }
-    __syncthreads();
-    if (live) {
-      const T* xc = x + c0 * d + col;
-      for (int i = 0; i < len; ++i) {
-        const float v = load_screened(xc + (long long)i * d);
-#pragma unroll
-        for (int t = 0; t < MT; ++t) acc[t] += sw[i * MT + t] * v;
-      }
-    }
-  }
-  if (!live) return;
+  float acc[MT][kCols];
 #pragma unroll
   for (int t = 0; t < MT; ++t)
-    if (m0 + t < m) out[(long long)(m0 + t) * d + col] = acc[t];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[t][c] = 0.0f;
+
+  for (long long c0 = 0; c0 < n; c0 += kChunk) {
+    // List the chunk's clients with any nonzero weight in this tile, in
+    // client order, with their w rows: thread tid stages clients
+    // c0 + tid + kBlock * r, and 32-client slot r * kWarps + warp holds
+    // clients (r * kWarps + warp) * 32 + lane.
+    float wt[R][MT];
+    unsigned ballot[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const long long i = c0 + tid + kBlock * r;
+      bool any = false;
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        wt[r][t] = (i < n && m0 + t < m) ? w[i * m + m0 + t] : 0.0f;
+        any |= wt[r][t] != 0.0f;
+      }
+      ballot[r] = __ballot_sync(0xffffffffu, any);
+    }
+    __syncthreads();  // the previous chunk's list is consumed
+    if (lane == 0)
+#pragma unroll
+      for (int r = 0; r < R; ++r) scount[r * kWarps + warp] = __popc(ballot[r]);
+    __syncthreads();
+    int cnt = 0;
+#pragma unroll
+    for (int s = 0; s < kChunk / 32; ++s) cnt += scount[s];
+    int base = 0;  // listed clients in the slots before this one
+    for (int s = 0; s < warp; ++s) base += scount[s];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if ((ballot[r] >> lane) & 1u) {
+        const int pos = base + __popc(ballot[r] & ((1u << lane) - 1u));
+        sidx[pos] = tid + kBlock * r;
+#pragma unroll
+        for (int t = 0; t < MT; ++t) sw[pos * MT + t] = wt[r][t];
+      }
+      if (r + 1 < R)  // on to slot (r + 1) * kWarps + warp
+        for (int s = r * kWarps + warp; s < (r + 1) * kWarps + warp; ++s)
+          base += scount[s];
+    }
+    __syncthreads();
+
+    // Walk this group's entries of the list, U rows of x in flight.
+    const T* xc = x + c0 * d;
+    int j = grp;
+    for (; j + (U - 1) * G < cnt; j += U * G) {
+      float v[U][kCols];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        load4<kVec>(xc + (long long)sidx[j + u * G] * d, lcol, d, v[u]);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        accumulate<MT>(acc, sw + (j + u * G) * MT, v[u]);
+    }
+    for (; j < cnt; j += G) {
+      float v[kCols];
+      load4<kVec>(xc + (long long)sidx[j] * d, lcol, d, v);
+      accumulate<MT>(acc, sw + j * MT, v);
+    }
+  }
+
+  // Add the groups' sums in group order, one BS row at a time (sw reused).
+#pragma unroll
+  for (int t = 0; t < MT; ++t) {
+    if (G > 1) {
+      __syncthreads();
+      if (grp > 0)
+#pragma unroll
+        for (int c = 0; c < kCols; ++c)
+          sw[((grp - 1) * kColThreads + ct) * kCols + c] = acc[t][c];
+      __syncthreads();
+      if (grp == 0)
+        for (int g = 1; g < G; ++g)
+#pragma unroll
+          for (int c = 0; c < kCols; ++c)
+            acc[t][c] += sw[((g - 1) * kColThreads + ct) * kCols + c];
+    }
+    if (grp > 0 || m0 + t >= m) continue;
+    float* o = out + (long long)(m0 + t) * d;
+    if (kVec && col < d) {
+      *reinterpret_cast<float4*>(o + col) =
+          make_float4(acc[t][0], acc[t][1], acc[t][2], acc[t][3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        if (col + c < d) o[col + c] = acc[t][c];
+    }
+  }
 }
 
 template <typename T>
@@ -110,17 +268,29 @@ int launch_reduce(const float* w, const T* x, long long n, long long d,
   return static_cast<int>(cudaGetLastError());
 }
 
+// MT = 8 covers the paper's 8 BSs in one tile; wider fleets take 16-row
+// tiles in f32 (half the passes of a dense w over x) and stay at 8 rows in
+// int8, where the 4 MT FMAs per 4-byte load bound a one-hot w.  Vector
+// loads and stores when every row of x and out is aligned.
 template <typename T, int MT>
 void launch_segment_tiles(const float* w, const T* x, long long n, int m,
                           long long d, float* out, cudaStream_t stream) {
-  const dim3 grid((unsigned)((d + kThreads - 1) / kThreads),
-                  (unsigned)((m + MT - 1) / MT));
-  fedavg_segment_reduce_kernel<T, MT><<<grid, kThreads, 0, stream>>>(
-      w, x, n, m, d, out);
+  const int n_tiles = (m + MT - 1) / MT;
+  const long long blocks = (d + kSegCols - 1) / kSegCols * n_tiles;
+  const bool vec = d % kCols == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % (kCols * sizeof(T)) ==
+                       0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec)
+    fedavg_segment_reduce_kernel<T, MT, true>
+        <<<(unsigned)blocks, kSegThreads, 0, stream>>>(w, x, n, m, d,
+                                                       n_tiles, out);
+  else
+    fedavg_segment_reduce_kernel<T, MT, false>
+        <<<(unsigned)blocks, kSegThreads, 0, stream>>>(w, x, n, m, d,
+                                                       n_tiles, out);
 }
 
-// MT = 8 covers the paper's 8 BSs in one pass; wider fleets take 16-row
-// tiles, halving the passes over x.
 template <typename T>
 int launch_segment(const float* w, const T* x, long long n, int m,
                    long long d, float* out, void* stream) {
@@ -129,7 +299,8 @@ int launch_segment(const float* w, const T* x, long long n, int m,
     if (m <= 8)
       launch_segment_tiles<T, 8>(w, x, n, m, d, out, s);
     else
-      launch_segment_tiles<T, 16>(w, x, n, m, d, out, s);
+      launch_segment_tiles<T, sizeof(T) == 1 ? 8 : 16>(w, x, n, m, d, out,
+                                                       s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,8 @@
 The sources in ``repro_torch/csrc/`` expose plain C entry points.  On first
 use this module compiles each ``.cu`` with ``nvcc`` for ``sm_90a`` (all
 sources at once, in parallel), links them into one shared library keyed on
-a hash of the sources and flags, and loads it with ``ctypes``.  The library
+a hash of the sources and flags (linked against ``libcuda`` for the TMA
+tensor maps of flash attention), and loads it with ``ctypes``.  The library
 lands in ``build/repro_torch_kernels/`` at the root of the checkout, or in
 ``$REPRO_TORCH_BUILD_DIR``.  Nothing is built or loaded at import, so the
 CPU-only tests import every module freely.
@@ -28,6 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-lcuda",)  # cuTensorMapEncodeTiled (flash_attention)
 
 LAUNCHES = {"bandwidth_solve": 0, "masked_bs_argmax": 0,
             "best_bs_argmax": 0, "fedavg_reduce": 0, "fedavg_reduce_int8": 0,
@@ -87,7 +89,7 @@ def _nvcc() -> str:
 
 def _sources() -> tuple[list[Path], str]:
     srcs = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -109,8 +111,8 @@ def _build(out: Path, srcs: list[Path]) -> None:
                 raise RuntimeError(f"nvcc failed on {s.name}:\n{log}")
         so = Path(tmp) / out.name
         link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(so),
-                               *map(str, objs)], capture_output=True,
-                              text=True)
+                               *map(str, objs), *LINK_FLAGS],
+                              capture_output=True, text=True)
         if link.returncode:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
                                f"{link.stderr}")

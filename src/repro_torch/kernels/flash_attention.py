@@ -3,8 +3,9 @@
 
 On CUDA tensors :func:`flash_attention` launches the hand-written kernel in
 ``csrc/flash_attention.cu`` (online softmax in float32, GQA by head index,
-any S and T); on CPU tensors it runs :func:`flash_attention_plain`, the
-oracle ``repro.kernels.ref.flash_attention``.  q [B, S, H, D], k/v
+any S and T; bfloat16 on the tensor cores with wgmma, float32 in SIMT
+FMAs); on CPU tensors it runs :func:`flash_attention_plain`, the oracle
+``repro.kernels.ref.flash_attention``.  q [B, S, H, D], k/v
 [B, T, KV, D], all float32 or all bfloat16, D in {64, 128}.
 
 The TPU kernel's causal mask is start-aligned (``k_pos > q_pos``) while the
@@ -61,6 +62,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    # The bf16 kernel reads through TMA, which needs 16-byte aligned bases.
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     scale = 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):
         rc = getattr(_lib.library(), f"flash_attention_{kind}")(

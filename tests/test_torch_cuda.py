@@ -22,6 +22,7 @@ from repro_torch.core import dagsa_jit  # noqa: E402
 from repro_torch.core.types import SchedulingProblem  # noqa: E402
 from repro_torch.core.types import WirelessConfig  # noqa: E402
 from repro_torch.fl.rounds import FLConfig, FLSimulation  # noqa: E402
+from repro_torch.fl.server import segment_weights  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels import bandwidth_solve as kb  # noqa: E402
 from repro_torch.kernels import compress_topk as ct  # noqa: E402
@@ -131,6 +132,62 @@ def test_segment_reduce_leaf(dev, dtype, n, m, d):
     scale = kf.segment_reduce_leaf_plain(w, x.float().abs())
     assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
     assert bool((got[m // 2] == 0).all())
+
+
+def _onehot_weights(n, m, dev, seed):
+    """What segment_weights gives for a random assignment: one BS a client,
+    ~10% of clients unassigned (all-zero rows), BS m // 2 empty."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bs = torch.randint(0, m, (n,), generator=gen, device=dev)
+    bs[bs == m // 2] = (m // 2 + 1) % m
+    assigned = torch.rand((n,), generator=gen, device=dev) >= 0.1
+    assign = torch.nn.functional.one_hot(bs, m).bool() & assigned[:, None]
+    sizes = torch.randint(50, 150, (n,), generator=gen, device=dev)
+    w, _ = segment_weights(assign, sizes)
+    return w.contiguous()
+
+
+def _segment_check(w, x):
+    m = w.shape[1]
+    key = ("fedavg_segment_reduce_int8" if x.dtype == torch.int8
+           else "fedavg_segment_reduce")
+    before = _lib.LAUNCHES[key]
+    got = kf.segment_reduce_leaf(w, x)
+    assert _lib.LAUNCHES[key] == before + 1
+    want = kf.segment_reduce_leaf_plain(w, x)
+    scale = kf.segment_reduce_leaf_plain(w, x.float().abs())
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+    return got
+
+
+def _leaf(n, d, dtype, dev):
+    if dtype == torch.int8:
+        return torch.randint(-127, 128, (n, d), dtype=torch.int8, device=dev)
+    x = torch.randn((n, d), device=dev)
+    x[0, d // 2] = float("nan")
+    x[n - 1, 0] = float("-inf")
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+@pytest.mark.parametrize("n,m,d", [(1000, 100, 4099), (1000, 8, 4099),
+                                   (1000, 100, 4096)])
+def test_segment_reduce_leaf_onehot(dev, dtype, n, m, d):
+    """The path's weights: one BS a client, unassigned clients and an
+    empty BS; each BS tile walks only its own clients."""
+    w = _onehot_weights(n, m, dev, seed=n + m + d)
+    assert bool(((w != 0).sum(dim=1) <= 1).all())
+    assert bool((w.sum(dim=1) == 0).any())
+    got = _segment_check(w, _leaf(n, d, dtype, dev))
+    assert bool((got[m // 2] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+def test_segment_reduce_leaf_fully_dense(dev, dtype):
+    """Every client in every BS tile: no client is skipped."""
+    gen = torch.Generator(device=dev).manual_seed(64)
+    w = torch.rand((64, 100), generator=gen, device=dev) + 0.1
+    _segment_check(w, _leaf(64, 1027, dtype, dev))
 
 
 @pytest.mark.parametrize("quantize", [False, True])
@@ -272,6 +329,29 @@ def test_flash_attention(dev, dtype, b, s, h, kv, d, causal):
     assert got.dtype == dtype
     _assert_close(got, kfa.flash_attention_plain(q, k, v, causal=causal),
                   "flash", dtype)
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,d,causal", [
+    (8, 2048, 2048, 32, 32, 64, True),   # Zamba2's long prefill
+    (2, 1024, 1024, 16, 8, 128, True),   # D = 128, GQA 2:1
+    (1, 65, 65, 4, 4, 64, True),         # one row past a tile
+    (2, 65, 65, 4, 2, 128, True),
+    (1, 100, 333, 4, 4, 64, False),      # ragged T
+    (2, 130, 333, 8, 4, 128, False),
+])
+def test_flash_attention_bf16_tiles(dev, b, s, t, h, kv, d, causal):
+    """The bf16 tensor-core kernel at the prefill shape, D = 128, and ragged
+    query and key edges."""
+    gen = torch.Generator(device=dev).manual_seed(b * s + t + d)
+    q = _normal(gen, (b, s, h, d), dev, torch.bfloat16)
+    k = _normal(gen, (b, t, kv, d), dev, torch.bfloat16)
+    v = _normal(gen, (b, t, kv, d), dev, torch.bfloat16)
+    before = _lib.LAUNCHES["flash_attention"]
+    got = kfa.flash_attention(q, k, v, causal=causal)
+    assert _lib.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == torch.bfloat16
+    _assert_close(got, kfa.flash_attention_plain(q, k, v, causal=causal),
+                  "flash", torch.bfloat16)
 
 
 def test_flash_attention_cross_shape(dev):

@@ -97,6 +97,58 @@ def test_flash_attention_ragged_matches_oracle(causal):
            TOL["flash"]["float32"])
 
 
+def _flash_bf16_kernel_arithmetic(q, k, v, causal, tile=64):
+    """What csrc/flash_attention.cu's bfloat16 (wgmma) kernel computes, in
+    plain torch: float32 scores of the bf16 q and k, the scale applied to
+    the scores (exp2 form, log2(e) folded in), an online softmax over
+    64-key tiles, P rounded to bf16 before P V with float32 accumulation,
+    the row sum of the unrounded P, and acc / max(ell, 1e-30) in bf16."""
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    sl2 = torch.tensor((1.0 / d ** 0.5) * 1.4426950408889634,
+                       dtype=torch.float32)
+    qf = q.float().reshape(b, s, kv, h // kv, d)
+    m = torch.full((b, kv, h // kv, s, 1), -torch.inf)
+    ell = torch.zeros_like(m)
+    acc = torch.zeros((b, kv, h // kv, s, d))
+    rows = torch.arange(s)[:, None]
+    for k0 in range(0, t, tile):
+        kt, vt = k[:, k0:k0 + tile].float(), v[:, k0:k0 + tile].float()
+        sc = torch.einsum("bskgd,btkd->bkgst", qf, kt)
+        if causal:
+            keys = torch.arange(k0, k0 + kt.shape[1])[None, :]
+            sc = torch.where(keys <= rows, sc, -1e30)
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * sl2)
+        p = torch.exp2(sc * sl2 - m_new * sl2)
+        ell = alpha * ell + p.sum(dim=-1, keepdim=True)
+        acc = alpha * acc + torch.einsum("bkgst,btkd->bkgsd",
+                                         p.bfloat16().float(), vt)
+        m = m_new
+    out = (acc / torch.clamp(ell, min=1e-30)).bfloat16()
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_kernel_rounding_within_gate(d, causal):
+    """The bf16 kernel's extra rounding (P to bf16 before P V, tile by
+    tile) stays inside the bf16 gate of 2e-2 against the jnp oracle and
+    the Pallas kernel in interpret mode."""
+    rs = np.random.default_rng(1000 + d + causal)
+    qj, qt = _both(rs.normal(size=(2, 256, 4, d)).astype(np.float32),
+                   "bfloat16")
+    kj, kt = _both(rs.normal(size=(2, 256, 4, d)).astype(np.float32),
+                   "bfloat16")
+    vj, vt = _both(rs.normal(size=(2, 256, 4, d)).astype(np.float32),
+                   "bfloat16")
+    got = _flash_bf16_kernel_arithmetic(qt, kt, vt, causal)
+    tol = TOL["flash"]["bfloat16"]
+    _close(got, ref.flash_attention(qj, kj, vj, causal=causal), tol)
+    _close(got, j_flash(qj, kj, vj, causal=causal, q_block=128, kv_block=128,
+                        interpret=True), tol)
+
+
 def test_flash_attention_refuses_causal_with_s_not_t():
     """The kernel's causal mask is start-aligned, the oracle's end-aligned:
     they agree only when S == T, so the wrapper refuses the rest on any
