@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # everything below, one card
+    python3 chip_smoke.py --kernels    # steps 1-3 and 7a only
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
 2. builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` with
-   nvcc for sm_90a and prints the build seconds;
+   nvcc for sm_90a and prints the build seconds, then the host us of the
+   pieces a kernel launch is made of;
 3. holds each kernel against its plain PyTorch version on the card, at the
    main path's shapes (N=50 users, M=8 BSs, every leaf of the paper-scale
-   CNN) and at a fleet shape (N=1e6 users x M=100 BSs; the Eq. (11) solve
+   CNN) and at a fleet shape (N=1e6 users x M=100 and x M=33 BSs,
+   best_bs_argmax also on an snr off 16-byte alignment; the Eq. (11) solve
    on [100, 1e6] rows; FedAvg, per-BS FedAvg (M=8 and M=100, 50%-dense
    and the path's one-hot weights) and the uplink compressor over 1,000
    clients of the fc1 leaf), in float32 and over int8 codes, and times the
-   kernel, the plain version and one PyTorch call as a yardstick;
+   kernel, the plain version and one PyTorch call as a yardstick: each
+   row's ``ms`` (CUDA events around back-to-back calls), ``graph_ms`` (the
+   same calls captured in one CUDA graph and replayed: device time alone)
+   and ``host_us`` (host time of one call), the yardstick's likewise;
 4. checks small runs on the card against the same runs on the CPU (the
    plain versions): the synchronous round, hierarchical aggregation, and
    hierarchical aggregation over the top-k + int8 compressed uplink;
@@ -30,7 +36,8 @@
    a. holds kernels 7-9 (flash_attention, rmsnorm, ssd_scan) against their
       plain versions in float32 and bfloat16 at the prefill shapes B=4,
       S=512 ("main") and B=8, S=2048 ("long"), flash also at S=200 and
-      rmsnorm at the decode shape [4, 2048], with the tolerances of
+      rmsnorm at the decode shape [4, 2048], at the qk_norm width 128 and
+      on rows off 16-byte alignment, with the tolerances of
       tests/test_kernels.py, and times kernel, plain version and yardstick;
    b. runs the two reduced float32 configs of the tests on the card and on
       the CPU (prefill + 8 decode steps), within 1e-4;
@@ -52,6 +59,7 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -98,7 +106,9 @@ KERNELS = {
 
 
 def _time_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Mean device time of one call, from CUDA events around ``reps``."""
+    """Mean time of one call, from CUDA events around ``reps`` calls made
+    back to back: the device time, or the host's enqueue time where that
+    is longer (a launch-bound call)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -110,6 +120,76 @@ def _time_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _graph_ms(fn, reps: int, what: str) -> float | None:
+    """Device time of one call without the host: ``reps`` calls captured
+    in one CUDA graph, replayed between CUDA events.  None, with the
+    reason printed, where the call cannot be captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                   # warm-up off the
+        fn()                                        # capture, as advised
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except RuntimeError as err:
+        print(f"graph_ms {what}: not captured ({err})", flush=True)
+        torch.cuda.synchronize()
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def _host_us(fn, reps: int) -> float:
+    """Mean host time of one call, by perf_counter_ns over ``reps`` calls
+    with no synchronise inside the timed loop."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps / 1e3
+
+
+def _timings(kernel, label, fn, plain, lib, reps) -> dict:
+    """The timed fields of a kernel row: the wrapper's event time (``ms``),
+    its graph-replayed device time and its host time per call, the plain
+    version's event time, and the yardstick call's three times.  ``ms``
+    and ``host_us`` (the yardstick's too) are medians of three rounds,
+    the wrapper and the yardstick in turns."""
+    what = f"{kernel} {label}"
+    ms, host, lib_ms, lib_host = [], [], [], []
+    for _ in range(3):
+        ms.append(_time_ms(fn, reps))
+        host.append(_host_us(fn, reps))
+        if lib is not None:
+            lib_ms.append(_time_ms(lib, reps))
+            lib_host.append(_host_us(lib, reps))
+    row = {"ms": statistics.median(ms), "graph_ms": _graph_ms(fn, reps, what),
+           "host_us": statistics.median(host),
+           "plain_ms": _time_ms(plain, max(1, reps // 4)),
+           "library_ms": None, "library_graph_ms": None,
+           "library_host_us": None}
+    if lib is not None:
+        row.update(library_ms=statistics.median(lib_ms),
+                   library_graph_ms=_graph_ms(lib, reps, what + " yardstick"),
+                   library_host_us=statistics.median(lib_host))
+    return row
 
 
 def _bound_ms(n_bytes: float, n_ops: float,
@@ -144,6 +224,52 @@ def _close(name, got, want, exact=False, scale=None):
     return float(err.max()) if err.numel() else 0.0
 
 
+def host_costs(dev, reps: int = 2000) -> dict:
+    """Host us per call of the pieces a wrapper's launch can be made of
+    (allocating the output, a device guard, a torch.cuda.Stream object or
+    the raw stream handle, a lock, ``Tensor.device``), and of two whole
+    wrappers at their main-path shapes beside their yardstick calls."""
+    import threading
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rmsnorm as krn
+    from repro_torch.kernels import select_topk as ks
+
+    x = torch.randn((4, 2048), device=dev).to(torch.bfloat16)
+    scale = torch.ones(2048, device=dev, dtype=torch.bfloat16)
+    snr = torch.rand((50, 8), device=dev)
+    index, lock = torch.cuda.current_device(), threading.Lock()
+
+    def guard():
+        with torch.cuda.device(x.device):
+            pass
+
+    def locked():
+        with lock:
+            pass
+
+    pieces = {
+        "empty_like": lambda: torch.empty_like(x),
+        "device_guard": guard,
+        "current_stream_object": lambda: torch.cuda.current_stream(
+            x.device).cuda_stream,
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(index),
+        "current_device": torch.cuda.current_device,
+        "lock": locked,
+        "tensor_device": lambda: x.device,
+        "data_ptr": x.data_ptr,
+        "rmsnorm_wrapper_4x2048_bf16": lambda: krn.rmsnorm(x, scale),
+        "F.rms_norm_4x2048_bf16": lambda: F.rms_norm(x, (2048,), weight=scale,
+                                                     eps=1e-6),
+        "best_bs_argmax_wrapper_50x8": lambda: ks.best_bs_argmax(snr),
+        "torch.argmax_50x8": lambda: torch.argmax(snr, dim=1),
+    }
+    out = {name: _host_us(fn, reps) for name, fn in pieces.items()}
+    print(json.dumps({"host_costs_us": out}), flush=True)
+    return out
+
+
 def check_kernels(dev, fleet_users=1_000_000, fleet_bs=100,
                   fleet_clients=1000) -> dict:
     """Kernel vs plain version on the card; returns per-kernel numbers at
@@ -159,19 +285,18 @@ def check_kernels(dev, fleet_users=1_000_000, fleet_bs=100,
 
     def record(kernel, label, shape, err, fn, plain, lib, n_bytes, n_ops,
                reps, extra=None):
-        ms = _time_ms(fn, reps)
-        plain_ms = _time_ms(plain, max(1, reps // 4))
-        lib_ms = None if lib is None else _time_ms(lib, reps)
         bound, by = _bound_ms(n_bytes, n_ops)
-        row = {"name": kernel, "shape": shape, "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-               "library_ms": lib_ms, **(extra or {})}
+        row = {"name": kernel, "shape": shape, "max_abs_err": err,
+               **_timings(kernel, label, fn, plain, lib, reps),
+               "bound_ms": bound, "bound_by": by, **(extra or {})}
         results[kernel][label] = row
         print(json.dumps({"check": label, **row}), flush=True)
 
     # -- selection argmaxes (Algorithm 1 steps 1 and 3) --------------------
+    # "m33": one BS past a warp's 32 lanes (kernel 3's lane groups).
     for label, n, m, reps in (("main", 50, 8, 200),
-                              ("fleet", fleet_users, fleet_bs, 20)):
+                              ("fleet", fleet_users, fleet_bs, 20),
+                              ("m33", fleet_users, 33, 20)):
         # SNR in dB spread like the channel's, with forced exact ties
         snr = torch.pow(10.0, torch.rand((n, m), generator=gen, device=dev)
                         * 6.0 - 1.0)
@@ -197,6 +322,11 @@ def check_kernels(dev, fleet_users=1_000_000, fleet_bs=100,
 
         bb = ks.best_bs_argmax(snr)
         _close("best_bs_argmax", bb, ks.best_bs_argmax_plain(snr), exact=True)
+        off = torch.empty(n * m + 1, device=dev)[1:].view(n, m)  # 4 bytes
+        off.copy_(snr)                                  # off 16-byte align
+        _close("best_bs_argmax unaligned", ks.best_bs_argmax(off), bb,
+               exact=True)
+        del off
         record("best_bs_argmax", label, [n, m], 0.0,
                lambda: ks.best_bs_argmax(snr),
                lambda: ks.best_bs_argmax_plain(snr),
@@ -580,14 +710,11 @@ def check_lm_kernels(dev, main=(4, 512), long=(8, 2048), ragged=200,
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     def record(kernel, label, shape, err, fn, plain, lib, n_bytes, n_ops,
-               peak, reps):
-        ms = _time_ms(fn, reps)
-        plain_ms = _time_ms(plain, max(1, reps // 4))
-        lib_ms = None if lib is None else _time_ms(lib, reps)
+               peak, reps, extra=None):
         bound, by = _bound_ms(n_bytes, n_ops, peak)
-        row = {"name": kernel, "shape": shape, "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-               "library_ms": lib_ms}
+        row = {"name": kernel, "shape": shape, "max_abs_err": err,
+               **_timings(kernel, label, fn, plain, lib, reps),
+               "bound_ms": bound, "bound_by": by, **(extra or {})}
         results[kernel][label] = row
         print(json.dumps({"check": label, **row}), flush=True)
 
@@ -596,21 +723,31 @@ def check_lm_kernels(dev, main=(4, 512), long=(8, 2048), ragged=200,
         tol = 1 if dtype == torch.bfloat16 else 0
         peak = PEAK_BF16_OPS_S if dtype == torch.bfloat16 else PEAK_F32_OPS_S
 
-        # -- 8 rmsnorm: rows = B*S in prefill, B in decode -----------------
-        for label, rows, reps in (("main", main[0] * main[1], 50),
-                                  ("long", long[0] * long[1], 20),
-                                  ("decode", decode_rows, 200)):
-            x = normal((rows, d_model), dtype)
-            scale = (1.0 + 0.1 * normal((d_model,), torch.float32)).to(dtype)
+        # -- 8 rmsnorm: rows = B*S in prefill, B in decode; "qk_norm" the
+        # per-head norm of 16 heads of 128 (Qwen3, ROADMAP A.1a) at the main
+        # prompt; "unaligned" the main rows one element off 16-byte
+        # alignment (a slice of a larger buffer: the scalar path) ----------
+        for label, rows, d, offset, reps in (
+                ("main", main[0] * main[1], d_model, 0, 50),
+                ("long", long[0] * long[1], d_model, 0, 20),
+                ("decode", decode_rows, d_model, 0, 200),
+                ("qk_norm", main[0] * main[1] * 16, 128, 0, 50),
+                ("unaligned", main[0] * main[1], d_model, 1, 50)):
+            x = normal((rows * d + offset,), dtype)[offset:].view(rows, d)
+            scale = (1.0 + 0.1 * normal((d,), torch.float32)).to(dtype)
             err = _close_tol(f"rmsnorm {label}{suffix}", krn.rmsnorm(x, scale),
                              krn.rmsnorm_plain(x, scale),
                              LM_TOL["rmsnorm"][tol])
-            record("rmsnorm", label + suffix, [rows, d_model], err,
+            record("rmsnorm", label + suffix, [rows, d], err,
                    lambda: krn.rmsnorm(x, scale),
                    lambda: krn.rmsnorm_plain(x, scale),
-                   lambda: F.rms_norm(x, (d_model,), weight=scale, eps=1e-6),
-                   2 * rows * d_model * esize + d_model * esize,
-                   4.0 * rows * d_model, PEAK_F32_OPS_S, reps)
+                   lambda: F.rms_norm(x, (d,), weight=scale, eps=1e-6),
+                   2 * rows * d * esize + d * esize,
+                   4.0 * rows * d, PEAK_F32_OPS_S, reps,
+                   # a device copy of x: what one read and one write of
+                   # these bytes take on this card in practice
+                   extra={"copy_graph_ms": _graph_ms(
+                       x.clone, reps, f"rmsnorm {label}{suffix} copy")})
 
         # -- 7 flash attention: the shared block's causal self-attention ---
         for label, (b, s), reps in (("main", main, 20), ("long", long, 5),
@@ -801,19 +938,47 @@ def _device_ops(prof) -> dict:
 
 
 _LM_KERNEL_NAMES = {"flash_attention": "flash_fwd_",
-                    "rmsnorm": "rmsnorm_kernel", "ssd_scan": "ssd_scan_kernel"}
+                    "rmsnorm": "rmsnorm_", "ssd_scan": "ssd_scan_kernel"}
 _MATMUL_MARKS = ("gemm", "nvjet", "xmma", "cutlass", "matmul", "splitk")
+
+
+def _host_ms_inside(module, name: str, fn,
+                    reps: int = 5) -> tuple[float, float]:
+    """Runs ``fn`` ``reps`` times with ``module.name`` wrapped in a host
+    timer: (host ms spent inside ``module.name``, wall ms), each per run."""
+    inner = getattr(module, name)
+    spent = [0]
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter_ns()
+        out = inner(*args, **kwargs)
+        spent[0] += time.perf_counter_ns() - t0
+        return out
+
+    setattr(module, name, timed)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    finally:
+        setattr(module, name, inner)
+    return spent[0] / 1e6 / reps, wall_ms
 
 
 def profile_zamba(params, cfg, prompt, dev) -> dict:
     """One bfloat16 prefill and one decode step under torch.profiler: the
     device time of kernels 7-9, of the matmuls and of the rest, the
     device's busy share of the wall time, the number of device ops, and
-    the launches of kernels 7-9."""
+    the launches of kernels 7-9; and, from 5 unprofiled runs before that,
+    the host time spent in kernel 8's wrapper a run and its share of the
+    run's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import _lib
-    from repro_torch.models import api
+    from repro_torch.models import api, layers
 
     cache = api.init_cache(cfg, prompt.shape[0], prompt.shape[1] + 1,
                            device=dev)
@@ -824,7 +989,7 @@ def profile_zamba(params, cfg, prompt, dev) -> dict:
             ("decode_step", lambda: api.decode_step(
                 params, cfg, cache, prompt[:, :1], 0))):
         fn()                                         # warm-up
-        torch.cuda.synchronize()
+        rms_host_ms, plain_wall_ms = _host_ms_inside(layers, "rmsnorm", fn)
         _lib.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -841,6 +1006,9 @@ def profile_zamba(params, cfg, prompt, dev) -> dict:
                  if any(m in name.lower() for m in _MATMUL_MARKS))
         top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:10]
         out[label] = {"wall_ms": wall_ms, "device_busy_ms": busy,
+                      "rmsnorm_host_ms": rms_host_ms,
+                      "rmsnorm_host_share": rms_host_ms / plain_wall_ms,
+                      "unprofiled_wall_ms": plain_wall_ms,
                       "device_busy_share": busy / wall_ms,
                       "device_ops": sum(c for _, c in ops.values()),
                       "kernel_ms": kern, "matmul_ms": mm,
@@ -866,16 +1034,21 @@ def kernel_rows(results: dict, launches: dict) -> list:
             "replaces": replaces, "launches": launches[path][name],
             "launches_path": path,
             "launches_by_path": {p: c[name] for p, c in launches.items()},
-            "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
-            "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-            "bound_by": main_row["bound_by"],
-            "library_ms": main_row["library_ms"], "shape": main_row["shape"],
+            **{k: main_row[k] for k in (
+                "max_abs_err", "ms", "graph_ms", "host_us", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "library_graph_ms",
+                "library_host_us", "shape")},
             **{label: {k: v for k, v in row.items() if k != "name"}
                for label, row in results[name].items() if label != "main"}})
     return rows
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    kernels_only = argv == ["--kernels"]
+    if argv and not kernels_only:
+        print(f"chip_smoke: unknown arguments {argv}; takes none, or "
+              f"--kernels", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -902,8 +1075,11 @@ def main() -> int:
     print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"from {_lib.CSRC}", flush=True)
 
+    host_costs(dev)
     results = check_kernels(dev)
     results.update(check_lm_kernels(dev))
+    if kernels_only:
+        return 0
     check_small_runs(dev)
     check_zamba_small(dev)
     sims, launches = {}, {}
@@ -927,4 +1103,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -24,8 +24,22 @@
 // total order, so the result does not depend on the merge order and equals
 // the block-order strictly-greater combine of the TPU kernel.
 //
-// best_bs_argmax: one thread per user scans its M columns with a strictly-
-// greater update, so the lowest column wins ties.
+// best_bs_argmax.  The TPU kernel (`_rowmax_kernel`) takes a block of user
+// rows and reduces each along its M columns.  Here a group of G lanes (a
+// power of two <= 32) takes one row: lane j reads columns j, j + G, ...,
+// so a group reads G neighbouring floats a load, and the 32 / G rows a warp
+// holds are neighbours in the plane.  Each lane issues C column loads for
+// each of U rows (C * U = 8) before it compares any and keeps the first
+// maximum of its columns; the group then merges under (value descending,
+// index ascending), so ties go to the lowest column as in jnp.argmax: a
+// whole warp by two redux.sync reductions (the largest value as an
+// order-preserving integer key, then the lowest column holding it), a
+// smaller group by xor shuffles.  A merge costs the warp the same shuffles
+// whether it serves one row or 32 / G, so G is as small as 8 loads a lane
+// allow: about M / 8 (on the H100, a sweep over G, C and U put this shape
+// first at M = 33, 100, 257 and 1024).  The wrapper picks G, C and U
+// (select_topk.py:best_bs_plan).  A row of -inf gives 0, as torch.argmax
+// does.
 #include <limits.h>
 
 #include "common.cuh"
@@ -117,22 +131,93 @@ masked_argmax_combine(const float* __restrict__ part_val,
 
 constexpr int kRowThreads = 256;
 
+// An integer key that orders as the float does (-0 as +0; no NaN).
+__device__ __forceinline__ unsigned ordered_key(float v) {
+  const unsigned u = __float_as_uint(v + 0.0f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// The lowest column holding the group's largest value, handed to every
+// lane of the group.  A whole warp reduces with redux.sync; a smaller
+// group by xor shuffles under (value descending, index ascending).
+template <int G>
+__device__ __forceinline__ int group_argmax(float best, int idx) {
+  if constexpr (G == 32) {
+    const unsigned key = ordered_key(best);
+    const unsigned top = __reduce_max_sync(0xffffffffu, key);
+    return __reduce_min_sync(0xffffffffu, key == top ? idx : INT_MAX);
+  } else {
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, best, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, idx, o);
+      if (better(ov, oi, best, idx)) {
+        best = ov;
+        idx = oi;
+      }
+    }
+    return idx;
+  }
+}
+
+// G lanes a row, C column loads a lane and pass, U rows a lane group.
+template <int G, int C, int U>
 __global__ void __launch_bounds__(kRowThreads)
 best_bs_kernel(const float* __restrict__ snr, int n, int m,
                int* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float* row = snr + (long long)i * m;
-  float best = row[0];
-  int bidx = 0;
-  for (int j = 1; j < m; ++j) {
-    const float v = row[j];
-    if (v > best) {
-      best = v;
-      bidx = j;
+  constexpr int kPerLoad = 32 / G;  // rows one load of the warp covers
+  const int lane = threadIdx.x & 31;
+  const int j = lane & (G - 1);
+  const long long warp =
+      ((long long)blockIdx.x * kRowThreads + threadIdx.x) >> 5;
+  const long long row0 = warp * (kPerLoad * U) + lane / G;
+  const float* base = snr + row0 * m;
+  bool live[U];
+  float best[U];
+  int bidx[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    live[u] = row0 + u * kPerLoad < n;
+    best[u] = -INFINITY;
+    bidx[u] = m;  // "no column yet": past every column
+  }
+  for (int c0 = j; c0 < m; c0 += C * G) {
+    float v[U][C];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {  // every load issues before any compare
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        const int c = c0 + k * G;
+        v[u][k] = live[u] && c < m
+                      ? __ldg(base + (long long)(u * kPerLoad) * m + c)
+                      : -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int k = 0; k < C; ++k) {  // columns rise: the first max stays
+        if (v[u][k] > best[u]) {
+          best[u] = v[u][k];
+          bidx[u] = c0 + k * G;
+        }
+      }
     }
   }
-  out[i] = bidx;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int i = group_argmax<G>(best[u], bidx[u]);
+    if (j == 0 && live[u]) out[row0 + u * kPerLoad] = i < m ? i : 0;
+  }
+}
+
+template <int G, int C, int U>
+int launch_best_bs(const float* snr, int n, int m, int* out,
+                   cudaStream_t s) {
+  constexpr int kRowsPerBlock = kRowThreads / G * U;
+  const int blocks = (n + kRowsPerBlock - 1) / kRowsPerBlock;
+  best_bs_kernel<G, C, U><<<blocks, kRowThreads, 0, s>>>(snr, n, m, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -156,10 +241,28 @@ extern "C" int masked_bs_argmax_f32(const float* snr, const uint8_t* remaining,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int best_bs_argmax_f32(const float* snr, int n, int m, int* out,
+// lanes = G, chunks = C, rows = U as select_topk.py:best_bs_plan gives
+// them: C * U = 8, and C = 8 when G > 1.
+extern "C" int best_bs_argmax_f32(const float* snr, int n, int m, int lanes,
+                                  int chunks, int rows, int* out,
                                   void* stream) {
-  const int blocks = (n + kRowThreads - 1) / kRowThreads;
-  best_bs_kernel<<<blocks, kRowThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      snr, n, m, out);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chunks * rows != 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (lanes == 1) {
+    switch (chunks) {
+      case 1: return launch_best_bs<1, 1, 8>(snr, n, m, out, s);
+      case 2: return launch_best_bs<1, 2, 4>(snr, n, m, out, s);
+      case 4: return launch_best_bs<1, 4, 2>(snr, n, m, out, s);
+      case 8: return launch_best_bs<1, 8, 1>(snr, n, m, out, s);
+    }
+  } else if (chunks == 8) {
+    switch (lanes) {
+      case 2: return launch_best_bs<2, 8, 1>(snr, n, m, out, s);
+      case 4: return launch_best_bs<4, 8, 1>(snr, n, m, out, s);
+      case 8: return launch_best_bs<8, 8, 1>(snr, n, m, out, s);
+      case 16: return launch_best_bs<16, 8, 1>(snr, n, m, out, s);
+      case 32: return launch_best_bs<32, 8, 1>(snr, n, m, out, s);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

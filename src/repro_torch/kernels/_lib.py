@@ -12,6 +12,13 @@ CPU-only tests import every module freely.
 Each kernel wrapper adds one to its entry of :data:`LAUNCHES` where it
 launches its kernel, so a run can show that its main path went through the
 kernels; :func:`reset_launches` zeroes the counts.
+
+The launch path is kept short, since the wrappers run once per layer on
+the serving path: :func:`launch` calls an entry point resolved once (no
+lock and no attribute lookup after the first load), passes the raw handle
+of the device's current stream (no ``torch.cuda.Stream`` object), and
+enters a device guard only when the tensors' device is not the current
+one.
 """
 from __future__ import annotations
 
@@ -40,14 +47,15 @@ LAUNCHES = {"bandwidth_solve": 0, "masked_bs_argmax": 0,
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _SIGNATURES = {
-    **{f"rmsnorm_{t}": (_P, _P, _P, _LL, _I, _F, _P) for t in ("f32", "bf16")},
+    **{f"rmsnorm_{t}": (_P, _P, _P, _LL, _I, _F, _I, _I, _I, _P)
+       for t in ("f32", "bf16")},
     **{f"flash_attention_{t}": (_P, _P, _P, _P) + (_I,) * 7 + (_F, _P)
        for t in ("f32", "bf16")},
     **{f"ssd_scan_{t}": (_P,) * 6 + (_I,) * 7 + (_P,)
        for t in ("f32", "bf16")},
     "bandwidth_solve_f32": (_P, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "masked_bs_argmax_f32": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
-    "best_bs_argmax_f32": (_P, _I, _I, _P, _P),
+    "best_bs_argmax_f32": (_P, _I, _I, _I, _I, _I, _P, _P),
     "fedavg_reduce_f32": (_P, _P, _LL, _LL, _P, _P),
     "fedavg_reduce_i8": (_P, _P, _LL, _LL, _P, _P),
     "fedavg_segment_reduce_f32": (_P, _P, _LL, _I, _LL, _P, _P),
@@ -57,6 +65,7 @@ _SIGNATURES = {
 
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
+_entries: dict[str, ctypes._CFuncPtr] = {}  # name -> resolved entry point
 
 
 def reset_launches() -> None:
@@ -120,8 +129,11 @@ def _build(out: Path, srcs: list[Path]) -> None:
 
 
 def library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first use."""
+    """The kernels' shared library, built and loaded on first use, with
+    every entry point of ``_SIGNATURES`` resolved and typed."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             srcs, digest = _sources()
@@ -133,8 +145,26 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = list(args)
                 fn.restype = ctypes.c_int
+                _entries[name] = fn
             _lib = lib
     return _lib
+
+
+def launch(name: str, index: int, *args) -> None:
+    """Calls the C entry point ``name`` with ``args`` and the current
+    stream of CUDA device ``index``; raises if it returns an error (a
+    launch the runtime refused)."""
+    fn = _entries.get(name)
+    if fn is None:
+        library()
+        fn = _entries[name]
+    if torch._C._cuda_getDevice() == index:
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if rc:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -151,13 +181,26 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
                      f"on the CPU, got {sorted(kinds)}")
 
 
-def stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def cuda_index(*tensors: torch.Tensor) -> int | None:
+    """The index of the CUDA device every tensor lies on, or None when all
+    lie on the CPU (the plain version's device); raises on anything else,
+    as :func:`on_cuda` does."""
+    first = tensors[0]
+    if first.is_cuda:
+        index = first.get_device()
+        for t in tensors:
+            if not t.is_cuda or t.get_device() != index:
+                break
+        else:
+            return index
+    on_cuda(*tensors)                   # raises unless all lie on the CPU
+    return None
 
 
-def check(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+def pow2_ceil(v: int) -> int:
+    """The least power of two >= v (v >= 1): launch shapes of the kernels
+    templated on one."""
+    return 1 << (v - 1).bit_length()
 
 
 # The storage types of the kernels templated on float32 and bfloat16, by
@@ -176,7 +219,7 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
     """Validate a kernel operand before its pointer crosses into C."""
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():

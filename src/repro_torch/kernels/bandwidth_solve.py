@@ -69,7 +69,8 @@ def bandwidth_solve(coeff: torch.Tensor, tcomp: torch.Tensor,
     CUDA operands must be float32 (mask bool) and contiguous.
     """
     operands = [coeff, tcomp, mask, bw] + ([] if lo is None else [lo])
-    if not _lib.on_cuda(*operands):
+    index = _lib.cuda_index(*operands)
+    if index is None:
         return bandwidth_solve_plain(coeff, tcomp, mask, bw, lo=lo,
                                      iters=iters, method=method)
     method_default = default_iters(method)
@@ -88,12 +89,9 @@ def bandwidth_solve(coeff: torch.Tensor, tcomp: torch.Tensor,
         lo = torch.zeros((k,), dtype=torch.float32, device=coeff.device)
     _lib.require(lo, "lo", torch.float32, (k,))
     out = torch.empty((k,), dtype=torch.float32, device=coeff.device)
-    lib = _lib.library()
-    with torch.cuda.device(coeff.device):
-        rc = lib.bandwidth_solve_f32(
-            coeff.data_ptr(), tcomp.data_ptr(), tc_stride, mask.data_ptr(),
-            bw.data_ptr(), lo.data_ptr(), out.data_ptr(), k, u, iters,
-            int(method == "bisect"), _lib.stream(coeff))
-    _lib.check(rc, "bandwidth_solve")
+    _lib.launch("bandwidth_solve_f32", index, coeff.data_ptr(),
+                tcomp.data_ptr(), tc_stride, mask.data_ptr(), bw.data_ptr(),
+                lo.data_ptr(), out.data_ptr(), k, u, iters,
+                int(method == "bisect"))
     _lib.LAUNCHES["bandwidth_solve"] += 1
     return out

@@ -107,7 +107,8 @@ def sparsify_quantize(x: torch.Tensor, thresh: torch.Tensor,
     if quantize and u is None:
         raise ValueError("quantize=True needs the rounding noise u")
     args = (x, thresh, scale) + ((u,) if quantize else ())
-    if not _lib.on_cuda(*args):
+    index = _lib.cuda_index(*args)
+    if index is None:
         return sparsify_quantize_plain(x, thresh, scale, u, quantize=quantize)
     n, d = x.shape
     _lib.require(x, "x", torch.float32, (n, d))
@@ -117,12 +118,10 @@ def sparsify_quantize(x: torch.Tensor, thresh: torch.Tensor,
         _lib.require(u, "u", torch.float32, (n, d))
     out = torch.empty((n, d), device=x.device,
                       dtype=torch.int8 if quantize else torch.float32)
-    with torch.cuda.device(x.device):
-        rc = _lib.library().sparsify_quantize_f32(
-            x.data_ptr(), thresh.data_ptr(), scale.data_ptr(),
-            u.data_ptr() if quantize else None, n, d, int(quantize),
-            out.data_ptr(), _lib.stream(x))
-    _lib.check(rc, "sparsify_quantize")
+    _lib.launch("sparsify_quantize_f32", index, x.data_ptr(),
+                thresh.data_ptr(), scale.data_ptr(),
+                u.data_ptr() if quantize else None, n, d, int(quantize),
+                out.data_ptr())
     _lib.LAUNCHES["sparsify_quantize"] += 1
     return out
 

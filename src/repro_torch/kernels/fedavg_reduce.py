@@ -50,27 +50,26 @@ def _x_kind(x: torch.Tensor) -> str:
 def reduce_leaf(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """w [N] float32, x [N, D] float32 or int8 -> [D] float32 weighted sum
     of the screened rows (non-finite entries count as 0)."""
-    if not _lib.on_cuda(w, x):
+    index = _lib.cuda_index(w, x)
+    if index is None:
         return reduce_leaf_plain(w, x)
     n, d = x.shape
     kind = _x_kind(x)
     _lib.require(w, "w", torch.float32, (n,))
     _lib.require(x, "x", x.dtype, (n, d))
     out = torch.empty((d,), dtype=torch.float32, device=x.device)
-    fn = getattr(_lib.library(), f"fedavg_reduce_{kind}")
-    with torch.cuda.device(x.device):
-        rc = fn(w.data_ptr(), x.data_ptr(), n, d, out.data_ptr(),
-                _lib.stream(x))
-    name = "fedavg_reduce_int8" if kind == "i8" else "fedavg_reduce"
-    _lib.check(rc, name)
-    _lib.LAUNCHES[name] += 1
+    _lib.launch(f"fedavg_reduce_{kind}", index, w.data_ptr(), x.data_ptr(),
+                n, d, out.data_ptr())
+    _lib.LAUNCHES["fedavg_reduce_int8" if kind == "i8"
+                  else "fedavg_reduce"] += 1
     return out
 
 
 def segment_reduce_leaf(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """w [N, M] float32, x [N, D] float32 or int8 -> [M, D] float32 per-BS
     weighted sums of the screened rows."""
-    if not _lib.on_cuda(w, x):
+    index = _lib.cuda_index(w, x)
+    if index is None:
         return segment_reduce_leaf_plain(w, x)
     n, d = x.shape
     m = w.shape[1] if w.dim() == 2 else -1
@@ -78,14 +77,10 @@ def segment_reduce_leaf(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     _lib.require(w, "w", torch.float32, (n, m))
     _lib.require(x, "x", x.dtype, (n, d))
     out = torch.empty((m, d), dtype=torch.float32, device=x.device)
-    fn = getattr(_lib.library(), f"fedavg_segment_reduce_{kind}")
-    with torch.cuda.device(x.device):
-        rc = fn(w.data_ptr(), x.data_ptr(), n, m, d, out.data_ptr(),
-                _lib.stream(x))
-    name = ("fedavg_segment_reduce_int8" if kind == "i8"
-            else "fedavg_segment_reduce")
-    _lib.check(rc, name)
-    _lib.LAUNCHES[name] += 1
+    _lib.launch(f"fedavg_segment_reduce_{kind}", index, w.data_ptr(),
+                x.data_ptr(), n, m, d, out.data_ptr())
+    _lib.LAUNCHES["fedavg_segment_reduce_int8" if kind == "i8"
+                  else "fedavg_segment_reduce"] += 1
     return out
 
 

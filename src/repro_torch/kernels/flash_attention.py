@@ -50,7 +50,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal and s != t:
         raise ValueError(f"causal flash_attention needs S == T (the kernel's "
                          f"mask is start-aligned), got S={s}, T={t}")
-    if not _lib.on_cuda(q, k, v):
+    index = _lib.cuda_index(q, k, v)
+    if index is None:
         return flash_attention_plain(q, k, v, causal=causal)
     kind = _lib.float_kind(q, "q")
     if d not in HEAD_DIMS or kv < 1 or h % kv:
@@ -65,10 +66,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # The bf16 kernel reads through TMA, which needs 16-byte aligned bases.
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     scale = 1.0 / math.sqrt(d)
-    with torch.cuda.device(q.device):
-        rc = getattr(_lib.library(), f"flash_attention_{kind}")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t,
-            h, kv, d, int(causal), scale, _lib.stream(q))
-    _lib.check(rc, "flash_attention")
+    _lib.launch(f"flash_attention_{kind}", index, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), b, s, t, h, kv, d, int(causal),
+                scale)
     _lib.LAUNCHES["flash_attention"] += 1
     return out

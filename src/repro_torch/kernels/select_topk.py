@@ -10,12 +10,15 @@ kernels are not ported yet.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import _lib
 
 _BLOCK_ELEMS = 65536        # snr entries one pass-1 block scans
 _MAX_BS = 1024
+_LOADS_IN_FLIGHT = 8        # per lane, in best_bs_argmax's kernel
 
 
 def masked_bs_argmax_plain(snr: torch.Tensor, remaining: torch.Tensor
@@ -37,12 +40,26 @@ def _pass1_shape(m: int) -> tuple[int, int]:
     return m * subs, rows
 
 
+@functools.lru_cache(maxsize=256)     # called once a launch, on the host
+def best_bs_plan(m: int) -> tuple[int, int, int]:
+    """(lanes, chunks, rows) of best_bs_argmax's kernel for M BSs: a group
+    of ``lanes`` lanes (a power of two, at most a warp) reads a row's
+    columns side by side, so 32 / lanes rows share a warp; each lane issues
+    ``chunks`` column loads for each of ``rows`` rows (chunks x rows = 8
+    loads in flight) before it compares.  A group's merge costs shuffles
+    whatever its width, so lanes is as few as 8 loads a lane allow."""
+    lanes = min(32, _lib.pow2_ceil(-(-m // _LOADS_IN_FLIGHT)))
+    chunks = min(_LOADS_IN_FLIGHT, _lib.pow2_ceil(-(-m // lanes)))
+    return lanes, chunks, _LOADS_IN_FLIGHT // chunks
+
+
 def masked_bs_argmax(snr: torch.Tensor, remaining: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """snr [N, M] float32, remaining [N] bool -> (cand [M] int32, best [M]
     float32): the best remaining user per BS and its SNR (-inf where no
     user remains)."""
-    if not _lib.on_cuda(snr, remaining):
+    index = _lib.cuda_index(snr, remaining)
+    if index is None:
         return masked_bs_argmax_plain(snr, remaining)
     n, m = snr.shape
     _lib.require(snr, "snr", torch.float32, (n, m))
@@ -57,30 +74,27 @@ def masked_bs_argmax(snr: torch.Tensor, remaining: torch.Tensor
     part_idx = torch.empty((n_blocks, m), dtype=torch.int32, device=dev)
     cand = torch.empty((m,), dtype=torch.int32, device=dev)
     best = torch.empty((m,), dtype=torch.float32, device=dev)
-    lib = _lib.library()
-    with torch.cuda.device(dev):
-        rc = lib.masked_bs_argmax_f32(
-            snr.data_ptr(), remaining.data_ptr(), n, m, threads, rows,
-            part_val.data_ptr(), part_idx.data_ptr(), cand.data_ptr(),
-            best.data_ptr(), _lib.stream(snr))
-    _lib.check(rc, "masked_bs_argmax")
+    _lib.launch("masked_bs_argmax_f32", index, snr.data_ptr(),
+                remaining.data_ptr(), n, m, threads, rows,
+                part_val.data_ptr(), part_idx.data_ptr(), cand.data_ptr(),
+                best.data_ptr())
     _lib.LAUNCHES["masked_bs_argmax"] += 1
     return cand, best
 
 
 def best_bs_argmax(snr: torch.Tensor) -> torch.Tensor:
     """snr [N, M] float32 -> [N] int32 best-channel BS per user."""
-    if not _lib.on_cuda(snr):
+    index = _lib.cuda_index(snr)
+    if index is None:
         return best_bs_argmax_plain(snr)
     n, m = snr.shape
     _lib.require(snr, "snr", torch.float32, (n, m))
     if m < 1:
         raise ValueError("best_bs_argmax needs M >= 1")
-    out = torch.empty((n,), dtype=torch.int32, device=snr.device)
-    lib = _lib.library()
-    with torch.cuda.device(snr.device):
-        rc = lib.best_bs_argmax_f32(snr.data_ptr(), n, m, out.data_ptr(),
-                                    _lib.stream(snr))
-    _lib.check(rc, "best_bs_argmax")
+    out = snr.new_empty((n,), dtype=torch.int32)
+    if n == 0:
+        return out
+    _lib.launch("best_bs_argmax_f32", index, snr.data_ptr(), n, m,
+                *best_bs_plan(m), out.data_ptr())
     _lib.LAUNCHES["best_bs_argmax"] += 1
     return out

@@ -37,7 +37,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if s % chunk:
         raise ValueError(f"ssd_scan needs S a multiple of the chunk, got "
                          f"S={s}, chunk={chunk}")
-    if not _lib.on_cuda(x, dt, A, B, C):
+    index = _lib.cuda_index(x, dt, A, B, C)
+    if index is None:
         return ssd_scan_plain(x, dt, A, B, C, chunk)
     kind = _lib.float_kind(x, "x")
     if g < 1 or h % g:
@@ -55,11 +56,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y
-    with torch.cuda.device(x.device):
-        rc = getattr(_lib.library(), f"ssd_scan_{kind}")(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), b, s, h, g, n, p, chunk,
-            _lib.stream(x))
-    _lib.check(rc, "ssd_scan")
+    _lib.launch(f"ssd_scan_{kind}", index, x.data_ptr(), dt.data_ptr(),
+                A.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(), b, s,
+                h, g, n, p, chunk)
     _lib.LAUNCHES["ssd_scan"] += 1
     return y

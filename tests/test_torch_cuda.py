@@ -72,7 +72,9 @@ def test_bandwidth_solve(dev, k, u, method):
 
 
 @pytest.mark.parametrize("n,m", [(50, 8), (1, 1), (37, 5), (70000, 100),
-                                 (3000, 300)])
+                                 (3000, 300), (1001, 1), (1001, 2), (1001, 3),
+                                 (1001, 31), (1001, 32), (1001, 33),
+                                 (999, 257), (1001, 1024)])
 def test_selection_argmaxes(dev, n, m):
     rs = _rs(n + m)
     snr = torch.tensor(10.0 ** rs.uniform(-1, 5, (n, m)), dtype=torch.float32,
@@ -212,6 +214,75 @@ def test_sparsify_quantize_exact(dev, quantize, n, d, k):
     assert bool((got[1] == 0).all())
 
 
+@pytest.mark.parametrize("m", [1, 2, 3, 8, 31, 32, 33, 100, 257, 1024])
+def test_best_bs_argmax_ties_and_unaligned(dev, m):
+    """Exact ties inside one lane's columns (c and c + lanes) and across
+    lanes (c and c + 1), a row of one value and one of -inf, odd N, and an
+    snr 4 bytes off 16-byte alignment; each eager call adds one launch."""
+    n = 2049
+    rs = _rs(m)
+    snr = torch.tensor(10.0 ** rs.uniform(-1, 5, (n, m)), dtype=torch.float32,
+                       device=dev)
+    lanes = ks.best_bs_plan(m)[0]
+    top = snr.max(dim=1).values * 2
+    for r in range(0, n - 1, 7):
+        c = r % m
+        c2 = c + (lanes if r % 2 == 0 else 1)
+        if c2 < m:
+            snr[r, c] = snr[r, c2] = top[r]
+    snr[n - 1] = 5.0
+    snr[n - 2] = float("-inf")                  # torch.argmax gives 0
+    want = ks.best_bs_argmax_plain(snr)
+    before = _lib.LAUNCHES["best_bs_argmax"]
+    assert torch.equal(ks.best_bs_argmax(snr), want)
+    assert _lib.LAUNCHES["best_bs_argmax"] == before + 1
+    off = torch.empty(n * m + 1, device=dev)[1:].view(n, m)
+    off.copy_(snr)
+    assert off.data_ptr() % 16 == 4
+    assert torch.equal(ks.best_bs_argmax(off), want)
+    assert _lib.LAUNCHES["best_bs_argmax"] == before + 2
+
+
+def _replayed(fn, reps=3):
+    """``reps`` calls of ``fn`` captured in one CUDA graph: the outputs of
+    a replay, and the launches counted while capturing."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = dict(_lib.LAUNCHES)
+    with torch.cuda.graph(graph):
+        outs = [fn() for _ in range(reps)]
+    counted = {k: v - before[k] for k, v in _lib.LAUNCHES.items()
+               if v != before[k]}
+    for o in outs:
+        o.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    return outs, counted
+
+
+def test_graph_capture_matches_eager(dev):
+    snr = torch.rand((1001, 33), device=dev)
+    outs, counted = _replayed(lambda: ks.best_bs_argmax(snr))
+    assert counted == {"best_bs_argmax": 3}
+    want = ks.best_bs_argmax(snr)
+    assert all(torch.equal(o, want) for o in outs)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for dtype, shape in ((torch.bfloat16, (4, 2048)),   # the three paths
+                         (torch.float32, (37, 128)),
+                         (torch.bfloat16, (3, 8192)),
+                         (torch.bfloat16, (5, 100))):
+        x = _normal(gen, shape, dev, dtype)
+        scale = (1.0 + 0.1 * _normal(gen, shape[-1:], dev)).to(dtype)
+        outs, counted = _replayed(lambda: krn.rmsnorm(x, scale))
+        assert counted == {"rmsnorm": 3}
+        want = krn.rmsnorm(x, scale)
+        assert all(torch.equal(o, want) for o in outs)
+
+
 def test_wrappers_validate_and_count(dev):
     before = _lib.LAUNCHES["best_bs_argmax"]
     ks.best_bs_argmax(torch.rand((5, 3), device=dev))
@@ -297,7 +368,9 @@ def _normal(gen, shape, dev, dtype=torch.float32):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 2048), (16384, 2048), (4, 1, 2048),
-                                   (3, 7, 256), (1000, 512)])
+                                   (3, 7, 256), (1000, 512), (33, 64),
+                                   (37, 128), (9, 200), (2, 5, 4096),
+                                   (7, 8192), (1, 6)])
 def test_rmsnorm(dev, dtype, shape):
     gen = torch.Generator(device=dev).manual_seed(sum(shape))
     x = _normal(gen, shape, dev, dtype)
@@ -307,6 +380,26 @@ def test_rmsnorm(dev, dtype, shape):
     assert _lib.LAUNCHES["rmsnorm"] == before + 1
     assert got.dtype == dtype and got.shape == x.shape
     _assert_close(got, krn.rmsnorm_plain(x, scale), "rmsnorm", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 2])
+@pytest.mark.parametrize("d", [128, 2048])
+def test_rmsnorm_unaligned(dev, dtype, offset, d):
+    """Contiguous x and scale whose data_ptr is ``offset`` entries (2 or 4
+    bytes in bfloat16, 4 or 8 in float32) off 16-byte alignment: slices
+    of larger buffers take the scalar path."""
+    gen = torch.Generator(device=dev).manual_seed(d + offset)
+    rows = 37
+    x = _normal(gen, (rows * d + offset,), dev, dtype)[offset:].view(rows, d)
+    scale = (1.0 + 0.1 * _normal(gen, (d + offset,), dev)).to(dtype)[offset:]
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    before = _lib.LAUNCHES["rmsnorm"]
+    got = krn.rmsnorm(x, scale)
+    assert _lib.LAUNCHES["rmsnorm"] == before + 1
+    _assert_close(got, krn.rmsnorm_plain(x, scale), "rmsnorm", dtype)
+    got_x = krn.rmsnorm(x, scale.clone())      # only x off alignment
+    _assert_close(got_x, krn.rmsnorm_plain(x, scale), "rmsnorm", dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -108,6 +108,72 @@ def test_best_bs_argmax_matches_pallas_exactly(n, m, seed):
                                   np.asarray(ref.best_bs_argmax(snr)))
 
 
+# The launch shape of best_bs_argmax's CUDA kernel: (lanes per row, column
+# loads a lane makes per row and pass, rows in flight per lane group).
+@pytest.mark.parametrize("m,want", [(1, (1, 1, 8)), (2, (1, 2, 4)),
+                                    (3, (1, 4, 2)), (8, (1, 8, 1)),
+                                    (9, (2, 8, 1)), (31, (4, 8, 1)),
+                                    (32, (4, 8, 1)), (33, (8, 8, 1)),
+                                    (100, (16, 8, 1)), (257, (32, 8, 1)),
+                                    (1024, (32, 8, 1))])
+def test_best_bs_plan(m, want):
+    assert ks.best_bs_plan(m) == want
+
+
+def test_best_bs_plan_is_launchable():
+    """Every M gives a shape csrc/select_topk.cu instantiates: a power-of-
+    two group of at most a warp, 8 loads a lane, 8 column loads unless the
+    group is one lane, and one pass over the row unless M > 256."""
+    for m in range(1, 4097):
+        lanes, chunks, rows = ks.best_bs_plan(m)
+        assert lanes & (lanes - 1) == 0 and 1 <= lanes <= 32
+        assert chunks * rows == 8 and chunks in (1, 2, 4, 8)
+        assert lanes == 1 or chunks == 8
+        assert lanes * chunks >= m or lanes == 32
+
+
+def _lane_group_argmax(snr: np.ndarray, lanes: int) -> np.ndarray:
+    """best_bs_argmax's CUDA kernel in numpy: lane j of a row's group keeps
+    the first maximum of columns j, j + lanes, ... (M while it has none);
+    the group takes the largest value, then the lowest column holding it,
+    and a row with no column taken gives 0."""
+    n, m = snr.shape
+    best = np.full((n, lanes), -np.inf, np.float32)
+    idx = np.full((n, lanes), m, np.int64)
+    for j in range(lanes):
+        for c in range(j, m, lanes):
+            take = snr[:, c] > best[:, j]
+            best[take, j], idx[take, j] = snr[take, c], c
+    top = best.max(axis=1, keepdims=True)
+    i = np.where(best == top, idx, np.iinfo(np.int32).max).min(axis=1)
+    return np.where(i < m, i, 0).astype(np.int32)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 8, 31, 32, 33, 100, 257])
+def test_best_bs_lane_groups_match_pallas_exactly(m):
+    """The kernel's lane-group order on ties: a row's maximum repeated in
+    one lane's columns (c and c + lanes), in two lanes' (c and c + 1), a
+    row of one value throughout and a row of -inf, each to its lowest
+    column."""
+    n = 37
+    rs = np.random.default_rng(m)
+    snr = (10.0 ** rs.uniform(-1, 5, (n, m))).astype(np.float32)
+    snr[:, m - 1] = snr[:, 0]                    # tied BSs
+    lanes = ks.best_bs_plan(m)[0]
+    top = snr.max(axis=1) * np.float32(2)
+    for r in range(n - 1):
+        c = r % m
+        c2 = c + (lanes if r % 3 == 0 else 1)     # same lane / next lane
+        if r % 3 != 2 and c2 < m:
+            snr[r, c] = snr[r, c2] = top[r]
+    snr[n - 1] = np.float32(5.0)
+    snr[n - 2] = -np.inf                         # torch.argmax gives 0
+    want = np.asarray(j_best(snr, user_block=16))
+    np.testing.assert_array_equal(_lane_group_argmax(snr, lanes), want)
+    np.testing.assert_array_equal(want, np.asarray(ref.best_bs_argmax(snr)))
+    np.testing.assert_array_equal(ks.best_bs_argmax(T(snr)).numpy(), want)
+
+
 def _fleet_params(seed, n):
     rs = np.random.default_rng(seed)
     g = {"a": {"w": rs.normal(size=(3, 3, 1, 4)).astype(np.float32),

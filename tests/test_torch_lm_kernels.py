@@ -61,6 +61,83 @@ def test_rmsnorm_matches_pallas_and_oracle(shape, dtype):
     _close(got, ref.rmsnorm(xj, sj), tol)
 
 
+# The CUDA kernel's path for rows of d entries: (path, lanes per row,
+# vectors per lane); "aligned": x and scale start on a 16-byte boundary.
+@pytest.mark.parametrize("dtype,d,aligned,want", [
+    ("float32", 2048, True, ("rows", 32, 16)),
+    ("bfloat16", 2048, True, ("rows", 32, 8)),
+    ("bfloat16", 4096, True, ("rows", 32, 16)),
+    ("float32", 4096, True, ("wide", 0, 0)),
+    ("bfloat16", 8192, True, ("wide", 0, 0)),
+    ("bfloat16", 128, True, ("rows", 16, 1)),
+    ("float32", 128, True, ("rows", 32, 1)),
+    ("bfloat16", 64, True, ("rows", 8, 1)),
+    ("float32", 64, True, ("rows", 16, 1)),
+    ("bfloat16", 200, True, ("rows", 32, 1)),
+    ("float32", 200, True, ("rows", 32, 2)),
+    ("float32", 4, True, ("rows", 1, 1)),
+    ("bfloat16", 2048, False, ("scalar", 32, 1)),
+    ("float32", 2048, False, ("scalar", 32, 1)),
+    ("bfloat16", 100, True, ("scalar", 32, 1)),
+    ("float32", 6, True, ("scalar", 32, 1)),
+])
+def test_rmsnorm_plan(dtype, d, aligned, want):
+    td = DTYPES[dtype][1]
+    plan = krn.rmsnorm_plan(td, d, aligned)
+    assert plan == want
+    path, lanes, vecs = plan
+    if path == "rows":
+        per_vec = krn.VEC_BYTES // td.itemsize
+        assert lanes * vecs * per_vec >= d                 # the row fits
+        assert lanes * vecs * per_vec < 2 * d or lanes == 1 or vecs == 1
+        assert vecs <= krn.MAX_VECS_PER_LANE
+
+
+def _rows_path(x: torch.Tensor, scale: torch.Tensor, lanes: int, vecs: int,
+               eps: float = 1e-6) -> torch.Tensor:
+    """csrc/rmsnorm.cu's "rows" path on the CPU: lane j of a row's group sums
+    the squares of its 16-byte vectors j, j + lanes, ... (each vector by
+    fused multiply-adds: float64, rounded to float32 each step), the group
+    totals by xor shuffles, and (x * r) * scale rounds once to x's dtype."""
+    rows, d = x.shape
+    per_vec = krn.VEC_BYTES // x.element_size()
+    nvec = d // per_vec
+    xf = x.float().reshape(rows, nvec, per_vec)
+    lane_ss = torch.zeros((rows, lanes), dtype=torch.float32)
+    for k in range(vecs):
+        for j in range(min(lanes, nvec - k * lanes)):
+            vs = torch.zeros(rows, dtype=torch.float64)
+            for e in range(per_vec):
+                f = xf[:, j + k * lanes, e].double()
+                vs = (f * f + vs).float().double()
+            lane_ss[:, j] += vs.float()
+    o = lanes // 2
+    while o:
+        lane_ss = lane_ss + lane_ss[:, torch.arange(lanes) ^ o]
+        o //= 2
+    assert torch.equal(lane_ss, lane_ss[:, :1].expand(rows, lanes))
+    r = torch.rsqrt(lane_ss[:, :1] / d + eps)
+    return ((xf.reshape(rows, d) * r) * scale.float()).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128, 200, 2048])
+def test_rmsnorm_rows_path_order_within_gate(d, dtype):
+    """The kernel's summation order and rounding meet the Pallas kernel's
+    gate: the "rows" path emulated against Pallas (interpret) and the jnp
+    oracle."""
+    rs = np.random.default_rng(d)
+    xj, xt = _both(rs.normal(size=(13, d)).astype(np.float32), dtype)
+    sj, st = _both((1.0 + 0.1 * rs.normal(size=(d,))).astype(np.float32),
+                   dtype)
+    path, lanes, vecs = krn.rmsnorm_plan(xt.dtype, d, True)
+    assert path == "rows"
+    got = _rows_path(xt, st, lanes, vecs)
+    tol = TOL["rmsnorm"][dtype]
+    _close(got, j_rmsnorm(xj, sj, interpret=True), tol)
+    _close(got, ref.rmsnorm(xj, sj), tol)
+
+
 # ---------------------------------------------------------- flash attention --
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,s,h,kv,d", [
