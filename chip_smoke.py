@@ -20,14 +20,16 @@
    same calls captured in one CUDA graph and replayed: device time alone)
    and ``host_us`` (host time of one call), the yardstick's likewise;
 4. checks small runs on the card against the same runs on the CPU (the
-   plain versions): the synchronous round, hierarchical aggregation, and
-   hierarchical aggregation over the top-k + int8 compressed uplink;
+   plain versions, the default scheduler, host DAGSA): the synchronous
+   round, hierarchical aggregation, and hierarchical aggregation over the
+   top-k + int8 compressed uplink;
 5. drives the port's full-width paths on the card, each with the kernels'
    launch counts zeroed just before it and read just after: the
-   synchronous single-tier round (3 rounds), hierarchical aggregation with
-   the top-k + int8 uplink (5 rounds, one global sync), hierarchical
-   aggregation uncompressed (2 rounds) and the single-tier top-k + int8
-   uplink (2 rounds);
+   synchronous single-tier round (3 rounds, ``dagsa_jit``), hierarchical
+   aggregation with the top-k + int8 uplink (5 rounds, one global sync),
+   hierarchical aggregation uncompressed (2 rounds), the single-tier top-k
+   + int8 uplink (2 rounds) and the synchronous round under the default
+   scheduler, the host DAGSA (``sync_dagsa``, 2 rounds);
 6. profiles one more synchronous round and one more hierarchical +
    compressed round (torch.profiler: host and device time per round
    phase, the busiest device ops, the device's busy share);
@@ -37,7 +39,8 @@
       plain versions in float32 and bfloat16 at the prefill shapes B=4,
       S=512 ("main") and B=8, S=2048 ("long"), flash also at S=200 and
       rmsnorm at the decode shape [4, 2048], at the qk_norm width 128 and
-      on rows off 16-byte alignment, with the tolerances of
+      on rows off 16-byte alignment, ssd_scan at mamba2-2.7b's head shape
+      (80 heads of 64, state 128: "state128"), with the tolerances of
       tests/test_kernels.py, and times kernel, plain version and yardstick;
    b. runs the two reduced float32 configs of the tests on the card and on
       the CPU (prefill + 8 decode steps), within 1e-4;
@@ -47,7 +50,8 @@
       zeroed just before and read just after): ``serve_decode.serve`` at
       B=4, prompt 512, 32 new tokens, and ``api.prefill_fn`` on the same
       prompts and at B=8, S=2048;
-   e. profiles one bfloat16 prefill (B=4, S=512) and one decode step;
+   e. profiles one bfloat16 prefill (B=4, S=512) and one decode step
+      (kernel 9's device ms a prefill among them);
 8. prints one JSON line with every kernel's numbers, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
@@ -551,7 +555,7 @@ def check_small_runs(dev) -> None:
 
 
 # The full-width paths: (label, FLConfig extras, rounds, the kernels the
-# path must launch; DAGSA's three on every path).  "sync" is the port's
+# path must launch; dagsa_jit's three on every path that runs it).  "sync" is the port's
 # first main path; "hier_int8" this slice's (one global sync at round 5).
 _SCHED = ("bandwidth_solve", "masked_bs_argmax", "best_bs_argmax")
 PATHS = (
@@ -563,6 +567,9 @@ PATHS = (
      _SCHED + ("fedavg_segment_reduce",)),
     ("single_int8", dict(compress="topk-int8", topk_frac=0.1), 2,
      _SCHED + ("sparsify_quantize", "fedavg_reduce_int8")),
+    # the default scheduler: host greedy, Eq. (12) on the card
+    ("sync_dagsa", dict(scheduler="dagsa"), 2,
+     ("bandwidth_solve", "fedavg_reduce")),
 )
 
 
@@ -575,9 +582,9 @@ def run_path(dev, label: str, extra: dict, rounds: int,
     from repro_torch.kernels import _lib
     from repro_torch.models.cnn import CNNConfig, n_params
 
-    cfg = FLConfig(dataset="mnist", scheduler="dagsa_jit",
-                   cnn=CNNConfig.paper_scale(), local_epochs=10,
-                   batch_size=16, seed=0, **extra)
+    cfg = FLConfig(**{"dataset": "mnist", "scheduler": "dagsa_jit",
+                      "cnn": CNNConfig.paper_scale(), "local_epochs": 10,
+                      "batch_size": 16, "seed": 0, **extra})
     t0 = time.perf_counter()
     sim = FLSimulation(cfg, device=dev)
     torch.cuda.synchronize()
@@ -703,8 +710,7 @@ def check_lm_kernels(dev, main=(4, 512), long=(8, 2048), ragged=200,
 
     gen = torch.Generator(device=dev).manual_seed(13)
     results = {"flash_attention": {}, "rmsnorm": {}, "ssd_scan": {}}
-    d_model, heads, hd, ssm_h, ssm_p, ssm_n, chunk = 2048, 32, 64, 64, 64, \
-        64, 128
+    d_model, heads, hd, ssm_p, chunk = 2048, 32, 64, 64, 128
 
     def normal(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -768,8 +774,11 @@ def check_lm_kernels(dev, main=(4, 512), long=(8, 2048), ragged=200,
                    4.0 * b * heads * pairs * hd, peak, reps)
             del q, k, v
 
-        # -- 9 ssd scan: one Mamba2 layer's chunked scan -------------------
-        for label, (b, s), reps in (("main", main, 10), ("long", long, 3)):
+        # -- 9 ssd scan: one Mamba2 layer's chunked scan; "state128" the
+        # head shape of mamba2-2.7b (80 heads of 64, state 128) -----------
+        for label, (b, s), ssm_h, ssm_n, reps in (
+                ("main", main, 64, 64, 10), ("long", long, 64, 64, 3),
+                ("state128", main, 80, 128, 10)):
             x = normal((b, s, ssm_h, ssm_p), dtype)
             dt = F.softplus(normal((b, s, ssm_h), torch.float32))
             A = -torch.exp(normal((ssm_h,), torch.float32) * 0.5)
@@ -780,7 +789,8 @@ def check_lm_kernels(dev, main=(4, 512), long=(8, 2048), ragged=200,
             err = _close_tol(f"ssd_scan {label}{suffix}", y,
                              kss.ssd_scan_plain(x, dt, A, Bm, Cm, chunk),
                              LM_TOL["ssd_scan"][tol])
-            record("ssd_scan", label + suffix, [b, s, ssm_h, ssm_p], err,
+            record("ssd_scan", label + suffix, [b, s, ssm_h, ssm_p, ssm_n],
+                   err,
                    lambda: kss.ssd_scan(x, dt, A, Bm, Cm, chunk),
                    lambda: kss.ssd_scan_plain(x, dt, A, Bm, Cm, chunk), None,
                    b * s * ssm_h * ssm_p * (esize + 4) + b * s * ssm_h * 4
@@ -938,7 +948,7 @@ def _device_ops(prof) -> dict:
 
 
 _LM_KERNEL_NAMES = {"flash_attention": "flash_fwd_",
-                    "rmsnorm": "rmsnorm_", "ssd_scan": "ssd_scan_kernel"}
+                    "rmsnorm": "rmsnorm_", "ssd_scan": "ssd_"}
 _MATMUL_MARKS = ("gemm", "nvjet", "xmma", "cutlass", "matmul", "splitk")
 
 

@@ -26,10 +26,33 @@
 // except for the segmented sum over a dense w with many BSs, where the
 // flops (off the tensor cores) take over.
 //
-// fedavg_reduce: one thread per feature column walks the clients in index
-// order and accumulates in float32.  Neighbouring threads read
-// neighbouring addresses, every column sums in the same order on every run
-// (deterministic, no atomics, no second pass).
+// fedavg_reduce has two paths, picked by the wrapper's plan
+// (`reduce_plan` in repro_torch/kernels/fedavg_reduce.py):
+//
+// * "vector" (rows 16-byte aligned: base aligned and d a multiple of 4
+//   float32 / 16 int8; and enough clients): a lane owns one 16-byte vector
+//   of columns (4 float32 or 16 int8 codes) and keeps kRedLoads client rows
+//   of loads in flight; a warp reads 512 contiguous bytes a row.  The
+//   clients split into `splits` contiguous ranges, one block each, so the
+//   [1000, 100352] fleet leaf runs 784 blocks of 128 threads (float32, 4
+//   splits) or 392 (int8, 8 splits) where one thread a column had one
+//   4-byte (1-byte) load in flight at a time.
+//   The split blocks of a column block form one thread-block cluster:
+//   each leaves its partial sums in shared memory, and after a cluster
+//   barrier every block adds a slice of the columns over the cluster's
+//   shared memory in split order.  One launch, no workspace, no atomics:
+//   every column sums in the same order on every run.  int8 codes become
+//   floats by a byte permute into the mantissa of 2^23 and one exact
+//   subtraction (a float add), not by the quarter-rate integer convert.
+// * "scalar" (any d, any base): one thread per column walks the clients
+//   in index order.  It also takes the path's 50 clients: there the whole
+//   plane sits in L2 and the vector path's fewer, longer threads lost.
+//
+// Both accumulate each client range in client order with fmaf, in
+// float32.  At the [1000, 100352] fleet leaf the vector path needs the
+// client plane's 401 MB (float32) or 100 MB (int8) in flight at HBM rate
+// (~3 MB by Little's law at 3.35 TB/s): with about three blocks an SM
+// resident, 132 x 3 x 128 lanes x 16 rows x 16 bytes is 13 MB.
 //
 // fedavg_segment_reduce: a block owns 512 columns (128 threads x 4
 // columns, one float4 or char4 load per client row) and a tile of MT BS
@@ -46,6 +69,8 @@
 // groups of 128 threads walk alternate list entries (twice the loads in
 // flight), each in client order, and their sums are added in group order:
 // deterministic, no atomics, no second pass.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
@@ -72,6 +97,7 @@ __device__ __forceinline__ float load_screened(const int8_t* p) {
   return static_cast<float>(*p);  // int8 codes are always finite
 }
 
+// fedavg_reduce, "scalar" path: a column a thread, clients in order.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fedavg_reduce_kernel(const float* __restrict__ w, const T* __restrict__ x,
@@ -80,8 +106,142 @@ fedavg_reduce_kernel(const float* __restrict__ w, const T* __restrict__ x,
   if (col >= d) return;
   float acc = 0.0f;
   for (long long i = 0; i < n; ++i)
-    acc += w[i] * load_screened(x + i * d + col);
+    acc = fmaf(w[i], load_screened(x + i * d + col), acc);
   out[col] = acc;
+}
+
+// fedavg_reduce, "vector" path.  Shapes chosen on the H100 (PERF.md's
+// sweep): 128 lanes a block, 16 client rows in flight a lane, the split's
+// weights staged 1,024 at a time.
+constexpr int kRedThreads = 128;
+constexpr int kRedLoads = 16;
+constexpr int kRedChunk = 1024;
+constexpr int kMaxSplits = 8;  // a portable cluster
+
+template <typename T>
+struct VecOf;  // the columns of one 16-byte vector
+template <>
+struct VecOf<float> {
+  static constexpr int kCols = 4;
+};
+template <>
+struct VecOf<int8_t> {
+  static constexpr int kCols = 16;
+};
+
+// acc[c] = fmaf(wi, screen(x_c), acc[c]) over one vector's columns.
+__device__ __forceinline__ void accumulate_vec(float (&acc)[4], float wi,
+                                               uint4 q) {
+  const float v[4] = {__uint_as_float(q.x), __uint_as_float(q.y),
+                      __uint_as_float(q.z), __uint_as_float(q.w)};
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    acc[c] = fmaf(wi, isfinite(v[c]) ? v[c] : 0.0f, acc[c]);
+}
+
+__device__ __forceinline__ void accumulate_vec(float (&acc)[16], float wi,
+                                               uint4 q) {
+  const unsigned words[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    // code c (two's complement) ^ 0x80 is c + 128 as a byte; under the
+    // exponent of 2^23 that is the float 2^23 + 128 + c, exactly
+    const unsigned biased = words[k] ^ 0x80808080u;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const float v = __uint_as_float(__byte_perm(biased, 0x4B000000u,
+                                                  0x7540u + b)) -
+                      8388736.0f;
+      acc[4 * k + b] = fmaf(wi, v, acc[4 * k + b]);
+    }
+  }
+}
+
+// One 16-byte read of the client plane, read once: no L1 line kept for it
+// (3.5% off the fleet rows in the card sweep).
+__device__ __forceinline__ uint4 ld_stream(const uint4* p) {
+  uint4 r;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(p));
+  return r;
+}
+
+// Grid (column blocks, splits); with kCluster the `splits` blocks of a
+// column block are one cluster (dims 1 x splits), whose block rank is the
+// split index.
+template <typename T, bool kCluster>
+__global__ void __launch_bounds__(kRedThreads)
+fedavg_reduce_vec_kernel(const float* __restrict__ w, const T* __restrict__ x,
+                         long long n, long long d, int splits,
+                         float* __restrict__ out) {
+  constexpr int V = VecOf<T>::kCols, U = kRedLoads;
+  __shared__ float sw[kRedChunk];
+  const int tid = threadIdx.x;
+  const long long nvec = d / V;
+  const long long vcol = (long long)blockIdx.x * kRedThreads + tid;
+  const bool live = vcol < nvec;
+  const long long per = (n + splits - 1) / splits;
+  const long long r0 = min(n, (long long)blockIdx.y * per);
+  const long long r1 = min(n, r0 + per);
+  const uint4* xv = reinterpret_cast<const uint4*>(x) + vcol;
+
+  float acc[V];
+#pragma unroll
+  for (int c = 0; c < V; ++c) acc[c] = 0.0f;
+  for (long long c0 = r0; c0 < r1; c0 += kRedChunk) {
+    const int cnt = (int)min((long long)kRedChunk, r1 - c0);
+    __syncthreads();  // the previous chunk's weights are consumed
+    for (int i = tid; i < cnt; i += kRedThreads) sw[i] = w[c0 + i];
+    __syncthreads();
+    if (!live) continue;
+    const uint4* p = xv + c0 * nvec;
+    int i = 0;
+    for (; i + U <= cnt; i += U) {
+      uint4 q[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        q[u] = ld_stream(p + (long long)(i + u) * nvec);
+#pragma unroll
+      for (int u = 0; u < U; ++u) accumulate_vec(acc, sw[i + u], q[u]);
+    }
+    for (; i < cnt; ++i)
+      accumulate_vec(acc, sw[i], ld_stream(p + (long long)i * nvec));
+  }
+
+  if constexpr (!kCluster) {
+    if (live) {
+      float4* o = reinterpret_cast<float4*>(out + vcol * V);
+#pragma unroll
+      for (int c = 0; c < V / 4; ++c)
+        o[c] = make_float4(acc[4 * c], acc[4 * c + 1], acc[4 * c + 2],
+                           acc[4 * c + 3]);
+    }
+    return;
+  } else {
+  // The partial sums of this split, column-major in the block's columns.
+  __shared__ __align__(16) float part[kRedThreads * V];
+  float4* pv = reinterpret_cast<float4*>(part + tid * V);
+#pragma unroll
+  for (int c = 0; c < V / 4; ++c)
+    pv[c] = make_float4(acc[4 * c], acc[4 * c + 1], acc[4 * c + 2],
+                        acc[4 * c + 3]);
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  // Block `rank` sums its slice of the block's columns over the splits,
+  // in split order.
+  const int rank = (int)cluster.block_rank();
+  const int slice = kRedThreads * V / splits;
+  const long long col0 = (long long)blockIdx.x * kRedThreads * V;
+  for (int e = rank * slice + tid; e < (rank + 1) * slice; e += kRedThreads) {
+    float total = *cluster.map_shared_rank(part + e, 0);
+    for (int r = 1; r < splits; ++r)
+      total += *cluster.map_shared_rank(part + e, r);
+    if (col0 + e < d) out[col0 + e] = total;
+  }
+  cluster.sync();  // no block leaves while its partials are read
+  }
 }
 
 // Four screened columns [col, col + 4) of one client row as float32: one
@@ -256,15 +416,43 @@ fedavg_segment_reduce_kernel(const float* __restrict__ w,
   }
 }
 
+// path: 0 "vector", 1 "scalar" (kernels/fedavg_reduce.py REDUCE_PATHS).
 template <typename T>
 int launch_reduce(const float* w, const T* x, long long n, long long d,
-                  float* out, void* stream) {
-  if (d > 0) {
+                  float* out, int path, int splits, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d <= 0) return static_cast<int>(cudaGetLastError());
+  if (path != 0) {
     const long long blocks = (d + kThreads - 1) / kThreads;
-    fedavg_reduce_kernel<T><<<(unsigned)blocks, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(w, x, n, d,
-                                                                   out);
+    fedavg_reduce_kernel<T><<<(unsigned)blocks, kThreads, 0, s>>>(w, x, n,
+                                                                   d, out);
+    return static_cast<int>(cudaGetLastError());
   }
+  if (splits < 1 || splits > kMaxSplits || (splits & (splits - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long nvec = d / VecOf<T>::kCols;
+  const dim3 grid((unsigned)((nvec + kRedThreads - 1) / kRedThreads),
+                  (unsigned)splits);
+  if (splits == 1) {
+    fedavg_reduce_vec_kernel<T, false><<<grid, kRedThreads, 0, s>>>(
+        w, x, n, d, 1, out);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kRedThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = (unsigned)splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, fedavg_reduce_vec_kernel<T, true>, w, x, n, d, splits, out);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -308,13 +496,15 @@ int launch_segment(const float* w, const T* x, long long n, int m,
 }  // namespace
 
 extern "C" int fedavg_reduce_f32(const float* w, const float* x, long long n,
-                                 long long d, float* out, void* stream) {
-  return launch_reduce<float>(w, x, n, d, out, stream);
+                                 long long d, float* out, int path,
+                                 int splits, void* stream) {
+  return launch_reduce<float>(w, x, n, d, out, path, splits, stream);
 }
 
 extern "C" int fedavg_reduce_i8(const float* w, const int8_t* x, long long n,
-                                long long d, float* out, void* stream) {
-  return launch_reduce<int8_t>(w, x, n, d, out, stream);
+                                long long d, float* out, int path,
+                                int splits, void* stream) {
+  return launch_reduce<int8_t>(w, x, n, d, out, path, splits, stream);
 }
 
 extern "C" int fedavg_segment_reduce_f32(const float* w, const float* x,

@@ -6,8 +6,11 @@ Per communication round:
   2. the BSs observe one round's channels -> SchedulingProblem (with a
      compressed uplink, each user's payload s_k scales the Eq. (1)/(11)
      coefficients),
-  3. DAGSA picks users, BSs and bandwidth (kernels ``best_bs_argmax``,
-     ``masked_bs_argmax``, ``bandwidth_solve`` on the card),
+  3. DAGSA picks users, BSs and bandwidth: the host greedy ``dagsa`` (the
+     default, numpy draws seeded ``seed * 100003 + r`` as in the JAX
+     engine's eager path; kernel ``bandwidth_solve`` for Eq. (12)) or
+     ``dagsa_jit`` (kernels ``best_bs_argmax``, ``masked_bs_argmax``,
+     ``bandwidth_solve`` on the card),
   4. every client runs E epochs of local SGD (the mask enters only the
      aggregation, ``compute="full"``),
   5. aggregation, Eq. (2):
@@ -76,7 +79,7 @@ class FLConfig:
     """End-to-end FL simulation config (the fields this port implements)."""
 
     dataset: str = "mnist"
-    scheduler: str = "dagsa_jit"
+    scheduler: str = "dagsa"
     wireless: WirelessConfig = dataclasses.field(default_factory=WirelessConfig)
     local_epochs: int = 10          # paper §IV
     batch_size: int = 16
@@ -285,7 +288,8 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, mob_model: str,
             if hier:
                 serving = camped_bs(mstate.distances())
         with span("round.schedule"):
-            res = sched.schedule(cfg.scheduler, prob, w, k_sched)
+            res = sched.schedule(cfg.scheduler, prob, w, k_sched,
+                                 seed=cfg.seed * 100003 + r)
         keys = rng.split(k_fleet, n)
         ck = (rng.fold_in(k_fleet, n + 1) if compress == "topk-int8"
               else None)

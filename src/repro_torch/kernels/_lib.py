@@ -51,13 +51,13 @@ _SIGNATURES = {
        for t in ("f32", "bf16")},
     **{f"flash_attention_{t}": (_P, _P, _P, _P) + (_I,) * 7 + (_F, _P)
        for t in ("f32", "bf16")},
-    **{f"ssd_scan_{t}": (_P,) * 6 + (_I,) * 7 + (_P,)
+    **{f"ssd_scan_{t}": (_P,) * 6 + (_I,) * 8 + (_P,)
        for t in ("f32", "bf16")},
     "bandwidth_solve_f32": (_P, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "masked_bs_argmax_f32": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     "best_bs_argmax_f32": (_P, _I, _I, _I, _I, _I, _P, _P),
-    "fedavg_reduce_f32": (_P, _P, _LL, _LL, _P, _P),
-    "fedavg_reduce_i8": (_P, _P, _LL, _LL, _P, _P),
+    "fedavg_reduce_f32": (_P, _P, _LL, _LL, _P, _I, _I, _P),
+    "fedavg_reduce_i8": (_P, _P, _LL, _LL, _P, _I, _I, _P),
     "fedavg_segment_reduce_f32": (_P, _P, _LL, _I, _LL, _P, _P),
     "fedavg_segment_reduce_i8": (_P, _P, _LL, _I, _LL, _P, _P),
     "sparsify_quantize_f32": (_P, _P, _P, _P, _LL, _LL, _I, _P, _P),

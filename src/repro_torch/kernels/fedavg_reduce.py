@@ -17,6 +17,8 @@ LAUNCHES` keys.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.fl.server import (clip_scales, fedavg_weights,
@@ -25,6 +27,18 @@ from repro_torch.kernels import _lib
 from repro_torch.tree import Params, tree_map
 
 _X_DTYPES = (torch.float32, torch.int8)
+
+# reduce_leaf's kernel paths (csrc/fedavg_reduce.cu), by the code its entry
+# points take, and the numbers its plan works with, chosen by a sweep on
+# the H100 over 50-1,000 clients of the fc1 leaf (PERF.md).
+REDUCE_PATHS = {"vector": 0, "scalar": 1}
+VEC_BYTES = 16            # one vector load: 4 float32 or 16 int8 codes
+REDUCE_THREADS = 128      # lanes a block of the vector path
+MAX_SPLITS = 8            # client ranges a column block: a portable cluster
+TARGET_BLOCKS = 528       # about four blocks an SM on the H100's 132
+MIN_SPLIT_ROWS = 12       # fewest clients a split may get
+# the fewest clients at which the vector path beat the scalar one
+VECTOR_MIN_CLIENTS = {torch.float32: 100, torch.int8: 200}
 
 
 def _screened(x: torch.Tensor) -> torch.Tensor:
@@ -47,6 +61,32 @@ def _x_kind(x: torch.Tensor) -> str:
     return "i8" if x.dtype == torch.int8 else "f32"
 
 
+@functools.lru_cache(maxsize=256)     # called once a launch, on the host
+def reduce_plan(dtype: torch.dtype, n: int, d: int,
+                aligned: bool) -> tuple[str, int]:
+    """(path, splits) of :func:`reduce_leaf`'s kernel for x [n, d] of
+    ``dtype``; ``aligned``: x starts on a 16-byte boundary.
+
+    - "vector": 16-byte loads, a lane a vector of columns; the clients
+      split into ``splits`` contiguous ranges (a power of two up to
+      :data:`MAX_SPLITS`), doubled while the grid has fewer than
+      :data:`TARGET_BLOCKS` blocks and each range keeps at least
+      :data:`MIN_SPLIT_ROWS` clients; the ranges' sums are added in range
+      order.  For rows of whole vectors on an aligned base and at least
+      :data:`VECTOR_MIN_CLIENTS` clients.
+    - "scalar": a column a thread, one range; for any other x.
+    """
+    per_vec = VEC_BYTES // dtype.itemsize
+    if not aligned or d % per_vec or n < VECTOR_MIN_CLIENTS[dtype]:
+        return "scalar", 1
+    blocks = -(-(d // per_vec) // REDUCE_THREADS)
+    splits = 1
+    while (splits < MAX_SPLITS and blocks * splits < TARGET_BLOCKS
+           and n // (2 * splits) >= MIN_SPLIT_ROWS):
+        splits *= 2
+    return "vector", splits
+
+
 def reduce_leaf(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """w [N] float32, x [N, D] float32 or int8 -> [D] float32 weighted sum
     of the screened rows (non-finite entries count as 0)."""
@@ -58,8 +98,10 @@ def reduce_leaf(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     _lib.require(w, "w", torch.float32, (n,))
     _lib.require(x, "x", x.dtype, (n, d))
     out = torch.empty((d,), dtype=torch.float32, device=x.device)
-    _lib.launch(f"fedavg_reduce_{kind}", index, w.data_ptr(), x.data_ptr(),
-                n, d, out.data_ptr())
+    xp = x.data_ptr()
+    path, splits = reduce_plan(x.dtype, n, d, xp % VEC_BYTES == 0)
+    _lib.launch(f"fedavg_reduce_{kind}", index, w.data_ptr(), xp, n, d,
+                out.data_ptr(), REDUCE_PATHS[path], splits)
     _lib.LAUNCHES["fedavg_reduce_int8" if kind == "i8"
                   else "fedavg_reduce"] += 1
     return out

@@ -1,7 +1,7 @@
 """FL simulation driver for the PyTorch port — the paper's end-to-end run.
 
     PYTHONPATH=src python -m repro_torch.launch.fl_sim \
-        --scheduler dagsa_jit --dataset mnist --rounds 20
+        --scheduler dagsa --dataset mnist --rounds 20
     PYTHONPATH=src python -m repro_torch.launch.fl_sim --aggregation \
         hierarchical --tau-global 2 --compress topk-int8 --topk-frac 0.1
 
@@ -21,7 +21,7 @@ from repro_torch.models.cnn import CNNConfig
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scheduler", default="dagsa_jit",
+    ap.add_argument("--scheduler", default="dagsa",
                     choices=list(SCHEDULERS))
     ap.add_argument("--dataset", default="mnist", choices=sorted(DATASETS))
     ap.add_argument("--rounds", type=int, default=20)

@@ -112,6 +112,65 @@ def test_fedavg_reduce_leaf_int8(dev, n, d):
     assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
 
 
+def _reduce_case(gen, dev, dtype, n, d, offset=0):
+    """x [n, d] (``offset`` elements past a 16-byte boundary), poisoned
+    with NaN / +-Inf where float, and w [n] with a zero weight."""
+    if dtype == torch.int8:
+        buf = torch.randint(-127, 128, (n * d + offset,), generator=gen,
+                            device=dev, dtype=torch.int8)
+    else:
+        buf = torch.randn((n * d + offset,), generator=gen, device=dev)
+    x = buf[offset:].view(n, d)
+    if dtype == torch.float32:
+        x[0, d // 2] = float("nan")
+        x[n - 1, 0] = float("inf")
+        x[n // 2, d - 1] = float("-inf")
+    w = torch.rand((n,), generator=gen, device=dev)
+    w[min(1, n - 1)] = 0.0
+    return w, x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+@pytest.mark.parametrize("n,d,offset", [
+    (1000, 100352, 0), (200, 100352, 0), (100, 4096, 0), (333, 4112, 0),
+    (1000, 512, 0),                                   # one column block
+    (300, 1, 0), (300, 3, 0), (300, 15, 0), (300, 17, 0),  # ragged d
+    (300, 4096, 1), (300, 4096, 2),                   # unaligned bases
+    (300, 4096, 4),              # aligned in float32, not in int8
+])
+def test_fedavg_reduce_paths(dev, dtype, n, d, offset):
+    """Both paths of kernel 4 (the plan's pick) against plain, NaN / Inf
+    screened, two calls bit-identical."""
+    gen = torch.Generator(device=dev).manual_seed(n + d + offset)
+    w, x = _reduce_case(gen, dev, dtype, n, d, offset)
+    aligned = x.data_ptr() % 16 == 0
+    path, splits = kf.reduce_plan(dtype, n, d, aligned)
+    vector = (aligned and d % (16 // x.element_size()) == 0
+              and n >= kf.VECTOR_MIN_CLIENTS[dtype])
+    assert path == ("vector" if vector else "scalar")
+    assert splits > 1 if vector and d >= 512 else splits == 1
+    got = kf.reduce_leaf(w, x)
+    assert torch.equal(got, kf.reduce_leaf(w, x))
+    want = kf.reduce_leaf_plain(w, x)
+    scale = kf.reduce_leaf_plain(w, torch.where(torch.isfinite(
+        x.float()), x.float(), 0.0).abs())
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+def test_fedavg_reduce_graph_capture(dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for dtype, n, d in ((torch.float32, 1000, 100352),
+                        (torch.int8, 1000, 100352),
+                        (torch.float32, 50, 100352)):
+        w, x = _reduce_case(gen, dev, dtype, n, d)
+        key = "fedavg_reduce_int8" if dtype == torch.int8 else "fedavg_reduce"
+        outs, counted = _replayed(lambda: kf.reduce_leaf(w, x))
+        assert counted == {key: 3}
+        want = kf.reduce_leaf(w, x)
+        assert all(torch.equal(o, want) for o in outs)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
 @pytest.mark.parametrize("n,m,d", [(50, 8, 100352), (13, 5, 1000),
                                    (300, 100, 777), (1, 1, 7)])
@@ -320,9 +379,28 @@ def test_dagsa_on_card_matches_cpu(dev):
                                    rtol=1e-5, atol=1e-7)
 
 
+def test_host_dagsa_run_on_card_matches_cpu(dev):
+    """FLConfig's default scheduler, the host greedy, on the card: its
+    Eq. (12) split launches kernel 1; decisions equal the CPU run's."""
+    cfg = FLConfig(wireless=WirelessConfig(n_users=12, n_bs=4), n_train=120,
+                   n_test=40, local_epochs=1, batch_size=10, seed=7,
+                   scheduler="dagsa")
+    _lib.reset_launches()
+    gpu = FLSimulation(cfg, device=dev).run(2)
+    assert _lib.LAUNCHES["bandwidth_solve"] == 2, _lib.LAUNCHES
+    assert _lib.LAUNCHES["fedavg_reduce"] > 0, _lib.LAUNCHES
+    cpu = FLSimulation(cfg, device="cpu").run(2)
+    for g, c in zip(gpu, cpu):
+        assert (g.n_selected, g.min_part_rate) == (c.n_selected,
+                                                   c.min_part_rate)
+        assert math.isclose(g.t_round, c.t_round, rel_tol=1e-5)
+        assert abs(g.test_acc - c.test_acc) <= 1.0 / 40 + 1e-9
+
+
 def test_small_run_on_card_matches_cpu(dev):
     cfg = FLConfig(wireless=WirelessConfig(n_users=12, n_bs=4), n_train=120,
-                   n_test=40, local_epochs=1, batch_size=10, seed=7)
+                   n_test=40, local_epochs=1, batch_size=10, seed=7,
+                   scheduler="dagsa_jit")
     _lib.reset_launches()
     gpu = FLSimulation(cfg, device=dev).run(3)
     for name in ("bandwidth_solve", "masked_bs_argmax", "best_bs_argmax",
@@ -498,6 +576,31 @@ def test_ssd_scan_groups_and_chunk_continuity(dev):
     _assert_close(y32, y128, "ssd", torch.float32)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [32, 64, 128])
+@pytest.mark.parametrize("g", [1, 2])
+def test_ssd_scan_state128(dev, dtype, chunk, g):
+    """State 128 (mamba2-2.7b's) at every chunk, with G = 1 and 2 groups."""
+    gen = torch.Generator(device=dev).manual_seed(chunk + g)
+    h = 4
+    x, dt, A, B, C = _ssd_inputs(gen, dev, 2, 256, h, 64, 128, dtype, g=g)
+    got = kss.ssd_scan(x, dt, A, B, C, chunk)
+    want = kss.ssd_scan_plain(x, dt, A, B.repeat_interleave(h // g, dim=2),
+                              C.repeat_interleave(h // g, dim=2), chunk)
+    _assert_close(got, want, "ssd", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_graph_capture(dev, dtype):
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x, dt, A, B, C = _ssd_inputs(gen, dev, 2, 512, 8, 64, 64, dtype)
+    outs, counted = _replayed(lambda: kss.ssd_scan(x, dt, A, B, C, 128))
+    assert counted == {"ssd_scan": 3}
+    want = kss.ssd_scan(x, dt, A, B, C, 128)
+    assert all(torch.equal(o, want) for o in outs)
+    _assert_close(want, kss.ssd_scan_plain(x, dt, A, B, C, 128), "ssd", dtype)
+
+
 def test_lm_wrappers_validate(dev):
     q = torch.rand((1, 64, 2, 64), device=dev)
     with pytest.raises(ValueError, match="S == T"):
@@ -526,10 +629,16 @@ def test_lm_wrappers_validate(dev):
     with pytest.raises(ValueError):
         kss.ssd_scan(xs.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
                      B, C, 32)
-    with pytest.raises(ValueError, match="shared memory"):
-        x2, dt2, A2, B2, C2 = _ssd_inputs(gen, dev, 1, 128, 1, 128, 128,
-                                          torch.float32)
-        kss.ssd_scan(x2, dt2, A2, B2, C2, 128)
+    # state 128 at chunk 128 runs, and the kernels' limit is named past it
+    x2, dt2, A2, B2, C2 = _ssd_inputs(gen, dev, 1, 128, 1, 128, 128,
+                                      torch.float32)
+    _assert_close(kss.ssd_scan(x2, dt2, A2, B2, C2, 128),
+                  kss.ssd_scan_plain(x2, dt2, A2, B2, C2, 128), "ssd",
+                  torch.float32)
+    x3, dt3, A3, B3, C3 = _ssd_inputs(gen, dev, 1, 128, 1, 64, 256,
+                                      torch.float32)
+    with pytest.raises(ValueError, match="state N"):
+        kss.ssd_scan(x3, dt3, A3, B3, C3, 128)
 
 
 def test_zamba_small_run_on_card_matches_cpu(dev):

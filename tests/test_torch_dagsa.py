@@ -1,7 +1,9 @@
-"""DAGSA decisions: repro_torch.core.dagsa_jit against repro.core.dagsa_jit.
+"""DAGSA decisions: repro_torch.core.dagsa_jit against repro.core.dagsa_jit,
+and the host greedy repro_torch.core.dagsa against repro.core.dagsa.
 
-The same numpy-made SchedulingProblem and the same PRNG key go through both
-packages.  ``assign`` and ``selected`` must match exactly; ``bw``,
+The same numpy-made SchedulingProblem and the same PRNG key (host greedy:
+the same numpy seed) go through both packages.  ``assign`` and
+``selected`` must match exactly; ``bw``,
 ``bs_time`` and ``t_round`` within rtol=1e-5 (Eq. (11) sums in another
 order).  A decision can only flip where a feasibility test
 ``t_with <= t_star`` is within an ulp of a tie; the check is exact, so such a
@@ -15,9 +17,11 @@ import pytest
 torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 
+from repro.core import dagsa as j_host  # noqa: E402
 from repro.core import dagsa_jit as j_dagsa  # noqa: E402
 from repro.core.types import SchedulingProblem as JProblem  # noqa: E402
 from repro_torch.core import bandwidth  # noqa: E402
+from repro_torch.core import dagsa as t_host  # noqa: E402
 from repro_torch.core import dagsa_jit as t_dagsa  # noqa: E402
 from repro_torch.core.scheduler import schedule  # noqa: E402
 from repro_torch.core.types import SchedulingProblem as TProblem  # noqa: E402
@@ -72,6 +76,59 @@ def test_dagsa_decisions_match_jax(n, m):
                                    rtol=1e-5)
 
 
+def _t_problem(snr, coeff, tcomp, bs_bw, nec, k_min):
+    return TProblem(snr=torch.from_numpy(snr), tcomp=torch.from_numpy(tcomp),
+                    bs_bw=torch.from_numpy(bs_bw),
+                    coeff=torch.from_numpy(coeff),
+                    necessary=torch.from_numpy(nec), min_participants=k_min)
+
+
+@pytest.mark.parametrize("n,m", [(12, 4), (50, 8), (30, 1), (40, 5)])
+def test_host_dagsa_decisions_match_jax(n, m):
+    """The host greedy, 20 problems a shape (80 in all, M = 1 included):
+    ``assign`` and ``selected`` exact, ``bs_time`` and ``t_round`` within
+    rtol=1e-5 (the final Eq. (11) solve is float32 in both)."""
+    for seed in range(20):
+        arrays = _problem(seed, n, m)
+        snr, coeff, tcomp, bs_bw, nec, k_min = arrays
+        want = j_host.dagsa_schedule(
+            JProblem(snr=snr, tcomp=tcomp, bs_bw=bs_bw, coeff=coeff,
+                     necessary=nec, min_participants=k_min), seed=seed)
+        got = t_host.dagsa_schedule(_t_problem(*arrays), seed=seed)
+        np.testing.assert_array_equal(got.assign.numpy(),
+                                      np.asarray(want.assign),
+                                      err_msg=f"seed {seed} (N={n}, M={m})")
+        np.testing.assert_array_equal(got.selected.numpy(),
+                                      np.asarray(want.selected))
+        assert got.selected.sum().item() >= min(k_min, n)
+        np.testing.assert_allclose(got.bs_time.numpy(),
+                                   np.asarray(want.bs_time), rtol=1e-5)
+        np.testing.assert_allclose(got.t_round.item(), float(want.t_round),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(got.bw.numpy(), np.asarray(want.bw),
+                                   rtol=1e-5)
+
+
+def test_host_dagsa_is_seed_deterministic():
+    """One numpy generator is the only entropy: the same seed gives the
+    same schedule, and the numpy mirror of Eq. (11) is the JAX one."""
+    arrays = _problem(7, 40, 5)
+    a = t_host.dagsa_schedule(_t_problem(*arrays), seed=3)
+    b = t_host.dagsa_schedule(_t_problem(*arrays), seed=3)
+    assert torch.equal(a.assign, b.assign)
+    snr, coeff, tcomp, bs_bw, nec, _ = arrays
+    mask = np.random.default_rng(1).random(40) < 0.5
+    for method in ("newton", "bisect"):
+        assert t_host._bs_time_np(coeff[:, 0].astype(np.float64),
+                                  tcomp.astype(np.float64), mask,
+                                  float(bs_bw[0]), method=method) == \
+            j_host._bs_time_np(coeff[:, 0].astype(np.float64),
+                               tcomp.astype(np.float64), mask,
+                               float(bs_bw[0]), method=method)
+    with pytest.raises(ValueError):
+        t_host._bs_time_np(coeff[:, 0], tcomp, mask, 1.0, method="secant")
+
+
 def test_registry_routes_and_rejects_later_schedulers():
     snr, coeff, tcomp, bs_bw, nec, k_min = _problem(1, 12, 4)
     prob = TProblem(snr=torch.from_numpy(snr), tcomp=torch.from_numpy(tcomp),
@@ -81,6 +138,11 @@ def test_registry_routes_and_rejects_later_schedulers():
     res = schedule("dagsa_jit", prob, WirelessConfig(n_users=12, n_bs=4), key)
     direct = t_dagsa.dagsa_schedule_jit(prob, key)
     assert torch.equal(res.assign, direct.assign)
+    res = schedule("dagsa", prob, WirelessConfig(n_users=12, n_bs=4), key,
+                   seed=5)
+    direct = t_host.dagsa_schedule(prob, seed=5)
+    assert torch.equal(res.assign, direct.assign)
+    assert torch.equal(res.bs_time, direct.bs_time)
     for name, msg in (("rs", "not ported"), ("nope", "unknown")):
         with pytest.raises(ValueError, match=msg):
             schedule(name, prob, WirelessConfig(n_users=12, n_bs=4), key)

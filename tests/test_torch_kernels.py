@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels import ref  # noqa: E402
 from repro.kernels.bandwidth_solve import bandwidth_solve as j_bw  # noqa: E402
+from repro.kernels.fedavg_reduce import _reduce_leaf as j_reduce_leaf  # noqa: E402
 from repro.kernels.fedavg_reduce import fedavg_reduce as j_fedavg  # noqa: E402
 from repro.kernels.select_topk import best_bs_argmax as j_best  # noqa: E402
 from repro.kernels.select_topk import masked_bs_argmax as j_masked  # noqa: E402
@@ -226,6 +227,106 @@ def test_fedavg_reduce_matches_pallas_and_oracle(case):
                                        rtol=1e-5, atol=1e-6)
             if case == "empty":
                 np.testing.assert_array_equal(out, g[k][leaf])
+
+
+@pytest.mark.parametrize("dtype,n,d,aligned,want", [
+    (torch.float32, 50, 100352, True, ("scalar", 1)),    # the main fc1 leaf
+    (torch.float32, 1000, 100352, True, ("vector", 4)),  # the fleet leaf
+    (torch.int8, 50, 100352, True, ("scalar", 1)),
+    (torch.int8, 1000, 100352, True, ("vector", 8)),
+    (torch.float32, 100, 100352, True, ("vector", 4)),
+    (torch.int8, 100, 100352, True, ("scalar", 1)),      # below 200 clients
+    (torch.int8, 200, 100352, True, ("vector", 8)),
+    (torch.float32, 1000, 512, True, ("vector", 8)),     # one column block
+    (torch.float32, 1000, 512, False, ("scalar", 1)),    # base off 16 bytes
+    (torch.float32, 500, 7, True, ("scalar", 1)),        # ragged d
+    (torch.int8, 500, 1000, True, ("scalar", 1)),        # d % 16 != 0
+    (torch.int8, 500, 1008, True, ("vector", 8)),
+])
+def test_reduce_plan(dtype, n, d, aligned, want):
+    assert kf.reduce_plan(dtype, n, d, aligned) == want
+
+
+def _split_ranges(n, splits):
+    """The client ranges [r0, r1) of the vector path's splits, in the
+    order their sums are added (csrc/fedavg_reduce.cu: ceil(n / splits)
+    clients a split)."""
+    per = -(-n // splits)
+    return [(min(n, s * per), min(n, (s + 1) * per)) for s in range(splits)]
+
+
+@pytest.mark.parametrize("n", [100, 127, 200, 201, 333, 1000, 4097])
+def test_reduce_plan_splits_cover_the_clients(n):
+    """Splits are a power of two up to a cluster of 8, and their ranges
+    tile [0, n) in order with none empty."""
+    for dtype in (torch.float32, torch.int8):
+        for d in (16, 512, 100352):
+            path, splits = kf.reduce_plan(dtype, n, d, True)
+            assert path == ("vector" if n >= kf.VECTOR_MIN_CLIENTS[dtype]
+                            else "scalar")
+            assert splits in (1, 2, 4, 8)
+            ranges = _split_ranges(n, splits)
+            assert ranges[0][0] == 0 and ranges[-1][1] == n
+            assert all(a < b for a, b in ranges)
+            assert all(ranges[i][1] == ranges[i + 1][0]
+                       for i in range(splits - 1))
+            if splits > 1:
+                assert n // splits >= kf.MIN_SPLIT_ROWS
+
+
+def _vector_path_sum(w, x, splits):
+    """The vector path's order, in numpy: each split's clients in order by
+    fused multiply-adds (float64, rounded to float32 each step), then the
+    splits' sums added in split order in float32."""
+    xs = np.where(np.isfinite(x), x, 0).astype(np.float64)
+    parts = []
+    for r0, r1 in _split_ranges(x.shape[0], splits):
+        acc = np.zeros(x.shape[1], np.float32)
+        for i in range(r0, r1):
+            acc = (np.float64(w[i]) * xs[i] + acc).astype(np.float32)
+        parts.append(acc)
+    total = parts[0]
+    for part in parts[1:]:
+        total = (total + part).astype(np.float32)
+    return total
+
+
+@pytest.mark.parametrize("dtype,n,d", [(np.float32, 100, 4096),
+                                       (np.float32, 1000, 512),
+                                       (np.int8, 1000, 2048),
+                                       (np.int8, 200, 2048)])
+def test_vector_path_split_order_within_gate(dtype, n, d):
+    """The client split's grouping meets the rtol=1e-5 gate against the
+    Pallas kernel (interpret) on the plan's own splits, poisoned entries
+    included."""
+    rs = np.random.default_rng(n + d)
+    if dtype == np.int8:
+        x = rs.integers(-127, 128, (n, d)).astype(np.int8)
+    else:
+        x = rs.normal(size=(n, d)).astype(np.float32)
+        x[3, d // 2], x[7, 0] = np.nan, np.inf
+    w = rs.random(n).astype(np.float32)
+    path, splits = kf.reduce_plan(T(x).dtype, n, d, True)
+    assert path == "vector" and splits > 1
+    got = _vector_path_sum(w, x, splits)
+    want = np.asarray(j_reduce_leaf(w.reshape(-1, 1), x, 8, 512, True))
+    scale = (w[:, None] * np.abs(np.where(np.isfinite(x), x, 0)
+                                 .astype(np.float32))).sum(axis=0)
+    assert np.isfinite(got).all()
+    assert (np.abs(got - want) <= 1e-5 * scale + 1e-6).all()
+    # the plain version (the CPU route) is held to the same gate
+    plain = kf.reduce_leaf(T(w), T(x)).numpy()
+    assert (np.abs(plain - want) <= 1e-5 * scale + 1e-6).all()
+
+
+def test_int8_codes_through_the_float_mantissa_are_exact():
+    """The vector path turns a code c into float(0x4B000000 | (c ^ 0x80))
+    - (2^23 + 128): exactly c for every int8."""
+    codes = np.arange(-128, 128).astype(np.int8)
+    biased = (codes.view(np.uint8) ^ 0x80).astype(np.uint32)
+    f = (np.uint32(0x4B000000) | biased).view(np.float32)
+    np.testing.assert_array_equal(f - np.float32(8388736.0),
+                                  codes.astype(np.float32))
 
 
 def test_reduce_leaf_screens_non_finite_entries():

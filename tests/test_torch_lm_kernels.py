@@ -281,6 +281,121 @@ def test_ssd_scan_refuses_a_ragged_sequence():
         kss.ssd_scan(*tin, 64)
 
 
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("q,n,p,want", [
+    (128, 64, 64, 64),      # Zamba2-1.2B
+    (128, 128, 64, 64),     # mamba2-2.7b: state 128 at chunk 128
+    (128, 128, 128, 64),    # P = 128 in two slices
+    (32, 16, 32, 32),       # the reduced configs
+    (32, 8, 32, 32),
+    (64, 16, 64, 64),
+])
+def test_ssd_plan(kind, q, n, p, want):
+    ps = kss.ssd_plan(kind, q, n, p)
+    assert ps == want
+    assert kss._smem_bytes(kind, q, n, ps) <= kss.SMEM_LIMIT
+
+
+def test_ssd_smem_bytes_follow_the_tiles():
+    """The sizes the kernels' sources compute (smem_bytes_mma / _simt),
+    at Zamba2's and mamba2-2.7b's shapes: state 128 fits a block's 232,448
+    bytes at chunk 128 in both."""
+    assert kss._smem_bytes("bf16", 128, 64, 64) == 75_776
+    assert kss._smem_bytes("bf16", 128, 128, 64) == 126_976
+    assert kss._smem_bytes("f32", 128, 64, 64) == 141_312
+    assert kss._smem_bytes("f32", 128, 128, 64) == 223_232
+
+
+@pytest.mark.parametrize("q,n,p,match", [
+    (128, 256, 64, "state N"), (128, 12, 64, "state N"),
+    (40, 64, 64, "chunk"), (256, 64, 64, "chunk"), (128, 64, 40, "P a multiple")])
+def test_ssd_plan_refuses_what_the_kernels_lack(q, n, p, match):
+    for kind in ("f32", "bf16"):
+        with pytest.raises(ValueError, match=match):
+            kss.ssd_plan(kind, q, n, p)
+
+
+def _hi_lo(t):
+    """What the bf16 kernel feeds the tensor cores for a float32 operand:
+    bf16(t) + bf16(t - bf16(t))."""
+    hi = t.to(torch.bfloat16).float()
+    return hi + (t - hi).to(torch.bfloat16).float()
+
+
+def _bf16_once(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _exact(t):
+    return t
+
+
+def _ssd_kernel_model(x, dt, A, B, C, q, rnd):
+    """The CUDA kernels' arithmetic, chunk by chunk for each (batch, head):
+    seg summed in position order with dt*A rounded first; the scores
+    (C_i . B_j) exp(seg_i - seg_j) dt_j; the carried-in term exp(seg_i) *
+    (C_i . state); the state pass decay * state + (B w)^T x, w_j =
+    exp(seg_Q - seg_j) dt_j.  ``rnd`` is what a float32 operand of a
+    product (scores, B w, state) becomes: itself in the float32 kernel, its
+    hi + lo bf16 pair in the bf16 one."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    x, B, C = x.float(), B.float(), C.float()
+    y = torch.zeros((b, s, h, p))
+    tril = torch.tril(torch.ones((q, q), dtype=torch.bool))
+    for bi in range(b):
+        for hi in range(h):
+            st = torch.zeros((n, p))
+            for c0 in range(0, s, q):
+                xs, d = x[bi, c0:c0 + q, hi], dt[bi, c0:c0 + q, hi]
+                bs, cs = B[bi, c0:c0 + q, 0], C[bi, c0:c0 + q, 0]
+                seg = torch.zeros(q)
+                run = torch.zeros((), dtype=torch.float32)
+                for i in range(q):
+                    run = run + d[i] * A[hi]
+                    seg[i] = run
+                sc = torch.where(tril, (cs @ bs.T) * torch.exp(
+                    seg[:, None] - seg[None, :]) * d[None, :], 0.0)
+                y[bi, c0:c0 + q, hi] = (torch.exp(seg)[:, None]
+                                        * (cs @ rnd(st)) + rnd(sc) @ xs)
+                w = torch.exp(seg[-1] - seg) * d
+                st = torch.exp(seg[-1]) * st + rnd(bs * w[:, None]).T @ xs
+    return y
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 256, 4, 64, 16, 64),
+    (1, 128, 2, 32, 8, 32),
+    (1, 512, 3, 64, 64, 128),
+    (1, 128, 1, 128, 128, 128),   # mamba2-2.7b head shape
+])
+def test_ssd_kernel_order_and_rounding_within_gate(b, s, h, p, n, chunk,
+                                                   dtype):
+    """The kernels' order, chunk states and state pass (and, in bf16, the
+    hi + lo operands of the tensor-core products) meet the Pallas kernel's
+    gate against Pallas (interpret) and the jnp oracle."""
+    jin, tin = _ssd_case(b * s + h + n, b, s, h, p, n, dtype)
+    got = _ssd_kernel_model(*tin, chunk,
+                            _hi_lo if dtype == "bfloat16" else _exact)
+    tol = TOL["ssd"][dtype]
+    _close(got, j_ssd(*jin, chunk=chunk, interpret=True), tol)
+    _close(got, ref.ssd_scan(*jin, chunk=chunk), tol)
+
+
+def test_ssd_one_bf16_rounding_of_the_scores_eats_the_gate():
+    """Why the bf16 kernel splits its float32 operands: with one bf16
+    rounding of each, the error reaches more than a third of the 5e-2 gate
+    already at one head of Zamba2's width, where hi + lo stays below 1%."""
+    _, tin = _ssd_case(3, 1, 512, 2, 64, 64, "bfloat16")
+    want = kss.ssd_scan_plain(*tin, 128)
+    lim = 5e-2 + 5e-2 * want.abs()
+    split = _ssd_kernel_model(*tin, 128, _hi_lo)
+    assert float(((split - want).abs() / lim).max()) < 0.01
+    single = _ssd_kernel_model(*tin, 128, _bf16_once)
+    assert float(((single - want).abs() / lim).max()) > 0.33
+
+
 def test_wrappers_refuse_mixed_devices():
     x = torch.zeros((4, 64))
     with pytest.raises(ValueError):

@@ -1,6 +1,11 @@
 """The whole slice: repro_torch's FL round engine against a live run of the
 JAX engine, plus the port's package rules.
 
+A second run uses the host greedy ``dagsa`` (both packages' default
+scheduler) against JAX's eager path (``mode="eager"``, the only mode that
+runs it), with the same config and gates; ``min_part_rate`` is compared
+as float32, the precision the step path and the port record it in.
+
 The run is the ``engine_sync`` config of test_golden_trajectories.py (12
 users, 4 BSs, 120/40 samples, 1 local epoch, batch 10, seed 7, dagsa_jit,
 3 rounds; JAX in ``mode="step"``).  Decisions (``n_selected``,
@@ -9,6 +14,7 @@ rtol=1e-5; the final global parameters within rtol=1e-4, atol=1e-5.
 ``test_acc`` may differ by one of the 40 test samples: a sample whose two
 top logits tie within float32 rounding can take either class.
 """
+import argparse
 import ast
 import dataclasses
 import os
@@ -25,6 +31,7 @@ import jax  # noqa: E402
 from repro.core.types import WirelessConfig as JWireless  # noqa: E402
 from repro.fl.rounds import FLConfig as JConfig  # noqa: E402
 from repro.fl.rounds import FLSimulation as JSimulation  # noqa: E402
+from repro.launch import fl_sim as j_fl_sim  # noqa: E402
 from repro_torch.core import mobility  # noqa: E402
 from repro_torch.core.types import WirelessConfig  # noqa: E402
 from repro_torch.fl.rounds import FLConfig, FLSimulation  # noqa: E402
@@ -39,19 +46,29 @@ ENGINE_SYNC = dict(n_train=120, n_test=40, local_epochs=1, batch_size=10,
 
 
 def test_engine_sync_slice_matches_live_jax_run():
+    _check_slice_against_live_jax("dagsa_jit", "step")
+
+
+def test_engine_sync_slice_with_host_dagsa_matches_live_jax_eager_run():
+    _check_slice_against_live_jax("dagsa", "eager")
+
+
+def _check_slice_against_live_jax(scheduler, mode):
     with jax.threefry_partitionable(True):
         jsim = JSimulation(JConfig(wireless=JWireless(n_users=12, n_bs=4),
-                                   scheduler="dagsa_jit", **ENGINE_SYNC))
-        want = jsim.run(3, mode="step")
+                                   scheduler=scheduler, **ENGINE_SYNC))
+        want = jsim.run(3, mode=mode)
         j_params = jax.tree.map(np.asarray, jsim.params)
     tsim = FLSimulation(FLConfig(wireless=WirelessConfig(n_users=12, n_bs=4),
-                                 scheduler="dagsa_jit", **ENGINE_SYNC),
+                                 scheduler=scheduler, **ENGINE_SYNC),
                         device="cpu")
     got = tsim.run(3)
     assert [r.round_idx for r in got] == [1, 2, 3]
     for g, w in zip(got, want):
         assert g.n_selected == w.n_selected
-        assert g.min_part_rate == w.min_part_rate
+        # the eager path divides the integer count in float64 on the host,
+        # the step path and the port in float32: equal as float32
+        assert np.float32(g.min_part_rate) == np.float32(w.min_part_rate)
         np.testing.assert_allclose(g.t_round, w.t_round, rtol=1e-5)
         np.testing.assert_allclose(g.wall_clock, w.wall_clock, rtol=1e-5)
         assert abs(g.test_acc - w.test_acc) <= 1.0 / 40 + 1e-7
@@ -61,6 +78,34 @@ def test_engine_sync_slice_matches_live_jax_run():
             np.testing.assert_allclose(t_params[k][leaf], j_params[k][leaf],
                                        rtol=1e-4, atol=1e-5,
                                        err_msg=f"{k}.{leaf}")
+
+
+def _parser_default(main, argv, dest, monkeypatch):
+    """The default of ``dest`` in the parser that ``main`` builds, read as
+    it parses and before it runs anything."""
+    seen = {}
+
+    class Parsed(Exception):
+        pass
+
+    def parse_args(self, args=None, namespace=None):
+        seen["default"] = self.get_default(dest)
+        raise Parsed
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", parse_args)
+    monkeypatch.setattr(sys, "argv", ["fl_sim"])
+    with pytest.raises(Parsed):
+        main(*argv)
+    return seen["default"]
+
+
+def test_default_scheduler_is_the_references(monkeypatch):
+    """Both packages schedule with the host greedy unless told otherwise:
+    FLConfig() and the fl_sim CLIs."""
+    assert FLConfig().scheduler == JConfig().scheduler == "dagsa"
+    port = _parser_default(fl_sim.main, ([],), "scheduler", monkeypatch)
+    ref = _parser_default(j_fl_sim.main, (), "scheduler", monkeypatch)
+    assert port == ref == "dagsa"
 
 
 def test_run_resumes_where_it_stopped():
