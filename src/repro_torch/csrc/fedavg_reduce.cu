@@ -33,10 +33,10 @@
 //   float32 / 16 int8; and enough clients): a lane owns one 16-byte vector
 //   of columns (4 float32 or 16 int8 codes) and keeps kRedLoads client rows
 //   of loads in flight; a warp reads 512 contiguous bytes a row.  The
-//   clients split into `splits` contiguous ranges, one block each, so the
-//   [1000, 100352] fleet leaf runs 784 blocks of 128 threads (float32, 4
-//   splits) or 392 (int8, 8 splits) where one thread a column had one
-//   4-byte (1-byte) load in flight at a time.
+//   clients split into `splits` contiguous ranges (2 to 8), one block
+//   each, so the [1000, 100352] fleet leaf runs 784 blocks of 128 threads
+//   (float32, 4 splits) or 392 (int8, 8 splits) where one thread a column
+//   had one 4-byte (1-byte) load in flight at a time.
 //   The split blocks of a column block form one thread-block cluster:
 //   each leaves its partial sums in shared memory, and after a cluster
 //   barrier every block adds a slice of the columns over the cluster's
@@ -167,10 +167,9 @@ __device__ __forceinline__ uint4 ld_stream(const uint4* p) {
   return r;
 }
 
-// Grid (column blocks, splits); with kCluster the `splits` blocks of a
-// column block are one cluster (dims 1 x splits), whose block rank is the
-// split index.
-template <typename T, bool kCluster>
+// Grid (column blocks, splits); the `splits` blocks of a column block are
+// one cluster (dims 1 x splits), whose block rank is the split index.
+template <typename T>
 __global__ void __launch_bounds__(kRedThreads)
 fedavg_reduce_vec_kernel(const float* __restrict__ w, const T* __restrict__ x,
                          long long n, long long d, int splits,
@@ -209,16 +208,6 @@ fedavg_reduce_vec_kernel(const float* __restrict__ w, const T* __restrict__ x,
       accumulate_vec(acc, sw[i], ld_stream(p + (long long)i * nvec));
   }
 
-  if constexpr (!kCluster) {
-    if (live) {
-      float4* o = reinterpret_cast<float4*>(out + vcol * V);
-#pragma unroll
-      for (int c = 0; c < V / 4; ++c)
-        o[c] = make_float4(acc[4 * c], acc[4 * c + 1], acc[4 * c + 2],
-                           acc[4 * c + 3]);
-    }
-    return;
-  } else {
   // The partial sums of this split, column-major in the block's columns.
   __shared__ __align__(16) float part[kRedThreads * V];
   float4* pv = reinterpret_cast<float4*>(part + tid * V);
@@ -241,7 +230,6 @@ fedavg_reduce_vec_kernel(const float* __restrict__ w, const T* __restrict__ x,
     if (col0 + e < d) out[col0 + e] = total;
   }
   cluster.sync();  // no block leaves while its partials are read
-  }
 }
 
 // Four screened columns [col, col + 4) of one client row as float32: one
@@ -428,16 +416,11 @@ int launch_reduce(const float* w, const T* x, long long n, long long d,
                                                                    d, out);
     return static_cast<int>(cudaGetLastError());
   }
-  if (splits < 1 || splits > kMaxSplits || (splits & (splits - 1)))
+  if (splits < 2 || splits > kMaxSplits || (splits & (splits - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long nvec = d / VecOf<T>::kCols;
   const dim3 grid((unsigned)((nvec + kRedThreads - 1) / kRedThreads),
                   (unsigned)splits);
-  if (splits == 1) {
-    fedavg_reduce_vec_kernel<T, false><<<grid, kRedThreads, 0, s>>>(
-        w, x, n, d, 1, out);
-    return static_cast<int>(cudaGetLastError());
-  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(kRedThreads);
@@ -451,7 +434,7 @@ int launch_reduce(const float* w, const T* x, long long n, long long d,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, fedavg_reduce_vec_kernel<T, true>, w, x, n, d, splits, out);
+      &cfg, fedavg_reduce_vec_kernel<T>, w, x, n, d, splits, out);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

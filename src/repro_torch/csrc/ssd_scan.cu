@@ -433,6 +433,50 @@ __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+// The scores of a block of columns j0 + jt + CG v (v < NV: 4, or 2 in
+// the 16-wide last block of a chunk that is not a multiple of 32), scaled
+// by exp(seg_i - seg_j) dt_j and masked to j <= i, into gs: a 4 x NV tile
+// a thread, rows it + RG u.
+template <int NV>
+__device__ __forceinline__ void simt_scores(const float* bs, const float* cs,
+                                            const float* seg, const float* dts,
+                                            float* gs, int j0, int N, int LN,
+                                            int LJ, int RG, int CG) {
+  for (int task = threadIdx.x; task < RG * CG; task += kSimtThreads) {
+    const int jt = task % CG, it = task / CG;
+    const int u0 = j0 / RG;   // the row bands above the block are 0
+    float sc[4][NV];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < NV; ++v) sc[u][v] = 0.0f;
+    for (int n = 0; n < N; n += 4) {
+      float4 bv[NV];
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+        bv[v] = lds4(bs + (j0 + jt + CG * v) * LN + n);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (u < u0) continue;
+        const float4 cv = lds4(cs + (it + RG * u) * LN + n);
+#pragma unroll
+        for (int v = 0; v < NV; ++v) sc[u][v] = dot4(cv, bv[v], sc[u][v]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (u < u0) continue;
+      const int i = it + RG * u;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int j = j0 + jt + CG * v;
+        gs[i * LJ + jt + CG * v] =
+            j <= i ? sc[u][v] * __expf(seg[i] - seg[j]) * dts[j] : 0.0f;
+      }
+    }
+  }
+}
+
 // Shared tiles (floats): x^T [PS][Q+4], B and C [Q][N+4], a block of the
 // scores G [Q][JB+4], the state^T [PS][N+4] and dt/seg/exp terms [4][Q].
 // Rows padded by 4 floats: neighbouring rows start on neighbouring 16-byte
@@ -538,46 +582,20 @@ ssd_simt_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       }
     }
 
-    // -- diagonal block, JB score columns at a time ------------------------
+    // -- diagonal block, JB score columns at a time; the last block of a
+    // chunk that is not a multiple of 32 (48, 80, 112) is 16 wide: its
+    // columns stop at Q, past which B's rows and x's padding are not read --
     for (int j0 = 0; j0 < Q; j0 += JB) {
+      const int jb = min(JB, Q - j0);
       __syncthreads();  // the last score block is consumed
-      for (int task = tid; task < RG * CG; task += kSimtThreads) {
-        const int jt = task % CG, it = task / CG;
-        const int u0 = j0 / RG;   // the row bands above the block are 0
-        float sc[4][4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int v = 0; v < 4; ++v) sc[u][v] = 0.0f;
-        for (int n = 0; n < N; n += 4) {
-          float4 bv[4];
-#pragma unroll
-          for (int v = 0; v < 4; ++v)
-            bv[v] = lds4(bs + (j0 + jt + CG * v) * LN + n);
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            if (u < u0) continue;
-            const float4 cv = lds4(cs + (it + RG * u) * LN + n);
-#pragma unroll
-            for (int v = 0; v < 4; ++v) sc[u][v] = dot4(cv, bv[v], sc[u][v]);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          if (u < u0) continue;
-          const int i = it + RG * u;
-#pragma unroll
-          for (int v = 0; v < 4; ++v) {
-            const int j = j0 + jt + CG * v;
-            gs[i * LJ + jt + CG * v] =
-                j <= i ? sc[u][v] * __expf(seg[i] - seg[j]) * dts[j] : 0.0f;
-          }
-        }
-      }
+      if (jb == 4 * CG)
+        simt_scores<4>(bs, cs, seg, dts, gs, j0, N, LN, LJ, RG, CG);
+      else
+        simt_scores<2>(bs, cs, seg, dts, gs, j0, N, LN, LJ, RG, CG);
       __syncthreads();
       if (!y_task) continue;
       const int u0 = j0 / RY;     // the row bands above the block
-      for (int jj = 0; jj < JB; jj += 4) {
+      for (int jj = 0; jj < jb; jj += 4) {
         float4 xv[TP];
 #pragma unroll
         for (int v = 0; v < TP; ++v)

@@ -34,7 +34,8 @@ _X_DTYPES = (torch.float32, torch.int8)
 REDUCE_PATHS = {"vector": 0, "scalar": 1}
 VEC_BYTES = 16            # one vector load: 4 float32 or 16 int8 codes
 REDUCE_THREADS = 128      # lanes a block of the vector path
-MAX_SPLITS = 8            # client ranges a column block: a portable cluster
+MIN_SPLITS = 2            # client ranges a column block: a cluster of 2
+MAX_SPLITS = 8            # to a portable cluster of 8
 TARGET_BLOCKS = 528       # about four blocks an SM on the H100's 132
 MIN_SPLIT_ROWS = 12       # fewest clients a split may get
 # the fewest clients at which the vector path beat the scalar one
@@ -68,19 +69,19 @@ def reduce_plan(dtype: torch.dtype, n: int, d: int,
     ``dtype``; ``aligned``: x starts on a 16-byte boundary.
 
     - "vector": 16-byte loads, a lane a vector of columns; the clients
-      split into ``splits`` contiguous ranges (a power of two up to
-      :data:`MAX_SPLITS`), doubled while the grid has fewer than
-      :data:`TARGET_BLOCKS` blocks and each range keeps at least
-      :data:`MIN_SPLIT_ROWS` clients; the ranges' sums are added in range
-      order.  For rows of whole vectors on an aligned base and at least
-      :data:`VECTOR_MIN_CLIENTS` clients.
+      split into ``splits`` contiguous ranges (a power of two from
+      :data:`MIN_SPLITS` to :data:`MAX_SPLITS`), doubled while the grid
+      has fewer than :data:`TARGET_BLOCKS` blocks and each range keeps at
+      least :data:`MIN_SPLIT_ROWS` clients; the ranges' sums are added in
+      range order over a thread-block cluster.  For rows of whole vectors
+      on an aligned base and at least :data:`VECTOR_MIN_CLIENTS` clients.
     - "scalar": a column a thread, one range; for any other x.
     """
     per_vec = VEC_BYTES // dtype.itemsize
     if not aligned or d % per_vec or n < VECTOR_MIN_CLIENTS[dtype]:
         return "scalar", 1
     blocks = -(-(d // per_vec) // REDUCE_THREADS)
-    splits = 1
+    splits = MIN_SPLITS
     while (splits < MAX_SPLITS and blocks * splits < TARGET_BLOCKS
            and n // (2 * splits) >= MIN_SPLIT_ROWS):
         splits *= 2

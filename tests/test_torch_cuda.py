@@ -137,6 +137,7 @@ def _reduce_case(gen, dev, dtype, n, d, offset=0):
     (300, 1, 0), (300, 3, 0), (300, 15, 0), (300, 17, 0),  # ragged d
     (300, 4096, 1), (300, 4096, 2),                   # unaligned bases
     (300, 4096, 4),              # aligned in float32, not in int8
+    (200, 1_100_000, 0),         # >= 528 column blocks: the fewest splits
 ])
 def test_fedavg_reduce_paths(dev, dtype, n, d, offset):
     """Both paths of kernel 4 (the plan's pick) against plain, NaN / Inf
@@ -148,7 +149,7 @@ def test_fedavg_reduce_paths(dev, dtype, n, d, offset):
     vector = (aligned and d % (16 // x.element_size()) == 0
               and n >= kf.VECTOR_MIN_CLIENTS[dtype])
     assert path == ("vector" if vector else "scalar")
-    assert splits > 1 if vector and d >= 512 else splits == 1
+    assert splits > 1 if vector else splits == 1
     got = kf.reduce_leaf(w, x)
     assert torch.equal(got, kf.reduce_leaf(w, x))
     want = kf.reduce_leaf_plain(w, x)
@@ -591,6 +592,22 @@ def test_ssd_scan_state128(dev, dtype, chunk, g):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [48, 80, 112])
+def test_ssd_scan_chunk_not_multiple_of_32(dev, dtype, chunk):
+    """A chunk that is a multiple of 16 and not of 32 ends on a 16-wide
+    block of score columns.  A run on NaN inputs just before leaves NaN in
+    the SMs' shared memory; none of it may reach y."""
+    gen = torch.Generator(device=dev).manual_seed(chunk)
+    xp, dtp, Ap, Bp, Cp = _ssd_inputs(gen, dev, 4, 128, 64, 64, 64, dtype)
+    kss.ssd_scan(torch.full_like(xp, float("nan")), dtp, Ap, Bp, Cp, 128)
+    x, dt, A, B, C = _ssd_inputs(gen, dev, 2, 4 * chunk, 8, 64, 64, dtype)
+    got = kss.ssd_scan(x, dt, A, B, C, chunk)
+    assert bool(torch.isfinite(got).all())
+    _assert_close(got, kss.ssd_scan_plain(x, dt, A, B, C, chunk), "ssd",
+                  dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_graph_capture(dev, dtype):
     gen = torch.Generator(device=dev).manual_seed(21)
     x, dt, A, B, C = _ssd_inputs(gen, dev, 2, 512, 8, 64, 64, dtype)
@@ -629,12 +646,8 @@ def test_lm_wrappers_validate(dev):
     with pytest.raises(ValueError):
         kss.ssd_scan(xs.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
                      B, C, 32)
-    # state 128 at chunk 128 runs, and the kernels' limit is named past it
-    x2, dt2, A2, B2, C2 = _ssd_inputs(gen, dev, 1, 128, 1, 128, 128,
-                                      torch.float32)
-    _assert_close(kss.ssd_scan(x2, dt2, A2, B2, C2, 128),
-                  kss.ssd_scan_plain(x2, dt2, A2, B2, C2, 128), "ssd",
-                  torch.float32)
+    # past state 128 the kernels' limit is named (state 128 runs:
+    # test_ssd_scan_state128)
     x3, dt3, A3, B3, C3 = _ssd_inputs(gen, dev, 1, 128, 1, 64, 256,
                                       torch.float32)
     with pytest.raises(ValueError, match="state N"):

@@ -242,6 +242,8 @@ def test_fedavg_reduce_matches_pallas_and_oracle(case):
     (torch.float32, 500, 7, True, ("scalar", 1)),        # ragged d
     (torch.int8, 500, 1000, True, ("scalar", 1)),        # d % 16 != 0
     (torch.int8, 500, 1008, True, ("vector", 8)),
+    (torch.float32, 200, 1_100_000, True, ("vector", 2)),  # >= 528 blocks
+    (torch.int8, 200, 1_100_000, True, ("vector", 2)),
 ])
 def test_reduce_plan(dtype, n, d, aligned, want):
     assert kf.reduce_plan(dtype, n, d, aligned) == want
@@ -257,14 +259,15 @@ def _split_ranges(n, splits):
 
 @pytest.mark.parametrize("n", [100, 127, 200, 201, 333, 1000, 4097])
 def test_reduce_plan_splits_cover_the_clients(n):
-    """Splits are a power of two up to a cluster of 8, and their ranges
-    tile [0, n) in order with none empty."""
+    """The vector path splits into a power of two from a cluster of 2 to
+    one of 8 (the scalar path into one range), and the ranges tile [0, n)
+    in order with none empty."""
     for dtype in (torch.float32, torch.int8):
         for d in (16, 512, 100352):
             path, splits = kf.reduce_plan(dtype, n, d, True)
             assert path == ("vector" if n >= kf.VECTOR_MIN_CLIENTS[dtype]
                             else "scalar")
-            assert splits in (1, 2, 4, 8)
+            assert splits in ((2, 4, 8) if path == "vector" else (1,))
             ranges = _split_ranges(n, splits)
             assert ranges[0][0] == 0 and ranges[-1][1] == n
             assert all(a < b for a, b in ranges)

@@ -258,6 +258,7 @@ def _ssd_case(seed, b, s, h, p, n, dtype):
     (1, 128, 2, 32, 8, 32),
     (1, 512, 3, 64, 64, 128),
     (1, 128, 1, 128, 128, 128),   # mamba2-2.7b head shape
+    (1, 192, 2, 64, 16, 48),      # a chunk that is not a multiple of 32
 ])
 def test_ssd_scan_matches_pallas_and_oracle(b, s, h, p, n, chunk, dtype):
     jin, tin = _ssd_case(b * s + h + n, b, s, h, p, n, dtype)
@@ -289,6 +290,7 @@ def test_ssd_scan_refuses_a_ragged_sequence():
     (32, 16, 32, 32),       # the reduced configs
     (32, 8, 32, 32),
     (64, 16, 64, 64),
+    (48, 64, 64, 64),       # not a multiple of 32: a 16-wide last block
 ])
 def test_ssd_plan(kind, q, n, p, want):
     ps = kss.ssd_plan(kind, q, n, p)
