@@ -11,14 +11,21 @@
 3. holds each kernel against its plain PyTorch version on the card, at the
    main path's shapes (N=50 users, M=8 BSs, every leaf of the paper-scale
    CNN) and at a fleet shape (N=1e6 users x M=100 and x M=33 BSs,
-   best_bs_argmax also on an snr off 16-byte alignment; the Eq. (11) solve
-   on [100, 1e6] rows; FedAvg, per-BS FedAvg (M=8 and M=100, 50%-dense
-   and the path's one-hot weights) and the uplink compressor over 1,000
-   clients of the fc1 leaf), in float32 and over int8 codes, and times the
-   kernel, the plain version and one PyTorch call as a yardstick: each
-   row's ``ms`` (CUDA events around back-to-back calls), ``graph_ms`` (the
-   same calls captured in one CUDA graph and replayed: device time alone)
-   and ``host_us`` (host time of one call), the yardstick's likewise;
+   masked_bs_argmax also over int8 dB codes and bfloat16 with a per-BS
+   scale, best_bs_argmax also on an snr off 16-byte alignment; the
+   Eq. (11) solve on one row per path of its plan: [8, 50] (warp),
+   [33, 4097] (block) and [100, 1e6] (cluster) at 30% of the users a row
+   and at ~1e4 ("fleet_sparse"), newton and bisect; FedAvg, per-BS
+   FedAvg (M=8 and M=100, 50%-dense and the path's one-hot weights) and
+   the uplink compressor over 1,000 clients of the fc1 leaf), in float32
+   and over int8 codes, and times the kernel, the plain version and one
+   PyTorch call as a yardstick: each row's ``ms`` (CUDA events around
+   back-to-back calls), ``graph_ms`` (the same calls captured in one CUDA
+   graph and replayed: device time alone) and ``host_us`` (host time of
+   one call), the yardstick's likewise; and runs the card sweeps behind
+   the plans of masked_bs_argmax (rows a block, ``masked_variants``) and
+   bandwidth_solve (warp or block, slices a row, compacted pairs or the
+   streaming re-read, shared memory a block: ``bandwidth_variants``);
 4. checks small runs on the card against the same runs on the CPU (the
    plain versions, the default scheduler, host DAGSA): the synchronous
    round, hierarchical aggregation, and hierarchical aggregation over the
@@ -204,9 +211,9 @@ def _bound_ms(n_bytes: float, n_ops: float,
     return t_ops * 1e3, "operations"
 
 
-def _close(name, got, want, exact=False, scale=None):
+def _close(name, got, want, exact=False, scale=None, atol=1e-6):
     """Max abs error of got vs want; raises past the stated tolerance:
-    exact, or |got - want| <= RTOL * scale + 1e-6 with scale = |want| (or,
+    exact, or |got - want| <= RTOL * scale + atol with scale = |want| (or,
     for a sum, the sum of its terms' magnitudes, since a sum that cancels
     keeps the rounding of its terms)."""
     got, want = got.detach().double(), want.detach().double()
@@ -221,7 +228,7 @@ def _close(name, got, want, exact=False, scale=None):
         raise AssertionError(f"{name}: non-finite entries disagree")
     err = (got[fin] - want[fin]).abs()
     base = want.abs() if scale is None else scale.detach().double()
-    lim = RTOL * base[fin] + 1e-6
+    lim = RTOL * base[fin] + atol
     if bool((err > lim).any()):
         raise AssertionError(f"{name}: max abs err {err.max().item():.3e} "
                              f"exceeds rtol {RTOL}")
@@ -231,7 +238,7 @@ def _close(name, got, want, exact=False, scale=None):
 def host_costs(dev, reps: int = 2000) -> dict:
     """Host us per call of the pieces a wrapper's launch can be made of
     (allocating the output, a device guard, a torch.cuda.Stream object or
-    the raw stream handle, a lock, ``Tensor.device``), and of two whole
+    the raw stream handle, a lock, ``Tensor.device``), and of three whole
     wrappers at their main-path shapes beside their yardstick calls."""
     import threading
 
@@ -243,6 +250,7 @@ def host_costs(dev, reps: int = 2000) -> dict:
     x = torch.randn((4, 2048), device=dev).to(torch.bfloat16)
     scale = torch.ones(2048, device=dev, dtype=torch.bfloat16)
     snr = torch.rand((50, 8), device=dev)
+    rem = torch.rand((50,), device=dev) < 0.5
     index, lock = torch.cuda.current_device(), threading.Lock()
 
     def guard():
@@ -268,10 +276,122 @@ def host_costs(dev, reps: int = 2000) -> dict:
                                                      eps=1e-6),
         "best_bs_argmax_wrapper_50x8": lambda: ks.best_bs_argmax(snr),
         "torch.argmax_50x8": lambda: torch.argmax(snr, dim=1),
+        "masked_bs_argmax_wrapper_50x8": lambda: ks.masked_bs_argmax(snr, rem),
+        "torch.argmax_masked_50x8": lambda: torch.argmax(
+            torch.where(rem[:, None], snr, -torch.inf), dim=0),
     }
     out = {name: _host_us(fn, reps) for name, fn in pieces.items()}
     print(json.dumps({"host_costs_us": out}), flush=True)
     return out
+
+
+def _bw_case(gen, dev, k, u, density):
+    """Eq. (11) rows: coeff from a dB-spread SNR, tcomp shared, ``density``
+    of the users masked in; with 3 rows or more, row 1 empty (-> 0), row 0
+    warm-started inside the bracket and row 2 above hi (clipped to hi)."""
+    snr = torch.pow(10.0, torch.rand((k, u), generator=gen, device=dev)
+                    * 6.0 - 1.0)
+    coeff = (0.5 / torch.log2(1.0 + snr)).contiguous()
+    tcomp = 0.10 + 0.01 * torch.rand((u,), generator=gen, device=dev)
+    mask = torch.rand((k, u), generator=gen, device=dev) < density
+    bw = torch.full((k,), 1.0, device=dev)
+    lo = torch.zeros((k,), device=dev)
+    if k >= 3:
+        mask[1] = False
+        lo[0] = 0.2
+        lo[2] = 1e6
+    return coeff, tcomp, mask, bw, lo
+
+
+def sweep_bandwidth(dev, gen, fleet_bs, fleet_users, reps=3) -> list:
+    """The card sweep behind bandwidth_plan: ``graph_ms`` of kernel 1's
+    launch plans (the path, the slices a row, the compacted pairs or the
+    streaming re-read, the shared memory a block keeps: 96 KB, two blocks
+    an SM, or 192 KB, one), each first held to the plain version
+    (newton).  Short rows: warp vs one block; medium and fleet rows (30%
+    and ~1e4 users a row): 1-8 slices, and at the fleet rows compacted vs
+    streaming."""
+    from repro_torch.kernels import bandwidth_solve as kb
+
+    def plans_for(u, slices_list, **kw):
+        return [(f"s{s}" + "".join(f"_{k}" if v is True else f"_{k}{v}"
+                                  for k, v in kw.items()),
+                 kb.BwPlan("cluster", slices=s,
+                           slice=-(-u // (8 * s)) * 8, **kw))
+                for s in slices_list]
+
+    cases = []
+    for u in (64, 128, 256):
+        cases.append((f"short_u{u}", 8, u, 0.3,
+                      [("warp", kb.bandwidth_plan(8, u))]
+                      + plans_for(u, (1,))))
+    for k, u in ((8, 4096), (33, 4097), (8, 16384), (8, 65536),
+                 (33, 65536), (8, 262144), (1, fleet_users)):
+        cases.append((f"medium_k{k}_u{u}", k, u, 0.3,
+                      plans_for(u, (1, 2, 4, 8))
+                      + plans_for(u, (1, 2, 4, 8), smem_pairs=24576)))
+    for label, density in (("fleet", 0.3),
+                           ("fleet_sparse", 1e4 / fleet_users)):
+        cases.append((label, fleet_bs, fleet_users, density,
+                       plans_for(fleet_users, (1, 2, 4, 8))
+                       + plans_for(fleet_users, (1, 2, 4, 8),
+                                   smem_pairs=24576)
+                       + plans_for(fleet_users, (2, 8), stream=True)))
+    rows = []
+    for label, k, u, density, plans in cases:
+        coeff, tcomp, mask, bw, lo = _bw_case(gen, dev, k, u, density)
+        want = kb.bandwidth_solve_plain(coeff, tcomp, mask, bw, lo=lo)
+        for name, plan in plans:
+            def fn(plan=plan):
+                return kb.solve_cuda(0, coeff, tcomp, mask, bw, lo, None,
+                                     "newton", plan)
+            _close(f"bandwidth sweep {label} {name}", fn(), want, atol=1e-7)
+            # small rows: enough calls that the replay's own cost fades
+            n_calls = reps if k * u > 2_000_000 else 100
+            row = {"case": label, "k": k, "u": u, "density": density,
+                   "variant": name, "plan": plan._asdict(),
+                   "graph_ms": _graph_ms(fn, n_calls, f"{label} {name}")}
+            rows.append(row)
+        del coeff, tcomp, mask
+    print(json.dumps({"bandwidth_variants": rows}), flush=True)
+    return rows
+
+
+def sweep_masked(dev, n, m, reps=20) -> list:
+    """The card sweep behind masked_bs_plan's block size: ``graph_ms`` of
+    masked_bs_argmax at the fleet shapes (float32 at M and at 33 BSs,
+    bfloat16 and int8 at M) with 1/8-4x the plan's rows a block, each
+    first held to the plain version exactly."""
+    from repro_torch.kernels import select_topk as ks
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rem = torch.rand((n,), generator=gen, device=dev) < 0.5
+    rows = []
+    for label, cols, dtype in (("fleet", m, torch.float32),
+                               ("m33", 33, torch.float32),
+                               ("fleet_bf16", m, torch.bfloat16),
+                               ("fleet_int8", m, torch.int8)):
+        snr = torch.randn((n, cols), generator=gen, device=dev) * 40.0
+        snr = snr.to(dtype)
+        scale = torch.rand((cols,), generator=gen, device=dev) + 0.05
+        want = ks.masked_bs_argmax_plain(snr, rem, scale)
+        v, threads, rpt, per_block, _ = ks.masked_bs_plan(n, cols, dtype,
+                                                          True)
+        step = 8 * rpt                  # a block: whole 8-tile steps
+        for f in (0.125, 0.25, 0.5, 1, 2, 4):
+            rows_f = max(step, int(per_block * f) // step * step)
+            plan = (v, threads, rpt, rows_f, -(-n // rows_f))
+
+            def fn(plan=plan):
+                return ks.masked_cuda(0, snr, rem, scale, plan)
+            for got, w in zip(fn(), want):
+                _close(f"masked sweep {label} x{f}", got, w, exact=True)
+            rows.append({"case": label, "dtype": str(dtype), "m": cols,
+                         "rows_per_block": rows_f, "blocks": plan[4],
+                         "graph_ms": _graph_ms(fn, reps, f"{label} x{f}")})
+        del snr
+    print(json.dumps({"masked_variants": rows}), flush=True)
+    return rows
 
 
 def check_kernels(dev, fleet_users=1_000_000, fleet_bs=100,
@@ -337,35 +457,71 @@ def check_kernels(dev, fleet_users=1_000_000, fleet_bs=100,
                lambda: torch.argmax(snr, dim=1),
                n * m * 4 + n * 4, n * m, reps)
 
-    # -- Eq. (11) solve: K trial rows over U users, tcomp shared ------------
-    for label, k, u, reps in (("main", 8, 50, 200),
-                              ("fleet", fleet_bs, fleet_users, 5)):
-        snr = torch.pow(10.0, torch.rand((k, u), generator=gen, device=dev)
-                        * 6.0 - 1.0)
-        coeff = (0.5 / torch.log2(1.0 + snr)).contiguous()
-        tcomp = 0.10 + 0.01 * torch.rand((u,), generator=gen, device=dev)
-        mask = torch.rand((k, u), generator=gen, device=dev) < 0.3
-        mask[1] = False                             # an empty row -> 0
-        bw = torch.full((k,), 1.0, device=dev)
-        lo = torch.zeros((k,), device=dev)
-        lo[0] = 0.2                                 # a warm start
+    # -- masked_bs_argmax over bf16 / int8 storage with a per-BS scale ------
+    # (int8: quantize_snr_int8's dB codes; bf16: the linear SNR over its
+    # column maximum; one BS's scale negative), exact against plain
+    n, m = fleet_users, fleet_bs
+    snr = torch.pow(10.0, torch.rand((n, m), generator=gen, device=dev)
+                    * 6.0 - 1.0)
+    rem = torch.rand((n,), generator=gen, device=dev) < 0.5
+    db = 10.0 * torch.log10(snr)
+    q_scale = torch.clamp(db.abs().amax(dim=0), min=1e-6) / 127.0
+    q_scale[m // 2] = -q_scale[m // 2]
+    for label, codes, scale in (
+            ("fleet_int8", torch.clamp(torch.round(db / q_scale), -127, 127)
+             .to(torch.int8), q_scale),
+            ("fleet_bf16", snr.to(torch.bfloat16), 1.0 / snr.amax(dim=0))):
+        cand, best = ks.masked_bs_argmax(codes, rem, scale)
+        c_ref, b_ref = ks.masked_bs_argmax_plain(codes, rem, scale)
+        _close(f"masked_bs_argmax {label} cand", cand, c_ref, exact=True)
+        err = _close(f"masked_bs_argmax {label} best", best, b_ref,
+                     exact=True)
+        record("masked_bs_argmax", label, [n, m], err,
+               lambda: ks.masked_bs_argmax(codes, rem, scale),
+               lambda: ks.masked_bs_argmax_plain(codes, rem, scale),
+               lambda: torch.argmax(torch.where(
+                   rem[:, None], codes.float() * scale, -torch.inf), dim=0),
+               n * m * codes.element_size() + n + 3 * m * 4, 2 * n * m, 20)
+    del snr, rem, db, codes
+
+    sweep_masked(dev, fleet_users, fleet_bs)
+
+    # -- Eq. (11) solve: K trial rows over U users, tcomp shared, one row
+    # per path of bandwidth_plan: warp (main), block (medium), cluster
+    # (fleet: 30% of the users a row; fleet_sparse: ~1e4 users a row) ------
+    for label, k, u, density, reps in (
+            ("main", 8, 50, 0.3, 200), ("medium", 33, 4097, 0.3, 50),
+            ("fleet", fleet_bs, fleet_users, 0.3, 5),
+            ("fleet_sparse", fleet_bs, fleet_users, 1e4 / fleet_users, 10)):
+        coeff, tcomp, mask, bw, lo = _bw_case(gen, dev, k, u, density)
         for method in ("newton", "bisect"):
             got = kb.bandwidth_solve(coeff, tcomp, mask, bw, lo=lo,
                                      method=method)
             want = kb.bandwidth_solve_plain(coeff, tcomp, mask, bw, lo=lo,
                                             method=method)
-            err = _close(f"bandwidth_solve {method}", got, want)
+            err = _close(f"bandwidth_solve {label} {method}", got, want,
+                         atol=1e-7)
             if got[1].item() != 0.0:
                 raise AssertionError("bandwidth_solve: empty row must be 0")
-        err = _close("bandwidth_solve", kb.bandwidth_solve(
+        err = _close(f"bandwidth_solve {label}", kb.bandwidth_solve(
             coeff, tcomp, mask, bw, lo=lo), kb.bandwidth_solve_plain(
-            coeff, tcomp, mask, bw, lo=lo))
+            coeff, tcomp, mask, bw, lo=lo), atol=1e-7)
         nnz = float(mask.sum())
+        # what this run's data needs: the mask, and c and tc of the users
+        # masked in (tc once per user that any row takes)
+        data_bytes = k * u + nnz * 4 + float(mask.any(dim=0).sum()) * 4 \
+            + 3 * k * 4
         record("bandwidth_solve", label, [k, u], err,
                lambda: kb.bandwidth_solve(coeff, tcomp, mask, bw, lo=lo),
                lambda: kb.bandwidth_solve_plain(coeff, tcomp, mask, bw, lo=lo),
                None, k * u * 4 + u * 4 + k * u + 3 * k * 4,
-               (16 * 7 + 3) * nnz, reps)
+               (16 * 7 + 3) * nnz, reps,
+               extra={"plan": kb.bandwidth_plan(k, u)._asdict(),
+                      "users_per_row": nnz / k,
+                      "bound_data_ms": _bound_ms(data_bytes,
+                                                 (16 * 7 + 3) * nnz)[0]})
+        del coeff, tcomp, mask
+    sweep_bandwidth(dev, gen, fleet_bs, fleet_users)
 
     # -- Eq. (2) per-leaf reduction: every paper-scale CNN leaf ------------
     shapes = {name: tuple(p.shape) for name, p in (

@@ -53,8 +53,12 @@ _SIGNATURES = {
        for t in ("f32", "bf16")},
     **{f"ssd_scan_{t}": (_P,) * 6 + (_I,) * 8 + (_P,)
        for t in ("f32", "bf16")},
-    "bandwidth_solve_f32": (_P, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "masked_bs_argmax_f32": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    "bandwidth_solve_warp_f32": (_P, _P, _LL, _P, _P, _P, _P) + (_I,) * 5
+    + (_P,),
+    "bandwidth_solve_cluster_f32": (_P, _P, _LL, _P, _P, _P, _P, _I, _LL, _I,
+                                    _I, _I, _LL, _I, _I, _I, _LL, _P, _P),
+    **{f"masked_bs_argmax_{t}": (_P, _I, _P, _P, _LL, _I, _I, _I, _LL, _P,
+                                 _P, _P, _P) for t in ("f32", "bf16", "i8")},
     "best_bs_argmax_f32": (_P, _I, _I, _I, _I, _I, _P, _P),
     "fedavg_reduce_f32": (_P, _P, _LL, _LL, _P, _I, _I, _P),
     "fedavg_reduce_i8": (_P, _P, _LL, _LL, _P, _I, _I, _P),
@@ -66,6 +70,7 @@ _SIGNATURES = {
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
 _entries: dict[str, ctypes._CFuncPtr] = {}  # name -> resolved entry point
+_workspaces: dict[tuple, torch.Tensor] = {}  # (name, device, stream) -> buf
 
 
 def reset_launches() -> None:
@@ -165,6 +170,20 @@ def launch(name: str, index: int, *args) -> None:
             rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def workspace(name: str, index: int, nbytes: int) -> torch.Tensor:
+    """A zeroed device buffer of at least ``nbytes`` for kernel ``name``,
+    cached per device and current stream (two streams never share one) and
+    grown on demand.  A kernel that keeps state in it (a ticket) leaves it
+    zeroed again when it ends."""
+    key = (name, index, torch._C._cuda_getCurrentRawStream(index))
+    buf = _workspaces.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.zeros((nbytes,), dtype=torch.uint8,
+                          device=torch.device("cuda", index))
+        _workspaces[key] = buf
+    return buf
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

@@ -48,27 +48,78 @@ def _rs(seed):
     return np.random.default_rng(seed)
 
 
-@pytest.mark.parametrize("k,u", [(8, 50), (1, 1), (33, 1000), (100, 4097)])
-@pytest.mark.parametrize("method", ["newton", "bisect"])
-def test_bandwidth_solve(dev, k, u, method):
-    rs = _rs(k * u)
+def _bw_inputs(rs, k, u, dev, density=0.4):
     snr = 10.0 ** rs.uniform(-1, 4, (k, u))
     coeff = torch.tensor(0.5 / np.log2(1 + snr), dtype=torch.float32,
                          device=dev)
     tcomp = torch.tensor(rs.uniform(0.1, 0.11, u), dtype=torch.float32,
                          device=dev)
-    mask = torch.tensor(rs.random((k, u)) < 0.4, device=dev)
-    mask[k // 2] = False
+    mask = torch.tensor(rs.random((k, u)) < density, device=dev)
     bw = torch.tensor(rs.uniform(0.5, 1.5, k), dtype=torch.float32,
                       device=dev)
     lo = torch.tensor(rs.uniform(0.0, 0.3, k), dtype=torch.float32,
                       device=dev)
+    return coeff, tcomp, mask, bw, lo
+
+
+# Every boundary of bandwidth_plan: the warp path's users a lane (32, 33,
+# 256), the block path (257, 4097, 16384) and the cluster path's slices
+# (16385: 2, 131072: 8 on chip, 131073: 8 with a spill).
+@pytest.mark.parametrize("k,u", [(8, 50), (1, 1), (33, 1000), (100, 4097),
+                                 (8, 32), (8, 33), (8, 256), (8, 257),
+                                 (4, 16384), (4, 16385), (3, 131072),
+                                 (3, 131073)])
+@pytest.mark.parametrize("method", ["newton", "bisect"])
+def test_bandwidth_solve(dev, k, u, method):
+    rs = _rs(k * u)
+    coeff, tcomp, mask, bw, lo = _bw_inputs(rs, k, u, dev)
+    mask[k // 2] = False                        # an empty row -> 0
+    if k >= 3:
+        mask[0] = False                         # a single-user row
+        mask[0, u // 2] = True
+        lo[2] = 1e6                             # a warm start above hi
     for tc in (tcomp, tcomp.expand(k, u).contiguous()):
         got = kb.bandwidth_solve(coeff, tc, mask, bw, lo=lo, method=method)
         want = kb.bandwidth_solve_plain(coeff, tc, mask, bw, lo=lo,
                                         method=method)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
         assert got[k // 2].item() == 0.0
+
+
+@pytest.mark.parametrize("density", [0.01, 0.3])
+@pytest.mark.parametrize("method", ["newton", "bisect"])
+def test_bandwidth_solve_fleet_rows(dev, density, method):
+    """Fleet rows at reduced K: [4, 1e6] with ~1e4 users a row and with
+    30% (pairs spilled past shared memory); the plan (8 slices), the
+    streaming variant, the fleet's own plan (2 slices of 500,000 users)
+    and 192 KB of pairs a block, each against plain and bit-identical
+    over two runs."""
+    k, u = 4, 1_000_000
+    coeff, tcomp, mask, bw, lo = _bw_inputs(_rs(7), k, u, dev, density)
+    mask[1] = False
+    lo[2] = 1e6
+    want = kb.bandwidth_solve_plain(coeff, tcomp, mask, bw, lo=lo,
+                                    method=method)
+    plan = kb.bandwidth_plan(k, u)
+    assert plan.path == "cluster" and plan.slices == 8
+    for p in (plan, plan._replace(stream=True), kb.bandwidth_plan(100, u),
+              plan._replace(smem_pairs=2 * kb.SMEM_PAIRS)):
+        runs = [kb.solve_cuda(0, coeff, tcomp, mask, bw, lo, None, method, p)
+                for _ in range(2)]
+        torch.testing.assert_close(runs[0], want, rtol=1e-5, atol=1e-7)
+        assert torch.equal(runs[0], runs[1])
+        assert runs[0][1].item() == 0.0
+
+
+def test_bandwidth_solve_bf16_upcast(dev):
+    coeff, tcomp, mask, bw, lo = _bw_inputs(_rs(3), 8, 50, dev)
+    c16, t16 = coeff.to(torch.bfloat16), tcomp.to(torch.bfloat16)
+    got = kb.bandwidth_solve(c16, t16, mask, bw, lo=lo)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, kb.bandwidth_solve(c16.float(), t16.float(),
+                                               mask, bw, lo=lo))
+    with pytest.raises(TypeError):
+        kb.bandwidth_solve(coeff.half(), tcomp, mask, bw)
 
 
 @pytest.mark.parametrize("n,m", [(50, 8), (1, 1), (37, 5), (70000, 100),
@@ -88,6 +139,82 @@ def test_selection_argmaxes(dev, n, m):
                              ks.masked_bs_argmax_plain(snr, rem)):
             assert torch.equal(got, want)
     assert torch.equal(ks.best_bs_argmax(snr), ks.best_bs_argmax_plain(snr))
+
+
+def _quantized(n, m, dtype, dev, seed):
+    """snr codes of ``dtype`` (int8 dB codes, or bf16 / f32 values with
+    ties) and a per-BS scale with one negative entry."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if dtype == torch.int8:
+        snr = torch.randint(-127, 128, (n, m), generator=gen, device=dev,
+                            dtype=torch.int8)
+    else:
+        snr = (torch.rand((n, m), generator=gen, device=dev) * 8.0).round()
+        snr = snr.to(dtype)                     # few values: many ties
+    scale = torch.rand((m,), generator=gen, device=dev) + 0.05
+    scale[m // 2] = -scale[m // 2]
+    rem = torch.rand((n,), generator=gen, device=dev) < 0.5
+    return snr, scale, rem
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 50, 70000, 1_000_000])
+@pytest.mark.parametrize("m", [1, 8, 33, 100])
+def test_masked_bs_argmax_quantized(dev, dtype, n, m):
+    snr, scale, rem = _quantized(n, m, dtype, dev, n + m)
+    for r in (rem, torch.zeros_like(rem), torch.ones_like(rem)):
+        for sc in (scale, None):
+            for got, want in zip(ks.masked_bs_argmax(snr, r, sc),
+                                 ks.masked_bs_argmax_plain(snr, r, sc)):
+                assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_masked_bs_argmax_unaligned(dev, dtype):
+    """A plane off 4-byte alignment takes one code a load."""
+    n, m = 7001, 33
+    snr, scale, rem = _quantized(n, m, dtype, dev, 1)
+    off = torch.empty(n * m + 1, dtype=dtype, device=dev)[1:].view(n, m)
+    off.copy_(snr)
+    assert off.data_ptr() % 4 != 0
+    for got, want in zip(ks.masked_bs_argmax(off, rem, scale),
+                         ks.masked_bs_argmax_plain(snr, rem, scale)):
+        assert torch.equal(got, want)
+
+
+def test_masked_bs_argmax_ticket_resets(dev):
+    """The last block resets the keys and the ticket: three calls in a row,
+    a call after one that raised, and a CUDA graph replayed five times all
+    give the same result (one launch a call)."""
+    n, m = 70000, 100                           # 107 blocks
+    assert ks.masked_bs_plan(n, m, torch.float32, True)[4] > 1
+    snr = torch.rand((n, m), device=dev)
+    rem = torch.rand((n,), device=dev) < 0.5
+    want = ks.masked_bs_argmax_plain(snr, rem)
+    before = _lib.LAUNCHES["masked_bs_argmax"]
+    for _ in range(3):
+        got = ks.masked_bs_argmax(snr, rem)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert _lib.LAUNCHES["masked_bs_argmax"] == before + 3
+    with pytest.raises(ValueError):
+        ks.masked_bs_argmax(snr, rem[:-1])
+    got = ks.masked_bs_argmax(snr, rem)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    outs, counted = _replayed(lambda: torch.stack(
+        [t.float() for t in ks.masked_bs_argmax(snr, rem)]), reps=1)
+    assert counted == {"masked_bs_argmax": 1}
+    assert torch.equal(outs[0], torch.stack([w.float() for w in want]))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cand, best = ks.masked_bs_argmax(snr, rem)
+    for _ in range(5):
+        cand.zero_()
+        best.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(cand, want[0]) and torch.equal(best, want[1])
+    got = ks.masked_bs_argmax(snr, rem)         # eager again after the graph
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.parametrize("n,d", [(50, 100352), (13, 1000), (1, 7)])

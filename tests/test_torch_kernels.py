@@ -1,4 +1,4 @@
-"""The port's four kernels against the JAX package's Pallas kernels.
+"""The port's FL kernels against the JAX package's Pallas kernels.
 
 On the CPU each wrapper runs its plain version; here that plain version is
 held against the Pallas kernel in interpret mode (as the JAX package's own
@@ -8,6 +8,7 @@ another order).  The CUDA kernels themselves run only on the card:
 tests/test_torch_cuda.py and ``chip_smoke.py`` hold them against the plain
 versions there.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -71,6 +72,79 @@ def test_bandwidth_solve_warm_start_lo():
     np.testing.assert_allclose(got[keep], cold[keep], rtol=1e-5)
 
 
+@pytest.mark.parametrize("method", ["newton", "bisect"])
+def test_bandwidth_solve_bf16_matches_pallas(method):
+    """bf16 coeff and tcomp are solved in float32, as the JAX wrapper
+    upcasts them (the CUDA wrapper upcasts before its launch)."""
+    coeff, tcomp, mask, bw = _bw_case(4, 8, 50)
+    tc_rows = np.broadcast_to(tcomp, (8, 50)).copy()
+    c16 = T(coeff).to(torch.bfloat16)
+    t16 = T(tc_rows).to(torch.bfloat16)
+    want = np.asarray(j_bw(jnp.asarray(c16.float().numpy()).astype(
+        jnp.bfloat16), jnp.asarray(t16.float().numpy()).astype(jnp.bfloat16),
+        mask, bw, method=method, interpret=True))
+    got = kb.bandwidth_solve(c16, t16, T(mask), T(bw), method=method)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+    np.testing.assert_array_equal(
+        got.numpy(), kb.bandwidth_solve(c16.float(), t16.float(), T(mask),
+                                        T(bw), method=method).numpy())
+
+
+_SLICE = kb.SLICE_USERS
+
+
+# bandwidth_plan at each path's boundaries: (K, U, path, users a lane or
+# slices, slice users).  Slices: about SLICE_USERS users each, at most 8,
+# and K x slices within GRID_BLOCKS.
+@pytest.mark.parametrize("k,u,path,width,slice_", [
+    (8, 0, "warp", 1, 0), (8, 1, "warp", 1, 0), (8, 32, "warp", 1, 0),
+    (8, 33, "warp", 2, 0), (8, 64, "warp", 2, 0), (8, 65, "warp", 4, 0),
+    (8, 256, "warp", 8, 0), (8, 257, "block", 1, 264),
+    (33, 4097, "block", 1, 4104), (8, _SLICE, "block", 1, _SLICE),
+    (8, _SLICE + 1, "cluster", 2, _SLICE // 2 + 8),
+    (33, 4 * _SLICE, "cluster", 4, _SLICE),
+    (8, 8 * _SLICE, "cluster", 8, _SLICE),
+    (8, 8 * _SLICE + 1, "cluster", 8, _SLICE + 8),
+    (1, 1_000_000, "cluster", 8, 125000),
+    (100, 1_000_000, "cluster", 2, 500000),
+    (128, 1_000_000, "cluster", 2, 500000),
+    (129, 1_000_000, "block", 1, 1_000_000)])
+def test_bandwidth_plan(k, u, path, width, slice_):
+    plan = kb.bandwidth_plan(k, u)
+    assert plan.path == path and not plan.stream
+    if path == "warp":
+        assert plan.users_per_lane == width and 32 * width >= u
+        return
+    assert (plan.slices, plan.slice) == (width, slice_)
+    assert plan.slice % kb.VEC_USERS == 0 and plan.slices * plan.slice >= u
+    assert (plan.slices - 1) * plan.slice < u     # no slice left empty
+    assert k * plan.slices <= max(kb.GRID_BLOCKS, k)
+
+
+@pytest.mark.parametrize("k,u", [(8, 257), (8, 4097), (8, 16384),
+                                 (8, 16385), (8, 131073), (100, 1_000_000),
+                                 (1, 1_000_000)])
+@pytest.mark.parametrize("vec", [False, True])
+def test_bandwidth_pair_capacity_holds_every_user(k, u, vec):
+    """A warp's shared-memory and spill regions together hold every user
+    the warp loads (csrc/bandwidth_solve.cu: warp w of a 512-thread block
+    loads units w*32 .. w*32+31 of every 512, 8 users a unit when vec),
+    and shared memory stays within the block's SMEM_PAIRS."""
+    plan = kb.bandwidth_plan(k, u)
+    on_chip, spill = kb.pair_capacity(plan, vec)
+    per_unit = kb.VEC_USERS if vec else 1
+    units = -(-plan.slice // per_unit)
+    threads = kb.CLUSTER_THREADS
+    most = max(sum(1 for j in range(units) if (j % threads) // 32 == w)
+               for w in range(threads // 32)) * per_unit
+    assert on_chip + spill >= most
+    assert on_chip * threads // 32 <= kb.SMEM_PAIRS and on_chip % 32 == 0
+    assert spill == 0 or on_chip == kb.SMEM_PAIRS // (threads // 32)
+    if most <= kb.SMEM_PAIRS // (threads // 32):
+        assert spill == 0                        # all on chip
+
+
 def _snr_with_ties(seed, n, m):
     rs = np.random.default_rng(seed)
     snr = (10.0 ** rs.uniform(-1, 5, (n, m))).astype(np.float32)
@@ -98,6 +172,53 @@ def test_masked_bs_argmax_matches_pallas_exactly(n, m, seed):
     assert np.isneginf(tv.numpy()).all()
 
 
+def _quantize_snr_int8(snr):
+    """numpy port of repro.core.channel.quantize_snr_int8's formula."""
+    db = (10.0 * np.log10(np.maximum(snr, 1e-12))).astype(np.float32)
+    scale = (np.maximum(np.abs(db).max(axis=0), 1e-6) / 127.0).astype(
+        np.float32)
+    q = np.clip(np.round(db / scale[None, :]), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def _storage(snr, dtype):
+    """(jax array, torch tensor) of the same codes: f32, bf16 (exactly
+    representable values, so both sides hold the same bits) or int8."""
+    if dtype == "int8":
+        return snr, T(snr)
+    t = T(snr)
+    if dtype == "bf16":
+        t = t.to(torch.bfloat16)
+        return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16), t
+    return snr, t
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("n,m,seed", [(50, 8, 0), (37, 5, 1), (130, 3, 2),
+                                      (200, 33, 3)])
+def test_masked_bs_argmax_quantized_matches_pallas_exactly(dtype, n, m, seed):
+    """f32, bf16 and int8 storage with a per-BS scale (one column's scale
+    negative, so the raw codes order the other way), ties, all-masked and
+    one-user masks: indices and values equal the Pallas kernel's."""
+    snr, rem = _snr_with_ties(seed, n, m)
+    q, scale = _quantize_snr_int8(snr)
+    scale[m // 2] = -scale[m // 2]
+    codes = q if dtype == "int8" else (snr if dtype == "f32" else
+                                       snr.astype(np.float32))
+    jx, tx = _storage(codes, dtype)
+    for mask in (rem, np.zeros(n, bool), np.eye(1, n, n - 1, dtype=bool)[0]):
+        for sc in (scale, None):
+            ji, jv = j_masked(jx, mask, scale=sc, user_block=16,
+                              interpret=True)
+            ti, tv = ks.masked_bs_argmax(tx, T(mask),
+                                         None if sc is None else T(sc))
+            assert ti.dtype == torch.int32 and tv.dtype == torch.float32
+            np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+            np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    if dtype == "int8":                          # codes tie within a column
+        assert (np.sort(q[:, 0])[1:] == np.sort(q[:, 0])[:-1]).any()
+
+
 @pytest.mark.parametrize("n,m,seed", [(50, 8, 0), (37, 5, 1), (130, 3, 2)])
 def test_best_bs_argmax_matches_pallas_exactly(n, m, seed):
     snr, _ = _snr_with_ties(seed, n, m)
@@ -107,6 +228,72 @@ def test_best_bs_argmax_matches_pallas_exactly(n, m, seed):
                                   np.asarray(j_best(snr, user_block=16)))
     np.testing.assert_array_equal(got.numpy(),
                                   np.asarray(ref.best_bs_argmax(snr)))
+
+
+@pytest.mark.parametrize("dtype,aligned", [
+    (torch.float32, True), (torch.bfloat16, True), (torch.bfloat16, False),
+    (torch.int8, True), (torch.int8, False)])
+def test_masked_bs_plan_is_launchable(dtype, aligned):
+    """Every M gives a launch csrc/select_topk.cu takes: a tile of threads
+    x codes entries is a whole number of rows (a thread's columns stay
+    put), at most 1024 threads, a block a whole number of 8-tile steps, and
+    N x M up to the block's entries (32,768 float32, 65,536 bf16 / int8)
+    one block."""
+    for m in range(1, 1025):
+        n = max(1, ks._BLOCK_ELEMS[dtype] // m)
+        v, threads, rpt, rows, blocks = ks.masked_bs_plan(n, m, dtype,
+                                                          aligned)
+        assert v == (1 if not aligned else {torch.float32: 1,
+                                            torch.bfloat16: 2,
+                                            torch.int8: 4}[dtype])
+        assert threads * v == rpt * m and 1 <= threads <= 1024
+        assert rows % (8 * rpt) == 0 and blocks == 1
+        assert ks.masked_bs_plan(2 * rows + 1, m, dtype, aligned)[4] >= 2
+
+
+@pytest.mark.parametrize("n,m,dtype,want", [
+    (50, 8, torch.float32, (1, 56, 7, 4144, 1)),
+    (37, 5, torch.float32, (1, 25, 5, 6560, 1)),
+    (1, 1, torch.float32, (1, 1, 1, 32768, 1)),
+    (1_000_000, 100, torch.float32, (1, 200, 2, 336, 2977)),
+    (1_000_000, 33, torch.float32, (1, 231, 7, 1008, 993)),
+    (1_000_000, 100, torch.bfloat16, (2, 250, 5, 680, 1471)),
+    (1_000_000, 100, torch.int8, (4, 250, 10, 720, 1389)),
+    (1_000_000, 33, torch.int8, (4, 231, 28, 2016, 497)),
+    (1, 1, torch.int8, (4, 1, 4, 65536, 1)),
+    (70000, 8, torch.int8, (4, 256, 128, 8192, 9))])
+def test_masked_bs_plan(n, m, dtype, want):
+    assert ks.masked_bs_plan(n, m, dtype, True) == want
+
+
+def _ordered_key(v):
+    u = np.asarray(v, np.float32).reshape(-1) + np.float32(0.0)
+    u = u.view(np.uint32)
+    return np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint64)
+
+
+def test_masked_bs_packed_key_orders_value_then_lowest_index():
+    """The kernel's per-column atomicMax key: the value as an order-
+    preserving integer above the complement of the index; its max is the
+    (largest value, lowest index) candidate, and it unpacks to both."""
+    rs = np.random.default_rng(0)
+    vals = np.concatenate([rs.standard_normal(200).astype(np.float32),
+                           np.float32([0.0, -0.0, -np.inf, np.inf, 3.0, 3.0,
+                                       -1e-38, 1e-38])])
+    idx = rs.permutation(len(vals)).astype(np.int64)
+    idx[-1] = 2 ** 31 - 1                       # a block with no user
+    keys = (_ordered_key(vals) << np.uint64(32)) | (
+        ~idx.astype(np.uint32)).astype(np.uint64)
+    top = keys.max()
+    best = vals.max()
+    want_i = idx[vals == best].min()
+    assert (~np.uint32(top & np.uint64(0xffffffff))) == want_i
+    k = np.uint32(top >> np.uint64(32))
+    bits = (k & np.uint32(0x7fffffff)) if k & np.uint32(0x80000000) else ~k
+    assert np.uint32(bits).view(np.float32) == best
+    # -0 and +0 tie (the lowest index wins), as in jnp.argmax
+    z = _ordered_key(np.float32([0.0, -0.0]))
+    assert z[0] == z[1]
 
 
 # The launch shape of best_bs_argmax's CUDA kernel: (lanes per row, column
