@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # everything below, one card
     python3 chip_smoke.py --kernels    # steps 1-3 and 7a only
+    python3 chip_smoke.py --sweeps     # step 1, the build, the plans' sweeps
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
 2. builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` with
@@ -22,10 +23,10 @@
    PyTorch call as a yardstick: each row's ``ms`` (CUDA events around
    back-to-back calls), ``graph_ms`` (the same calls captured in one CUDA
    graph and replayed: device time alone) and ``host_us`` (host time of
-   one call), the yardstick's likewise; and runs the card sweeps behind
-   the plans of masked_bs_argmax (rows a block, ``masked_variants``) and
-   bandwidth_solve (warp or block, slices a row, compacted pairs or the
-   streaming re-read, shared memory a block: ``bandwidth_variants``);
+   one call), the yardstick's likewise (``--sweeps`` instead runs the
+   card sweeps behind the plans of masked_bs_argmax, rows a block:
+   ``masked_variants``, and of bandwidth_solve, warp or block and slices
+   a row: ``bandwidth_variants``);
 4. checks small runs on the card against the same runs on the CPU (the
    plain versions, the default scheduler, host DAGSA): the synchronous
    round, hierarchical aggregation, and hierarchical aggregation over the
@@ -305,19 +306,14 @@ def _bw_case(gen, dev, k, u, density):
 
 def sweep_bandwidth(dev, gen, fleet_bs, fleet_users, reps=3) -> list:
     """The card sweep behind bandwidth_plan: ``graph_ms`` of kernel 1's
-    launch plans (the path, the slices a row, the compacted pairs or the
-    streaming re-read, the shared memory a block keeps: 96 KB, two blocks
-    an SM, or 192 KB, one), each first held to the plain version
-    (newton).  Short rows: warp vs one block; medium and fleet rows (30%
-    and ~1e4 users a row): 1-8 slices, and at the fleet rows compacted vs
-    streaming."""
+    launch plans (the path, the slices a row), each first held to the
+    plain version (newton).  Short rows: warp vs one block; medium and
+    fleet rows (30% and ~1e4 users a row): 1-8 slices."""
     from repro_torch.kernels import bandwidth_solve as kb
 
-    def plans_for(u, slices_list, **kw):
-        return [(f"s{s}" + "".join(f"_{k}" if v is True else f"_{k}{v}"
-                                  for k, v in kw.items()),
-                 kb.BwPlan("cluster", slices=s,
-                           slice=-(-u // (8 * s)) * 8, **kw))
+    def plans_for(u, slices_list):
+        return [(f"s{s}", kb.BwPlan("cluster", slices=s,
+                                    slice=-(-u // (8 * s)) * 8))
                 for s in slices_list]
 
     cases = []
@@ -328,15 +324,11 @@ def sweep_bandwidth(dev, gen, fleet_bs, fleet_users, reps=3) -> list:
     for k, u in ((8, 4096), (33, 4097), (8, 16384), (8, 65536),
                  (33, 65536), (8, 262144), (1, fleet_users)):
         cases.append((f"medium_k{k}_u{u}", k, u, 0.3,
-                      plans_for(u, (1, 2, 4, 8))
-                      + plans_for(u, (1, 2, 4, 8), smem_pairs=24576)))
+                      plans_for(u, (1, 2, 4, 8))))
     for label, density in (("fleet", 0.3),
                            ("fleet_sparse", 1e4 / fleet_users)):
         cases.append((label, fleet_bs, fleet_users, density,
-                       plans_for(fleet_users, (1, 2, 4, 8))
-                       + plans_for(fleet_users, (1, 2, 4, 8),
-                                   smem_pairs=24576)
-                       + plans_for(fleet_users, (2, 8), stream=True)))
+                      plans_for(fleet_users, (1, 2, 4, 8))))
     rows = []
     for label, k, u, density, plans in cases:
         coeff, tcomp, mask, bw, lo = _bw_case(gen, dev, k, u, density)
@@ -484,8 +476,6 @@ def check_kernels(dev, fleet_users=1_000_000, fleet_bs=100,
                n * m * codes.element_size() + n + 3 * m * 4, 2 * n * m, 20)
     del snr, rem, db, codes
 
-    sweep_masked(dev, fleet_users, fleet_bs)
-
     # -- Eq. (11) solve: K trial rows over U users, tcomp shared, one row
     # per path of bandwidth_plan: warp (main), block (medium), cluster
     # (fleet: 30% of the users a row; fleet_sparse: ~1e4 users a row) ------
@@ -507,21 +497,21 @@ def check_kernels(dev, fleet_users=1_000_000, fleet_bs=100,
             coeff, tcomp, mask, bw, lo=lo), kb.bandwidth_solve_plain(
             coeff, tcomp, mask, bw, lo=lo), atol=1e-7)
         nnz = float(mask.sum())
-        # what this run's data needs: the mask, and c and tc of the users
-        # masked in (tc once per user that any row takes)
+        # the bound counts what this run's data needs: the mask, and c and
+        # tc of the users masked in (tc once per user that any row takes);
+        # every input read once is kept beside it
         data_bytes = k * u + nnz * 4 + float(mask.any(dim=0).sum()) * 4 \
             + 3 * k * 4
         record("bandwidth_solve", label, [k, u], err,
                lambda: kb.bandwidth_solve(coeff, tcomp, mask, bw, lo=lo),
                lambda: kb.bandwidth_solve_plain(coeff, tcomp, mask, bw, lo=lo),
-               None, k * u * 4 + u * 4 + k * u + 3 * k * 4,
-               (16 * 7 + 3) * nnz, reps,
+               None, data_bytes, (16 * 7 + 3) * nnz, reps,
                extra={"plan": kb.bandwidth_plan(k, u)._asdict(),
                       "users_per_row": nnz / k,
-                      "bound_data_ms": _bound_ms(data_bytes,
-                                                 (16 * 7 + 3) * nnz)[0]})
+                      "bound_bytes_once_ms": _bound_ms(
+                          k * u * 4 + u * 4 + k * u + 3 * k * 4,
+                          (16 * 7 + 3) * nnz)[0]})
         del coeff, tcomp, mask
-    sweep_bandwidth(dev, gen, fleet_bs, fleet_users)
 
     # -- Eq. (2) per-leaf reduction: every paper-scale CNN leaf ------------
     shapes = {name: tuple(p.shape) for name, p in (
@@ -1211,9 +1201,10 @@ def kernel_rows(results: dict, launches: dict) -> list:
 
 def main(argv: list[str]) -> int:
     kernels_only = argv == ["--kernels"]
-    if argv and not kernels_only:
-        print(f"chip_smoke: unknown arguments {argv}; takes none, or "
-              f"--kernels", file=sys.stderr)
+    sweeps_only = argv == ["--sweeps"]
+    if argv and not (kernels_only or sweeps_only):
+        print(f"chip_smoke: unknown arguments {argv}; takes none, "
+              f"--kernels or --sweeps", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1241,6 +1232,11 @@ def main(argv: list[str]) -> int:
     print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"from {_lib.CSRC}", flush=True)
 
+    if sweeps_only:
+        sweep_masked(dev, 1_000_000, 100)
+        sweep_bandwidth(dev, torch.Generator(device=dev).manual_seed(0),
+                        100, 1_000_000)
+        return 0
     host_costs(dev)
     results = check_kernels(dev)
     results.update(check_lm_kernels(dev))

@@ -39,10 +39,9 @@
 //     into the warp's region of shared memory (96 KB a block) and, past
 //     its capacity, into a global spill region of fixed capacity (the
 //     warp's users), so the 16 iterations read only masked-in pairs, eight
-//     in flight a lane.  The "stream" variant instead re-reads the slice
-//     every iteration.  The plan never takes it: it stays as the baseline
-//     that the card sweep (chip_smoke.py, bandwidth_variants; PERF.md)
-//     times beside the compacted pairs on every run.  Each sum goes warp (xor
+//     in flight a lane.  (A variant that re-read the slice every iteration
+//     instead lost 2.1-9.8x to the compacted pairs in a card sweep at the
+//     fleet rows; PERF.md keeps its numbers.)  Each sum goes warp (xor
 //     shuffles) -> block (shared memory, fixed warp order) -> cluster (each
 //     block's totals read over distributed shared memory in rank order),
 //     so every block holds the same bits and the result is the same from
@@ -295,9 +294,9 @@ __device__ __forceinline__ void add_pairs8(float t, const float2 (&q)[8],
 
 // Grid k * slices blocks; the `slices` blocks of a row are one cluster
 // (dims slices x 1 x 1), whose block rank is the slice.  Block `rank`
-// takes users [rank * slice, min(u, (rank + 1) * slice)).  Compacted
-// (stream = 0): warp w keeps its first smem_per_warp pairs in its region
-// of the dynamic shared memory, the rest at spill + (block * kWarps + w) *
+// takes users [rank * slice, min(u, (rank + 1) * slice)).  Warp w keeps
+// its first smem_per_warp masked-in pairs in its region of the dynamic
+// shared memory, the rest at spill + (block * kWarps + w) *
 // spill_per_warp.
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -307,7 +306,7 @@ bw_cluster_kernel(const float* __restrict__ coeff,
                   const float* __restrict__ bw,
                   const float* __restrict__ lo_hint, float* __restrict__ out,
                   long long u, int slices, long long slice, int iters,
-                  int bisect, int stream, int smem_per_warp,
+                  int bisect, int smem_per_warp,
                   long long spill_per_warp, float2* __restrict__ spill) {
   using U = Unit<kVec>;
   constexpr int E = U::E;
@@ -380,7 +379,6 @@ bw_cluster_kernel(const float* __restrict__ coeff,
         tmax = fmaxf(tmax, x.tc[e]);
       }
     }
-    if (stream) return;
     // the warp's pairs in lane order, then user order: a lane's first
     // pair goes after the pairs of the lanes below it
     const int mine = __popc(x.bits);
@@ -413,39 +411,29 @@ bw_cluster_kernel(const float* __restrict__ coeff,
       any_user ? s.z : 0.0f, s.y, bw[row], lo_hint[row], iters, bisect,
       [&](float at, float& fs, float& ds) {
         float a = 0.0f, d = 0.0f;
-        if (stream) {
-          for_units<kVec>(c_row, tc_row, m_row, beg, n_units, tid,
-                          [&](const U& x) {
+        // lane-strided pairs, eight in flight: shared memory, then the
+        // spill (smem_per_warp is a multiple of 32, so p stays strided)
+        int p = lane;
+        const int on_chip = min(n_pairs, smem_per_warp);
+        float2 q[8];
+        for (; p + 224 < on_chip; p += 256) {
 #pragma unroll
-                            for (int e = 0; e < E; ++e)
-                              if ((x.bits >> e) & 1u)
-                                add_terms(at, x.c[e], x.tc[e], a, d);
-                          });
-        } else {
-          // lane-strided pairs, eight in flight: shared memory, then the
-          // spill (smem_per_warp is a multiple of 32, so p stays strided)
-          int p = lane;
-          const int on_chip = min(n_pairs, smem_per_warp);
-          float2 q[8];
-          for (; p + 224 < on_chip; p += 256) {
+          for (int e = 0; e < 8; ++e) q[e] = my_pairs[p + 32 * e];
+          add_pairs8(at, q, a, d);
+        }
+        for (; p < on_chip; p += 32) {
+          const float2 q1 = my_pairs[p];
+          add_terms(at, q1.x, q1.y, a, d);
+        }
+        const float2* sp = my_spill - smem_per_warp;
+        for (; p + 224 < n_pairs; p += 256) {
 #pragma unroll
-            for (int e = 0; e < 8; ++e) q[e] = my_pairs[p + 32 * e];
-            add_pairs8(at, q, a, d);
-          }
-          for (; p < on_chip; p += 32) {
-            const float2 q1 = my_pairs[p];
-            add_terms(at, q1.x, q1.y, a, d);
-          }
-          const float2* sp = my_spill - smem_per_warp;
-          for (; p + 224 < n_pairs; p += 256) {
-#pragma unroll
-            for (int e = 0; e < 8; ++e) q[e] = __ldcg(sp + p + 32 * e);
-            add_pairs8(at, q, a, d);
-          }
-          for (; p < n_pairs; p += 32) {
-            const float2 q1 = __ldcg(sp + p);
-            add_terms(at, q1.x, q1.y, a, d);
-          }
+          for (int e = 0; e < 8; ++e) q[e] = __ldcg(sp + p + 32 * e);
+          add_pairs8(at, q, a, d);
+        }
+        for (; p < n_pairs; p += 32) {
+          const float2 q1 = __ldcg(sp + p);
+          add_terms(at, q1.x, q1.y, a, d);
         }
         const float4 r = reduce(a, d, 0.0f, std::false_type{});
         fs = r.x;
@@ -471,9 +459,9 @@ cudaError_t launch_cluster(const float* coeff, const float* tcomp,
                            long long tc_stride, const uint8_t* mask,
                            const float* bw, const float* lo, float* out,
                            int k, long long u, int iters, int bisect,
-                           int slices, long long slice, int stream,
-                           int smem_per_warp, long long spill_per_warp,
-                           float2* spill, cudaStream_t s) {
+                           int slices, long long slice, int smem_per_warp,
+                           long long spill_per_warp, float2* spill,
+                           cudaStream_t s) {
   auto kernel = bw_cluster_kernel<kVec>;
   const size_t smem = (size_t)kWarps * smem_per_warp * sizeof(float2);
   cudaError_t err = cudaSuccess;
@@ -492,7 +480,7 @@ cudaError_t launch_cluster(const float* coeff, const float* tcomp,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, coeff, tcomp, tc_stride, mask, bw,
-                           lo, out, u, slices, slice, iters, bisect, stream,
+                           lo, out, u, slices, slice, iters, bisect,
                            smem_per_warp, spill_per_warp, spill);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -527,26 +515,25 @@ extern "C" int bandwidth_solve_warp_f32(const float* coeff,
 
 // A cluster of `slices` blocks a row (a power of two, 1-8), `slice` users
 // a block (a multiple of 8); `vec`: wide loads (u % 8 == 0, 16-byte
-// aligned bases); `stream`: re-read the slice every iteration, else the pairs go
-// to `smem_per_warp` pairs of shared memory a warp (a multiple of 32) and
-// `spill_per_warp` pairs a warp of `spill` ([k * slices * 16 warps,
-// spill_per_warp]).
+// aligned bases); the masked-in pairs go to `smem_per_warp` pairs of
+// shared memory a warp (a multiple of 32) and `spill_per_warp` pairs a
+// warp of `spill` ([k * slices * 16 warps, spill_per_warp]).
+// kernels/bandwidth_solve.py:pair_capacity gives the two.
 extern "C" int bandwidth_solve_cluster_f32(
     const float* coeff, const float* tcomp, long long tc_row_stride,
     const uint8_t* mask, const float* bw, const float* lo, float* out, int k,
     long long u, int iters, int bisect, int slices, long long slice, int vec,
-    int stream, int smem_per_warp, long long spill_per_warp, void* spill,
-    void* stream_handle) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream_handle);
+    int smem_per_warp, long long spill_per_warp, void* spill, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k <= 0) return static_cast<int>(cudaGetLastError());
   if (slices < 1 || slices > kMaxSlices || (slices & (slices - 1)) ||
       slice % 8 || (long long)slices * slice < u || smem_per_warp < 0 ||
       smem_per_warp % 32 || spill_per_warp < 0 ||
-      (!stream && spill_per_warp > 0 && !spill))
+      (spill_per_warp > 0 && !spill))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto launch = vec ? launch_cluster<true> : launch_cluster<false>;
   return static_cast<int>(launch(coeff, tcomp, tc_row_stride, mask, bw, lo,
                                  out, k, u, iters, bisect, slices, slice,
-                                 stream, smem_per_warp, spill_per_warp,
+                                 smem_per_warp, spill_per_warp,
                                  static_cast<float2*>(spill), s));
 }

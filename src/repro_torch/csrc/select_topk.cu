@@ -31,7 +31,8 @@
 //     entries; the main path's [50, 8]) goes to a kernel of its own that
 //     reads the mask from global memory beside every code word, so one
 //     memory latency, not two, precedes the merge, and writes cand and
-//     best itself.  Otherwise each block folds its candidate into a packed
+//     best itself (a card A/B at [50, 8], PERF.md: 0.0024 ms against
+//     0.0026 for the general kernel run as one block).  Otherwise each block folds its candidate into a packed
 //     64-bit key per column (the value as an order-preserving integer
 //     above the complement of the index; keys 128 bytes apart) by
 //     atomicMax, and the last block to take a ticket (__threadfence +
@@ -43,7 +44,8 @@
 // total order, so the result does not depend on the order blocks finish
 // in and equals the block-order strictly-greater combine of the TPU
 // kernel.  One launch a call; the keys and the ticket live in a workspace
-// the wrapper caches per device and stream.
+// the wrapper caches per device and stream (kernels/_lib.py:workspace; a
+// call captured into a CUDA graph gets one of its own).
 //
 // best_bs_argmax.  The TPU kernel (`_rowmax_kernel`) takes a block of user
 // rows and reduces each along its M columns.  Here a group of G lanes (a
@@ -190,6 +192,72 @@ __device__ __forceinline__ void fold(unsigned w, unsigned rem,
   }
 }
 
+// Thread t's V entries: their row in a tile, their column's scale, and
+// the running candidate (none yet).
+template <int V>
+__device__ __forceinline__ void init_entries(int t, int m,
+                                             const float* __restrict__ scale,
+                                             int* drow, float* sc,
+                                             float* best, int* bidx) {
+#pragma unroll
+  for (int p = 0; p < V; ++p) {
+    const int f = t * V + p;
+    drow[p] = f / m;
+    sc[p] = scale ? scale[f % m] : 1.0f;
+    best[p] = -INFINITY;
+    bidx[p] = INT_MAX;
+  }
+}
+
+// Folds the words of kTilesInFlight tiles, tile u at rows tr + u *
+// rows_per_tile.
+template <typename T, int V>
+__device__ __forceinline__ void fold_tiles(const unsigned* w,
+                                           const unsigned* rem,
+                                           const float* sc, int tr,
+                                           int rows_per_tile,
+                                           const int* drow, float* best,
+                                           int* bidx) {
+#pragma unroll
+  for (int u = 0; u < kTilesInFlight; ++u) {
+    if (rem[u] == (1u << V) - 1u)  // every entry's row remains
+      fold<T, V, true>(w[u], rem[u], sc, tr + u * rows_per_tile, drow,
+                       best, bidx);
+    else if (rem[u])
+      fold<T, V, false>(w[u], rem[u], sc, tr + u * rows_per_tile, drow,
+                        best, bidx);
+  }
+}
+
+// The block's candidates (sv, si: entry j * m + c is tile row j, column
+// c) merged into row 0 by folding rows j + s into j; ends synchronised.
+__device__ __forceinline__ void merge_tile_rows(float* sv, int* si, int m,
+                                                int rows_per_tile, int t) {
+  for (int s = (1 << (32 - __clz(rows_per_tile - 1))) >> 1; s >= 1;
+       s >>= 1) {
+    __syncthreads();
+    for (int q = t; q < s * m; q += blockDim.x) {
+      const int j = q / m, g = q + s * m;
+      if (j + s < rows_per_tile && better(sv[g], si[g], sv[q], si[q])) {
+        sv[q] = sv[g];
+        si[q] = si[g];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Row 0 of the merged candidates as the result: (0, -inf) where no row
+// remains.
+__device__ __forceinline__ void write_result(const float* sv, const int* si,
+                                             int m, int t, int* cand,
+                                             float* best_out) {
+  for (int c = t; c < m; c += blockDim.x) {
+    cand[c] = si[c] == INT_MAX ? 0 : si[c];
+    best_out[c] = sv[c];
+  }
+}
+
 // Block b takes rows [b * rows_per_block, ...), a multiple of
 // kTilesInFlight tiles of rows_per_tile rows; blockDim.x * V ==
 // rows_per_tile * m.  Dynamic shared memory: blockDim.x * V (value,
@@ -223,14 +291,7 @@ __global__ void masked_argmax_kernel(const T* __restrict__ snr,
   int drow[V];
   float sc[V], best[V];
   int bidx[V];
-#pragma unroll
-  for (int p = 0; p < V; ++p) {
-    const int f = t * V + p;
-    drow[p] = f / m;
-    sc[p] = scale ? scale[f % m] : 1.0f;
-    best[p] = -INFINITY;
-    bidx[p] = INT_MAX;
-  }
+  init_entries<V>(t, m, scale, drow, sc, best, bidx);
   // one mask byte serves the word when its V codes share a row
   const bool one_row = drow[0] == drow[V - 1];
   const int step = kTilesInFlight * rows_per_tile;
@@ -266,43 +327,20 @@ __global__ void masked_argmax_kernel(const T* __restrict__ snr,
         }
       }
     }
-#pragma unroll
-    for (int u = 0; u < kTilesInFlight; ++u) {
-      if (rem[u] == (1u << V) - 1u)  // every entry's row remains
-        fold<T, V, true>(w[u], rem[u], sc, tr + u * rows_per_tile, drow,
-                         best, bidx);
-      else if (rem[u])
-        fold<T, V, false>(w[u], rem[u], sc, tr + u * rows_per_tile, drow,
-                          best, bidx);
-    }
+    fold_tiles<T, V>(w, rem, sc, tr, rows_per_tile, drow, best, bidx);
   }
 #pragma unroll
   for (int p = 0; p < V; ++p) {
     sv[t * V + p] = best[p];
     si[t * V + p] = bidx[p] == INT_MAX ? INT_MAX : (int)(r0 + bidx[p]);
   }
-  // entry j * m + c: tile row j, column c; fold rows j + s into j
-  for (int s = (1 << (32 - __clz(rows_per_tile - 1))) >> 1; s >= 1;
-       s >>= 1) {
-    __syncthreads();
-    for (int q = t; q < s * m; q += blockDim.x) {
-      const int j = q / m, g = q + s * m;
-      if (j + s < rows_per_tile && better(sv[g], si[g], sv[q], si[q])) {
-        sv[q] = sv[g];
-        si[q] = si[g];
-      }
-    }
-  }
-  __syncthreads();
+  merge_tile_rows(sv, si, m, rows_per_tile, t);
   // One block writes directly.  The launcher sends such planes to
   // masked_argmax_one_block, but this exit stays: without it nvcc
-  // schedules the float32 scan above markedly slower on sm_90a (a card A/B
-  // at [1e6, 100]).
+  // schedules the float32 scan above slower on sm_90a (a card A/B at
+  // [1e6, 100], PERF.md: 0.139 against 0.111 ms).
   if (gridDim.x == 1) {
-    for (int c = t; c < m; c += blockDim.x) {
-      cand[c] = si[c] == INT_MAX ? 0 : si[c];
-      best_out[c] = sv[c];
-    }
+    write_result(sv, si, m, t, cand, best_out);
     return;
   }
   for (int c = t; c < m; c += blockDim.x) {
@@ -345,14 +383,7 @@ __global__ void masked_argmax_one_block(const T* __restrict__ snr,
   int drow[V];
   float sc[V], best[V];
   int bidx[V];
-#pragma unroll
-  for (int p = 0; p < V; ++p) {
-    const int f = t * V + p;
-    drow[p] = f / m;
-    sc[p] = scale ? scale[f % m] : 1.0f;
-    best[p] = -INFINITY;
-    bidx[p] = INT_MAX;
-  }
+  init_entries<V>(t, m, scale, drow, sc, best, bidx);
   const int step = kTilesInFlight * rows_per_tile;
   for (int tr = 0; tr < n; tr += step) {
     unsigned rem[kTilesInFlight], w[kTilesInFlight];
@@ -380,37 +411,15 @@ __global__ void masked_argmax_one_block(const T* __restrict__ snr,
         }
       }
     }
-#pragma unroll
-    for (int u = 0; u < kTilesInFlight; ++u) {
-      if (rem[u] == (1u << V) - 1u)
-        fold<T, V, true>(w[u], rem[u], sc, tr + u * rows_per_tile, drow,
-                         best, bidx);
-      else if (rem[u])
-        fold<T, V, false>(w[u], rem[u], sc, tr + u * rows_per_tile, drow,
-                          best, bidx);
-    }
+    fold_tiles<T, V>(w, rem, sc, tr, rows_per_tile, drow, best, bidx);
   }
 #pragma unroll
   for (int p = 0; p < V; ++p) {
     sv[t * V + p] = best[p];
     si[t * V + p] = bidx[p];
   }
-  for (int s = (1 << (32 - __clz(rows_per_tile - 1))) >> 1; s >= 1;
-       s >>= 1) {
-    __syncthreads();
-    for (int q = t; q < s * m; q += blockDim.x) {
-      const int j = q / m, g = q + s * m;
-      if (j + s < rows_per_tile && better(sv[g], si[g], sv[q], si[q])) {
-        sv[q] = sv[g];
-        si[q] = si[g];
-      }
-    }
-  }
-  __syncthreads();
-  for (int c = t; c < m; c += blockDim.x) {
-    cand[c] = si[c] == INT_MAX ? 0 : si[c];
-    best_out[c] = sv[c];
-  }
+  merge_tile_rows(sv, si, m, rows_per_tile, t);
+  write_result(sv, si, m, t, cand, best_out);
 }
 
 template <typename T, int V>

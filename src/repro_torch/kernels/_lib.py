@@ -56,7 +56,7 @@ _SIGNATURES = {
     "bandwidth_solve_warp_f32": (_P, _P, _LL, _P, _P, _P, _P) + (_I,) * 5
     + (_P,),
     "bandwidth_solve_cluster_f32": (_P, _P, _LL, _P, _P, _P, _P, _I, _LL, _I,
-                                    _I, _I, _LL, _I, _I, _I, _LL, _P, _P),
+                                    _I, _I, _LL, _I, _I, _LL, _P, _P),
     **{f"masked_bs_argmax_{t}": (_P, _I, _P, _P, _LL, _I, _I, _I, _LL, _P,
                                  _P, _P, _P) for t in ("f32", "bf16", "i8")},
     "best_bs_argmax_f32": (_P, _I, _I, _I, _I, _I, _P, _P),
@@ -71,6 +71,7 @@ _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
 _entries: dict[str, ctypes._CFuncPtr] = {}  # name -> resolved entry point
 _workspaces: dict[tuple, torch.Tensor] = {}  # (name, device, stream) -> buf
+_kept: list[torch.Tensor] = []  # retired and graph-owned workspaces
 
 
 def reset_launches() -> None:
@@ -174,14 +175,26 @@ def launch(name: str, index: int, *args) -> None:
 
 def workspace(name: str, index: int, nbytes: int) -> torch.Tensor:
     """A zeroed device buffer of at least ``nbytes`` for kernel ``name``,
-    cached per device and current stream (two streams never share one) and
-    grown on demand.  A kernel that keeps state in it (a ticket) leaves it
-    zeroed again when it ends."""
+    which leaves it zeroed again when it ends (a ticket), so no eager call
+    pays a memset.
+
+    Eager calls share one buffer per device and stream (two streams never
+    share one; calls on one stream run in order).  A grown buffer retires
+    the old one but keeps it alive: a CUDA graph captured earlier may still
+    replay into it.  A call being captured into a graph gets a buffer of
+    its own, zeroed by a node of that graph and kept for the life of the
+    process, so graphs replayed on different streams never share one."""
+    device = torch.device("cuda", index)
+    if torch.cuda.is_current_stream_capturing():
+        buf = torch.zeros((nbytes,), dtype=torch.uint8, device=device)
+        _kept.append(buf)
+        return buf
     key = (name, index, torch._C._cuda_getCurrentRawStream(index))
     buf = _workspaces.get(key)
     if buf is None or buf.numel() < nbytes:
-        buf = torch.zeros((nbytes,), dtype=torch.uint8,
-                          device=torch.device("cuda", index))
+        if buf is not None:
+            _kept.append(buf)
+        buf = torch.zeros((nbytes,), dtype=torch.uint8, device=device)
         _workspaces[key] = buf
     return buf
 

@@ -31,16 +31,12 @@ class BwPlan(NamedTuple):
     """The kernel's launch: ``path`` "warp" (one warp a row,
     ``users_per_lane`` users a lane in registers) or "cluster" (``slices``
     blocks a row, one cluster; "block" when slices is 1) with ``slice``
-    users a block, of whose masked-in pairs a block keeps ``smem_pairs`` in
-    shared memory.  ``stream`` (re-read the slice every iteration instead)
-    and other ``smem_pairs`` are for the card sweep: bandwidth_plan uses
-    neither."""
+    users a block, of whose masked-in pairs a block keeps SMEM_PAIRS in
+    shared memory."""
     path: str
     users_per_lane: int = 0
     slices: int = 0
     slice: int = 0
-    stream: bool = False
-    smem_pairs: int = SMEM_PAIRS
 
 
 @functools.lru_cache(maxsize=256)     # called once a launch, on the host
@@ -52,7 +48,7 @@ def bandwidth_plan(k: int, u: int) -> BwPlan:
       lane holds (1-8).
     - "block": one block a row when U <= SLICE_USERS or K > 128: the
       row's masked-in pairs in shared memory (SMEM_PAIRS a block, the
-      rest spilled to a global workspace).
+      rest spilled to a buffer in global memory).
     - "cluster": 2-8 blocks a row, one cluster: a slice of about
       SLICE_USERS users a block, as many slices as keep K x slices within
       GRID_BLOCKS (two blocks an SM), so the row's blocks run at once.
@@ -76,7 +72,7 @@ def pair_capacity(plan: BwPlan, vec: bool) -> tuple[int, int]:
     units = -(-plan.slice // per_unit)
     warps = CLUSTER_THREADS // 32
     users_per_warp = -(-units // CLUSTER_THREADS) * 32 * per_unit
-    on_chip = min(users_per_warp, plan.smem_pairs // warps // 32 * 32)
+    on_chip = min(users_per_warp, SMEM_PAIRS // warps // 32 * 32)
     return on_chip, users_per_warp - on_chip
 
 
@@ -181,16 +177,17 @@ def solve_cuda(index: int, coeff: torch.Tensor, tcomp: torch.Tensor,
                     bisect, plan.users_per_lane)
     else:
         vec = u % VEC_USERS == 0 and (cp | tp | mp) % 16 == 0
-        on_chip, spill_per_warp, spill = 0, 0, 0
-        if not plan.stream:
-            on_chip, spill_per_warp = pair_capacity(plan, vec)
-            if spill_per_warp:
-                n_warps = k * plan.slices * (CLUSTER_THREADS // 32)
-                spill = _lib.workspace("bandwidth_spill", index,
-                                       n_warps * spill_per_warp * 8).data_ptr()
+        on_chip, spill_per_warp = pair_capacity(plan, vec)
+        # pairs past shared memory: a buffer of the call's own from the
+        # caching allocator (stream-ordered, so graph capture and other
+        # streams are safe); 8 bytes a user of the slice past 96 KB a
+        # block, 786 MB at [100, 1e6], whatever the mask's density
+        n_warps = k * plan.slices * (CLUSTER_THREADS // 32)
+        spill = torch.empty((n_warps * spill_per_warp * 8,),
+                            dtype=torch.uint8, device=coeff.device)
         _lib.launch("bandwidth_solve_cluster_f32", index, cp, tp, tc_stride,
                     mp, bw.data_ptr(), lo.data_ptr(), out.data_ptr(), k, u,
                     iters, bisect, plan.slices, plan.slice, int(vec),
-                    int(plan.stream), on_chip, spill_per_warp, spill)
+                    on_chip, spill_per_warp, spill.data_ptr())
     _lib.LAUNCHES["bandwidth_solve"] += 1
     return out

@@ -90,10 +90,9 @@ def test_bandwidth_solve(dev, k, u, method):
 @pytest.mark.parametrize("method", ["newton", "bisect"])
 def test_bandwidth_solve_fleet_rows(dev, density, method):
     """Fleet rows at reduced K: [4, 1e6] with ~1e4 users a row and with
-    30% (pairs spilled past shared memory); the plan (8 slices), the
-    streaming variant, the fleet's own plan (2 slices of 500,000 users)
-    and 192 KB of pairs a block, each against plain and bit-identical
-    over two runs."""
+    30% (pairs spilled past shared memory); the plan (8 slices) and the
+    plans of 64, 100 and 200 rows (4 and 2 slices, one block a row), each
+    against plain and bit-identical over two runs."""
     k, u = 4, 1_000_000
     coeff, tcomp, mask, bw, lo = _bw_inputs(_rs(7), k, u, dev, density)
     mask[1] = False
@@ -102,8 +101,9 @@ def test_bandwidth_solve_fleet_rows(dev, density, method):
                                     method=method)
     plan = kb.bandwidth_plan(k, u)
     assert plan.path == "cluster" and plan.slices == 8
-    for p in (plan, plan._replace(stream=True), kb.bandwidth_plan(100, u),
-              plan._replace(smem_pairs=2 * kb.SMEM_PAIRS)):
+    others = [kb.bandwidth_plan(rows, u) for rows in (64, 100, 200)]
+    assert [p.slices for p in others] == [4, 2, 1]
+    for p in [plan] + others:
         runs = [kb.solve_cuda(0, coeff, tcomp, mask, bw, lo, None, method, p)
                 for _ in range(2)]
         torch.testing.assert_close(runs[0], want, rtol=1e-5, atol=1e-7)
@@ -215,6 +215,51 @@ def test_masked_bs_argmax_ticket_resets(dev):
         assert torch.equal(cand, want[0]) and torch.equal(best, want[1])
     got = ks.masked_bs_argmax(snr, rem)         # eager again after the graph
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_masked_bs_argmax_graph_workspaces(dev):
+    """A captured call owns its keys and ticket: a graph captured at M = 8,
+    then eager calls at M = 100 on the capture stream (which grow that
+    stream's cached workspace), then two graphs captured on the same
+    default capture stream at M = 100; all three replayed at once on three
+    streams, five times, give the plain results."""
+    n = 70000
+    assert ks.masked_bs_plan(n, 8, torch.float32, True)[4] > 1
+    gen = torch.Generator(device=dev).manual_seed(5)
+    small = torch.rand((n, 8), generator=gen, device=dev)
+    big = torch.rand((n, 100), generator=gen, device=dev)
+    rems = [torch.rand((n,), generator=gen, device=dev) < 0.5
+            for _ in range(3)]
+    cases = [(small, rems[0]), (big, rems[1]), (big, rems[2])]
+    wants = [ks.masked_bs_argmax_plain(snr, r) for snr, r in cases]
+    graphs, outs = [], []
+
+    def capture(snr, rem):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append(ks.masked_bs_argmax(snr, rem))
+        graphs.append(graph)
+
+    capture(*cases[0])
+    with torch.cuda.stream(torch.cuda.graph.default_capture_stream):
+        for _ in range(2):
+            got = ks.masked_bs_argmax(big, rems[1])
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, wants[1]))
+    capture(*cases[1])
+    capture(*cases[2])
+    streams = [torch.cuda.Stream() for _ in graphs]
+    for _ in range(5):
+        for out in outs:
+            for t in out:
+                t.zero_()
+        torch.cuda.synchronize()
+        for graph, stream in zip(graphs, streams):
+            with torch.cuda.stream(stream):
+                graph.replay()
+        torch.cuda.synchronize()
+        for out, want in zip(outs, wants):
+            assert all(torch.equal(g, w) for g, w in zip(out, want))
 
 
 @pytest.mark.parametrize("n,d", [(50, 100352), (13, 1000), (1, 7)])

@@ -112,7 +112,7 @@ _SLICE = kb.SLICE_USERS
     (129, 1_000_000, "block", 1, 1_000_000)])
 def test_bandwidth_plan(k, u, path, width, slice_):
     plan = kb.bandwidth_plan(k, u)
-    assert plan.path == path and not plan.stream
+    assert plan.path == path
     if path == "warp":
         assert plan.users_per_lane == width and 32 * width >= u
         return
