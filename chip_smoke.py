@@ -18,7 +18,9 @@
    [33, 4097] (block) and [100, 1e6] (cluster) at 30% of the users a row
    and at ~1e4 ("fleet_sparse"), newton and bisect; FedAvg, per-BS
    FedAvg (M=8 and M=100, 50%-dense and the path's one-hot weights) and
-   the uplink compressor over 1,000 clients of the fc1 leaf), in float32
+   the uplink compressor over 1,000 clients of the fc1 leaf; FedAvg also
+   as the faulty async tick weights it, "main_weighted_clip": staleness
+   weights, clip_norm, a NaN client and a masked-out one), in float32
    and over int8 codes, and times the kernel, the plain version and one
    PyTorch call as a yardstick: each row's ``ms`` (CUDA events around
    back-to-back calls), ``graph_ms`` (the same calls captured in one CUDA
@@ -29,17 +31,25 @@
    a row: ``bandwidth_variants``);
 4. checks small runs on the card against the same runs on the CPU (the
    plain versions, the default scheduler, host DAGSA): the synchronous
-   round, hierarchical aggregation, and hierarchical aggregation over the
-   top-k + int8 compressed uplink;
+   round, hierarchical aggregation, hierarchical aggregation over the
+   top-k + int8 compressed uplink, and the four golden configs of the
+   baselines / fault / async slice (``fedcs_low``; ``dagsa-r`` under
+   ``faulty-uplink``; ``dagsa_jit`` async; ``dagsa-r`` faulty async, ticks
+   of 0.5 s, alpha 0.5), delivery and queue counts exact;
 5. drives the port's full-width paths on the card, each with the kernels'
    launch counts zeroed just before it and read just after: the
    synchronous single-tier round (3 rounds, ``dagsa_jit``), hierarchical
    aggregation with the top-k + int8 uplink (5 rounds, one global sync),
    hierarchical aggregation uncompressed (2 rounds), the single-tier top-k
-   + int8 uplink (2 rounds) and the synchronous round under the default
-   scheduler, the host DAGSA (``sync_dagsa``, 2 rounds);
-6. profiles one more synchronous round and one more hierarchical +
-   compressed round (torch.profiler: host and device time per round
+   + int8 uplink (2 rounds), the synchronous round under the default
+   scheduler, the host DAGSA (``sync_dagsa``, 2 rounds), the FedCS
+   baseline (``fedcs``, 2 rounds), ``dagsa-r`` under the ``faulty-uplink``
+   fault model (``faulty``, 3 rounds) and the same with buffered-async
+   aggregation (``faulty_async``, 4 ticks of 0.5 s, alpha 0.5); on the
+   last two a spy on the engine's FedAvg call shows the delivery mask
+   (and the staleness weights) reaching kernel 4;
+6. profiles one more round of ``sync``, ``hier_int8`` and
+   ``faulty_async`` each (torch.profiler: host and device time per round
    phase, the busiest device ops, the device's busy share);
 7. the LM serving slice (Zamba2-1.2B, 38 Mamba2 layers + one shared
    attention block every 6, at full width and full depth):
@@ -533,6 +543,38 @@ def check_kernels(dev, fleet_users=1_000_000, fleet_bs=100,
                    lambda: kf.reduce_leaf(w, x),
                    lambda: kf.reduce_leaf_plain(w, x), lambda: w @ x,
                    50 * d * 4 + 50 * 4 + d * 4, 2 * 50 * d, 200)
+    # the faulty async tick's call: Eq. (2) weights of the delivered
+    # clients times their staleness discount and norm-clip factor (a NaN
+    # client screened out, one client not delivered), as fedavg_reduce
+    # builds them
+    from repro_torch.fl import server as fl_server
+    d = math.prod(shapes["fc1.w"])
+    ref = torch.randn((d,), generator=gen, device=dev) * 0.05
+    x = ref[None] + 0.05 * torch.randn((50, d), generator=gen, device=dev)
+    x[5] *= 1e3                                     # clipped
+    x[6, d // 3] = float("nan")                     # poisoned
+    delivered = torch.rand((50,), generator=gen, device=dev) < 0.8
+    delivered[[5, 6]] = True
+    delivered[7] = False                            # masked out
+    sizes = torch.randint(50, 150, (50,), generator=gen, device=dev)
+    stale = torch.randint(0, 3, (50,), generator=gen, device=dev)
+    xs = {"fc1": {"w": x}}
+    w, _ = fl_server.fedavg_weights(
+        delivered & fl_server.finite_update_mask(xs), sizes)
+    w = (w * fl_server.staleness_weights(stale, 0.5)
+         * fl_server.clip_scales({"fc1": {"w": ref}}, xs, 25.0)).contiguous()
+    if not (float(w[6]) == 0.0 and float(w[7]) == 0.0
+            and 0.0 < float(w[5]) < 1.0):
+        raise AssertionError("main_weighted_clip: weights not as built")
+    err = _close("fedavg_reduce main_weighted_clip", kf.reduce_leaf(w, x),
+                 kf.reduce_leaf_plain(w, x),
+                 scale=kf.reduce_leaf_plain(w, x.abs()))
+    record("fedavg_reduce", "main_weighted_clip", [50, d], err,
+           lambda: kf.reduce_leaf(w, x), lambda: kf.reduce_leaf_plain(w, x),
+           lambda: w @ x, 50 * d * 4 + 50 * 4 + d * 4, 2 * 50 * d, 200,
+           extra={"clip_norm": 25.0, "staleness_alpha": 0.5,
+                  "weights_zero": int((w == 0).sum())})
+    del x, xs, ref
     n_fleet, d = fleet_clients, shapes["fc1.w"][0] * shapes["fc1.w"][1]
     x = torch.randn((n_fleet, d), generator=gen, device=dev)
     w = torch.rand((n_fleet,), generator=gen, device=dev)
@@ -661,20 +703,33 @@ def check_kernels(dev, fleet_users=1_000_000, fleet_bs=100,
     return results
 
 
+SMALL_RUNS = (
+    ("sync", {}),
+    ("hier", dict(aggregation="hierarchical", tau_global=2)),
+    ("hier_int8", dict(aggregation="hierarchical", tau_global=2,
+                       compress="topk-int8", topk_frac=0.1)),
+    ("engine_fedcs", dict(scheduler="fedcs_low")),
+    ("engine_faulty", dict(scheduler="dagsa-r", faults="faulty-uplink")),
+    ("engine_async", dict(scheduler="dagsa_jit", aggregation_async=True,
+                          tick_s=0.5, staleness_alpha=0.5)),
+    ("engine_faulty_async", dict(scheduler="dagsa-r", faults="faulty-uplink",
+                                 aggregation_async=True, tick_s=0.5,
+                                 staleness_alpha=0.5)),
+)
+
+
 def check_small_runs(dev) -> None:
     """The same small runs (12 users, 4 BSs, seed 7, 3 rounds) on the card
-    and on the CPU (plain versions): decisions and handover rates exact,
-    t_round within rtol 1e-5, test_acc within one of the 40 samples."""
+    and on the CPU (plain versions): decisions, handover rates and the
+    delivery and queue counts exact, t_round, delivered_rate and goodput
+    within rtol 1e-5, test_acc within one of the 40 samples."""
     from repro_torch.core.types import WirelessConfig
     from repro_torch.fl.rounds import FLConfig, FLSimulation
 
-    for label, extra in (("sync", {}),
-                         ("hier", dict(aggregation="hierarchical",
-                                       tau_global=2)),
-                         ("hier_int8", dict(aggregation="hierarchical",
-                                            tau_global=2,
-                                            compress="topk-int8",
-                                            topk_frac=0.1))):
+    def same(a, b):
+        return a == b or (math.isnan(a) and math.isnan(b))
+
+    for label, extra in SMALL_RUNS:
         cfg = FLConfig(wireless=WirelessConfig(n_users=12, n_bs=4),
                        n_train=120, n_test=40, local_epochs=1, batch_size=10,
                        seed=7, **extra)
@@ -683,26 +738,26 @@ def check_small_runs(dev) -> None:
         for g, c in zip(gpu, cpu):
             print(f"small run {label}  card {g}\n{' ' * len(label)}"
                   f"            cpu  {c}", flush=True)
-            if (g.n_selected, g.min_part_rate) != (c.n_selected,
-                                                   c.min_part_rate):
-                raise AssertionError(f"small run {label}: decisions differ "
-                                     f"card vs CPU")
-            if not (g.handover_rate == c.handover_rate or (
-                    math.isnan(g.handover_rate)
-                    and math.isnan(c.handover_rate))):
-                raise AssertionError(f"small run {label}: handover_rate "
-                                     f"differs card vs CPU")
-            if not math.isclose(g.t_round, c.t_round, rel_tol=1e-5):
-                raise AssertionError(f"small run {label}: t_round differs "
-                                     f"card vs CPU")
+            for f in ("n_selected", "min_part_rate", "n_delivered",
+                      "n_inflight", "n_dropped", "handover_rate"):
+                if not same(getattr(g, f), getattr(c, f)):
+                    raise AssertionError(f"small run {label}: {f} differs "
+                                         f"card vs CPU")
+            for f in ("t_round", "delivered_rate", "goodput_mbit_s"):
+                a, b = getattr(g, f), getattr(c, f)
+                if not (math.isclose(a, b, rel_tol=1e-5) or same(a, b)):
+                    raise AssertionError(f"small run {label}: {f} differs "
+                                         f"card vs CPU")
             if abs(g.test_acc - c.test_acc) > 1.0 / 40 + 1e-9:
                 raise AssertionError(f"small run {label}: test_acc differs "
                                      f"by more than one of the 40 samples")
 
 
 # The full-width paths: (label, FLConfig extras, rounds, the kernels the
-# path must launch; dagsa_jit's three on every path that runs it).  "sync" is the port's
-# first main path; "hier_int8" this slice's (one global sync at round 5).
+# path must launch; dagsa_jit's three on every path that runs it).  "sync"
+# is the port's first main path; "hier_int8" the hierarchical slice's (one
+# global sync at round 5); "fedcs", "faulty" and "faulty_async" the
+# baselines / fault / async slice's.
 _SCHED = ("bandwidth_solve", "masked_bs_argmax", "best_bs_argmax")
 PATHS = (
     ("sync", {}, 3, _SCHED + ("fedavg_reduce",)),
@@ -716,14 +771,50 @@ PATHS = (
     # the default scheduler: host greedy, Eq. (12) on the card
     ("sync_dagsa", dict(scheduler="dagsa"), 2,
      ("bandwidth_solve", "fedavg_reduce")),
+    # the baselines / fault / async slice
+    ("fedcs", dict(scheduler="fedcs_low"), 2,
+     ("best_bs_argmax", "fedavg_reduce")),
+    ("faulty", dict(scheduler="dagsa-r", faults="faulty-uplink"), 3,
+     _SCHED + ("fedavg_reduce",)),
+    ("faulty_async", dict(scheduler="dagsa-r", faults="faulty-uplink",
+                          aggregation_async=True, tick_s=0.5,
+                          staleness_alpha=0.5), 4,
+     _SCHED + ("fedavg_reduce",)),
 )
+
+
+def _fedavg_spy(rounds_mod) -> tuple:
+    """Wrap the round engine's FedAvg entry point (kernel 4's wrapper) to
+    record, for each call, how many clients its mask lets in and the
+    smallest staleness weight among them; returns the list it fills and
+    the wrapper it replaced."""
+    calls = []
+    real = rounds_mod.fedavg_reduce
+
+    def spy(params, clients, selected, data_sizes, clip_norm=None,
+            weights=None):
+        mask_in = int(selected.sum())
+        w = None
+        if weights is not None:
+            on = weights[selected]
+            w = float(on.min()) if on.numel() else 1.0
+        calls.append({"mask_in": mask_in, "clip_norm": clip_norm,
+                      "min_weight_in": w})
+        return real(params, clients, selected, data_sizes,
+                    clip_norm=clip_norm, weights=weights)
+
+    rounds_mod.fedavg_reduce = spy
+    return calls, real
 
 
 def run_path(dev, label: str, extra: dict, rounds: int,
              required: tuple) -> tuple:
     """``rounds`` full-width rounds of one path (the paper configuration,
     50 users, 8 BSs, paper-scale CNN); returns the simulation and the
-    launch counts of the run."""
+    launch counts of the run.  On a faulty path a spy on the engine's
+    FedAvg call checks that the delivery mask (and on an async path the
+    staleness weights) reach kernel 4."""
+    from repro_torch.fl import rounds as fl_rounds
     from repro_torch.fl.rounds import FLConfig, FLSimulation
     from repro_torch.kernels import _lib
     from repro_torch.models.cnn import CNNConfig, n_params
@@ -739,25 +830,35 @@ def run_path(dev, label: str, extra: dict, rounds: int,
           f"{n_params(sim.params)} params, n_train "
           f"{sim.data.x_train.shape[0]}, n_test {sim.data.x_test.shape[0]}, "
           f"{json.dumps(extra)}", flush=True)
+    faulty, is_async = sim.faults.active, cfg.aggregation_async
+    if faulty:
+        calls, real = _fedavg_spy(fl_rounds)
     _lib.reset_launches()
     recs = []
-    for _ in range(rounds):
-        t0 = time.perf_counter()
-        rec = sim.run(1)[0]
-        torch.cuda.synchronize()
-        print(f"path {label} round {rec} wall_s="
-              f"{time.perf_counter() - t0:.4f}", flush=True)
-        recs.append(rec)
+    try:
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            rec = sim.run(1)[0]
+            torch.cuda.synchronize()
+            print(f"path {label} round {rec} wall_s="
+                  f"{time.perf_counter() - t0:.4f}", flush=True)
+            recs.append(rec)
+    finally:
+        if faulty:
+            fl_rounds.fedavg_reduce = real
     launches = dict(_lib.LAUNCHES)
     print(f"path {label} launches: {json.dumps(launches)}", flush=True)
     for name in required:
         if launches[name] <= 0:
             raise AssertionError(f"path {label} never launched {name}")
+    # FedCS has no Eq. (8h) floor, and async eligibility leaves out the
+    # users with an update in flight
+    floor = not (cfg.scheduler.startswith("fedcs") or is_async)
     for rec in recs:
         if not math.isfinite(rec.t_round) or rec.t_round <= 0:
             raise AssertionError(f"round {rec.round_idx}: t_round "
                                  f"{rec.t_round} is not a finite latency")
-        if rec.n_selected < sim.min_participants:
+        if floor and rec.n_selected < sim.min_participants:
             raise AssertionError(f"round {rec.round_idx}: {rec.n_selected} "
                                  f"users < the Eq. (8h) floor")
         if not 0.0 <= rec.test_acc <= 1.0:
@@ -766,6 +867,29 @@ def run_path(dev, label: str, extra: dict, rounds: int,
         if "aggregation" in extra and not 0.0 <= rec.handover_rate <= 1.0:
             raise AssertionError(f"round {rec.round_idx}: handover rate "
                                  f"{rec.handover_rate} out of range")
+        # async deliveries include earlier ticks' dispatches
+        top = sim.wireless.n_users if is_async else rec.n_selected
+        if (faulty or is_async) and not (0 <= rec.n_delivered <= top and
+                                         0.0 <= rec.delivered_rate <= 1.0):
+            raise AssertionError(f"round {rec.round_idx}: delivery counts "
+                                 f"out of range: {rec}")
+        if is_async and not (rec.n_inflight >= 0 and rec.n_dropped >= 0
+                             and rec.t_round == float(
+                                 torch.tensor(cfg.tick_s))):
+            raise AssertionError(f"round {rec.round_idx}: async record out "
+                                 f"of range: {rec}")
+    if faulty:
+        print(f"path {label} fedavg calls: {json.dumps(calls)}", flush=True)
+        if [c["mask_in"] for c in calls] != [r.n_delivered for r in recs]:
+            raise AssertionError(f"path {label}: the FedAvg mask is not the "
+                                 f"delivery mask")
+        if not is_async and all(r.n_delivered == r.n_selected
+                                for r in recs):
+            raise AssertionError(f"path {label}: no update was lost, the "
+                                 f"delivery mask was not exercised")
+        if is_async and any(c["min_weight_in"] is None for c in calls):
+            raise AssertionError(f"path {label}: FedAvg got no staleness "
+                                 f"weights")
     models = [sim.params] + ([sim.edge_params] if sim.edge_params else [])
     for tree in models:
         for leaf in tree.values():
@@ -1250,6 +1374,7 @@ def main(argv: list[str]) -> int:
                                                 required)
     profile_round(sims["sync"], "sync")
     profile_round(sims["hier_int8"], "hier_int8")
+    profile_round(sims["faulty_async"], "faulty_async")
     del sims
 
     check_zamba_full_f32(dev)

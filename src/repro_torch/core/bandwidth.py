@@ -9,7 +9,8 @@ For the scheduled set S_k of BS k the KKT conditions give
 with t_k^* the unique root right of ``max tcomp``.  Every solve here goes
 through :func:`repro_torch.kernels.bandwidth_solve.bandwidth_solve`, one
 row per BS: the hand-written kernel on CUDA tensors, its plain torch
-version on CPU tensors.  The kernel masks the denominator where the JAX
+version on CPU tensors (:func:`uniform_time`, the baselines' even split,
+has no solve).  The kernel masks the denominator where the JAX
 ``bs_time`` masks it one step later; a masked-in user sees the same
 arithmetic, so the root is the same.
 """
@@ -69,3 +70,17 @@ def solve_all(coeff: torch.Tensor, tcomp: torch.Tensor, assign: torch.Tensor,
     denom = torch.clamp(t_k[None, :] - tcomp[:, None], min=1e-12)
     bi = torch.where(assign, coeff / denom, 0.0)            # [N, M]
     return t_k, bi.sum(dim=1)
+
+
+def uniform_time(coeff: torch.Tensor, tcomp: torch.Tensor,
+                 mask: torch.Tensor, bw: torch.Tensor) -> torch.Tensor:
+    """Round time under an EVEN bandwidth split (the UB / FedCS
+    baselines): max over a BS's users of tcomp + c / (B_k / n), 0 for an
+    empty BS.  coeff/mask [N] with bw a scalar for one BS, or [N, M] with
+    bw [M] for every BS at once (reduced over users)."""
+    tc = tcomp if coeff.dim() == 1 else tcomp[:, None]
+    n_sel = mask.sum(dim=0)
+    per_user_bw = bw / torch.clamp(n_sel, min=1)
+    t_users = tc + coeff / torch.clamp(per_user_bw, min=1e-12)
+    t = torch.where(mask, t_users, 0.0).amax(dim=0)
+    return torch.where(n_sel > 0, t, 0.0)

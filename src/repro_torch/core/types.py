@@ -49,6 +49,9 @@ class SchedulingProblem:
     bs_bw [M] per-BS bandwidth (MHz); coeff [N, M] ``S / log2(1 + snr)``
     (MHz*s); necessary [N] bool, users Eq. (8g) forces in;
     min_participants, the Eq. (8h) floor ``ceil(rho2 * N)``;
+    p_deliver, the optional [N] estimate of each user's probability of
+    delivering its update (the fault layer's pre-scheduling observable,
+    which ``dagsa-r`` discounts the SNR by); ``None`` in the perfect world;
     payload_mbit, the optional [N] per-user uplink payload s_k (Mbit) of a
     compressed uplink.  ``coeff`` is already payload-scaled, so this field
     is bookkeeping only; ``None`` means every user uploads ``model_mbit``.
@@ -60,6 +63,7 @@ class SchedulingProblem:
     coeff: torch.Tensor
     necessary: torch.Tensor
     min_participants: int
+    p_deliver: Optional[torch.Tensor] = None
     payload_mbit: Optional[torch.Tensor] = None
 
 
@@ -105,18 +109,22 @@ class ClientState:
 
     counts: torch.Tensor    # [N] f32 Eq. (8g) participation counts
     prev_bs: Optional[torch.Tensor] = None  # [N] i32 last round's serving
-                                            # BS (hierarchical runs only)
+                                            # BS (hierarchical and faulty
+                                            # runs: handover detection)
 
 
 @dataclasses.dataclass(frozen=True)
 class ServerState:
-    """The global model (a dict of parameter tensors) and, on hierarchical
-    runs, the per-BS edge models and the data mass each aggregated since
-    the last global sync (``None`` otherwise)."""
+    """The global model (a dict of parameter tensors); on hierarchical
+    runs the per-BS edge models and the data mass each aggregated since
+    the last global sync; on buffered-async runs the in-flight event
+    queue (``repro_torch.fl.rounds.async_queue_init``).  ``None`` where
+    the feature is off."""
 
     params: Any
     edge_params: Any = None                     # leaves [M, ...]
     edge_weight: Optional[torch.Tensor] = None  # [M] f32
+    queue: Optional[tuple] = None               # (comp, tick, idx, size, upd)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -29,6 +29,33 @@ def gather_client_tree(tree: Params, idx: torch.Tensor) -> Params:
     return tree_map(lambda a: a[idx.long()], tree)
 
 
+
+def scatter_client_tree(n: int, idx: torch.Tensor, tree: Params,
+                        base: Params | None = None) -> Params:
+    """Rows of ``tree`` (leaves [R, ...]) back to client-indexed [n, ...]
+    leaves: row r lands at client ``idx[r]``, on top of ``base`` when
+    given, zeros otherwise.  A negative index counts from the end; an
+    index outside [-n, n) is dropped (the ``n`` sentinel of an empty
+    queue slot).  Dropped rows are redirected to a scratch row n that is
+    cut off afterwards, so no index ever leaves the tensor (a device-side
+    assert on CUDA) and the host never waits on the mask."""
+    idx = idx.long()
+    keep = (idx >= -n) & (idx < n)
+    dst = torch.where(keep, torch.remainder(idx, n), n)
+
+    def put(b, a):
+        scratch = torch.zeros((1,) + tuple(b.shape[1:]), dtype=b.dtype,
+                              device=b.device)
+        out = torch.cat([b, scratch]).index_put_((dst,), a.to(b.dtype))
+        return out[:n]
+
+    if base is None:
+        return tree_map(lambda a: put(
+            torch.zeros((n,) + tuple(a.shape[1:]), dtype=a.dtype,
+                        device=a.device), a), tree)
+    return tree_map(put, base, tree)
+
+
 def fleet_local_sgd(global_params: Params, x_all: torch.Tensor,
                     y_all: torch.Tensor, keys: torch.Tensor, epochs: int,
                     batch_size: int, lr: float,

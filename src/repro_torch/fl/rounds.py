@@ -1,38 +1,54 @@
 """The mobility-aware FL round engine (PyTorch port of ``repro.fl.rounds``:
-the synchronous ``"engine"`` world).
+the ``"engine"`` world, ``compute="full"``).
 
 Per communication round:
   1. users move (``rd`` or ``static`` mobility),
   2. the BSs observe one round's channels -> SchedulingProblem (with a
      compressed uplink, each user's payload s_k scales the Eq. (1)/(11)
-     coefficients),
-  3. DAGSA picks users, BSs and bandwidth: the host greedy ``dagsa`` (the
-     default, numpy draws seeded ``seed * 100003 + r`` as in the JAX
-     engine's eager path; kernel ``bandwidth_solve`` for Eq. (12)) or
+     coefficients; with faults, each user's camped BS, its distance to
+     the cell edge and a handover flag give the delivery estimate
+     ``p_deliver``),
+  3. a scheduler picks users, BSs and bandwidth: the host greedy ``dagsa``
+     (the default, numpy draws seeded ``seed * 100003 + r`` as in the JAX
+     engine's eager path; kernel ``bandwidth_solve`` for Eq. (12)),
      ``dagsa_jit`` (kernels ``best_bs_argmax``, ``masked_bs_argmax``,
-     ``bandwidth_solve`` on the card),
-  4. every client runs E epochs of local SGD (the mask enters only the
-     aggregation, ``compute="full"``),
-  5. aggregation, Eq. (2):
+     ``bandwidth_solve`` on the card), their delivery-discounted twins
+     ``dagsa-r-host`` / ``dagsa-r``, or a paper baseline (``rs``, ``ub``,
+     ``fedcs_low``, ``fedcs_high``, ``sa``: kernel ``best_bs_argmax``,
+     and ``bandwidth_solve`` for the optimal splits),
+  4. with faults, the round's stragglers, outages, crashes and poisoned
+     updates are drawn (:mod:`repro_torch.fl.faults`) and a deadline
+     drops late clients; every client runs E epochs of local SGD (the
+     mask enters only the aggregation),
+  5. aggregation, Eq. (2), over the DELIVERED clients (the scheduled
+     ones in the perfect world):
      * ``aggregation="single"``: masked FedAvg into the global model
-       (kernel ``fedavg_reduce``);
+       (kernel ``fedavg_reduce``, with the norm clip of the fault model);
      * ``aggregation="hierarchical"``: each client trains from its camped
        cell's edge model, every BS edge-aggregates the users assigned to
        it (kernel ``fedavg_segment_reduce``), and every ``tau_global``
        rounds the edge models sync into the global model;
+     * ``aggregation_async``: the buffered-async engine.  Each round is a
+       tick of ``tick_s`` simulated seconds; the scheduled clients with no
+       update in flight are dispatched with their Eq. (1) completion
+       times into an event queue, and the server folds in whatever lands
+       by the tick's end, each update weighted by ``(1 + s)^-alpha`` for
+       its staleness of s ticks (kernel ``fedavg_reduce``'s ``weights``);
      with ``compress="topk"|"topk-int8"`` the clients upload top-k (+ int8)
      codes of their deltas (kernel ``sparsify_quantize``) and the server
      aggregates the codes as they are (the int8 variants of the two
-     reductions),
-  6. participation counts and the simulated clock (Eq. 3) advance, and the
-     global model (on hierarchical runs the edge mixture) is evaluated
-     every ``eval_every`` rounds.
+     reductions; the async engine decodes them at dispatch),
+  6. participation counts advance by delivery and the simulated clock by
+     Eq. (3) (deadline-truncated with faults; one tick when async), and
+     the global model (on hierarchical runs the edge mixture) is
+     evaluated every ``eval_every`` rounds.
 
 The PRNG follows the JAX engine exactly, so both packages simulate the
 same world from the same seed: ``split(PRNGKey(seed), 6)`` at set-up,
 ``fold_in(k_pos, 1)`` for the mobility aux state, ``split(key, 5)`` each
-round, ``split(k_fleet, N)`` for the clients and, for ``topk-int8``, the
-rounding-noise key ``fold_in(k_fleet, N + 1)``.
+round (``split(key, 6)`` with an active fault model, the sixth key for
+the fault draws), ``split(k_fleet, N)`` for the clients and, for
+``topk-int8``, the rounding-noise key ``fold_in(k_fleet, N + 1)``.
 
 :class:`FLSimulation` runs on ``device="cuda"`` unless told otherwise and
 raises when CUDA is absent and no device was given; it never falls back
@@ -42,29 +58,35 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device, rng
-from repro_torch.core import channel, mobility
+from repro_torch.core import channel, latency, mobility
 from repro_torch.core import scheduler as sched
 from repro_torch.core.types import (ClientState, MobilityState, RoundState,
                                     ServerState, WirelessConfig, WorldState)
 from repro_torch.data.synthetic import make_dataset
 from repro_torch.fl import client as fl_client
+from repro_torch.fl import faults as fl_faults
 from repro_torch.fl import server as fl_server
 from repro_torch.fl.partition import shard_partition
 from repro_torch.kernels import compress_topk as ct
 from repro_torch.kernels.fedavg_reduce import (fedavg_reduce,
                                                fedavg_segment_reduce)
 from repro_torch.models import cnn
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 BS_LAYOUTS = ("grid", "uniform")
 AGGREGATIONS = ("single", "hierarchical")
 COMPRESS_MODES = ("topk", "topk-int8")
+
+# The schedulers the buffered-async engine takes: JAX runs it only in its
+# traced round step, which the host schedulers cannot enter.
+ASYNC_SCHEDULERS = tuple(s for s in sched.SCHEDULERS
+                         if s not in sched.HOST_SCHEDULERS)
 
 # Global sync period when hierarchical aggregation names no tau.
 DEFAULT_TAU_GLOBAL = 5
@@ -94,6 +116,20 @@ class FLConfig:
     aggregation: Optional[str] = None  # single | hierarchical (None: single)
     tau_global: Optional[int] = None   # global sync period (rounds), only
                                        # with hierarchical (None: 5)
+    faults: Any = None              # fault model: a FaultSpec, a
+                                    # FAULT_PRESETS name, or None (the
+                                    # perfect world)
+    deadline_s: Optional[float] = None  # round deadline T_dl override (s):
+                                        # late clients are dropped
+    aggregation_async: bool = False  # buffered-async engine: aggregate
+                                     # every tick_s simulated seconds from
+                                     # the in-flight event queue
+    tick_s: Optional[float] = None   # async aggregation period (s);
+                                     # REQUIRED when aggregation_async
+    staleness_alpha: float = 0.0     # alpha of w(s) = (1+s)^(-alpha);
+                                     # 0 disables the discount
+    buffer_size: Optional[int] = None   # event-queue capacity (None:
+                                        # n_users, which never overflows)
     compress: Optional[str] = None     # uplink compression: topk |
                                        # topk-int8 (None: off)
     topk_frac: Optional[float] = None  # fraction of each leaf's entries a
@@ -117,6 +153,40 @@ class FLConfig:
                     f"aggregation='hierarchical' (resolved aggregation is "
                     f"{self.aggregation or 'single'!r}); it would silently "
                     f"do nothing")
+        if self.deadline_s is not None and not self.deadline_s > 0.0:
+            raise ValueError("deadline_s must be > 0")
+        if (self.faults is not None and not isinstance(self.faults, str)
+                and not hasattr(self.faults, "active")):
+            raise ValueError(
+                "faults must be a repro_torch.fl.faults.FaultSpec, a preset "
+                f"name, or None; got {type(self.faults).__name__}")
+        if self.aggregation_async:
+            if self.tick_s is None:
+                raise ValueError(
+                    "aggregation_async=True needs tick_s (the simulated "
+                    "aggregation period in seconds)")
+            if self.aggregation == "hierarchical":
+                raise ValueError(
+                    "aggregation_async composes with the single-tier "
+                    "Eq. (2) only; hierarchical edge aggregation is "
+                    "synchronous by construction")
+        else:
+            for name, val, default in (("tick_s", self.tick_s, None),
+                                       ("staleness_alpha",
+                                        self.staleness_alpha, 0.0),
+                                       ("buffer_size", self.buffer_size,
+                                        None)):
+                if val != default:
+                    raise ValueError(
+                        f"{name}={val!r} only applies with "
+                        f"aggregation_async=True; it would silently do "
+                        f"nothing")
+        if self.tick_s is not None and not self.tick_s > 0.0:
+            raise ValueError("tick_s must be > 0")
+        if self.staleness_alpha < 0.0:
+            raise ValueError("staleness_alpha must be >= 0")
+        if self.buffer_size is not None and self.buffer_size < 1:
+            raise ValueError("buffer_size must be >= 1")
         if self.compress is not None and self.compress not in COMPRESS_MODES:
             raise ValueError(f"unknown compress mode {self.compress!r}; "
                              f"choose from {COMPRESS_MODES}")
@@ -135,12 +205,22 @@ class RoundRecord:
     round_idx: int
     t_round: float        # simulated round latency (s), Eq. (3)
     wall_clock: float     # cumulative simulated time (s)
-    n_selected: int
+    n_selected: int       # async: scheduled users with nothing in flight
     test_acc: float       # nan when not evaluated this round
     min_part_rate: float  # min_i counts_i / n — fairness monitor (Eq. 8g)
     handover_rate: float = float("nan")  # fraction of users whose serving
                                          # BS changed this round
                                          # (hierarchical runs only)
+    n_delivered: int = -1     # scheduled clients whose update arrived
+                              # (-1 with neither faults nor async)
+    delivered_rate: float = float("nan")   # n_delivered / n_selected
+                                           # (async: n_delivered / n_users)
+    goodput_mbit_s: float = float("nan")   # delivered uplink Mbit per
+                                           # simulated second this round
+    n_inflight: int = -1      # async: updates still queued at tick end
+                              # (-1 on synchronous runs)
+    n_dropped: int = -1       # async: updates evicted by a full buffer
+                              # this tick (-1 on synchronous runs)
 
 
 def camped_bs(dist: torch.Tensor) -> torch.Tensor:
@@ -166,31 +246,200 @@ def _compress_updates(ref_params, client_params, compress: str,
     return codes, scales, finite
 
 
+def _poison(client_params, corrupt, corrupt_mode_id, corrupt_scale):
+    if corrupt is None:
+        return client_params
+    return fl_faults.corrupt_updates(client_params, corrupt, corrupt_mode_id,
+                                     corrupt_scale)
+
+
 def train_and_aggregate(params, x_clients, y_clients, keys, selected,
                         data_sizes, *, epochs: int, batch_size: int,
-                        lr: float, compress: str | None = None,
+                        lr: float, delivered=None, corrupt=None,
+                        corrupt_mode_id: int = 0, corrupt_scale: float = 1.0,
+                        clip_norm=None, compress: str | None = None,
                         topk_frac: float = 1.0, compress_key=None):
     """The single-tier data plane: local SGD on every client, then masked
-    FedAvg (Eq. 2), over compressed deltas when ``compress`` is set."""
+    FedAvg (Eq. 2), over compressed deltas when ``compress`` is set.
+
+    Fault layer: ``delivered`` [N] replaces ``selected`` as the
+    aggregation mask, ``corrupt`` [N] poisons those clients' updates after
+    SGD and ``clip_norm`` turns on the server's norm clip."""
     with span("round.local_sgd"):
         client_params = fl_client.fleet_local_sgd(
             params, x_clients, y_clients, keys, epochs=epochs,
             batch_size=batch_size, lr=lr)
+    sel = selected if delivered is None else delivered
+    client_params = _poison(client_params, corrupt, corrupt_mode_id,
+                            corrupt_scale)
     if compress is None:
         with span("round.fedavg"):
-            return fedavg_reduce(params, client_params, selected, data_sizes)
+            return fedavg_reduce(params, client_params, sel, data_sizes,
+                                 clip_norm=clip_norm)
     with span("round.compress"):
         codes, scales, finite = _compress_updates(
             params, client_params, compress, topk_frac, compress_key)
     with span("round.fedavg"):
         return ct.fedavg_decompress_reduce(params, codes, scales,
-                                           selected & finite, data_sizes)
+                                           sel & finite, data_sizes,
+                                           clip_norm=clip_norm)
+
+
+# ---------------------------------------------------- buffered-async engine --
+# The in-flight event queue is a tuple of fixed-shape tensors:
+#
+#     comp  [B] f32   absolute Eq. (1) completion time; inf = empty slot
+#     tick  [B] i32   the tick the update was dispatched on (staleness base)
+#     idx   [B] i32   owning client; N is the empty-slot sentinel
+#     size  [B] f32   the client's Eq. (2) data weight |D_i|
+#     upd   tree      the updates themselves, leaves [B, ...]
+#
+# ``comp`` stays sorted ascending, so live entries form a prefix and the
+# capacity cut is a slice.  A client with an update in flight is busy and
+# not dispatched again, so delivery scatters by client index into [N]
+# masks and weights and feeds the same masked Eq. (2) reduction as the
+# synchronous round, in client order.
+
+
+def async_queue_init(params, n_users: int, buffer_size: int) -> tuple:
+    """An empty event queue shaped for ``params`` updates."""
+    dev = tree_leaves(params)[0].device
+    upd = tree_map(lambda p: torch.zeros((buffer_size,) + tuple(p.shape),
+                                         dtype=p.dtype, device=dev), params)
+    return (torch.full((buffer_size,), torch.inf, device=dev),
+            torch.zeros((buffer_size,), dtype=torch.int32, device=dev),
+            torch.full((buffer_size,), n_users, dtype=torch.int32,
+                       device=dev),
+            torch.zeros((buffer_size,), device=dev),
+            upd)
+
+
+def async_busy(queue: tuple, n_users: int) -> torch.Tensor:
+    """[N] bool: the client has an update in flight (empty slots hold the
+    sentinel index and mark nobody)."""
+    idx = queue[2]
+    return fl_client.scatter_client_tree(
+        n_users, idx, torch.ones(idx.shape, dtype=torch.bool,
+                                 device=idx.device))
+
+
+def async_queue_step(queue: tuple, client_params, dispatch: torch.Tensor,
+                     comp_time: torch.Tensor, data_sizes: torch.Tensor, r,
+                     tick_end, staleness_alpha) -> tuple:
+    """Advance the event queue by one tick: admit, deliver, evict.
+
+    The queue's rows come first, then this tick's dispatch rows in client
+    order (``dispatch`` [N] bool, ``comp_time`` [N] absolute completion
+    times).  Every live entry completing by ``tick_end`` is delivered; the
+    rest are sorted by completion time (stable, so equal times keep row
+    order) and cut to capacity (the latest completions are evicted).
+
+    Returns ``(queue', delivered, wstale, delivered_updates, diag)``:
+    ``delivered`` [N] bool, ``wstale`` [N] f32 and ``delivered_updates``
+    (leaves [N, ...], zeros off delivery) feed the weighted Eq. (2);
+    ``diag`` holds n_delivered / n_inflight / n_dropped / w_delivered.
+    """
+    comp_q, tick_q, idx_q, size_q, upd_q = queue
+    n = dispatch.shape[0]
+    b = comp_q.shape[0]
+    dev = dispatch.device
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    comp = torch.cat([comp_q, torch.where(dispatch, comp_time, torch.inf)])
+    tick = torch.cat([tick_q, torch.full((n,), int(r), dtype=torch.int32,
+                                         device=dev)])
+    idx = torch.cat([idx_q, torch.where(dispatch, rows, n)])
+    size = torch.cat([size_q, torch.where(dispatch, data_sizes.float(),
+                                          0.0)])
+    upd = tree_map(lambda q, c: torch.cat([q, c.to(q.dtype)]), upd_q,
+                   client_params)
+
+    deliver = torch.isfinite(comp) & (comp <= tick_end)       # [B+N]
+    wst = fl_server.staleness_weights(int(r) - tick, staleness_alpha)
+    # delivered entries land in their client's row (busy-masking makes
+    # those indices unique); the others go to the sentinel and drop
+    scat = torch.where(deliver, idx, n)
+    delivered = fl_client.scatter_client_tree(n, scat, deliver)
+    wstale = fl_client.scatter_client_tree(n, scat, wst)
+    delivered_upd = fl_client.scatter_client_tree(n, scat, upd)
+
+    # delivered slots turn empty (inf) and sink past the live prefix
+    comp_left = torch.where(deliver, torch.inf, comp)
+    order = torch.argsort(comp_left, stable=True)
+    keep = order[:b]
+    kept_live = torch.isfinite(comp_left[keep])
+    new_queue = (comp_left[keep],
+                 torch.where(kept_live, tick[keep], 0),
+                 torch.where(kept_live, idx[keep], n),
+                 torch.where(kept_live, size[keep], 0.0),
+                 tree_map(lambda u: u[keep], upd))
+    dropped = torch.isfinite(comp_left[order[b:]])
+    diag = {
+        "n_delivered": deliver.sum().to(torch.int32),
+        "n_inflight": kept_live.sum().to(torch.int32),
+        "n_dropped": dropped.sum().to(torch.int32),
+        "w_delivered": torch.where(deliver, size * wst, 0.0).sum(),
+    }
+    return new_queue, delivered, wstale, delivered_upd, diag
+
+
+def aggregate_weighted(params, delivered_updates, delivered: torch.Tensor,
+                       data_sizes: torch.Tensor, weights: torch.Tensor, *,
+                       clip_norm=None):
+    """Staleness-weighted masked Eq. (2) (kernel ``fedavg_reduce`` with
+    per-client ``weights``)."""
+    return fedavg_reduce(params, delivered_updates, delivered, data_sizes,
+                         clip_norm=clip_norm, weights=weights)
+
+
+def async_round_tick(params, queue: tuple, x_clients, y_clients, keys,
+                     dispatch, t_user, data_sizes, r, *, tick_s: float,
+                     staleness_alpha, epochs: int, batch_size: int,
+                     lr: float, corrupt=None, corrupt_mode_id: int = 0,
+                     corrupt_scale: float = 1.0, clip_norm=None,
+                     compress: str | None = None, topk_frac: float = 1.0,
+                     compress_key=None) -> tuple:
+    """One buffered-async tick of the data plane: local SGD on the fleet,
+    each dispatched client's completion time ``now + t_user`` with ``now
+    = r * tick_s``, one step of the event queue, and the
+    staleness-weighted Eq. (2) over what landed by ``now + tick_s``.
+
+    A compressed uplink's lossy round trip happens at dispatch (the queue
+    parks what the server will decode), and a client whose raw update
+    went non-finite is not dispatched.  Returns ``(params, queue,
+    delivered, diag)``.
+    """
+    with span("round.local_sgd"):
+        client_params = fl_client.fleet_local_sgd(
+            params, x_clients, y_clients, keys, epochs=epochs,
+            batch_size=batch_size, lr=lr)
+    client_params = _poison(client_params, corrupt, corrupt_mode_id,
+                            corrupt_scale)
+    if compress is not None:
+        with span("round.compress"):
+            codes, scales, finite = _compress_updates(
+                params, client_params, compress, topk_frac, compress_key)
+            client_params = tree_map(lambda g, d: g[None] + d.to(g.dtype),
+                                     params, ct.decompress_tree(codes, scales))
+        dispatch = dispatch & finite
+    dev = dispatch.device
+    tick = torch.tensor(tick_s, dtype=torch.float32, device=dev)
+    now = torch.tensor(float(r), dtype=torch.float32, device=dev) * tick
+    with span("round.queue"):
+        queue, delivered, wstale, delivered_upd, diag = async_queue_step(
+            queue, client_params, dispatch, now + t_user, data_sizes, r,
+            now + tick, staleness_alpha)
+    with span("round.fedavg"):
+        params = aggregate_weighted(params, delivered_upd, delivered,
+                                    data_sizes, wstale, clip_norm=clip_norm)
+    return params, queue, delivered, diag
 
 
 def hierarchical_round(global_params, edge_params, edge_weight, prev_bs,
                        x_clients, y_clients, keys, assign, serving,
                        data_sizes, r: int, *, tau_global: int, epochs: int,
-                       batch_size: int, lr: float,
+                       batch_size: int, lr: float, delivered=None,
+                       corrupt=None, corrupt_mode_id: int = 0,
+                       corrupt_scale: float = 1.0, clip_norm=None,
                        compress: str | None = None, topk_frac: float = 1.0,
                        compress_key=None):
     """One hierarchical data-plane round (arXiv 2108.09103's architecture).
@@ -199,22 +448,30 @@ def hierarchical_round(global_params, edge_params, edge_weight, prev_bs,
     its update edge-aggregates into the BS the scheduler assigned it
     (per-BS Eq. (2)); every ``tau_global`` rounds the edge models sync into
     the global model, weighted by the data each aggregated since the last
-    sync, and every edge restarts from the new global model.
+    sync, and every edge restarts from the new global model.  With faults,
+    an undelivered client's upload reaches no BS (``delivered`` masks
+    ``assign``), ``corrupt`` poisons updates after SGD and ``clip_norm``
+    clips each update against its assigned edge model.
 
     Returns ``(global_params, edge_params, edge_weight, serving,
     handover_rate)``.
     """
     moved = (serving != prev_bs) & (prev_bs >= 0)
     handover_rate = moved.float().mean()
+    if delivered is not None:
+        assign = assign & delivered[:, None]
     with span("round.local_sgd"):
         init = fl_client.gather_client_tree(edge_params, serving)
         client_params = fl_client.fleet_local_sgd_per_client(
             init, x_clients, y_clients, keys, epochs=epochs,
             batch_size=batch_size, lr=lr)
+    client_params = _poison(client_params, corrupt, corrupt_mode_id,
+                            corrupt_scale)
     if compress is None:
         with span("round.fedavg"):
             edge_params = fedavg_segment_reduce(edge_params, client_params,
-                                                assign, data_sizes)
+                                                assign, data_sizes,
+                                                clip_norm=clip_norm)
     else:
         # deltas from the serving edge model (what the client trained
         # from), decoded into the assigned BS's aggregation
@@ -224,7 +481,8 @@ def hierarchical_round(global_params, edge_params, edge_weight, prev_bs,
         assign = assign & finite[:, None]
         with span("round.fedavg"):
             edge_params = ct.fedavg_decompress_segment_reduce(
-                edge_params, codes, scales, assign, serving, data_sizes)
+                edge_params, codes, scales, assign, serving, data_sizes,
+                clip_norm=clip_norm)
     # as in the JAX engine, without the finite-update screen that the
     # uncompressed segmented reduction applies inside
     _, bs_totals = fl_server.segment_weights(assign, data_sizes)
@@ -244,14 +502,21 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, mob_model: str,
                     x_clients, y_clients, data_sizes, x_test, y_test, bs_pos,
                     bs_bw, params0, pos0, aux0, counts0, key0,
                     aggregation: str = "single", tau_global: int = 1,
-                    compress: str | None = None, topk_frac: float = 1.0):
-    """Build the synchronous round step: ``(init_state, step_fn)`` with
+                    compress: str | None = None, topk_frac: float = 1.0,
+                    faults: fl_faults.FaultSpec = fl_faults.NO_FAULTS,
+                    async_on: bool = False, tick_s: float = 1.0,
+                    staleness_alpha: float = 0.0, buffer_size: int = 1):
+    """Build the round step: ``(init_state, step_fn)`` with
     ``step_fn(state, r) -> (state', out)`` and ``out`` a dict of 0-dim
-    device tensors.  ``aggregation``, ``tau_global``, ``compress`` and
-    ``topk_frac`` are the resolved knobs of ``cfg``."""
+    device tensors.  ``aggregation``, ``tau_global``, ``compress``,
+    ``topk_frac``, ``faults`` and the async knobs are the resolved knobs
+    of ``cfg``; an inert ``faults`` runs the exact fault-free round."""
     n = w.n_users
     dev = counts0.device
     hier = aggregation == "hierarchical"
+    faults_on = faults.active
+    need_prev = hier or faults_on
+    fp = fl_faults.fault_params(faults)
     # compressed uplink: the per-user payload s_k = ratio * S scales the
     # Eq. (1)/(11) coefficients; None keeps the uniform S exactly
     if compress is not None:
@@ -259,54 +524,103 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, mob_model: str,
             params0, topk_frac, compress == "topk-int8")
         payload0 = torch.full((n,), up_mbit, dtype=torch.float32, device=dev)
     else:
-        payload0 = None
+        up_mbit, payload0 = w.model_mbit, None
     init_state = RoundState(
         world=WorldState(pos=pos0, mob_aux=aux0),
         clients=ClientState(
             counts=counts0,
             prev_bs=(torch.full((n,), -1, dtype=torch.int32, device=dev)
-                     if hier else None)),
+                     if need_prev else None)),
         server=ServerState(
             params=params0,
             edge_params=(tree_map(lambda p: p[None].repeat(
                 (w.n_bs,) + (1,) * p.dim()), params0) if hier else None),
             edge_weight=(torch.zeros((w.n_bs,), device=dev)
-                         if hier else None)),
+                         if hier else None),
+            queue=(async_queue_init(params0, n, buffer_size)
+                   if async_on else None)),
         key=key0)
 
     def step_fn(state: RoundState, r: int):
-        params = state.server.params
+        params, queue = state.server.params, state.server.queue
         edge, edge_w = state.server.edge_params, state.server.edge_weight
         counts, prev_bs = state.clients.counts, state.clients.prev_bs
-        key, k_mob, k_prob, k_sched, k_fleet = rng.split(state.key, 5).unbind(0)
+        if faults_on:
+            # one more key for the fault draws
+            key, k_mob, k_prob, k_sched, k_fleet, k_fault = \
+                rng.split(state.key, 6).unbind(0)
+        else:
+            key, k_mob, k_prob, k_sched, k_fleet = \
+                rng.split(state.key, 5).unbind(0)
         with span("round.world"):
             pos, aux = mobility.step_named(mob_model, k_mob, state.world.pos,
                                            state.world.mob_aux, w)
             mstate = MobilityState(user_pos=pos, bs_pos=bs_pos)
             prob = channel.make_problem(k_prob, mstate, w, counts, r,
                                         bs_bw=bs_bw, payload_mbit=payload0)
-            if hier:
-                serving = camped_bs(mstate.distances())
+            if need_prev:
+                dist = mstate.distances()
+                serving = camped_bs(dist)
+            if faults_on:
+                edge_frac = fl_faults.edge_proximity(dist, serving, w)
+                handover = (serving != prev_bs) & (prev_bs >= 0)
+                # the pre-scheduling delivery estimate dagsa-r discounts by
+                prob = dataclasses.replace(
+                    prob, p_deliver=fl_faults.delivery_probability(
+                        fp, edge_frac, handover))
         with span("round.schedule"):
             res = sched.schedule(cfg.scheduler, prob, w, k_sched,
                                  seed=cfg.seed * 100003 + r)
+        # faults: stragglers stretch tcomp, outages and crashes kill
+        # uplinks, the deadline drops late survivors
+        corrupt = None
+        if faults_on:
+            tcomp_eff, alive, corrupt = fl_faults.sample_round_faults(
+                k_fault, fp, edge_frac, handover, prob.tcomp)
+            t_user = latency.per_user_latency(prob, res, tcomp=tcomp_eff)
+            gate = alive & latency.on_time(t_user, fp["deadline_s"])
+        elif async_on:
+            t_user = latency.per_user_latency(prob, res)
+            gate = torch.ones_like(res.selected)
         keys = rng.split(k_fleet, n)
         ck = (rng.fold_in(k_fleet, n + 1) if compress == "topk-int8"
               else None)
         data_kw = dict(epochs=cfg.local_epochs, batch_size=cfg.batch_size,
-                       lr=cfg.lr, compress=compress, topk_frac=topk_frac,
-                       compress_key=ck)
-        if hier:
-            params, edge, edge_w, prev_bs, handover_rate = \
-                hierarchical_round(params, edge, edge_w, prev_bs, x_clients,
-                                   y_clients, keys, res.assign, serving,
-                                   data_sizes, r, tau_global=tau_global,
-                                   **data_kw)
+                       lr=cfg.lr, corrupt=corrupt,
+                       corrupt_mode_id=fp["corrupt_mode_id"],
+                       corrupt_scale=fp["corrupt_scale"],
+                       clip_norm=faults.clip_norm, compress=compress,
+                       topk_frac=topk_frac, compress_key=ck)
+        if async_on:
+            # a dead or late uplink never enters the queue
+            eligible = res.selected & ~async_busy(queue, n)
+            params, queue, delivered, diag = async_round_tick(
+                params, queue, x_clients, y_clients, keys, eligible & gate,
+                t_user, data_sizes, r, tick_s=tick_s,
+                staleness_alpha=staleness_alpha, **data_kw)
+            t_round = torch.full((), tick_s, dtype=torch.float32, device=dev)
         else:
-            params = train_and_aggregate(params, x_clients, y_clients, keys,
-                                         res.selected, data_sizes, **data_kw)
+            if faults_on:
+                delivered = res.selected & gate
+                t_round = latency.deadline_round_latency(
+                    t_user, res.selected, fp["deadline_s"])
+            else:
+                delivered, t_round = res.selected, res.t_round
+            deliv_kw = dict(delivered=delivered if faults_on else None)
+            if hier:
+                params, edge, edge_w, prev_bs, handover_rate = \
+                    hierarchical_round(params, edge, edge_w, prev_bs,
+                                       x_clients, y_clients, keys,
+                                       res.assign, serving, data_sizes, r,
+                                       tau_global=tau_global, **deliv_kw,
+                                       **data_kw)
+            else:
+                params = train_and_aggregate(params, x_clients, y_clients,
+                                             keys, res.selected, data_sizes,
+                                             **deliv_kw, **data_kw)
 
-        counts = counts + res.selected.to(counts.dtype)
+        # participation follows delivery: a lost update stays "necessary"
+        counts = counts + delivered.to(counts.dtype)
         with span("round.eval"):
             if cfg.eval_every and (r + 1) % cfg.eval_every == 0:
                 # hierarchical: the virtual global model, the edges mixed
@@ -316,16 +630,34 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, mob_model: str,
                 acc = cnn.accuracy(model, x_test, y_test)
             else:
                 acc = torch.tensor(float("nan"), device=counts.device)
-        out = {"t_round": res.t_round, "test_acc": acc,
+        n_sel = eligible.sum() if async_on else res.selected.sum()
+        out = {"t_round": t_round, "test_acc": acc,
                "min_part_rate": counts.min() / (r + 1.0),
-               "n_selected": res.selected.sum().to(torch.int32)}
+               "n_selected": n_sel.to(torch.int32)}
+        if async_on:
+            n_del = diag["n_delivered"]
+            out["n_delivered"] = n_del
+            # deliveries lag dispatches, so normalise by the fleet
+            out["delivered_rate"] = n_del.float() / n
+            out["goodput_mbit_s"] = n_del.float() * up_mbit / tick_s
+            out["n_inflight"] = diag["n_inflight"]
+            out["n_dropped"] = diag["n_dropped"]
+        elif faults_on:
+            n_del = delivered.sum().to(torch.int32)
+            out["n_delivered"] = n_del
+            out["delivered_rate"] = (n_del.float()
+                                     / torch.clamp(n_sel, min=1).float())
+            out["goodput_mbit_s"] = (n_del.float() * up_mbit
+                                     / torch.clamp(t_round, min=1e-9))
         if hier:
             out["handover_rate"] = handover_rate
+        elif need_prev:
+            prev_bs = serving
         new_state = RoundState(
             world=WorldState(pos=pos, mob_aux=aux),
             clients=ClientState(counts=counts, prev_bs=prev_bs),
             server=ServerState(params=params, edge_params=edge,
-                               edge_weight=edge_w),
+                               edge_weight=edge_w, queue=queue),
             key=key)
         return new_state, out
 
@@ -346,6 +678,25 @@ class FLSimulation:
         self.compress = cfg.compress
         self.topk_frac = (float(cfg.topk_frac) if cfg.topk_frac is not None
                           else 1.0)
+        # the buffered-async engine (the config guards its knobs)
+        self.aggregation_async = cfg.aggregation_async
+        if self.aggregation_async and cfg.scheduler in sched.HOST_SCHEDULERS:
+            raise ValueError(
+                f"aggregation_async runs only in the JAX package's traced "
+                f"round step; scheduler {cfg.scheduler!r} is host-side — "
+                f"pick one of {ASYNC_SCHEDULERS}")
+        buffer_size = (int(cfg.buffer_size) if cfg.buffer_size is not None
+                       else w.n_users)
+        # the fault model: a preset name, a spec, or the perfect world;
+        # deadline_s overrides the spec's deadline
+        fs = cfg.faults
+        if isinstance(fs, str):
+            fs = fl_faults.get_faults(fs)
+        if fs is None:
+            fs = fl_faults.NO_FAULTS
+        if cfg.deadline_s is not None:
+            fs = dataclasses.replace(fs, deadline_s=cfg.deadline_s)
+        self.faults: fl_faults.FaultSpec = fs
 
         key = rng.PRNGKey(cfg.seed, device=dev)
         k_data, k_part, k_pos, k_model, k_bw, k_run = rng.split(key, 6).unbind(0)
@@ -381,7 +732,11 @@ class FLSimulation:
             bs_pos=self.bs_pos, bs_bw=bs_bw, params0=params0,
             pos0=mob.user_pos, aux0=aux0, counts0=counts0, key0=k_run,
             aggregation=self.aggregation, tau_global=self.tau_global,
-            compress=self.compress, topk_frac=self.topk_frac)
+            compress=self.compress, topk_frac=self.topk_frac,
+            faults=self.faults, async_on=self.aggregation_async,
+            tick_s=float(cfg.tick_s) if cfg.tick_s is not None else 1.0,
+            staleness_alpha=float(cfg.staleness_alpha),
+            buffer_size=buffer_size)
 
     @property
     def params(self):
@@ -414,15 +769,35 @@ class FLSimulation:
         self.round_idx += n_rounds
         wall = self.wall_clock + np.cumsum(stacked["t_round"],
                                            dtype=np.float64)
-        hand = stacked.get("handover_rate")
+
+        def col(name, i, cast, missing):
+            v = stacked.get(name)
+            return cast(v[i]) if v is not None else missing
+
+        nan = float("nan")
         recs = [RoundRecord(round_idx=first + i,
                             t_round=float(stacked["t_round"][i]),
                             wall_clock=float(wall[i]),
                             n_selected=int(stacked["n_selected"][i]),
                             test_acc=float(stacked["test_acc"][i]),
                             min_part_rate=float(stacked["min_part_rate"][i]),
-                            handover_rate=(float(hand[i]) if hand is not None
-                                           else float("nan")))
+                            handover_rate=col("handover_rate", i, float, nan),
+                            n_delivered=col("n_delivered", i, int, -1),
+                            delivered_rate=col("delivered_rate", i, float,
+                                               nan),
+                            goodput_mbit_s=col("goodput_mbit_s", i, float,
+                                               nan),
+                            n_inflight=col("n_inflight", i, int, -1),
+                            n_dropped=col("n_dropped", i, int, -1))
                 for i in range(n_rounds)]
         self.wall_clock = float(wall[-1])
         return recs
+
+
+def accuracy_at_budget(records: list[RoundRecord],
+                       budget_s: float) -> float:
+    """Best test accuracy reached within a simulated time budget (the
+    paper's comparison metric: accuracy under the same time budget)."""
+    accs = [r.test_acc for r in records
+            if r.wall_clock <= budget_s and r.test_acc == r.test_acc]
+    return max(accs) if accs else float("nan")

@@ -5,7 +5,8 @@ Two granularities share the math: :func:`fedavg`, the single-tier Eq. (2),
 and :func:`fedavg_segmented`, the hierarchical edge step (Eq. (2) per BS
 over the ``[N, M]`` assignment; a BS that aggregated nobody keeps its edge
 model), whose edge models :func:`edge_global_sync` mixes into the global
-model every ``tau_global`` rounds.
+model every ``tau_global`` rounds.  The buffered-async engine multiplies
+the Eq. (2) weights by :func:`staleness_weights`.
 
 Parameters are dicts of tensors (nested one level, as the CNN's); client
 parameters carry a leading ``[N]`` axis.  The weighted sum accumulates in
@@ -33,6 +34,20 @@ def fedavg_weights(selected: torch.Tensor, data_sizes: torch.Tensor
     w = selected.float() * data_sizes.float()
     return w, w.sum()
 
+
+
+def staleness_weights(staleness: torch.Tensor, alpha) -> torch.Tensor:
+    """Polynomial staleness discount w(s) = (1 + s)^(-alpha) in float32.
+
+    ``staleness`` counts whole aggregation ticks between an update's
+    dispatch and its delivery; a same-tick delivery (s = 0) weighs
+    exactly 1.0 for every alpha (``pow(1, y) == 1``), and ``alpha = 0``
+    disables the discount (``pow(x, -0.0) == 1``).
+    """
+    s = torch.as_tensor(staleness).float()
+    return torch.pow(1.0 + s, -torch.tensor(float(alpha),
+                                            dtype=torch.float32,
+                                            device=s.device))
 
 def finite_update_mask(client_params: Params) -> torch.Tensor:
     """[N] bool: client i's update is finite in every leaf entry."""

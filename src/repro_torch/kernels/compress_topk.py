@@ -160,8 +160,9 @@ def compress_delta_tree(delta: Params, topk_frac: float, *, quantize: bool,
 
 
 def decompress_tree(codes: Params, scales: Params) -> Params:
-    """Dense reconstruction ``scale_i * q_i`` (tests and oracles only; the
-    fused reductions never build it)."""
+    """Dense reconstruction ``scale_i * q_i``: the buffered-async engine's
+    round trip at dispatch, and the oracles (the fused reductions never
+    build it)."""
     return tree_map(
         lambda q, s: q.float() * s.reshape((-1,) + (1,) * (q.dim() - 1)),
         codes, scales)

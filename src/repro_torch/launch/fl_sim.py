@@ -4,6 +4,9 @@
         --scheduler dagsa --dataset mnist --rounds 20
     PYTHONPATH=src python -m repro_torch.launch.fl_sim --aggregation \
         hierarchical --tau-global 2 --compress topk-int8 --topk-frac 0.1
+    PYTHONPATH=src python -m repro_torch.launch.fl_sim --scheduler \
+        dagsa-r --faults faulty-uplink --async --tick 0.5 \
+        --staleness-alpha 0.5
 
 Runs on CUDA by default (``--device cpu`` to run on the CPU) and prints one
 line per round once the run ends.
@@ -14,8 +17,10 @@ import argparse
 
 from repro_torch.core.scheduler import SCHEDULERS
 from repro_torch.data.synthetic import DATASETS
+from repro_torch.fl.faults import FAULT_PRESETS
 from repro_torch.fl.rounds import (AGGREGATIONS, BS_LAYOUTS, COMPRESS_MODES,
-                                   FLConfig, FLSimulation)
+                                   FLConfig, FLSimulation,
+                                   accuracy_at_budget)
 from repro_torch.models.cnn import CNNConfig
 
 
@@ -43,6 +48,26 @@ def main(argv=None) -> None:
                          "single-tier)")
     ap.add_argument("--tau-global", type=int, default=None,
                     help="global sync period in rounds (hierarchical only)")
+    ap.add_argument("--faults", default=None, choices=sorted(FAULT_PRESETS),
+                    help="fault-injection preset: outages, stragglers, "
+                         "crashes, poisoned updates (default: none)")
+    ap.add_argument("--deadline", type=float, default=None, metavar="T",
+                    help="round deadline in simulated seconds: the server "
+                         "stops waiting at T and drops late updates")
+    ap.add_argument("--async", dest="async_agg", action="store_true",
+                    help="buffered-async aggregation: the server ticks "
+                         "every --tick simulated seconds and folds in "
+                         "whatever updates landed, staleness-discounted")
+    ap.add_argument("--tick", type=float, default=None, metavar="S",
+                    help="async aggregation period in simulated seconds "
+                         "(required with --async)")
+    ap.add_argument("--staleness-alpha", type=float, default=0.0,
+                    metavar="A",
+                    help="staleness discount exponent in (1+s)^(-A) "
+                         "(--async only; 0 disables)")
+    ap.add_argument("--buffer-size", type=int, default=None, metavar="B",
+                    help="async event-queue capacity (default n_users, "
+                         "which never overflows)")
     ap.add_argument("--compress", default=None, choices=COMPRESS_MODES,
                     help="uplink update compression: top-k sparsification "
                          "(topk) or top-k + int8 stochastic rounding "
@@ -54,6 +79,14 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without it)")
     args = ap.parse_args(argv)
+    if args.async_agg and args.tick is None:
+        ap.error("--async needs --tick (the aggregation period in "
+                 "simulated seconds)")
+    if not args.async_agg and (args.tick is not None
+                               or args.staleness_alpha != 0.0
+                               or args.buffer_size is not None):
+        ap.error("--tick/--staleness-alpha/--buffer-size only apply with "
+                 "--async; they would silently do nothing")
 
     cnn_cfg = None
     if args.paper_cnn:
@@ -65,17 +98,42 @@ def main(argv=None) -> None:
                    eval_every=args.eval_every, seed=args.seed,
                    n_train=args.n_train, n_test=args.n_test, cnn=cnn_cfg,
                    bs_layout=args.bs_layout, aggregation=args.aggregation,
-                   tau_global=args.tau_global, compress=args.compress,
+                   tau_global=args.tau_global, faults=args.faults,
+                   deadline_s=args.deadline, aggregation_async=args.async_agg,
+                   tick_s=args.tick, staleness_alpha=args.staleness_alpha,
+                   buffer_size=args.buffer_size, compress=args.compress,
                    topk_frac=args.topk_frac)
-    recs = FLSimulation(cfg, device=args.device).run(args.rounds)
-    hier = cfg.aggregation == "hierarchical"
+    sim = FLSimulation(cfg, device=args.device)
+    recs = sim.run(args.rounds)
+    hier = sim.aggregation == "hierarchical"
+    faulty = sim.faults.active
+    is_async = cfg.aggregation_async
     print(f"{'round':>5} {'t_round':>8} {'clock':>8} {'users':>5} "
-          f"{'acc':>6} {'min_fair':>8}" + (f" {'handover':>8}" if hier
-                                           else ""))
+          f"{'acc':>6} {'min_fair':>8}"
+          + (f" {'handover':>8}" if hier else "")
+          + (f" {'deliv':>5} {'del_rate':>8} {'goodput':>8}"
+             if faulty or is_async else "")
+          + (f" {'inflight':>8} {'dropped':>7}" if is_async else ""))
     for r in recs:
-        print(f"{r.round_idx:5d} {r.t_round:8.3f} {r.wall_clock:8.2f} "
-              f"{r.n_selected:5d} {r.test_acc:6.3f} {r.min_part_rate:8.2f}"
-              + (f" {r.handover_rate:8.3f}" if hier else ""))
+        line = (f"{r.round_idx:5d} {r.t_round:8.3f} {r.wall_clock:8.2f} "
+                f"{r.n_selected:5d} {r.test_acc:6.3f} {r.min_part_rate:8.2f}")
+        if hier:
+            line += f" {r.handover_rate:8.3f}"
+        if faulty or is_async:
+            line += (f" {r.n_delivered:5d} {r.delivered_rate:8.2f} "
+                     f"{r.goodput_mbit_s:8.2f}")
+        if is_async:
+            line += f" {r.n_inflight:8d} {r.n_dropped:7d}"
+        print(line)
+    budget = recs[-1].wall_clock / 2
+    print(f"\nacc@{budget:.1f}s = {accuracy_at_budget(recs, budget):.3f}  "
+          f"final = {recs[-1].test_acc:.3f}")
+    if faulty or is_async:
+        n = len(recs)
+        print(f"delivered_rate mean = "
+              f"{sum(r.delivered_rate for r in recs) / n:.3f}  "
+              f"goodput mean = "
+              f"{sum(r.goodput_mbit_s for r in recs) / n:.2f} Mbit/s")
 
 
 if __name__ == "__main__":

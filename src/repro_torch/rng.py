@@ -106,6 +106,12 @@ def uniform(key: torch.Tensor, shape: tuple, minval=0.0,
     return torch.maximum(lo, _fma(floats, hi - lo, lo))
 
 
+def bernoulli(key: torch.Tensor, p, shape: tuple) -> torch.Tensor:
+    """bool ``jax.random.bernoulli``: ``uniform(key, shape) < p``, the
+    compare in float32."""
+    return uniform(key, shape) < _f32(p, key.device)
+
+
 # XLA's float32 erfinv (M. Giles, "Approximating the erfinv function"): a
 # degree-8 polynomial in w = -log1p(-x^2), one set for w < 5 and one above.
 _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,

@@ -604,6 +604,124 @@ def test_small_hierarchical_compressed_run_on_card_matches_cpu(dev):
         assert abs(g.test_acc - c.test_acc) <= 1.0 / 40 + 1e-9
 
 
+
+def _tree_on(tree, d):
+    return {k: {leaf: v.to(d) for leaf, v in sub.items()}
+            for k, sub in tree.items()}
+
+
+def test_fedavg_reduce_weighted_clip_nan_on_card_matches_cpu(dev):
+    """Kernel 4 as the faulty async tick calls it: staleness weights,
+    clip_norm, a NaN client, an Inf client and a masked-out client; the
+    wrapper on the card against the same call on the CPU (the plain
+    version) and against server.fedavg."""
+    from repro_torch.fl import server
+    from repro_torch.models import cnn
+    gen = torch.Generator().manual_seed(3)
+    g = cnn.init(torch.tensor([0, 5]), cnn.CNNConfig.paper_scale())
+    n = 50
+    clients = {k: {leaf: v[None] + 0.05 * torch.randn(
+        (n,) + tuple(v.shape), generator=gen) for leaf, v in sub.items()}
+        for k, sub in g.items()}
+    clients["fc1"]["w"][4, 0, 0] = float("nan")
+    clients["conv1"]["b"][9, 1] = float("inf")
+    clients["fc2"]["w"][11] *= 1e3                 # clipped
+    delivered = torch.rand((n,), generator=gen) < 0.7
+    delivered[[4, 9, 11]] = True
+    delivered[20] = False
+    sizes = torch.randint(50, 150, (n,), generator=gen, dtype=torch.int32)
+    weights = server.staleness_weights(torch.randint(0, 3, (n,),
+                                                     generator=gen), 0.5)
+    want = server.fedavg(g, clients, delivered, sizes, clip_norm=25.0,
+                         weights=weights)
+    cpu = kf.fedavg_reduce(g, clients, delivered, sizes, clip_norm=25.0,
+                           weights=weights)
+    before = _lib.LAUNCHES["fedavg_reduce"]
+    got = kf.fedavg_reduce(_tree_on(g, dev), _tree_on(clients, dev),
+                           delivered.to(dev), sizes.to(dev), clip_norm=25.0,
+                           weights=weights.to(dev))
+    assert _lib.LAUNCHES["fedavg_reduce"] - before == 8     # a leaf each
+    for k in want:
+        for leaf in want[k]:
+            assert torch.isfinite(got[k][leaf]).all()
+            torch.testing.assert_close(got[k][leaf].cpu(), cpu[k][leaf],
+                                       rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(got[k][leaf].cpu(), want[k][leaf],
+                                       rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 33])
+def test_baselines_best_bs_route_on_card(dev, m):
+    """Every baseline's best-BS choice is kernel 3 on the card: equal to
+    torch.argmax (lowest index on a tie) and to the CPU run's decisions."""
+    from repro_torch.core import baselines
+    from repro_torch.core import scheduler as sched
+    rs = _rs(m)
+    n = 50
+    snr = (10.0 ** rs.uniform(0, 4, (n, m))
+           * rs.exponential(size=(n, m))).astype(np.float32)
+    snr[7] = snr[3]
+    snr[:, m - 1] = snr[:, 0]                       # ties go to BS 0
+    sel = torch.tensor(rs.random(n) < 0.6)
+    before = _lib.LAUNCHES["best_bs_argmax"]
+    got = baselines._best_bs_assign(torch.tensor(snr, device=dev),
+                                    sel.to(dev))
+    assert _lib.LAUNCHES["best_bs_argmax"] == before + 1
+    want = torch.nn.functional.one_hot(torch.argmax(torch.tensor(snr), 1),
+                                       m).bool() & sel[:, None]
+    assert torch.equal(got.cpu(), want)
+    arrays = dict(snr=snr,
+                  coeff=(0.5 / np.maximum(np.log2(1 + snr), 1e-9)
+                         ).astype(np.float32),
+                  tcomp=rs.uniform(0.1, 0.11, n).astype(np.float32),
+                  bs_bw=np.ones(m, np.float32),
+                  necessary=rs.random(n) < 0.2)
+    cfg = WirelessConfig(n_users=n, n_bs=m)
+    for name in ("rs", "ub", "sa", "fedcs_low", "fedcs_high"):
+        res = {}
+        for d in ("cpu", dev):
+            prob = SchedulingProblem(
+                min_participants=25,
+                **{k: torch.tensor(v, device=d) for k, v in arrays.items()})
+            res[str(d)] = sched.schedule(name, prob, cfg,
+                                         torch.tensor([0, m], device=d))
+        cpu, gpu = res["cpu"], res[str(dev)]
+        assert torch.equal(cpu.assign, gpu.assign.cpu()), name
+        torch.testing.assert_close(gpu.bs_time.cpu(), cpu.bs_time,
+                                   rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("extra", [
+    dict(scheduler="fedcs_low"),
+    dict(scheduler="dagsa-r", faults="faulty-uplink"),
+    dict(scheduler="dagsa_jit", aggregation_async=True, tick_s=0.5,
+         staleness_alpha=0.5),
+    dict(scheduler="dagsa-r", faults="faulty-uplink", aggregation_async=True,
+         tick_s=0.5, staleness_alpha=0.5),
+], ids=["engine_fedcs", "engine_faulty", "engine_async",
+        "engine_faulty_async"])
+def test_small_fault_and_async_runs_on_card_match_cpu(dev, extra):
+    """The four golden configs of this slice, 3 rounds on the card and on
+    the CPU: counts exact, times within rtol 1e-5."""
+    cfg = FLConfig(wireless=WirelessConfig(n_users=12, n_bs=4), n_train=120,
+                   n_test=40, local_epochs=1, batch_size=10, seed=7, **extra)
+    _lib.reset_launches()
+    gpu = FLSimulation(cfg, device=dev).run(3)
+    # FedCS splits evenly: no Eq. (11) solve
+    needs = ("best_bs_argmax", "fedavg_reduce") + (
+        () if extra["scheduler"] == "fedcs_low" else ("bandwidth_solve",))
+    for name in needs:
+        assert _lib.LAUNCHES[name] > 0, _lib.LAUNCHES
+    cpu = FLSimulation(cfg, device="cpu").run(3)
+    for g, c in zip(gpu, cpu):
+        assert (g.n_selected, g.min_part_rate, g.n_delivered, g.n_inflight,
+                g.n_dropped) == (c.n_selected, c.min_part_rate,
+                                 c.n_delivered, c.n_inflight, c.n_dropped)
+        for f in ("t_round", "delivered_rate", "goodput_mbit_s"):
+            a, b = getattr(g, f), getattr(c, f)
+            assert math.isclose(a, b, rel_tol=1e-5) or (a != a and b != b), f
+        assert abs(g.test_acc - c.test_acc) <= 1.0 / 40 + 1e-9
+
 # ------------------------------------------------ the LM kernels (7-9) --
 _TOL = {"rmsnorm": (1e-6, 2e-2), "flash": (2e-5, 2e-2), "ssd": (2e-4, 5e-2)}
 

@@ -143,7 +143,7 @@ def test_registry_routes_and_rejects_later_schedulers():
     direct = t_host.dagsa_schedule(prob, seed=5)
     assert torch.equal(res.assign, direct.assign)
     assert torch.equal(res.bs_time, direct.bs_time)
-    for name, msg in (("rs", "not ported"), ("nope", "unknown")):
+    for name, msg in (("ucb", "not ported"), ("nope", "unknown")):
         with pytest.raises(ValueError, match=msg):
             schedule(name, prob, WirelessConfig(n_users=12, n_bs=4), key)
 

@@ -276,5 +276,6 @@ def test_cli_runs_hierarchical_compressed_on_cpu(capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0].split() == ["round", "t_round", "clock", "users", "acc",
                                 "min_fair", "handover"]
-    assert [ln.split()[0] for ln in lines[1:]] == ["1", "2"]
-    assert all(0.0 <= float(ln.split()[-1]) <= 1.0 for ln in lines[1:])
+    assert [ln.split()[0] for ln in lines[1:3]] == ["1", "2"]
+    assert all(0.0 <= float(ln.split()[-1]) <= 1.0 for ln in lines[1:3])
+    assert lines[4].startswith("acc@") and len(lines) == 5

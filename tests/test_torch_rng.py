@@ -1,7 +1,7 @@
 """repro_torch.rng against jax.random (threefry2x32, partitionable mode).
 
-Integer outputs (keys, bits, randint, permutation) and uniforms must be
-bit-exact.  normal and exponential go through erfinv / log1p, whose last
+Integer outputs (keys, bits, randint, permutation), uniforms and
+Bernoulli draws must be bit-exact.  normal and exponential go through erfinv / log1p, whose last
 ulp differs between XLA and torch, so they compare within float32
 rtol=1e-6, atol=1e-6.
 """
@@ -62,6 +62,18 @@ def test_uniform_bit_exact(lo, hi):
     assert got.dtype == np.float32
     assert np.array_equal(want, got)
 
+
+
+@pytest.mark.parametrize("p", [0.0, 0.05, 0.15, 0.5, 1.0 / 3.0, 0.999, 1.0])
+def test_bernoulli_bit_exact(p):
+    """rs / ub participation and the fault draws: uniform < p in float32."""
+    jk, tk = _keys(13, n=3)
+    with jax.threefry_partitionable(True):
+        want = np.asarray(jax.vmap(
+            lambda k: jax.random.bernoulli(k, p, (4097,)))(jk))
+    got = rng.bernoulli(tk, p, (4097,)).numpy()
+    assert got.dtype == np.bool_
+    assert np.array_equal(want, got)
 
 @pytest.mark.parametrize("m", range(2, 9))
 def test_randint_bit_exact_small_spans(m):

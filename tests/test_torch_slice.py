@@ -13,6 +13,9 @@ users, 4 BSs, 120/40 samples, 1 local epoch, batch 10, seed 7, dagsa_jit,
 rtol=1e-5; the final global parameters within rtol=1e-4, atol=1e-5.
 ``test_acc`` may differ by one of the 40 test samples: a sample whose two
 top logits tie within float32 rounding can take either class.
+:func:`check_run_against_live_jax` holds any config of that world so, the
+fault layer's and the async engine's records too; the other
+``tests/test_torch_*.py`` files use it for their golden cases.
 """
 import argparse
 import ast
@@ -54,30 +57,57 @@ def test_engine_sync_slice_with_host_dagsa_matches_live_jax_eager_run():
 
 
 def _check_slice_against_live_jax(scheduler, mode):
+    check_run_against_live_jax(dict(scheduler=scheduler), mode=mode)
+
+
+def _same(got, want) -> bool:
+    return got == want or (got != got and want != want)      # NaN == NaN
+
+
+def check_run_against_live_jax(extra: dict, mode=None, rounds: int = 3,
+                               layers=None, params_check=None):
+    """The port's run of the ``engine_sync`` world with the FLConfig
+    fields ``extra`` against a live JAX run of the same config (``mode``
+    as JAX's ``run`` takes it).  Exact: ``n_selected``, ``n_delivered``,
+    ``n_inflight``, ``n_dropped``, ``handover_rate`` and, as float32,
+    ``min_part_rate``; within rtol=1e-5: ``t_round``, ``wall_clock``,
+    ``delivered_rate`` and ``goodput_mbit_s``; parameters rtol=1e-4,
+    atol=1e-5 (the layers named in ``layers``; None: all of them), or
+    ``params_check(port_params, jax_params)`` where given; ``test_acc``
+    within one of the 40 samples.  Returns the port's simulation and
+    records."""
     with jax.threefry_partitionable(True):
         jsim = JSimulation(JConfig(wireless=JWireless(n_users=12, n_bs=4),
-                                   scheduler=scheduler, **ENGINE_SYNC))
-        want = jsim.run(3, mode=mode)
+                                   **ENGINE_SYNC, **extra))
+        want = jsim.run(rounds, mode=mode)
         j_params = jax.tree.map(np.asarray, jsim.params)
     tsim = FLSimulation(FLConfig(wireless=WirelessConfig(n_users=12, n_bs=4),
-                                 scheduler=scheduler, **ENGINE_SYNC),
-                        device="cpu")
-    got = tsim.run(3)
-    assert [r.round_idx for r in got] == [1, 2, 3]
+                                 **ENGINE_SYNC, **extra), device="cpu")
+    got = tsim.run(rounds)
+    assert [r.round_idx for r in got] == list(range(1, rounds + 1))
     for g, w in zip(got, want):
-        assert g.n_selected == w.n_selected
+        for field in ("n_selected", "n_delivered", "n_inflight",
+                      "n_dropped", "handover_rate"):
+            assert _same(getattr(g, field), getattr(w, field)), \
+                (g.round_idx, field, getattr(g, field), getattr(w, field))
         # the eager path divides the integer count in float64 on the host,
         # the step path and the port in float32: equal as float32
         assert np.float32(g.min_part_rate) == np.float32(w.min_part_rate)
-        np.testing.assert_allclose(g.t_round, w.t_round, rtol=1e-5)
-        np.testing.assert_allclose(g.wall_clock, w.wall_clock, rtol=1e-5)
+        for field in ("t_round", "wall_clock", "delivered_rate",
+                      "goodput_mbit_s"):
+            np.testing.assert_allclose(getattr(g, field), getattr(w, field),
+                                       rtol=1e-5, err_msg=field)
         assert abs(g.test_acc - w.test_acc) <= 1.0 / 40 + 1e-7
     t_params = params_to_numpy(tsim.params)
-    for k in j_params:
+    if params_check is not None:
+        params_check(t_params, j_params)
+        return tsim, got
+    for k in (j_params if layers is None else layers):
         for leaf in j_params[k]:
             np.testing.assert_allclose(t_params[k][leaf], j_params[k][leaf],
                                        rtol=1e-4, atol=1e-5,
                                        err_msg=f"{k}.{leaf}")
+    return tsim, got
 
 
 def _parser_default(main, argv, dest, monkeypatch):
@@ -165,8 +195,9 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_config_rejects_what_the_port_lacks():
-    with pytest.raises(ValueError, match="not ported"):
-        FLConfig(scheduler="fedcs_low")
+    for name in ("ucb", "biased-adaptive", "rr", "pf"):
+        with pytest.raises(ValueError, match="not ported"):
+            FLConfig(scheduler=name)
     with pytest.raises(ValueError, match="unknown scheduler"):
         FLConfig(scheduler="nope")
     with pytest.raises(ValueError, match="bs_layout"):
@@ -189,4 +220,6 @@ def test_cli_runs_on_cpu(capsys):
                  "1", "--bs-layout", "uniform"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0].split()[:2] == ["round", "t_round"]
-    assert [ln.split()[0] for ln in lines[1:]] == ["1", "2"]
+    assert [ln.split()[0] for ln in lines[1:3]] == ["1", "2"]
+    assert lines[3] == "" and lines[4].startswith("acc@")
+    assert len(lines) == 5
