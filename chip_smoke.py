@@ -13,7 +13,11 @@
    main path's shapes (N=50 users, M=8 BSs, every leaf of the paper-scale
    CNN) and at a fleet shape (N=1e6 users x M=100 and x M=33 BSs,
    masked_bs_argmax also over int8 dB codes and bfloat16 with a per-BS
-   scale, best_bs_argmax also on an snr off 16-byte alignment; the
+   scale, best_bs_argmax also on an snr off 16-byte alignment and over
+   the sweeps' bfloat16 plane (alone and with a per-BS scale) and int8 dB
+   codes + scale at M = 100 and 33 ("fleet_bf16", "fleet_bf16_scaled",
+   "fleet_int8", "m33_int8", each beside the two-op reference where no
+   single PyTorch call takes the scale); the
    Eq. (11) solve on one row per path of its plan: [8, 50] (warp),
    [33, 4097] (block) and [100, 1e6] (cluster) at 30% of the users a row
    and at ~1e4 ("fleet_sparse"), newton and bisect; FedAvg, per-BS
@@ -51,6 +55,18 @@
 6. profiles one more round of ``sync``, ``hier_int8`` and
    ``faulty_async`` each (torch.profiler: host and device time per round
    phase, the busiest device ops, the device's busy share);
+6b. the scenario sweeps (``repro_torch.launch.sweep``): the four golden
+   sweep configurations small on the card against the CPU, then, each
+   with the launch counts zeroed just before it and read just after, the
+   learning sweeps at the paper's width (``sweep_sync``: paper-default
+   and high-mobility, ``sweep_hier`` tau 2, ``sweep_faulty`` and
+   ``sweep_faulty_async`` under faulty-uplink with dagsa-r, 2 seeds x 3
+   rounds; ``sweep_worlds``: hetero-compute and non-iid-pathological, 1 x
+   2), the wireless sweep over every registered scenario (2 seeds x 5
+   rounds, f32), paper-default and high-mobility in bf16 and in int8, and
+   mega-fleet at 200,000 users x 100 BSs (rho1 0, rho2 5e-5, 1 x 2) in
+   bf16 and in int8; wall seconds a round and launches for each, and the
+   profiled busy share of one learning and one wireless round;
 7. the LM serving slice (Zamba2-1.2B, 38 Mamba2 layers + one shared
    attention block every 6, at full width and full depth):
    a. holds kernels 7-9 (flash_attention, rmsnorm, ssd_scan) against their
@@ -452,39 +468,104 @@ def check_kernels(dev, fleet_users=1_000_000, fleet_bs=100,
         off.copy_(snr)                                  # off 16-byte align
         _close("best_bs_argmax unaligned", ks.best_bs_argmax(off), bb,
                exact=True)
+        unaligned_ms = _graph_ms(lambda: ks.best_bs_argmax(off), reps,
+                                 f"best_bs_argmax {label} unaligned")
         del off
         record("best_bs_argmax", label, [n, m], 0.0,
                lambda: ks.best_bs_argmax(snr),
                lambda: ks.best_bs_argmax_plain(snr),
                lambda: torch.argmax(snr, dim=1),
-               n * m * 4 + n * 4, n * m, reps)
+               n * m * 4 + n * 4, n * m, reps,
+               extra={"plan": list(ks.best_bs_plan(m)),
+                      "unaligned_graph_ms": unaligned_ms})
 
-    # -- masked_bs_argmax over bf16 / int8 storage with a per-BS scale ------
-    # (int8: quantize_snr_int8's dB codes; bf16: the linear SNR over its
-    # column maximum; one BS's scale negative), exact against plain
-    n, m = fleet_users, fleet_bs
-    snr = torch.pow(10.0, torch.rand((n, m), generator=gen, device=dev)
-                    * 6.0 - 1.0)
-    rem = torch.rand((n,), generator=gen, device=dev) < 0.5
-    db = 10.0 * torch.log10(snr)
-    q_scale = torch.clamp(db.abs().amax(dim=0), min=1e-6) / 127.0
-    q_scale[m // 2] = -q_scale[m // 2]
-    for label, codes, scale in (
-            ("fleet_int8", torch.clamp(torch.round(db / q_scale), -127, 127)
-             .to(torch.int8), q_scale),
-            ("fleet_bf16", snr.to(torch.bfloat16), 1.0 / snr.amax(dim=0))):
-        cand, best = ks.masked_bs_argmax(codes, rem, scale)
-        c_ref, b_ref = ks.masked_bs_argmax_plain(codes, rem, scale)
-        _close(f"masked_bs_argmax {label} cand", cand, c_ref, exact=True)
-        err = _close(f"masked_bs_argmax {label} best", best, b_ref,
-                     exact=True)
-        record("masked_bs_argmax", label, [n, m], err,
-               lambda: ks.masked_bs_argmax(codes, rem, scale),
-               lambda: ks.masked_bs_argmax_plain(codes, rem, scale),
-               lambda: torch.argmax(torch.where(
-                   rem[:, None], codes.float() * scale, -torch.inf), dim=0),
-               n * m * codes.element_size() + n + 3 * m * 4, 2 * n * m, 20)
-    del snr, rem, db, codes
+    # -- both argmaxes over the sweeps' compact planes, at the main path's
+    # [50, 8] (wireless_bf16 / wireless_int8) and at the fleet shape, exact
+    # against plain.  masked_bs_argmax: int8 (quantize_snr_int8's dB codes)
+    # and bf16 (the linear SNR over its column maximum), each with a per-BS
+    # scale, one BS's negative.  best_bs_argmax: bf16 alone (the bf16
+    # plane's call) and with a scale, int8 dB codes + scale, and int8 at 33
+    # BSs (lane groups); also on a plane off 16-byte alignment.  No single
+    # PyTorch call takes the scale: those rows time the two-op
+    # (snr.float() * scale).argmax(1) as their reference ------------------
+    for shape, n, m, reps in (("main", 50, 8, 200),
+                              ("fleet", fleet_users, fleet_bs, 20)):
+        snr = torch.pow(10.0, torch.rand((n, m), generator=gen, device=dev)
+                        * 6.0 - 1.0)
+        snr[n // 3] = snr[n // 5]                   # duplicate user rows
+        snr[:, m - 1] = snr[:, 0]                   # duplicate BS columns
+        rem = torch.rand((n,), generator=gen, device=dev) < 0.5
+        db = 10.0 * torch.log10(snr)
+        q_scale = torch.clamp(db.abs().amax(dim=0), min=1e-6) / 127.0
+        q = torch.clamp(torch.round(db / q_scale), -127, 127).to(torch.int8)
+        bf = snr.to(torch.bfloat16)
+        neg = q_scale.clone()
+        neg[m // 2] = -neg[m // 2]
+        for label, codes, scale in ((f"{shape}_int8", q, neg),
+                                    (f"{shape}_bf16", bf,
+                                     1.0 / snr.amax(dim=0))):
+            cand, best = ks.masked_bs_argmax(codes, rem, scale)
+            c_ref, b_ref = ks.masked_bs_argmax_plain(codes, rem, scale)
+            _close(f"masked_bs_argmax {label} cand", cand, c_ref, exact=True)
+            err = _close(f"masked_bs_argmax {label} best", best, b_ref,
+                         exact=True)
+            record("masked_bs_argmax", label, [n, m], err,
+                   lambda codes=codes, scale=scale: ks.masked_bs_argmax(
+                       codes, rem, scale),
+                   lambda codes=codes, scale=scale: ks.masked_bs_argmax_plain(
+                       codes, rem, scale),
+                   lambda codes=codes, scale=scale: torch.argmax(torch.where(
+                       rem[:, None], codes.float() * scale, -torch.inf),
+                       dim=0),
+                   n * m * codes.element_size() + n + 3 * m * 4, 2 * n * m,
+                   reps)
+        cases = [(f"{shape}_bf16", bf, None), (f"{shape}_int8", q, neg)]
+        if shape == "fleet":
+            cases[1:1] = [("fleet_bf16_scaled", bf, 1.0 / snr.amax(dim=0))]
+            cases.append(("m33_int8", q[:, :33].contiguous(),
+                          neg[:33].contiguous()))
+        for label, codes, scale in cases:
+            got = ks.best_bs_argmax(codes, scale)
+            _close(f"best_bs_argmax {label}", got,
+                   ks.best_bs_argmax_plain(codes, scale), exact=True)
+            rows_n, cols = codes.shape
+            size = codes.element_size()
+            buf = torch.empty(rows_n * cols + 16 // size + 1,
+                              dtype=codes.dtype, device=dev)
+            off = buf[1:1 + rows_n * cols].view(rows_n, cols)
+            off.copy_(codes)                        # off 16-byte alignment
+            _close(f"best_bs_argmax {label} unaligned",
+                   ks.best_bs_argmax(off, scale), got, exact=True)
+            # the same plane read in place 1 code off 16-byte alignment
+            extra = {"unaligned_graph_ms": _graph_ms(
+                lambda off=off, scale=scale: ks.best_bs_argmax(off, scale),
+                reps, f"best_bs_argmax {label} unaligned")}
+            del buf, off
+            if scale is None:
+                lib = lambda codes=codes: torch.argmax(codes, dim=1)  # noqa
+            else:
+                def two_op(codes=codes, scale=scale):
+                    return (codes.float() * scale).argmax(dim=1)
+                lib = None
+                extra |= {
+                    "reference": "(snr.float() * scale).argmax(1), two ops",
+                    "reference_ms": _time_ms(two_op, reps),
+                    "reference_graph_ms": _graph_ms(
+                        two_op, reps, f"best_bs_argmax {label} reference"),
+                    "reference_host_us": _host_us(two_op, reps)}
+            record("best_bs_argmax", label, [rows_n, cols], 0.0,
+                   lambda codes=codes, scale=scale: ks.best_bs_argmax(
+                       codes, scale),
+                   lambda codes=codes, scale=scale: ks.best_bs_argmax_plain(
+                       codes, scale), lib,
+                   rows_n * cols * size + rows_n * 4
+                   + (0 if scale is None else cols * 4),
+                   rows_n * cols * (1 if scale is None else 2), reps,
+                   extra={"dtype": str(codes.dtype).replace("torch.", ""),
+                          "scaled": scale is not None,
+                          "plan": list(ks.best_bs_plan(cols, codes.dtype)),
+                          **extra})
+        del snr, rem, db, q, bf, codes, cases
 
     # -- Eq. (11) solve: K trial rows over U users, tcomp shared, one row
     # per path of bandwidth_plan: warp (main), block (medium), cluster
@@ -900,12 +981,39 @@ def run_path(dev, label: str, extra: dict, rounds: int,
     return sim, launches
 
 
-def profile_round(sim, label: str) -> dict:
-    """One more round under torch.profiler: the host time and the device
-    span of each round phase (the engine's named ranges), the device ops
-    that took the most time, and the device's busy share of the round's
-    wall time (the sum of device op durations over the wall time)."""
+def _profile_phases(prof) -> tuple[dict, dict]:
+    """From a torch.profiler run: each ``round.*`` phase's host ms (its
+    range on the host), the device ms of the kernels launched inside it
+    (nested phases included in their parent) and its count; and every
+    device op's (ms, calls), the phases' own annotation ranges left out."""
     from torch.autograd import DeviceType
+
+    phases, ops = {}, {}
+    for e in prof.events():
+        on_device = e.device_type == DeviceType.CUDA
+        if e.name.startswith("round."):
+            if on_device:
+                continue                    # the range's annotation
+            dev_us = getattr(e, "device_time_total", None)
+            if dev_us is None:              # torch before 2.4
+                dev_us = e.cuda_time_total
+            row = phases.setdefault(e.name, {"host_ms": 0.0, "device_ms": 0.0,
+                                             "calls": 0})
+            row["host_ms"] += e.time_range.elapsed_us() / 1e3
+            row["device_ms"] += dev_us / 1e3
+            row["calls"] += 1
+        elif on_device:
+            t, c = ops.get(e.name, (0.0, 0))
+            ops[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    return phases, ops
+
+
+def profile_round(sim, label: str) -> dict:
+    """One more round under torch.profiler: the host time of each round
+    phase (the engine's named ranges) and the device time of the kernels
+    launched inside it, the device ops that took the most time, and the
+    device's busy share of the round's wall time (the sum of device op
+    durations over the wall time)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -915,16 +1023,7 @@ def profile_round(sim, label: str) -> dict:
         sim.run(1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    phases, ops = {}, {}
-    for e in prof.events():
-        ms = e.time_range.elapsed_us() / 1e3
-        on_device = e.device_type == DeviceType.CUDA
-        if e.name.startswith("round."):
-            row = phases.setdefault(e.name, {"host_ms": 0.0, "device_ms": 0.0})
-            row["device_ms" if on_device else "host_ms"] += ms
-        elif on_device:
-            t, c = ops.get(e.name, (0.0, 0))
-            ops[e.name] = (t + ms, c + 1)
+    phases, ops = _profile_phases(prof)
     busy_ms = sum(t for t, _ in ops.values())
     top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:12]
     out = {"path": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
@@ -932,6 +1031,232 @@ def profile_round(sim, label: str) -> dict:
            "top_device_ops": [{"name": k[:80], "ms": t, "calls": c}
                               for k, (t, c) in top]}
     print(json.dumps({"profile": out}), flush=True)
+    return out
+
+
+# ------------------------------------------------------- the sweeps -------
+# The four sweep cases of tests/test_golden_trajectories.py: (label,
+# scenarios, run_learning_sweep extras).
+SMALL_SWEEPS = (
+    ("sweep_sync", ["paper-default", "high-mobility"], {}),
+    ("sweep_hier", ["paper-default"], dict(aggregation="hierarchical",
+                                           tau_global=2)),
+    ("sweep_faulty", ["faulty-uplink"], dict(scheduler="dagsa-r")),
+    ("sweep_faulty_async", ["faulty-uplink"],
+     dict(scheduler="dagsa-r", aggregation_async=True, tick_s=0.5,
+          staleness_alpha=0.5)),
+)
+
+
+def check_small_sweeps(dev) -> None:
+    """The wireless sweep at the paper's width in f32, bf16 and int8, then
+    the four golden sweep configurations (12 users, 4 BSs, seed 7, 2
+    seeds, 3 rounds, 120 / 40 samples, 1 epoch of batch 10), on the card
+    and on the CPU: n_selected, delivery and queue curves exact, the
+    clock and t_round within rtol 1e-5 (wireless bf16: 1e-2), test_acc
+    within one of the 40 samples."""
+    from repro_torch.core.types import WirelessConfig
+    from repro_torch.launch import sweep
+
+    # the wireless sweep at the main path's width (wireless_* below: 50
+    # users, 8 BSs) in each channel dtype, so the kernel instances those
+    # paths launch are held against the CPU's plain versions: n_selected
+    # exact, t_round within rtol 1e-5 (bf16: 1e-2, as
+    # tests/test_torch_cuda.py::test_small_sweep_on_card_matches_cpu: one
+    # bfloat16 ulp of a coefficient, 0.4%, can round the other way when the
+    # two devices' float32 SNR differ by an ulp)
+    for dtype in ("f32", "bf16", "int8"):
+        wk = dict(n_seeds=2, n_rounds=5, seed=7, channel_dtype=dtype)
+        names = ["paper-default", "high-mobility"]
+        gpu = sweep.run_sweep(names, device=dev, **wk)
+        cpu = sweep.run_sweep(names, device="cpu", **wk)
+        rtol = 1e-2 if dtype == "bf16" else 1e-5
+        for g, c in zip(gpu, cpu):
+            print(f"small wireless sweep {dtype} {g['scenario']}: card "
+                  f"{json.dumps(g['curves'])}\n  cpu "
+                  f"{json.dumps(c['curves'])}", flush=True)
+            if g["curves"]["n_selected"] != c["curves"]["n_selected"]:
+                raise AssertionError(f"small wireless sweep {dtype}: "
+                                     f"n_selected differs card vs CPU")
+            a = torch.tensor(g["curves"]["t_round_s"], dtype=torch.float64)
+            b = torch.tensor(c["curves"]["t_round_s"], dtype=torch.float64)
+            if not torch.allclose(a, b, rtol=rtol, atol=0.0):
+                raise AssertionError(f"small wireless sweep {dtype}: "
+                                     f"t_round differs card vs CPU")
+
+    kw = dict(cfg=WirelessConfig(n_users=12, n_bs=4), n_seeds=2, n_rounds=3,
+              n_train=120, n_test=40, local_epochs=1, batch_size=10, seed=7)
+    for label, names, extra in SMALL_SWEEPS:
+        gpu = sweep.run_learning_sweep(names, device=dev, **kw, **extra)
+        cpu = sweep.run_learning_sweep(names, device="cpu", **kw, **extra)
+        for g, c in zip(gpu, cpu):
+            print(f"small sweep {label} {g['scenario']}: card "
+                  f"{json.dumps(g['curves'])}\n  cpu "
+                  f"{json.dumps(c['curves'])}",
+                  flush=True)
+            for k in ("n_selected", "n_delivered", "n_inflight",
+                      "n_dropped", "handover_rate"):
+                if g["curves"].get(k) != c["curves"].get(k):
+                    raise AssertionError(f"small sweep {label}: {k} differs "
+                                         f"card vs CPU")
+            for k in ("wall_clock_s", "t_round_s"):
+                a = torch.tensor(g["curves"][k], dtype=torch.float64)
+                b = torch.tensor(c["curves"][k], dtype=torch.float64)
+                if not torch.allclose(a, b, rtol=1e-5, atol=0.0):
+                    raise AssertionError(f"small sweep {label}: {k} differs "
+                                         f"card vs CPU")
+            for ga, ca in zip(g["seed_curves"]["test_acc"],
+                              c["seed_curves"]["test_acc"]):
+                for x, y in zip(ga, ca):
+                    if abs(x - y) > 1.0 / 40 + 1e-9:
+                        raise AssertionError(f"small sweep {label}: "
+                                             f"test_acc differs by more "
+                                             f"than one of the 40 samples")
+
+
+# The sweeps' full-width paths: (label, learning?, scenarios, extras,
+# kernels the path must launch).  Learning sweeps run the paper's
+# configuration (50 users, synthetic mnist 4,000 / 1,000, the paper-scale
+# CNN, 10 local epochs of batch 16); the fleet runs are the docs'
+# million-user recipe at 200,000 users (mega-fleet, 100 BSs, rho1 0, rho2
+# 5e-5) without --user-chunk.
+_ALL = "all"
+SWEEP_PATHS = (
+    ("sweep_sync", True, ["paper-default", "high-mobility"],
+     dict(n_seeds=2, n_rounds=3), _SCHED + ("fedavg_reduce",)),
+    ("sweep_hier", True, ["paper-default"],
+     dict(n_seeds=2, n_rounds=3, aggregation="hierarchical", tau_global=2),
+     _SCHED + ("fedavg_segment_reduce",)),
+    ("sweep_faulty", True, ["faulty-uplink"],
+     dict(n_seeds=2, n_rounds=3, scheduler="dagsa-r"),
+     _SCHED + ("fedavg_reduce",)),
+    ("sweep_faulty_async", True, ["faulty-uplink"],
+     dict(n_seeds=2, n_rounds=3, scheduler="dagsa-r", aggregation_async=True,
+          tick_s=0.5, staleness_alpha=0.5), _SCHED + ("fedavg_reduce",)),
+    ("sweep_worlds", True, ["hetero-compute", "non-iid-pathological"],
+     dict(n_seeds=1, n_rounds=2), _SCHED + ("fedavg_reduce",)),
+    ("wireless_all", False, _ALL, dict(n_seeds=2, n_rounds=5), _SCHED),
+    ("wireless_bf16", False, ["paper-default", "high-mobility"],
+     dict(n_seeds=2, n_rounds=5, channel_dtype="bf16"), _SCHED),
+    ("wireless_int8", False, ["paper-default", "high-mobility"],
+     dict(n_seeds=2, n_rounds=5, channel_dtype="int8"), _SCHED),
+    ("fleet_bf16", False, ["mega-fleet"],
+     dict(n_seeds=1, n_rounds=2, channel_dtype="bf16", fleet=True), _SCHED),
+    ("fleet_int8", False, ["mega-fleet"],
+     dict(n_seeds=1, n_rounds=2, channel_dtype="int8", fleet=True), _SCHED),
+)
+LEARNING = dict(dataset="mnist", n_train=4000, n_test=1000, local_epochs=10,
+                batch_size=16, eval_every=1, seed=0)
+
+
+def run_sweep_path(dev, label: str, learning: bool, names, extra: dict,
+                   required: tuple) -> tuple:
+    """One sweep through the port's entry point
+    (``repro_torch.launch.sweep.run_sweep`` / ``run_learning_sweep``),
+    the kernels' launch counts zeroed just before it and read just after;
+    prints its wall seconds a round (set-up included) and checks its
+    records: finite positive latencies, the Eq. (8h) floor met (wireless,
+    single-tier synchronous), accuracies in [0, 1]."""
+    from repro_torch.core.scenario import SCENARIOS
+    from repro_torch.core.types import WirelessConfig
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import sweep
+    from repro_torch.models.cnn import CNNConfig
+
+    kw = dict(extra)
+    cfg = (WirelessConfig(n_users=200_000, rho1=0.0, rho2=5e-5)
+           if kw.pop("fleet", False) else WirelessConfig())
+    names = list(SCENARIOS) if names == _ALL else names
+    n_seeds, n_rounds = kw["n_seeds"], kw["n_rounds"]
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    if learning:
+        recs = sweep.run_learning_sweep(names, cfg=cfg, device=dev,
+                                        cnn_cfg=CNNConfig.paper_scale(),
+                                        **LEARNING, **kw)
+    else:
+        recs = sweep.run_sweep(names, cfg=cfg, device=dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    cells = len(names) * n_seeds
+    out = {"sweep_path": label, "scenarios": len(names), "seeds": n_seeds,
+           "rounds": n_rounds, "n_users": cfg.n_users, "wall_s": wall,
+           "wall_s_per_round": wall / (cells * n_rounds),
+           "launches": {k: v for k, v in launches.items() if v},
+           **({"final_acc_mean": {r["scenario"]: r["final_acc_mean"]
+                                  for r in recs}} if learning else
+              {"t_round_mean_s": {r["scenario"]: r["t_round_mean_s"]
+                                  for r in recs},
+               "participants_mean": {r["scenario"]: r["participants_mean"]
+                                     for r in recs}})}
+    print(json.dumps(out), flush=True)
+    for name in required:
+        if launches[name] <= 0:
+            raise AssertionError(f"sweep {label} never launched {name}")
+    minp = math.ceil(cfg.rho2 * cfg.n_users)
+    for r in recs:
+        ts = r["curves"]["t_round_s"]
+        if not all(math.isfinite(t) and t > 0 for t in ts):
+            raise AssertionError(f"sweep {label} {r['scenario']}: t_round "
+                                 f"{ts} is not a finite latency")
+        if learning:
+            if not all(a is None or 0.0 <= a <= 1.0
+                       for a in r["curves"]["test_acc"]):
+                raise AssertionError(f"sweep {label} {r['scenario']}: "
+                                     f"accuracy out of range")
+            if r["final_acc_mean"] is None:
+                raise AssertionError(f"sweep {label} {r['scenario']}: no "
+                                     f"evaluation landed")
+        elif min(r["curves"]["n_selected"]) < minp:
+            raise AssertionError(f"sweep {label} {r['scenario']}: fewer "
+                                 f"users than the Eq. (8h) floor")
+    return out, launches
+
+
+def profile_sweep_round(dev, learning: bool, rounds: int = 3) -> dict:
+    """A paper-default sweep of one seed and ``rounds`` rounds through its
+    entry point (``run_learning_sweep`` at the paper's width, or
+    ``run_sweep``; the first round schedules every user, as Eq. (8g) makes
+    them all necessary, the later ones run the greedy) under
+    torch.profiler after a warm-up call: its wall ms (set-up included) and
+    that a round, the device's busy share, each round phase's host ms and
+    the device ms of the kernels launched inside it, and the device ops
+    that took the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import sweep
+    from repro_torch.models.cnn import CNNConfig
+
+    kw = dict(n_seeds=1, n_rounds=rounds, device=dev)
+
+    def call():
+        if learning:
+            return sweep.run_learning_sweep(
+                ["paper-default"], cnn_cfg=CNNConfig.paper_scale(),
+                **LEARNING, **kw)
+        return sweep.run_sweep(["paper-default"], **kw)
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    phases, ops = _profile_phases(prof)
+    busy = sum(t for t, _ in ops.values())
+    top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:8]
+    out = {"kind": "learning" if learning else "wireless",
+           "rounds": rounds, "wall_ms": wall_ms,
+           "wall_ms_per_round": wall_ms / rounds,
+           "device_busy_ms": busy, "device_busy_share": busy / wall_ms,
+           "phases": phases,
+           "top_device_ops": [{"name": k[:80], "ms": t, "calls": c}
+                              for k, (t, c) in top]}
+    print(json.dumps({"profile_sweep": out}), flush=True)
     return out
 
 
@@ -1376,6 +1701,14 @@ def main(argv: list[str]) -> int:
     profile_round(sims["hier_int8"], "hier_int8")
     profile_round(sims["faulty_async"], "faulty_async")
     del sims
+
+    check_small_sweeps(dev)
+    for label, learning, names, extra, required in SWEEP_PATHS:
+        _, launches[label] = run_sweep_path(dev, label, learning, names,
+                                            extra, required)
+        torch.cuda.empty_cache()
+    profile_sweep_round(dev, learning=True)
+    profile_sweep_round(dev, learning=False)
 
     check_zamba_full_f32(dev)
     torch.cuda.empty_cache()

@@ -14,6 +14,11 @@ calls ``best_bs_argmax`` once.  Decisions follow the JAX greedy exactly:
 
 Inside the loop the state is kept BS-major (``assign_t`` [M, N]) so the
 trial rows need no transpose.
+
+The SNR plane may be float32, bfloat16 or int8 dB codes with a per-BS
+``snr_scale`` (the sweeps' compact channel storage): both selection
+kernels apply the scale before they compare, so the candidates' values
+then live in the dB domain, which orders them as the linear SNR does.
 """
 from __future__ import annotations
 
@@ -38,14 +43,20 @@ def _bs_times_with_candidate(coeff_t, tcomp, assign_t, bs_bw, cand, t_bs,
 
 
 def _schedule(snr, coeff, tcomp, bs_bw, necessary, min_participants: int,
-              key, method="newton", iters=None):
+              key, method="newton", iters=None, snr_scale=None,
+              loop_coeff=None):
+    """The greedy on one problem.  ``loop_coeff`` is the coefficient plane
+    the candidate solves after the first read (None: ``coeff``): the JAX
+    sweep's bf16 plane, whose rounding XLA keeps only inside its greedy
+    loop (ROADMAP C.10)."""
     n, m = snr.shape
     dev = snr.device
     coeff_t = coeff.T.contiguous()                              # [M, N]
+    loop_t = coeff_t if loop_coeff is None else loop_coeff.T.contiguous()
     snr = snr.contiguous()
 
     # -- step 1: necessary users to their best-channel BS ------------------
-    best_bs = best_bs_argmax(snr)
+    best_bs = best_bs_argmax(snr, snr_scale)
     bs_ids = torch.arange(m, device=dev)
     assign_t = (best_bs[None, :] == bs_ids[:, None]) & necessary[None, :]
     remaining = ~necessary
@@ -53,14 +64,14 @@ def _schedule(snr, coeff, tcomp, bs_bw, necessary, min_participants: int,
                            iters=iters)
     t_star = t_bs.max()
 
-    def candidates():
-        cand, cand_val = masked_bs_argmax(snr, remaining)
-        t_with = _bs_times_with_candidate(coeff_t, tcomp, assign_t, bs_bw,
+    def candidates(c_t):
+        cand, cand_val = masked_bs_argmax(snr, remaining, snr_scale)
+        t_with = _bs_times_with_candidate(c_t, tcomp, assign_t, bs_bw,
                                           cand, t_bs, method=method,
                                           iters=iters)
         return cand, cand_val, t_with
 
-    cand, cand_val, t_with = candidates()
+    cand, cand_val, t_with = candidates(coeff_t)
     while True:
         has_cand = remaining.any()
         feasible = (t_with <= t_star) & has_cand
@@ -86,7 +97,7 @@ def _schedule(snr, coeff, tcomp, bs_bw, necessary, min_participants: int,
         # the accepted candidate evaluation IS the BS's new optimal time
         t_bs[k_star] = t_new
         t_star = torch.where(any_feasible, t_star, torch.maximum(t_star, t_new))
-        cand, cand_val, t_with = candidates()
+        cand, cand_val, t_with = candidates(loop_t)
 
     assign = assign_t.T.contiguous()
     t_k, user_bw = bandwidth.solve_all(coeff, tcomp, assign, bs_bw,

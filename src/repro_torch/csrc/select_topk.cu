@@ -48,21 +48,30 @@
 // call captured into a CUDA graph gets one of its own).
 //
 // best_bs_argmax.  The TPU kernel (`_rowmax_kernel`) takes a block of user
-// rows and reduces each along its M columns.  Here a group of G lanes (a
-// power of two <= 32) takes one row: lane j reads columns j, j + G, ...,
-// so a group reads G neighbouring floats a load, and the 32 / G rows a warp
-// holds are neighbours in the plane.  Each lane issues C column loads for
-// each of U rows (C * U = 8) before it compares any and keeps the first
-// maximum of its columns; the group then merges under (value descending,
-// index ascending), so ties go to the lowest column as in jnp.argmax: a
-// whole warp by two redux.sync reductions (the largest value as an
-// order-preserving integer key, then the lowest column holding it), a
-// smaller group by xor shuffles.  A merge costs the warp the same shuffles
-// whether it serves one row or 32 / G, so G is as small as 8 loads a lane
-// allow: about M / 8 (on the H100, a sweep over G, C and U put this shape
-// first at M = 33, 100, 257 and 1024).  The wrapper picks G, C and U
-// (select_topk.py:best_bs_plan).  A row of -inf gives 0, as torch.argmax
-// does.
+// rows, multiplies each by the per-BS scale row (ones without one) and
+// reduces it along its M columns.  The SNR is float32, bfloat16 or int8
+// dB codes; a value is f32(code) * scale[col], one float32 multiply
+// before any compare, since dequantisation keeps order only within a
+// column.  A block stages the scale row in shared memory when there is
+// one.  One kernel serves the three types: a group of G lanes (a power of
+// two <= 32) takes one row, so the 32 / G rows a warp holds are
+// neighbours in the plane, and lane j reads the row's 16-byte words j, j +
+// G, ... of the plane (4, 8 or 16 codes each), C words for each of U rows
+// (C * U = 4) before it compares any, keeping the first maximum of what it
+// reads.  The wrapper passes the plane's base rounded down to 16 bytes and
+// the codes before the plane in that first word, so a plane that is not
+// 16-byte aligned is read in place; a row that does not start on 16 bytes
+// shares its first and last word with its neighbours (L1 serves them), a
+// code outside the row is skipped, and the plane's last word, which may
+// run past the plane, is read code by code.  The group then merges under
+// (value descending, index ascending), so ties go to the lowest column as
+// in jnp.argmax: a whole warp by two redux.sync reductions (the largest
+// value as an order-preserving integer key, then the lowest column holding
+// it), a smaller group by xor shuffles.  A merge costs the warp the same
+// shuffles whether it serves one row or 32 / G, so G is as small as the
+// four words a lane allow: a quarter of a row's words.  The wrapper picks
+// G, C and U (select_topk.py:best_bs_plan).  A row of -inf gives 0, as
+// torch.argmax does.
 #include <limits.h>
 
 #include "common.cuh"
@@ -480,47 +489,122 @@ __device__ __forceinline__ int group_argmax(float best, int idx) {
   }
 }
 
-// G lanes a row, C column loads a lane and pass, U rows a lane group.
-template <int G, int C, int U>
+// The scale row in shared memory (sc), or nothing without one.
+template <bool kScale>
+__device__ __forceinline__ void stage_scale(const float* __restrict__ scale,
+                                            int m, float* sc) {
+  if constexpr (kScale) {
+    for (int c = threadIdx.x; c < m; c += blockDim.x) sc[c] = scale[c];
+    __syncthreads();
+  }
+}
+
+// The 16-byte word w of the plane (from its 16-byte aligned base), as
+// four 32-bit parts; the plane's last word code by code (it may run past
+// the base's `total` codes), zeros past the end.
+template <typename T>
+__device__ __forceinline__ uint4 load_plane_word(const T* __restrict__ snr,
+                                                 long long w,
+                                                 long long total) {
+  constexpr int W = 16 / sizeof(T);
+  if ((w + 1) * W <= total) return __ldg(reinterpret_cast<const uint4*>(snr) + w);
+  unsigned q[4] = {0u, 0u, 0u, 0u};
+  for (int e = 0; e < W && w * W + e < total; ++e) {
+    unsigned bits;
+    if constexpr (sizeof(T) == 1) {
+      bits = static_cast<uint8_t>(snr[w * W + e]);
+    } else if constexpr (sizeof(T) == 2) {
+      bits = __bfloat16_as_ushort(snr[w * W + e]);
+    } else {
+      bits = __float_as_uint(snr[w * W + e]);
+    }
+    q[e * sizeof(T) / 4] |= bits << (8 * ((e * sizeof(T)) % 4));
+  }
+  return make_uint4(q[0], q[1], q[2], q[3]);
+}
+
+// Folds the codes of one 16-byte word (parts q, code 0 at column cb) into
+// a lane's running first maximum; kChecked skips the codes outside the row
+// [0, m) (a word the row shares with a neighbour), else every code is in.
+template <typename T, bool kScale, bool kChecked>
+__device__ __forceinline__ void fold_word(const uint4& q, int cb, int m,
+                                          const float* sc, float& best,
+                                          int& bidx) {
+  constexpr int P = 4 / sizeof(T);      // codes a 32-bit part
+  const unsigned part[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    float x[P];
+    Word<T>::unpack(part[h], x);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int c = cb + h * P + p;
+      if (kChecked && (c < 0 || c >= m)) continue;
+      const float y = kScale ? x[p] * sc[c] : x[p];
+      if (y > best) {  // codes rise: the first maximum stays
+        best = y;
+        bidx = c;
+      }
+    }
+  }
+}
+
+// G lanes a row, C 16-byte words a lane and pass, U rows a lane group.
+// snr: the plane's 16-byte aligned base, its first code `off` codes in.
+template <typename T, int G, int C, int U, bool kScale>
 __global__ void __launch_bounds__(kRowThreads)
-best_bs_kernel(const float* __restrict__ snr, int n, int m,
+best_bs_kernel(const T* __restrict__ snr, int off,
+               const float* __restrict__ scale, long long n, int m,
                int* __restrict__ out) {
-  constexpr int kPerLoad = 32 / G;  // rows one load of the warp covers
+  extern __shared__ float sc[];
+  stage_scale<kScale>(scale, m, sc);
+  constexpr int W = 16 / sizeof(T);     // codes a word
+  constexpr int kPerLoad = 32 / G;
   const int lane = threadIdx.x & 31;
   const int j = lane & (G - 1);
   const long long warp =
       ((long long)blockIdx.x * kRowThreads + threadIdx.x) >> 5;
   const long long row0 = warp * (kPerLoad * U) + lane / G;
-  const float* base = snr + row0 * m;
+  const long long total = off + n * m;
+  const int words_max = (m + W - 1) / W + 1;  // words a row touches, at most
   bool live[U];
+  long long e0[U], w0[U];
+  int nw[U];
   float best[U];
   int bidx[U];
 #pragma unroll
   for (int u = 0; u < U; ++u) {
-    live[u] = row0 + u * kPerLoad < n;
+    const long long r = row0 + u * kPerLoad;
+    live[u] = r < n;
+    e0[u] = off + r * m;                  // the row's first code
+    w0[u] = e0[u] / W;                    // ... and its word
+    nw[u] = static_cast<int>((e0[u] + m - 1) / W - w0[u] + 1);
     best[u] = -INFINITY;
-    bidx[u] = m;  // "no column yet": past every column
+    bidx[u] = m;                          // "no column yet": past every one
   }
-  for (int c0 = j; c0 < m; c0 += C * G) {
-    float v[U][C];
+  for (int k0 = j; k0 < words_max; k0 += C * G) {
+    uint4 v[U][C];
 #pragma unroll
     for (int u = 0; u < U; ++u) {  // every load issues before any compare
 #pragma unroll
       for (int k = 0; k < C; ++k) {
-        const int c = c0 + k * G;
-        v[u][k] = live[u] && c < m
-                      ? __ldg(base + (long long)(u * kPerLoad) * m + c)
-                      : -INFINITY;
+        const int wi = k0 + k * G;
+        v[u][k] = live[u] && wi < nw[u]
+                      ? load_plane_word<T>(snr, w0[u] + wi, total)
+                      : make_uint4(0u, 0u, 0u, 0u);
       }
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
 #pragma unroll
-      for (int k = 0; k < C; ++k) {  // columns rise: the first max stays
-        if (v[u][k] > best[u]) {
-          best[u] = v[u][k];
-          bidx[u] = c0 + k * G;
-        }
+      for (int k = 0; k < C; ++k) {  // words and codes rise: first max
+        const int wi = k0 + k * G;
+        if (!(live[u] && wi < nw[u])) continue;
+        const int cb = static_cast<int>((w0[u] + wi) * W - e0[u]);
+        if (cb >= 0 && cb + W <= m)   // the word lies inside the row
+          fold_word<T, kScale, false>(v[u][k], cb, m, sc, best[u], bidx[u]);
+        else
+          fold_word<T, kScale, true>(v[u][k], cb, m, sc, best[u], bidx[u]);
       }
     }
   }
@@ -531,13 +615,43 @@ best_bs_kernel(const float* __restrict__ snr, int n, int m,
   }
 }
 
-template <int G, int C, int U>
-int launch_best_bs(const float* snr, int n, int m, int* out,
-                   cudaStream_t s) {
+template <typename T, int G, int C, int U, bool kScale>
+int launch_best_bs(const T* snr, int off, const float* scale, long long n,
+                   int m, int* out, cudaStream_t s) {
   constexpr int kRowsPerBlock = kRowThreads / G * U;
-  const int blocks = (n + kRowsPerBlock - 1) / kRowsPerBlock;
-  best_bs_kernel<G, C, U><<<blocks, kRowThreads, 0, s>>>(snr, n, m, out);
+  const long long blocks = (n + kRowsPerBlock - 1) / kRowsPerBlock;
+  const size_t smem = kScale ? m * sizeof(float) : 0;
+  best_bs_kernel<T, G, C, U, kScale>
+      <<<static_cast<unsigned>(blocks), kRowThreads, smem, s>>>(
+          snr, off, scale, n, m, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kScale>
+int best_bs(const T* snr, int off, const float* scale, long long n, int m,
+            int lanes, int chunks, int rows, int* out, cudaStream_t s) {
+  if (chunks * rows != 4 || reinterpret_cast<uintptr_t>(snr) % 16 ||
+      off < 0 || off >= static_cast<int>(16 / sizeof(T)))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define BEST_BS(G, C, U) \
+  launch_best_bs<T, G, C, U, kScale>(snr, off, scale, n, m, out, s)
+  if (lanes == 1) {
+    switch (chunks) {
+      case 1: return BEST_BS(1, 1, 4);
+      case 2: return BEST_BS(1, 2, 2);
+      case 4: return BEST_BS(1, 4, 1);
+    }
+  } else if (chunks == 4) {
+    switch (lanes) {
+      case 2: return BEST_BS(2, 4, 1);
+      case 4: return BEST_BS(4, 4, 1);
+      case 8: return BEST_BS(8, 4, 1);
+      case 16: return BEST_BS(16, 4, 1);
+      case 32: return BEST_BS(32, 4, 1);
+    }
+  }
+#undef BEST_BS
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -567,28 +681,21 @@ MASKED_ENTRY(masked_bs_argmax_bf16, __nv_bfloat16)
 MASKED_ENTRY(masked_bs_argmax_i8, int8_t)
 #undef MASKED_ENTRY
 
+// snr: the 16-byte aligned base of an [n, m] plane of the entry's type
+// that starts `off` codes in (0 <= off < 16 / size); scale [m] or null;
 // lanes = G, chunks = C, rows = U as select_topk.py:best_bs_plan gives
-// them: C * U = 8, and C = 8 when G > 1.
-extern "C" int best_bs_argmax_f32(const float* snr, int n, int m, int lanes,
-                                  int chunks, int rows, int* out,
-                                  void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (chunks * rows != 8) return static_cast<int>(cudaErrorInvalidValue);
-  if (lanes == 1) {
-    switch (chunks) {
-      case 1: return launch_best_bs<1, 1, 8>(snr, n, m, out, s);
-      case 2: return launch_best_bs<1, 2, 4>(snr, n, m, out, s);
-      case 4: return launch_best_bs<1, 4, 2>(snr, n, m, out, s);
-      case 8: return launch_best_bs<1, 8, 1>(snr, n, m, out, s);
-    }
-  } else if (chunks == 8) {
-    switch (lanes) {
-      case 2: return launch_best_bs<2, 8, 1>(snr, n, m, out, s);
-      case 4: return launch_best_bs<4, 8, 1>(snr, n, m, out, s);
-      case 8: return launch_best_bs<8, 8, 1>(snr, n, m, out, s);
-      case 16: return launch_best_bs<16, 8, 1>(snr, n, m, out, s);
-      case 32: return launch_best_bs<32, 8, 1>(snr, n, m, out, s);
-    }
+// them: C * U = 4, and C = 4 when G > 1.
+#define BEST_ENTRY(NAME, T)                                                  \
+  extern "C" int NAME(const T* snr, int off, const float* scale,            \
+                      long long n, int m, int lanes, int chunks, int rows,  \
+                      int* out, void* stream) {                             \
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);               \
+    return scale ? best_bs<T, true>(snr, off, scale, n, m, lanes, chunks,   \
+                                    rows, out, s)                           \
+                 : best_bs<T, false>(snr, off, scale, n, m, lanes, chunks,  \
+                                     rows, out, s);                         \
   }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
+BEST_ENTRY(best_bs_argmax_f32, float)
+BEST_ENTRY(best_bs_argmax_bf16, __nv_bfloat16)
+BEST_ENTRY(best_bs_argmax_i8, int8_t)
+#undef BEST_ENTRY

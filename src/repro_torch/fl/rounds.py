@@ -1,8 +1,8 @@
 """The mobility-aware FL round engine (PyTorch port of ``repro.fl.rounds``:
-the ``"engine"`` world, ``compute="full"``).
+the ``"engine"`` and ``"sweep"`` worlds, ``compute="full"``).
 
 Per communication round:
-  1. users move (``rd`` or ``static`` mobility),
+  1. users move (the scenario's mobility model; ``rd`` by default),
   2. the BSs observe one round's channels -> SchedulingProblem (with a
      compressed uplink, each user's payload s_k scales the Eq. (1)/(11)
      coefficients; with faults, each user's camped BS, its distance to
@@ -48,7 +48,10 @@ same world from the same seed: ``split(PRNGKey(seed), 6)`` at set-up,
 ``fold_in(k_pos, 1)`` for the mobility aux state, ``split(key, 5)`` each
 round (``split(key, 6)`` with an active fault model, the sixth key for
 the fault draws), ``split(k_fleet, N)`` for the clients and, for
-``topk-int8``, the rounding-noise key ``fold_in(k_fleet, N + 1)``.
+``topk-int8``, the rounding-noise key ``fold_in(k_fleet, N + 1)``.  A
+scenario adds ``fold_in(k_bw, 7)`` for the shadowing field and
+``fold_in(that, 1)`` for the device spreads; the sweep world's PRNG is
+:func:`make_round_step`'s.
 
 :class:`FLSimulation` runs on ``device="cuda"`` unless told otherwise and
 raises when CUDA is absent and no device was given; it never falls back
@@ -64,32 +67,33 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device, rng
-from repro_torch.core import channel, latency, mobility
+from repro_torch.core import channel, dagsa_jit, latency, mobility
 from repro_torch.core import scheduler as sched
+from repro_torch.core.scenario import (AGGREGATIONS, BS_LAYOUTS,
+                                       COMPRESS_MODES, PARTITIONS,
+                                       get_scenario,
+                                       resolve_aggregation, resolve_compress,
+                                       resolve_partition)
 from repro_torch.core.types import (ClientState, MobilityState, RoundState,
+                                    ScheduleResult, SchedulingProblem,
                                     ServerState, WirelessConfig, WorldState)
 from repro_torch.data.synthetic import make_dataset
 from repro_torch.fl import client as fl_client
 from repro_torch.fl import faults as fl_faults
 from repro_torch.fl import server as fl_server
-from repro_torch.fl.partition import shard_partition
+from repro_torch.fl.partition import dirichlet_partition, shard_partition
 from repro_torch.kernels import compress_topk as ct
 from repro_torch.kernels.fedavg_reduce import (fedavg_reduce,
                                                fedavg_segment_reduce)
 from repro_torch.models import cnn
 from repro_torch.tree import tree_leaves, tree_map
 
-BS_LAYOUTS = ("grid", "uniform")
-AGGREGATIONS = ("single", "hierarchical")
-COMPRESS_MODES = ("topk", "topk-int8")
+WORLDS = ("engine", "sweep")
 
 # The schedulers the buffered-async engine takes: JAX runs it only in its
 # traced round step, which the host schedulers cannot enter.
 ASYNC_SCHEDULERS = tuple(s for s in sched.SCHEDULERS
                          if s not in sched.HOST_SCHEDULERS)
-
-# Global sync period when hierarchical aggregation names no tau.
-DEFAULT_TAU_GLOBAL = 5
 
 # A named range per round phase, read by torch.profiler (chip_smoke.py's
 # breakdown); with no profiler running each costs a few microseconds.
@@ -131,9 +135,18 @@ class FLConfig:
     buffer_size: Optional[int] = None   # event-queue capacity (None:
                                         # n_users, which never overflows)
     compress: Optional[str] = None     # uplink compression: topk |
-                                       # topk-int8 (None: off)
+                                       # topk-int8 (None: the scenario's,
+                                       # else off)
     topk_frac: Optional[float] = None  # fraction of each leaf's entries a
-                                       # client uploads (None: 1.0, dense)
+                                       # client uploads (None: the
+                                       # scenario's, else 1.0, dense)
+    hetero_bw: bool = False            # Fig. 3: B_k ~ U[0.5, 1.5] MHz
+    speed_mps: Optional[float] = None  # override the resolved speed (Fig. 4)
+    scenario: Optional[str] = None     # registry name (core.scenario)
+    partition: Optional[str] = None    # shard | dirichlet (None: the
+                                       # scenario's, else shard)
+    dirichlet_alpha: Optional[float] = None   # Dir(alpha) concentration;
+                                              # REQUIRED iff dirichlet
 
     def __post_init__(self):
         sched.check_scheduler(self.scheduler)
@@ -147,7 +160,8 @@ class FLConfig:
         if self.tau_global is not None:
             if self.tau_global < 1:
                 raise ValueError("tau_global must be >= 1")
-            if self.aggregation != "hierarchical":
+            # with a scenario, FLSimulation checks the resolved aggregation
+            if self.aggregation != "hierarchical" and self.scenario is None:
                 raise ValueError(
                     f"tau_global={self.tau_global} only applies to "
                     f"aggregation='hierarchical' (resolved aggregation is "
@@ -193,11 +207,24 @@ class FLConfig:
         if self.topk_frac is not None:
             if not 0.0 < self.topk_frac <= 1.0:
                 raise ValueError("topk_frac must be in (0, 1]")
-            if self.compress is None:
+            if self.compress is None and self.scenario is None:
                 raise ValueError(
                     f"topk_frac={self.topk_frac} only applies with a "
-                    f"compress mode (the resolved mode is off); it would "
-                    f"silently do nothing")
+                    f"compress mode (or a scenario that sets one); it "
+                    f"would silently do nothing")
+        if self.partition is not None and self.partition not in PARTITIONS:
+            raise ValueError(f"unknown partition {self.partition!r}; "
+                             f"choose from {PARTITIONS}")
+        if self.dirichlet_alpha is not None:
+            if not self.dirichlet_alpha > 0.0:
+                raise ValueError("dirichlet_alpha must be > 0")
+            if self.partition == "shard":
+                raise ValueError(
+                    f"dirichlet_alpha={self.dirichlet_alpha} only applies "
+                    f"with partition='dirichlet'; it would silently do "
+                    f"nothing")
+        if self.scenario is not None:
+            get_scenario(self.scenario)         # raises on an unknown name
 
 
 @dataclasses.dataclass
@@ -498,25 +525,75 @@ def hierarchical_round(global_params, edge_params, edge_weight, prev_bs,
     return global_params, edge_params, edge_weight, serving, handover_rate
 
 
-def make_round_step(cfg: FLConfig, w: WirelessConfig, *, mob_model: str,
+def _heterogeneity(k_shadow: torch.Tensor, n: int, compute_spread: float,
+                   power_spread_db: float, folded: bool):
+    """Per-user device spreads from one fixed draw u ~ U[0, 1) a user
+    (``fold_in(k_shadow, 1)``): compute time stretched by
+    ``compute_spread**u``, linear SNR scaled by ``10^(-power_spread_db u /
+    10)``.  ``(None, None)`` for the homogeneous defaults, which the JAX
+    package's sweep applies as exact no-ops.
+
+    The powers are taken in float64 and rounded once, within an ulp of
+    XLA's float32 ``pow``.  ``folded``: the spread is a constant, which XLA
+    folds into ``u * (-spread / 10)`` (the engine world); a traced spread
+    (the sweep) is ``(-spread * u) * 0.1``."""
+    if compute_spread == 1.0 and power_spread_db == 0.0:
+        return None, None
+    u = rng.uniform(rng.fold_in(k_shadow, 1), (n,))
+    het_tcomp = torch.pow(float(np.float32(compute_spread)),
+                          u.double()).float()
+    tenth, spread = np.float32(0.1), np.float32(-power_spread_db)
+    db = (u * float(spread * tenth) if folded
+          else (u * float(spread)) * float(tenth))
+    het_power = torch.pow(10.0, db.double()).float()
+    return het_tcomp, het_power
+
+
+def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
                     x_clients, y_clients, data_sizes, x_test, y_test, bs_pos,
-                    bs_bw, params0, pos0, aux0, counts0, key0,
-                    aggregation: str = "single", tau_global: int = 1,
-                    compress: str | None = None, topk_frac: float = 1.0,
+                    bs_bw, k_shadow, params0, pos0, aux0, counts0, key0,
+                    world: str = "engine", min_participants: int | None = None,
+                    channel_dtype: str = "f32", aggregation: str = "single",
+                    tau_global: int = 1, compress: str | None = None,
+                    topk_frac: float = 1.0,
                     faults: fl_faults.FaultSpec = fl_faults.NO_FAULTS,
                     async_on: bool = False, tick_s: float = 1.0,
                     staleness_alpha: float = 0.0, buffer_size: int = 1):
     """Build the round step: ``(init_state, step_fn)`` with
     ``step_fn(state, r) -> (state', out)`` and ``out`` a dict of 0-dim
-    device tensors.  ``aggregation``, ``tau_global``, ``compress``,
-    ``topk_frac``, ``faults`` and the async knobs are the resolved knobs
-    of ``cfg``; an inert ``faults`` runs the exact fault-free round."""
+    device tensors.
+
+    ``world`` picks how a round draws its world, as in the JAX package:
+
+    * ``"engine"`` (:class:`FLSimulation`): ``split(key, 5)`` a round (6
+      with faults), mobility by the model's name, the problem from
+      :func:`channel.make_problem`, the scheduler through the registry.
+      ``scenario`` holds ``mob_model``, ``pause_s``, ``gm_memory``,
+      ``shadow_sigma``, ``compute_spread`` and ``power_spread_db``.
+    * ``"sweep"`` (:mod:`repro_torch.launch.sweep`): ``split(key, 6)`` a
+      round (7 with faults; separate SNR and tcomp keys), mobility by the
+      model's registry id, tcomp from the scenario's range, the channel
+      plane stored as ``channel_dtype`` (the int8 plane's Eq. (11)
+      coefficients from its dequantised SNR), and the DAGSA greedy called
+      on the stored plane.  ``scenario`` is one row of
+      ``launch.sweep._scenario_params``.
+
+    The shadowing field is drawn from ``k_shadow`` the same every round.
+    ``aggregation``, ``tau_global``, ``compress``, ``topk_frac``,
+    ``faults`` and the async knobs are the resolved knobs of ``cfg``; an
+    inert ``faults`` runs the exact fault-free round."""
+    if world not in WORLDS:
+        raise ValueError(f"unknown world {world!r}; choose from {WORLDS}")
     n = w.n_users
     dev = counts0.device
     hier = aggregation == "hierarchical"
     faults_on = faults.active
     need_prev = hier or faults_on
     fp = fl_faults.fault_params(faults)
+    sweep = world == "sweep"
+    minp = (int(math.ceil(w.rho2 * n)) if min_participants is None
+            else int(min_participants))
+    p = scenario
     # compressed uplink: the per-user payload s_k = ratio * S scales the
     # Eq. (1)/(11) coefficients; None keeps the uniform S exactly
     if compress is not None:
@@ -525,6 +602,13 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, mob_model: str,
         payload0 = torch.full((n,), up_mbit, dtype=torch.float32, device=dev)
     else:
         up_mbit, payload0 = w.model_mbit, None
+    het_tcomp, het_power = _heterogeneity(
+        k_shadow, n, float(p["compute_spread"]), float(p["power_spread_db"]),
+        folded=not sweep)
+    shadow_sigma = p["shadow_sigma"]
+    if sweep:
+        tc_lo = p["tcomp_min"]
+        tc_span = p["tcomp_max"] - p["tcomp_min"]
     init_state = RoundState(
         world=WorldState(pos=pos0, mob_aux=aux0),
         clients=ClientState(
@@ -533,44 +617,110 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, mob_model: str,
                      if need_prev else None)),
         server=ServerState(
             params=params0,
-            edge_params=(tree_map(lambda p: p[None].repeat(
-                (w.n_bs,) + (1,) * p.dim()), params0) if hier else None),
+            edge_params=(tree_map(lambda q: q[None].repeat(
+                (w.n_bs,) + (1,) * q.dim()), params0) if hier else None),
             edge_weight=(torch.zeros((w.n_bs,), device=dev)
                          if hier else None),
             queue=(async_queue_init(params0, n, buffer_size)
                    if async_on else None)),
         key=key0)
 
+    def engine_world(k_mob, k_prob, pos, aux, counts, r):
+        pos, aux = mobility.step_named(p["mob_model"], k_mob, pos, aux, w,
+                                       pause_s=p["pause_s"],
+                                       gm_memory=p["gm_memory"])
+        mstate = MobilityState(user_pos=pos, bs_pos=bs_pos)
+        shadow_db = None
+        if shadow_sigma > 0.0:
+            shadow_db = shadow_sigma * channel.sample_shadowing(
+                k_shadow, pos, bs_pos, w, sigma_db=1.0)
+        prob = channel.make_problem(k_prob, mstate, w, counts, r,
+                                    bs_bw=bs_bw, shadow_db=shadow_db,
+                                    tcomp_scale=het_tcomp,
+                                    power_scale=het_power,
+                                    payload_mbit=payload0)
+        dist = mstate.distances() if need_prev else None
+        return pos, aux, prob, (prob.snr, None, prob.coeff), dist
+
+    def sweep_world(k_mob, k_snr, k_tc, pos, aux, counts, r):
+        pos, aux = mobility.step_switch(
+            p["model_id"], k_mob, pos, aux, w.area_m, w.round_duration_s,
+            p["speed"], p["pause_s"], p["gm_memory"])
+        dist, shadow_db = channel.dist_and_shadow(pos, bs_pos, shadow_sigma,
+                                                  k_shadow, w)
+        snr_raw = channel.sample_snr(k_snr, dist, w, shadow_db=shadow_db)
+        if het_power is not None:
+            # the power spread scales the SNR BEFORE encoding, so the
+            # compact channel codes carry the heterogeneous link
+            snr_raw = snr_raw * het_power[:, None]
+        snr_store, snr_scale, snr_lin = channel.encode_channel(
+            snr_raw, channel_dtype)
+        coeff, loop_coeff = channel.plane_coefficients(
+            snr_store, snr_lin, channel_dtype, w, payload_mbit=payload0)
+        tcomp = rng.fma(rng.uniform(k_tc, (n,)), tc_span, tc_lo)
+        if het_tcomp is not None:
+            tcomp = tcomp * het_tcomp
+        floor = (torch.tensor(w.rho1, dtype=torch.float32, device=dev)
+                 * torch.tensor(float(r + 1), device=dev))
+        prob = SchedulingProblem(snr=snr_lin, tcomp=tcomp, bs_bw=bs_bw,
+                                 coeff=coeff if loop_coeff is None
+                                 else loop_coeff,
+                                 necessary=counts < floor,
+                                 min_participants=minp,
+                                 payload_mbit=payload0)
+        return pos, aux, prob, (snr_store, snr_scale, coeff), dist
+
+    def schedule(prob, plane, p_est, k_sched, r):
+        if not sweep or cfg.scheduler not in ("dagsa_jit", "dagsa-r"):
+            return sched.schedule(cfg.scheduler, prob, w, k_sched,
+                                  seed=cfg.seed * 100003 + r)
+        # the sweep calls the greedy on the stored plane, so bf16 / int8
+        # codes and their scale stream through the selection kernels
+        score, scale, solve_coeff = plane
+        if faults_on and cfg.scheduler == "dagsa-r":
+            # the delivery-discounted score (a per-user factor keeps each
+            # user's best BS)
+            score = prob.snr * torch.clamp(p_est, 0.0, 1.0)[:, None]
+            scale = None
+        assign, selected, user_bw, t_k, t_star = dagsa_jit._schedule(
+            score, solve_coeff, prob.tcomp, bs_bw, prob.necessary, minp,
+            k_sched, snr_scale=scale, loop_coeff=prob.coeff)
+        return ScheduleResult(assign=assign, selected=selected, bw=user_bw,
+                              bs_time=t_k, t_round=t_star)
+
     def step_fn(state: RoundState, r: int):
         params, queue = state.server.params, state.server.queue
         edge, edge_w = state.server.edge_params, state.server.edge_weight
         counts, prev_bs = state.clients.counts, state.clients.prev_bs
-        if faults_on:
-            # one more key for the fault draws
-            key, k_mob, k_prob, k_sched, k_fleet, k_fault = \
-                rng.split(state.key, 6).unbind(0)
-        else:
-            key, k_mob, k_prob, k_sched, k_fleet = \
-                rng.split(state.key, 5).unbind(0)
+        # one more key for the fault draws when faults are on
+        n_keys = (6 if sweep else 5) + (1 if faults_on else 0)
+        keys_r = rng.split(state.key, n_keys).unbind(0)
+        key, k_mob = keys_r[0], keys_r[1]
+        k_fault = keys_r[-1] if faults_on else None
         with span("round.world"):
-            pos, aux = mobility.step_named(mob_model, k_mob, state.world.pos,
-                                           state.world.mob_aux, w)
-            mstate = MobilityState(user_pos=pos, bs_pos=bs_pos)
-            prob = channel.make_problem(k_prob, mstate, w, counts, r,
-                                        bs_bw=bs_bw, payload_mbit=payload0)
+            if sweep:
+                k_snr, k_tc, k_sched, k_fleet = keys_r[2:6]
+                pos, aux, prob, plane, dist = sweep_world(
+                    k_mob, k_snr, k_tc, state.world.pos,
+                    state.world.mob_aux, counts, r)
+            else:
+                k_prob, k_sched, k_fleet = keys_r[2:5]
+                pos, aux, prob, plane, dist = engine_world(
+                    k_mob, k_prob, state.world.pos, state.world.mob_aux,
+                    counts, r)
             if need_prev:
-                dist = mstate.distances()
                 serving = camped_bs(dist)
+            p_est = None
             if faults_on:
                 edge_frac = fl_faults.edge_proximity(dist, serving, w)
                 handover = (serving != prev_bs) & (prev_bs >= 0)
                 # the pre-scheduling delivery estimate dagsa-r discounts by
-                prob = dataclasses.replace(
-                    prob, p_deliver=fl_faults.delivery_probability(
-                        fp, edge_frac, handover))
+                p_est = fl_faults.delivery_probability(fp, edge_frac,
+                                                       handover)
+                if not sweep:
+                    prob = dataclasses.replace(prob, p_deliver=p_est)
         with span("round.schedule"):
-            res = sched.schedule(cfg.scheduler, prob, w, k_sched,
-                                 seed=cfg.seed * 100003 + r)
+            res = schedule(prob, plane, p_est, k_sched, r)
         # faults: stragglers stretch tcomp, outages and crashes kill
         # uplinks, the deadline drops late survivors
         corrupt = None
@@ -670,16 +820,43 @@ class FLSimulation:
     def __init__(self, cfg: FLConfig, device=None):
         self.cfg = cfg
         self.device = dev = resolve_device(device)
-        w = self.wireless = cfg.wireless
-        self.aggregation = cfg.aggregation or "single"
-        self.tau_global = (
-            (cfg.tau_global or DEFAULT_TAU_GLOBAL)
-            if self.aggregation == "hierarchical" else 1)
-        self.compress = cfg.compress
-        self.topk_frac = (float(cfg.topk_frac) if cfg.topk_frac is not None
-                          else 1.0)
+        # the world: explicit fields beat the scenario, which beats the
+        # base WirelessConfig
+        spec = get_scenario(cfg.scenario) if cfg.scenario else None
+        w = spec.wireless(cfg.wireless) if spec else cfg.wireless
+        if cfg.speed_mps is not None:
+            if spec and spec.mobility == "static" and cfg.speed_mps > 0.0:
+                raise ValueError(
+                    f"scenario {spec.name!r} uses the 'static' mobility "
+                    f"model, which ignores speed; speed_mps="
+                    f"{cfg.speed_mps} would silently do nothing — pick a "
+                    f"mobile scenario or drop the speed override")
+            w = dataclasses.replace(w, speed_mps=cfg.speed_mps)
+        self.scenario = spec
+        self.wireless = w
+        # aggregation and uplink compression (explicit config beats the
+        # scenario)
+        agg, tau = resolve_aggregation(spec, cfg.aggregation, cfg.tau_global,
+                                       strict=True)
+        self.aggregation, self.tau_global = agg, tau
+        comp, frac = resolve_compress(spec, cfg.compress, cfg.topk_frac)
+        self.compress, self.topk_frac = comp, frac
+        # per-user device heterogeneity (scenario-only knobs); like the
+        # JAX package, only a tensor-step scheduler takes it
+        compute_spread = spec.compute_spread if spec else 1.0
+        power_spread_db = spec.power_spread_db if spec else 0.0
+        if ((compute_spread != 1.0 or power_spread_db != 0.0)
+                and cfg.scheduler in sched.HOST_SCHEDULERS):
+            raise ValueError(
+                f"device heterogeneity lives in the JAX package's traced "
+                f"round step; scheduler {cfg.scheduler!r} is host-side — "
+                f"pick one of {ASYNC_SCHEDULERS}")
         # the buffered-async engine (the config guards its knobs)
         self.aggregation_async = cfg.aggregation_async
+        if self.aggregation_async and agg == "hierarchical":
+            raise ValueError(
+                "aggregation_async composes with the single-tier Eq. (2) "
+                "only; the resolved aggregation is 'hierarchical'")
         if self.aggregation_async and cfg.scheduler in sched.HOST_SCHEDULERS:
             raise ValueError(
                 f"aggregation_async runs only in the JAX package's traced "
@@ -687,13 +864,14 @@ class FLSimulation:
                 f"pick one of {ASYNC_SCHEDULERS}")
         buffer_size = (int(cfg.buffer_size) if cfg.buffer_size is not None
                        else w.n_users)
-        # the fault model: a preset name, a spec, or the perfect world;
-        # deadline_s overrides the spec's deadline
+        # the fault model: a preset name, a spec, the scenario's, or the
+        # perfect world; deadline_s overrides the spec's deadline
         fs = cfg.faults
         if isinstance(fs, str):
             fs = fl_faults.get_faults(fs)
         if fs is None:
-            fs = fl_faults.NO_FAULTS
+            fs = (spec.faults if spec is not None and spec.faults is not None
+                  else fl_faults.NO_FAULTS)
         if cfg.deadline_s is not None:
             fs = dataclasses.replace(fs, deadline_s=cfg.deadline_s)
         self.faults: fl_faults.FaultSpec = fs
@@ -703,8 +881,17 @@ class FLSimulation:
         self.data = make_dataset(cfg.dataset, seed=cfg.seed,
                                  n_train=cfg.n_train, n_test=cfg.n_test,
                                  device=dev)
-        idx = shard_partition(k_part, self.data.y_train, w.n_users,
-                              cfg.shards_per_user)
+        # non-IID partition (explicit config beats the scenario)
+        part, alpha = resolve_partition(spec, cfg.partition,
+                                        cfg.dirichlet_alpha, strict=True)
+        y = self.data.y_train
+        if part == "dirichlet":
+            idx = dirichlet_partition(k_part, y, w.n_users,
+                                      int(y.shape[0]) // w.n_users, alpha,
+                                      n_classes=int(y.max()) + 1)
+        else:
+            idx = shard_partition(k_part, y, w.n_users, cfg.shards_per_user)
+        self.partition = part
         self.x_clients = self.data.x_train[idx]      # [N, n_i, H, W, C]
         self.y_clients = self.data.y_train[idx]      # [N, n_i]
         self.data_sizes = torch.full((w.n_users,), idx.shape[1],
@@ -714,26 +901,41 @@ class FLSimulation:
         self.cnn_cfg = cfg.cnn or cnn.CNNConfig(height=h, width=wd, channels=c)
         params0 = cnn.init(k_model, self.cnn_cfg)
 
-        if cfg.bs_layout == "uniform":
+        layout = spec.bs_layout if spec else cfg.bs_layout
+        if layout == "uniform":
             mob = mobility.init_positions(k_pos, w)
         else:
             mob = mobility.init_positions_grid_bs(k_pos, w)
         self.bs_pos = mob.bs_pos
         aux0 = mobility.init_aux(rng.fold_in(k_pos, 1), w.n_users, w)
-        bs_bw = torch.full((w.n_bs,), w.bs_bandwidth_mhz, device=dev)
+        if cfg.hetero_bw:
+            bs_bw = rng.uniform(k_bw, (w.n_bs,), 0.5, 1.5)
+        elif spec is not None:
+            bs_bw = spec.sample_bs_bw(k_bw, w)
+        else:
+            bs_bw = torch.full((w.n_bs,), w.bs_bandwidth_mhz, device=dev)
+        self.bs_bw = bs_bw
         counts0 = torch.zeros((w.n_users,), device=dev)
+        world = {"mob_model": spec.mobility if spec else "rd",
+                 "pause_s": spec.pause_s if spec else 0.0,
+                 "gm_memory": spec.gm_memory if spec else 0.75,
+                 "shadow_sigma": (spec.shadow_sigma_db
+                                  if spec and spec.shadowing else 0.0),
+                 "compute_spread": compute_spread,
+                 "power_spread_db": power_spread_db}
 
         self.wall_clock = 0.0
         self.round_idx = 0
         self._state, self._step_fn = make_round_step(
-            cfg, w, mob_model="rd", x_clients=self.x_clients,
+            cfg, w, scenario=world, x_clients=self.x_clients,
             y_clients=self.y_clients, data_sizes=self.data_sizes,
             x_test=self.data.x_test, y_test=self.data.y_test,
-            bs_pos=self.bs_pos, bs_bw=bs_bw, params0=params0,
+            bs_pos=self.bs_pos, bs_bw=bs_bw,
+            k_shadow=rng.fold_in(k_bw, 7), params0=params0,
             pos0=mob.user_pos, aux0=aux0, counts0=counts0, key0=k_run,
-            aggregation=self.aggregation, tau_global=self.tau_global,
-            compress=self.compress, topk_frac=self.topk_frac,
-            faults=self.faults, async_on=self.aggregation_async,
+            aggregation=agg, tau_global=tau, compress=comp,
+            topk_frac=frac, faults=self.faults,
+            async_on=self.aggregation_async,
             tick_s=float(cfg.tick_s) if cfg.tick_s is not None else 1.0,
             staleness_alpha=float(cfg.staleness_alpha),
             buffer_size=buffer_size)

@@ -59,7 +59,8 @@ _SIGNATURES = {
                                     _I, _I, _LL, _I, _I, _LL, _P, _P),
     **{f"masked_bs_argmax_{t}": (_P, _I, _P, _P, _LL, _I, _I, _I, _LL, _P,
                                  _P, _P, _P) for t in ("f32", "bf16", "i8")},
-    "best_bs_argmax_f32": (_P, _I, _I, _I, _I, _I, _P, _P),
+    **{f"best_bs_argmax_{t}": (_P, _I, _P, _LL, _I, _I, _I, _I, _P, _P)
+       for t in ("f32", "bf16", "i8")},
     "fedavg_reduce_f32": (_P, _P, _LL, _LL, _P, _I, _I, _P),
     "fedavg_reduce_i8": (_P, _P, _LL, _LL, _P, _I, _I, _P),
     "fedavg_segment_reduce_f32": (_P, _P, _LL, _I, _LL, _P, _P),

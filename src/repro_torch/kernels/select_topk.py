@@ -6,9 +6,9 @@ tensors they run the plain versions below, the dense oracles of
 ``repro.kernels.ref``.  Both follow ``jnp.argmax``: the lowest index wins a
 tie, and an all-masked column gives ``(0, -inf)``.  ``masked_bs_argmax``
 takes the SNR as float32, bfloat16 or int8 codes with an optional per-BS
-dequantisation ``scale`` (applied before any compare, as the Pallas kernel
-does); ``best_bs_argmax`` takes float32 (its bf16/int8 + scale inputs are
-ROADMAP B.0.2).
+dequantisation ``scale`` (applied before any compare, as the Pallas
+kernels do); so does ``best_bs_argmax``, whose row argmax must compare the
+scaled values, since dequantisation keeps order only within a column.
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ _BLOCK_ELEMS = {torch.float32: 32768, torch.bfloat16: 65536,
                 torch.int8: 65536}
 _TILES_IN_FLIGHT = 8        # a thread's loads before it compares
 _MAX_BS = 1024
-_LOADS_IN_FLIGHT = 8        # per lane, in best_bs_argmax's kernel
+_WORDS_IN_FLIGHT = 4        # best_bs_argmax's 16-byte loads a lane
+_MAX_SCALED_BS = 12288      # a scale row in 48 KB of shared memory
 # masked_bs_argmax's storage types: (entry-point suffix, codes a 4-byte word)
 _SNR_KINDS = {torch.float32: ("f32", 1), torch.bfloat16: ("bf16", 2),
               torch.int8: ("i8", 4)}
@@ -44,8 +45,12 @@ def masked_bs_argmax_plain(snr: torch.Tensor, remaining: torch.Tensor,
             torch.amax(vals, dim=0))
 
 
-def best_bs_argmax_plain(snr: torch.Tensor) -> torch.Tensor:
-    return torch.argmax(snr.float(), dim=1).to(torch.int32)
+def best_bs_argmax_plain(snr: torch.Tensor,
+                         scale: torch.Tensor | None = None) -> torch.Tensor:
+    vals = snr.float()
+    if scale is not None:
+        vals = vals * scale.float()
+    return torch.argmax(vals, dim=1).to(torch.int32)
 
 
 @functools.lru_cache(maxsize=256)     # called once a launch, on the host
@@ -77,16 +82,23 @@ def masked_bs_plan(n: int, m: int, dtype: torch.dtype,
 
 
 @functools.lru_cache(maxsize=256)     # called once a launch, on the host
-def best_bs_plan(m: int) -> tuple[int, int, int]:
-    """(lanes, chunks, rows) of best_bs_argmax's kernel for M BSs: a group
-    of ``lanes`` lanes (a power of two, at most a warp) reads a row's
-    columns side by side, so 32 / lanes rows share a warp; each lane issues
-    ``chunks`` column loads for each of ``rows`` rows (chunks x rows = 8
-    loads in flight) before it compares.  A group's merge costs shuffles
-    whatever its width, so lanes is as few as 8 loads a lane allow."""
-    lanes = min(32, _lib.pow2_ceil(-(-m // _LOADS_IN_FLIGHT)))
-    chunks = min(_LOADS_IN_FLIGHT, _lib.pow2_ceil(-(-m // lanes)))
-    return lanes, chunks, _LOADS_IN_FLIGHT // chunks
+def best_bs_plan(m: int, dtype: torch.dtype = torch.float32
+                 ) -> tuple[int, int, int]:
+    """(lanes, chunks, rows) of best_bs_argmax's kernel for M BSs of
+    ``dtype``: a group of ``lanes`` lanes (a power of two, at most a warp)
+    reads a row's 16-byte words side by side, so 32 / lanes rows share a
+    warp; each lane issues ``chunks`` word loads for each of ``rows`` rows
+    (chunks x rows = 4) before it compares.  A group's merge costs
+    shuffles whatever its width, so lanes is as few as four words a lane
+    allow, over the words a row touches (a row off 16 bytes touches one
+    more)."""
+    if dtype not in _SNR_KINDS:
+        raise TypeError(f"snr must be float32, bfloat16 or int8, got {dtype}")
+    row_bytes = m * torch.empty((), dtype=dtype).element_size()
+    words = -(-row_bytes // 16) + (1 if row_bytes % 16 else 0)
+    lanes = min(32, _lib.pow2_ceil(-(-words // _WORDS_IN_FLIGHT)))
+    chunks = min(_WORDS_IN_FLIGHT, _lib.pow2_ceil(-(-words // lanes)))
+    return lanes, chunks, _WORDS_IN_FLIGHT // chunks
 
 
 def masked_bs_argmax(snr: torch.Tensor, remaining: torch.Tensor,
@@ -138,19 +150,38 @@ def masked_cuda(index: int, snr: torch.Tensor, remaining: torch.Tensor,
     return cand, best
 
 
-def best_bs_argmax(snr: torch.Tensor) -> torch.Tensor:
-    """snr [N, M] float32 -> [N] int32 best-channel BS per user."""
-    index = _lib.cuda_index(snr)
+def best_bs_argmax(snr: torch.Tensor,
+                   scale: torch.Tensor | None = None) -> torch.Tensor:
+    """snr [N, M] float32, bfloat16 or int8, optional scale [M] -> [N]
+    int32: per user the best BS of ``f32(snr) * scale`` (the lowest index
+    on a tie).  One launch; it allocates only the output."""
+    operands = (snr,) if scale is None else (snr, scale)
+    index = _lib.cuda_index(*operands)
     if index is None:
-        return best_bs_argmax_plain(snr)
+        return best_bs_argmax_plain(snr, scale)
     n, m = snr.shape
-    _lib.require(snr, "snr", torch.float32, (n, m))
+    if snr.dtype not in _SNR_KINDS:
+        raise TypeError(f"snr must be float32, bfloat16 or int8, got "
+                        f"{snr.dtype}")
+    _lib.require(snr, "snr", snr.dtype, (n, m))
     if m < 1:
         raise ValueError("best_bs_argmax needs M >= 1")
+    if scale is not None:
+        scale = scale.float().contiguous()
+        _lib.require(scale, "scale", torch.float32, (m,))
+        if m > _MAX_SCALED_BS:
+            raise ValueError(f"best_bs_argmax with a scale needs M <= "
+                             f"{_MAX_SCALED_BS}, got {m}")
     out = snr.new_empty((n,), dtype=torch.int32)
     if n == 0:
         return out
-    _lib.launch("best_bs_argmax_f32", index, snr.data_ptr(), n, m,
-                *best_bs_plan(m), out.data_ptr())
+    # the kernel reads 16-byte words from the plane's base rounded down to
+    # 16 bytes; ``lead`` codes of that first word precede the plane
+    size = snr.element_size()
+    lead = snr.data_ptr() % 16 // size
+    sp = 0 if scale is None else scale.data_ptr()
+    _lib.launch(f"best_bs_argmax_{_SNR_KINDS[snr.dtype][0]}", index,
+                snr.data_ptr() - lead * size, lead, sp, n, m,
+                *best_bs_plan(m, snr.dtype), out.data_ptr())
     _lib.LAUNCHES["best_bs_argmax"] += 1
     return out

@@ -7,6 +7,8 @@
     PYTHONPATH=src python -m repro_torch.launch.fl_sim --scheduler \
         dagsa-r --faults faulty-uplink --async --tick 0.5 \
         --staleness-alpha 0.5
+    PYTHONPATH=src python -m repro_torch.launch.fl_sim --scheduler \
+        dagsa_jit --scenario non-iid-pathological --speed 50
 
 Runs on CUDA by default (``--device cpu`` to run on the CPU) and prints one
 line per round once the run ends.
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 
+from repro_torch.core.scenario import PARTITIONS, SCENARIOS
 from repro_torch.core.scheduler import SCHEDULERS
 from repro_torch.data.synthetic import DATASETS
 from repro_torch.fl.faults import FAULT_PRESETS
@@ -30,6 +33,13 @@ def main(argv=None) -> None:
                     choices=list(SCHEDULERS))
     ap.add_argument("--dataset", default="mnist", choices=sorted(DATASETS))
     ap.add_argument("--rounds", type=int, default=20)
+    ap.add_argument("--speed", type=float, default=None,
+                    help="user speed in m/s (overrides the scenario's)")
+    ap.add_argument("--hetero-bw", action="store_true",
+                    help="Fig. 3: per-BS bandwidth B_k ~ U[0.5, 1.5] MHz")
+    ap.add_argument("--scenario", default=None, choices=sorted(SCENARIOS),
+                    help="named scenario: mobility model, BS layout, "
+                         "bandwidth and shadowing in one word")
     ap.add_argument("--n-train", type=int, default=1000)
     ap.add_argument("--n-test", type=int, default=500)
     ap.add_argument("--batch-size", type=int, default=20)
@@ -76,6 +86,14 @@ def main(argv=None) -> None:
     ap.add_argument("--topk-frac", type=float, default=None, metavar="F",
                     help="fraction of model coordinates kept per client "
                          "update (requires --compress)")
+    ap.add_argument("--partition", default=None, choices=sorted(PARTITIONS),
+                    help="client data partition: label shards (shard) or "
+                         "Dirichlet non-IID label mixing (dirichlet; "
+                         "default: inherit the scenario)")
+    ap.add_argument("--dirichlet-alpha", type=float, default=None,
+                    metavar="A",
+                    help="Dirichlet concentration for --partition dirichlet "
+                         "(small = pathological non-IID)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without it)")
     args = ap.parse_args(argv)
@@ -102,7 +120,10 @@ def main(argv=None) -> None:
                    deadline_s=args.deadline, aggregation_async=args.async_agg,
                    tick_s=args.tick, staleness_alpha=args.staleness_alpha,
                    buffer_size=args.buffer_size, compress=args.compress,
-                   topk_frac=args.topk_frac)
+                   topk_frac=args.topk_frac, speed_mps=args.speed,
+                   hetero_bw=args.hetero_bw, scenario=args.scenario,
+                   partition=args.partition,
+                   dirichlet_alpha=args.dirichlet_alpha)
     sim = FLSimulation(cfg, device=args.device)
     recs = sim.run(args.rounds)
     hier = sim.aggregation == "hierarchical"

@@ -87,7 +87,7 @@ def _f32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """f32 ``a * b + c`` rounded once, as XLA contracts it: the f32 product
     is exact in float64, so one float64 add and one cast to float32 round
     like a fused multiply-add (double rounding needs a tie at 2**-29)."""
@@ -103,7 +103,7 @@ def uniform(key: torch.Tensor, shape: tuple, minval=0.0,
     fbits = (bits >> 9) | 0x3F800000
     floats = fbits.to(torch.int32).view(torch.float32) - 1.0
     lo, hi = _f32(minval, key.device), _f32(maxval, key.device)
-    return torch.maximum(lo, _fma(floats, hi - lo, lo))
+    return torch.maximum(lo, fma(floats, hi - lo, lo))
 
 
 def bernoulli(key: torch.Tensor, p, shape: tuple) -> torch.Tensor:
@@ -133,15 +133,21 @@ def _erfinv(x: torch.Tensor) -> torch.Tensor:
             for a, b in zip(_ERFINV_LT5, _ERFINV_GE5)]
     p = coef[0]
     for c in coef[1:]:
-        p = _fma(p, ww, c)
+        p = fma(p, ww, c)
     return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
 
 
-def normal(key: torch.Tensor, shape: tuple) -> torch.Tensor:
-    """f32 standard normal: ``sqrt(2) * erfinv(U(nextafter(-1, 0), 1))``."""
+def normal(key: torch.Tensor, shape: tuple, divisor: float = 1.0
+           ) -> torch.Tensor:
+    """f32 standard normal: ``sqrt(2) * erfinv(U(nextafter(-1, 0), 1))``.
+
+    ``divisor`` gives ``normal / divisor`` as jitted XLA computes it: the
+    two constants fold into one, ``erfinv(u) * f32(f32(sqrt 2) /
+    divisor)``."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(key, shape, lo, 1.0)
-    return _f32(np.sqrt(2.0), key.device) * _erfinv(u)
+    c = np.float32(np.sqrt(2.0)) / np.float32(divisor)
+    return _f32(c, key.device) * _erfinv(u)
 
 
 def exponential(key: torch.Tensor, shape: tuple) -> torch.Tensor:
@@ -195,3 +201,118 @@ def permutation(key: torch.Tensor, x) -> torch.Tensor:
         order = torch.sort(random_bits(sub, (n,)), dim=-1, stable=True).indices
         x = torch.gather(x, -1, order)
     return x
+
+
+def gumbel(key: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """f32 standard Gumbel in ``jax.random.gumbel``'s default ``"low"``
+    mode: ``-log(-log(U[tiny, 1)))``."""
+    tiny = float(np.finfo(np.float32).tiny)
+    return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor,
+                shape: tuple) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, shape=shape)`` with
+    replacement over the last axis: the argmax of Gumbel noise plus the
+    logits (the lowest index wins a tie, as ``jnp.argmax``).  ``shape``
+    ends with ``logits.shape[:-1]``; its prefix is the number of draws.
+    Batched keys ``[..., 2]`` draw independently for their leading axes,
+    which then lead ``logits`` too, as under ``vmap``."""
+    lead = key.shape[:-1]
+    batch = tuple(logits.shape[len(lead):-1])
+    if tuple(shape[len(shape) - len(batch):]) != batch:
+        raise ValueError(f"shape {shape} must end with the logits' batch "
+                         f"shape {batch}")
+    prefix = tuple(shape[:len(shape) - len(batch)])
+    g = gumbel(key, prefix + batch + (logits.shape[-1],))
+    lg = logits.reshape(lead + (1,) * len(prefix)
+                        + tuple(logits.shape[len(lead):]))
+    return torch.argmax(g + lg, dim=-1).to(torch.int32)
+
+
+def _gamma_flat(keys: torch.Tensor, alpha: torch.Tensor,
+                log_space: bool) -> torch.Tensor:
+    """Gamma(alpha) (or its log) for each key ``[K, 2]`` and f32 ``alpha``
+    [K]: jax's ``_gamma_one(key, alpha, log_space)``, element by element.
+
+    Marsaglia and Tsang's rejection method; alpha < 1 is boosted to
+    alpha + 1 and corrected by ``U^(1 / alpha)`` (``-Exp(1) / alpha`` in
+    log space).  The two nested rejection loops run as masked loops over
+    every element at once: an element that is done keeps its state, so
+    each one consumes its own key stream exactly as the scalar loops
+    do."""
+    dev = keys.device
+    one = torch.ones_like(alpha)
+    boost = alpha >= one
+    a = torch.where(boost, alpha, alpha + one)
+    third = _f32(1.0 / 3.0, dev)
+    d = a - third
+    c = third / torch.sqrt(d)
+    ks = split(keys)
+    key, subkey = ks[:, 0], ks[:, 1]
+
+    def rejected(x2, v, u):              # jax's loop condition
+        squeeze = u >= one - _f32(0.0331, dev) * (x2 * x2)
+        return squeeze & (torch.log(u) >= x2 * 0.5
+                          + d * ((one - v) + torch.log(v)))
+
+    x2 = torch.zeros_like(alpha)
+    v3 = torch.ones_like(alpha)
+    todo = rejected(x2, v3, torch.full_like(alpha, 2.0))   # all True
+    while bool(todo.any()):
+        ks = split(key, 3)
+        key = torch.where(todo[:, None], ks[:, 0], key)
+        x_key, u_key = ks[:, 1], ks[:, 2]
+        x = torch.zeros_like(alpha)
+        v = -one
+        inner = todo.clone()
+        while bool(inner.any()):
+            kk = split(x_key)
+            x_key = torch.where(inner[:, None], kk[:, 0], x_key)
+            xn = normal(kk[:, 1], ())
+            x = torch.where(inner, xn, x)
+            v = torch.where(inner, fma(xn, c, one), v)
+            inner = inner & (v <= 0.0)
+        x2 = torch.where(todo, x * x, x2)
+        v3 = torch.where(todo, v * v * v, v3)
+        todo = todo & rejected(x2, v3, uniform(u_key, ()))
+    if log_space:
+        log_samples = -exponential(subkey, ())
+        log_boost = torch.where(boost | (log_samples == 0.0),
+                                torch.zeros_like(alpha),
+                                log_samples * (one / alpha))
+        return (torch.log(d) + torch.log(v3)) + log_boost
+    samples = one - uniform(subkey, ())
+    return (d * v3) * torch.where(boost, one,
+                                  torch.pow(samples, one / alpha))
+
+
+def _gamma(key: torch.Tensor, alpha, shape: tuple,
+           log_space: bool) -> torch.Tensor:
+    shape = tuple(shape)
+    a = torch.broadcast_to(_f32(alpha, key.device), shape).reshape(-1)
+    keys = split(key, math.prod(shape))
+    return _gamma_flat(keys, a, log_space).reshape(shape)
+
+
+def gamma(key: torch.Tensor, alpha, shape: tuple) -> torch.Tensor:
+    """f32 ``jax.random.gamma(key, alpha, shape)`` for one key [2]:
+    element i of the row-major flattening draws with key i of
+    ``split(key, prod(shape))``."""
+    return _gamma(key, alpha, shape, log_space=False)
+
+
+def loggamma(key: torch.Tensor, alpha, shape: tuple) -> torch.Tensor:
+    """f32 ``jax.random.loggamma(key, alpha, shape)``: log Gamma draws
+    with :func:`gamma`'s key layout, precise for small alpha."""
+    return _gamma(key, alpha, shape, log_space=True)
+
+
+def dirichlet(key: torch.Tensor, alpha: torch.Tensor,
+              shape: tuple) -> torch.Tensor:
+    """f32 ``jax.random.dirichlet(key, alpha, shape)``: the softmax over
+    the last axis of log-gamma draws of shape ``shape + alpha.shape[-1:]``,
+    as jax computes it (max-shifted ``exp``, then a divide by the sum)."""
+    lg = loggamma(key, alpha, tuple(shape) + (alpha.shape[-1],))
+    e = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)

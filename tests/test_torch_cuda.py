@@ -448,9 +448,10 @@ def test_sparsify_quantize_exact(dev, quantize, n, d, k):
 
 @pytest.mark.parametrize("m", [1, 2, 3, 8, 31, 32, 33, 100, 257, 1024])
 def test_best_bs_argmax_ties_and_unaligned(dev, m):
-    """Exact ties inside one lane's columns (c and c + lanes) and across
-    lanes (c and c + 1), a row of one value and one of -inf, odd N, and an
-    snr 4 bytes off 16-byte alignment; each eager call adds one launch."""
+    """Exact ties inside one lane's words (c and c + 4 lanes), across
+    lanes (c and c + 4) and inside one word (c and c + 1), a row of one
+    value and one of -inf, odd N, and an snr 4 bytes off 16-byte
+    alignment, read in place; each eager call adds one launch."""
     n = 2049
     rs = _rs(m)
     snr = torch.tensor(10.0 ** rs.uniform(-1, 5, (n, m)), dtype=torch.float32,
@@ -459,7 +460,7 @@ def test_best_bs_argmax_ties_and_unaligned(dev, m):
     top = snr.max(dim=1).values * 2
     for r in range(0, n - 1, 7):
         c = r % m
-        c2 = c + (lanes if r % 2 == 0 else 1)
+        c2 = c + (4 * lanes, 4, 1)[r % 3]
         if c2 < m:
             snr[r, c] = snr[r, c2] = top[r]
     snr[n - 1] = 5.0
@@ -974,3 +975,90 @@ def test_zamba_small_run_on_card_matches_cpu(dev):
             out[str(d)] = [logits, pre, torch.stack(steps)]
         for c, g in zip(out["cpu"], out[str(dev)]):
             torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-4)
+
+
+def _scaled_plane(rs, n, m, dtype, dev):
+    """[n, m] SNR in ``dtype`` with exact ties of ``snr * scale`` inside
+    and across the lanes' words, a row of -inf (float planes), a row of
+    one code, and the per-BS scale (int8: dB codes and a scale row with
+    repeated entries, so equal codes in two columns tie)."""
+    if dtype == torch.int8:
+        q = rs.integers(-127, 128, (n, m))
+        scale = np.repeat(rs.uniform(0.05, 0.5, (m + 1) // 2), 2)[:m]
+        for r in range(0, n - 1, 5):
+            c = r % m
+            c2 = min(m - 1, c + 1 + (r % 3) * 8)
+            if scale[c] == scale[c2]:
+                q[r, c] = q[r, c2] = 127
+        q[n - 1] = 3
+        snr = torch.tensor(q, dtype=torch.int8, device=dev)
+    else:
+        v = 10.0 ** rs.uniform(-1, 4, (n, m))
+        scale = rs.uniform(0.5, 2.0, m)
+        scale[1::2] = scale[0::2][:m // 2]        # columns 2k, 2k + 1 share
+        top = v.max() * 4
+        for r in range(0, n - 1, 5):
+            c = 2 * ((r // 2) % ((m + 1) // 2))
+            if c + 1 < m:
+                v[r, c] = v[r, c + 1] = top
+        v[n - 1] = 5.0
+        if n > 2:
+            v[n - 2] = -np.inf                    # torch.argmax gives 0
+        snr = torch.tensor(v, dtype=torch.float32, device=dev).to(dtype)
+    return snr, torch.tensor(scale, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+@pytest.mark.parametrize("n", [7, 2049])
+@pytest.mark.parametrize("m", [1, 8, 33, 100])
+def test_best_bs_argmax_scaled_planes(dev, dtype, n, m):
+    """Kernel 3 on float32, bfloat16 and int8 planes, with and without a
+    per-BS scale, against its plain version exactly: ties within a word
+    and across words, a row of -inf, ragged N and M, and a plane off
+    16-byte alignment; one launch a call."""
+    snr, scale = _scaled_plane(_rs(n * m), n, m, dtype, dev)
+    for sc in ((scale, None) if dtype != torch.int8 else (scale,)):
+        want = ks.best_bs_argmax_plain(snr, sc)
+        before = _lib.LAUNCHES["best_bs_argmax"]
+        assert torch.equal(ks.best_bs_argmax(snr, sc), want), sc is None
+        assert _lib.LAUNCHES["best_bs_argmax"] == before + 1
+        buf = torch.empty(n * m + 3, dtype=dtype, device=dev)
+        off = buf[3:].view(n, m)
+        off.copy_(snr)
+        assert off.data_ptr() % 16 != 0
+        assert torch.equal(ks.best_bs_argmax(off, sc), want)
+
+
+def test_best_bs_argmax_validates_scaled_inputs(dev):
+    snr = torch.zeros((5, 3), dtype=torch.int8, device=dev)
+    with pytest.raises(TypeError):
+        ks.best_bs_argmax(snr.to(torch.int16), torch.ones(3, device=dev))
+    with pytest.raises(ValueError):
+        ks.best_bs_argmax(snr, torch.ones(4, device=dev))
+    with pytest.raises(ValueError):
+        ks.best_bs_argmax(snr, torch.ones(3))       # scale on the CPU
+
+
+@pytest.mark.parametrize("channel_dtype", ["f32", "bf16", "int8"])
+def test_small_sweep_on_card_matches_cpu(dev, channel_dtype):
+    """A small wireless sweep (12 users, 4 BSs, 2 seeds, 3 rounds) of
+    paper-default and high-mobility on the card against the CPU:
+    ``n_selected`` exact, ``t_round`` within rtol 1e-5 (bf16: 1e-2, since
+    one bfloat16 ulp of a coefficient, 0.4%, can round the other way when
+    the two devices' float32 SNR differ by an ulp), and kernels 1-3 ran."""
+    from repro_torch.launch import sweep
+
+    kw = dict(n_seeds=2, n_rounds=3, cfg=WirelessConfig(n_users=12, n_bs=4),
+              seed=7, channel_dtype=channel_dtype)
+    names = ["paper-default", "high-mobility"]
+    want = sweep.run_sweep(names, device="cpu", **kw)
+    _lib.reset_launches()
+    got = sweep.run_sweep(names, device=dev, **kw)
+    for name in ("bandwidth_solve", "masked_bs_argmax", "best_bs_argmax"):
+        assert _lib.LAUNCHES[name] > 0, _lib.LAUNCHES
+    rtol = 1e-2 if channel_dtype == "bf16" else 1e-5
+    for g, w in zip(got, want):
+        assert g["curves"]["n_selected"] == w["curves"]["n_selected"]
+        np.testing.assert_allclose(g["curves"]["t_round_s"],
+                                   w["curves"]["t_round_s"], rtol=rtol)

@@ -99,7 +99,7 @@ def test_fault_scenarios_match_jax_field_by_field():
             else:
                 assert tv == jv, (name, f.name)
     with pytest.raises(ValueError, match="unknown scenario"):
-        scenario.get_scenario("paper-default")       # built-ins: A.5
+        scenario.get_scenario("no-such-world")
     with pytest.raises(ValueError, match="already registered"):
         scenario.register_scenario(scenario.get_scenario("faulty-uplink"))
     for bad in (dict(mobility="teleport"), dict(bw_min_mhz=0.5),

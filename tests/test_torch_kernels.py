@@ -296,42 +296,52 @@ def test_masked_bs_packed_key_orders_value_then_lowest_index():
     assert z[0] == z[1]
 
 
-# The launch shape of best_bs_argmax's CUDA kernel: (lanes per row, column
-# loads a lane makes per row and pass, rows in flight per lane group).
-@pytest.mark.parametrize("m,want", [(1, (1, 1, 8)), (2, (1, 2, 4)),
-                                    (3, (1, 4, 2)), (8, (1, 8, 1)),
-                                    (9, (2, 8, 1)), (31, (4, 8, 1)),
-                                    (32, (4, 8, 1)), (33, (8, 8, 1)),
-                                    (100, (16, 8, 1)), (257, (32, 8, 1)),
-                                    (1024, (32, 8, 1))])
+# The launch shape of best_bs_argmax's CUDA kernel on a float32 plane:
+# (lanes per row, 16-byte word loads a lane makes per row and pass, rows
+# in flight per lane group).
+@pytest.mark.parametrize("m,want", [(1, (1, 2, 2)), (2, (1, 2, 2)),
+                                    (3, (1, 2, 2)), (4, (1, 1, 4)),
+                                    (8, (1, 2, 2)), (9, (1, 4, 1)),
+                                    (31, (4, 4, 1)), (32, (2, 4, 1)),
+                                    (33, (4, 4, 1)), (100, (8, 4, 1)),
+                                    (257, (32, 4, 1)), (1024, (32, 4, 1))])
 def test_best_bs_plan(m, want):
     assert ks.best_bs_plan(m) == want
 
 
 def test_best_bs_plan_is_launchable():
-    """Every M gives a shape csrc/select_topk.cu instantiates: a power-of-
-    two group of at most a warp, 8 loads a lane, 8 column loads unless the
-    group is one lane, and one pass over the row unless M > 256."""
-    for m in range(1, 4097):
-        lanes, chunks, rows = ks.best_bs_plan(m)
-        assert lanes & (lanes - 1) == 0 and 1 <= lanes <= 32
-        assert chunks * rows == 8 and chunks in (1, 2, 4, 8)
-        assert lanes == 1 or chunks == 8
-        assert lanes * chunks >= m or lanes == 32
+    """Every M and type gives a shape csrc/select_topk.cu instantiates: a
+    power-of-two group of at most a warp, 4 words in flight a lane, 4
+    word loads unless the group is one lane, and one pass over the words
+    a row touches unless the row needs more than a warp's 128 words."""
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        size = torch.empty((), dtype=dtype).element_size()
+        for m in range(1, 4097):
+            lanes, chunks, rows = ks.best_bs_plan(m, dtype)
+            words = -(-m * size // 16) + (1 if m * size % 16 else 0)
+            assert lanes & (lanes - 1) == 0 and 1 <= lanes <= 32
+            assert chunks * rows == 4 and chunks in (1, 2, 4)
+            assert lanes == 1 or chunks == 4
+            assert lanes * chunks >= words or lanes == 32
 
 
-def _lane_group_argmax(snr: np.ndarray, lanes: int) -> np.ndarray:
-    """best_bs_argmax's CUDA kernel in numpy: lane j of a row's group keeps
-    the first maximum of columns j, j + lanes, ... (M while it has none);
-    the group takes the largest value, then the lowest column holding it,
-    and a row with no column taken gives 0."""
+def _lane_group_argmax(snr: np.ndarray, lanes: int, off: int = 0
+                       ) -> np.ndarray:
+    """best_bs_argmax's CUDA kernel in numpy: lane j of a row's group reads
+    the row's 16-byte words j, j + lanes, ... of the plane (4 float32 each;
+    the plane starts ``off`` codes into its first word) and keeps the
+    first maximum of its codes (M while it has none); the group takes the
+    largest value, then the lowest column holding it, and a row with no
+    column taken gives 0."""
     n, m = snr.shape
     best = np.full((n, lanes), -np.inf, np.float32)
     idx = np.full((n, lanes), m, np.int64)
-    for j in range(lanes):
-        for c in range(j, m, lanes):
-            take = snr[:, c] > best[:, j]
-            best[take, j], idx[take, j] = snr[take, c], c
+    for r in range(n):
+        e0 = off + r * m
+        for c in range(m):                      # a lane's codes rise
+            j = ((e0 + c) // 4 - e0 // 4) % lanes
+            if snr[r, c] > best[r, j]:
+                best[r, j], idx[r, j] = snr[r, c], c
     top = best.max(axis=1, keepdims=True)
     i = np.where(best == top, idx, np.iinfo(np.int32).max).min(axis=1)
     return np.where(i < m, i, 0).astype(np.int32)
@@ -340,9 +350,10 @@ def _lane_group_argmax(snr: np.ndarray, lanes: int) -> np.ndarray:
 @pytest.mark.parametrize("m", [1, 2, 3, 8, 31, 32, 33, 100, 257])
 def test_best_bs_lane_groups_match_pallas_exactly(m):
     """The kernel's lane-group order on ties: a row's maximum repeated in
-    one lane's columns (c and c + lanes), in two lanes' (c and c + 1), a
-    row of one value throughout and a row of -inf, each to its lowest
-    column."""
+    one lane's words (c and c + 4 lanes), in two lanes' (c and c + 4), in
+    one word (c and c + 1), a row of one value throughout and a row of
+    -inf, each to its lowest column, on a plane 16-byte aligned and one
+    that starts 1-3 codes into its first word."""
     n = 37
     rs = np.random.default_rng(m)
     snr = (10.0 ** rs.uniform(-1, 5, (n, m))).astype(np.float32)
@@ -351,13 +362,15 @@ def test_best_bs_lane_groups_match_pallas_exactly(m):
     top = snr.max(axis=1) * np.float32(2)
     for r in range(n - 1):
         c = r % m
-        c2 = c + (lanes if r % 3 == 0 else 1)     # same lane / next lane
-        if r % 3 != 2 and c2 < m:
+        c2 = c + (4 * lanes, 4, 1, m)[r % 4]      # same lane / next / word
+        if c2 < m:
             snr[r, c] = snr[r, c2] = top[r]
     snr[n - 1] = np.float32(5.0)
     snr[n - 2] = -np.inf                         # torch.argmax gives 0
     want = np.asarray(j_best(snr, user_block=16))
-    np.testing.assert_array_equal(_lane_group_argmax(snr, lanes), want)
+    for off in range(4):
+        np.testing.assert_array_equal(_lane_group_argmax(snr, lanes, off),
+                                      want)
     np.testing.assert_array_equal(want, np.asarray(ref.best_bs_argmax(snr)))
     np.testing.assert_array_equal(ks.best_bs_argmax(T(snr)).numpy(), want)
 

@@ -123,3 +123,60 @@ def test_normal_and_exponential_within_ulps():
 def test_prngkey_rejects_out_of_range_seed():
     with pytest.raises(ValueError):
         rng.PRNGKey(2**31)
+
+
+# --- the draws of the Dirichlet partition ------------------------------
+# gumbel is -log(-log(u)) and gamma's rejection loops read log and the
+# normal's log1p, whose last ulp differs between XLA and torch (ROADMAP
+# C.4): floats within rtol 1e-5, every index exact on these seeds.
+
+def test_gumbel_within_ulps():
+    jk, tk = _keys(21, n=3)
+    with jax.threefry_partitionable(True):
+        want = np.asarray(jax.vmap(lambda k: jax.random.gumbel(k, (4097,)))(jk))
+    got = rng.gumbel(tk, (4097,)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("draws,n", [((30,), 40), ((7, 3), 5), ((1,), 1)])
+def test_categorical_indices_exact(draws, n):
+    """Batched keys over users, a prefix of draws per user, ties among
+    the logits (equal classes)."""
+    jk, tk = _keys(len(draws) * 100 + n, n=6)
+    lg = np.log(np.random.default_rng(n).dirichlet(np.ones(4), 6)
+                )[:, np.random.default_rng(1).integers(0, 4, n)]
+    lg = lg.astype(np.float32)
+    with jax.threefry_partitionable(True):
+        want = np.asarray(jax.vmap(lambda k, l: jax.random.categorical(
+            k, l, shape=draws))(jk, lg))
+    got = rng.categorical(tk, torch.tensor(lg), draws).numpy()
+    assert got.shape == want.shape
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("alpha", [0.05, 0.1, 0.5, 1.0, 2.5, 10.0])
+@pytest.mark.parametrize("seed", [0, 7])
+def test_gamma_and_loggamma(alpha, seed):
+    """jax's Marsaglia-Tsang loops with its key layout (one split key per
+    element), alpha below 1 boosted; both spaces."""
+    with jax.threefry_partitionable(True):
+        k = jax.random.PRNGKey(seed)
+        g = np.asarray(jax.random.gamma(k, alpha, (12, 10)))
+        lg = np.asarray(jax.random.loggamma(k, alpha, (12, 10)))
+    tk = rng.PRNGKey(seed)
+    np.testing.assert_allclose(rng.gamma(tk, alpha, (12, 10)).numpy(), g,
+                               rtol=1e-5, atol=1e-30)
+    np.testing.assert_allclose(rng.loggamma(tk, alpha, (12, 10)).numpy(), lg,
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 3, 11])
+def test_dirichlet_proportions(seed):
+    alpha = np.float32([0.1] * 10)
+    with jax.threefry_partitionable(True):
+        want = np.asarray(jax.random.dirichlet(jax.random.PRNGKey(seed),
+                                               jnp.asarray(alpha), (12,)))
+    got = rng.dirichlet(rng.PRNGKey(seed), torch.tensor(alpha), (12,)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-30)
+    np.testing.assert_allclose(got.sum(axis=1), 1.0, rtol=1e-6)

@@ -202,8 +202,10 @@ def test_config_rejects_what_the_port_lacks():
         FLConfig(scheduler="nope")
     with pytest.raises(ValueError, match="bs_layout"):
         FLConfig(bs_layout="hex")
-    with pytest.raises(ValueError, match="not ported"):
-        mobility.step_named("waypoint", torch.tensor([0, 1]),
+    # every mobility model of the JAX registry is ported; a name outside
+    # it raises
+    with pytest.raises(ValueError, match="unknown mobility model"):
+        mobility.step_named("levy-flight", torch.tensor([0, 1]),
                             torch.zeros((3, 2)), {}, WirelessConfig())
 
 
