@@ -32,14 +32,20 @@
    one call), the yardstick's likewise (``--sweeps`` instead runs the
    card sweeps behind the plans of masked_bs_argmax, rows a block:
    ``masked_variants``, and of bandwidth_solve, warp or block and slices
-   a row: ``bandwidth_variants``);
+   a row: ``bandwidth_variants``); kernels 1-3 also over a leading fleet
+   axis in one launch (the batched greedy's calls): the largest bucket of
+   ``wireless_all`` at [F, 50, 8] and kernel 1 at its [F x 8, 50] trial
+   rows ("fleet_axis"), [8, 1e5, 100] in float32, bfloat16 and int8 +
+   scale ("fleet_axis_f32" / "_bf16" / "_int8"), each against its plain
+   version and F 2-D calls and timed beside them (``per_problem_*``);
 4. checks small runs on the card against the same runs on the CPU (the
    plain versions, the default scheduler, host DAGSA): the synchronous
    round, hierarchical aggregation, hierarchical aggregation over the
    top-k + int8 compressed uplink, and the four golden configs of the
    baselines / fault / async slice (``fedcs_low``; ``dagsa-r`` under
    ``faulty-uplink``; ``dagsa_jit`` async; ``dagsa-r`` faulty async, ticks
-   of 0.5 s, alpha 0.5), delivery and queue counts exact;
+   of 0.5 s, alpha 0.5), delivery and queue counts exact, and the four
+   stateful policies (``ucb``, ``biased-adaptive``, ``rr``, ``pf``);
 5. drives the port's full-width paths on the card, each with the kernels'
    launch counts zeroed just before it and read just after: the
    synchronous single-tier round (3 rounds, ``dagsa_jit``), hierarchical
@@ -48,12 +54,13 @@
    + int8 uplink (2 rounds), the synchronous round under the default
    scheduler, the host DAGSA (``sync_dagsa``, 2 rounds), the FedCS
    baseline (``fedcs``, 2 rounds), ``dagsa-r`` under the ``faulty-uplink``
-   fault model (``faulty``, 3 rounds) and the same with buffered-async
-   aggregation (``faulty_async``, 4 ticks of 0.5 s, alpha 0.5); on the
-   last two a spy on the engine's FedAvg call shows the delivery mask
-   (and the staleness weights) reaching kernel 4;
-6. profiles one more round of ``sync``, ``hier_int8`` and
-   ``faulty_async`` each (torch.profiler: host and device time per round
+   fault model (``faulty``, 3 rounds), the same with buffered-async
+   aggregation (``faulty_async``, 4 ticks of 0.5 s, alpha 0.5) and the
+   ``ucb`` policy (3 rounds); on ``faulty`` and ``faulty_async`` a spy on
+   the engine's FedAvg call shows the delivery mask (and the staleness
+   weights) reaching kernel 4;
+6. profiles one more round of ``sync``, ``hier_int8``, ``faulty_async``
+   and ``ucb`` each (torch.profiler: host and device time per round
    phase, the busiest device ops, the device's busy share);
 6b. the scenario sweeps (``repro_torch.launch.sweep``): the four golden
    sweep configurations small on the card against the CPU, then, each
@@ -65,8 +72,14 @@
    2), the wireless sweep over every registered scenario (2 seeds x 5
    rounds, f32), paper-default and high-mobility in bf16 and in int8, and
    mega-fleet at 200,000 users x 100 BSs (rho1 0, rho2 5e-5, 1 x 2) in
-   bf16 and in int8; wall seconds a round and launches for each, and the
-   profiled busy share of one learning and one wireless round;
+   bf16 and in int8, a ``ucb`` learning sweep (``sweep_ucb``, 2 x 3) and
+   the wireless sweep in user chunks of 16 (``wireless_chunk``,
+   paper-default and shadowed, 2 x 5; its records equal the unchunked
+   run's); wall seconds a round and launches for each (a wireless
+   bucket runs its cells in lockstep, one batched greedy a round: the
+   batched calls and greedy steps too), and the profiled busy share of
+   one learning round, one wireless round and a round of every scenario
+   x 2 seeds;
 7. the LM serving slice (Zamba2-1.2B, 38 Mamba2 layers + one shared
    attention block every 6, at full width and full depth):
    a. holds kernels 7-9 (flash_attention, rmsnorm, ssd_scan) against their
@@ -567,6 +580,8 @@ def check_kernels(dev, fleet_users=1_000_000, fleet_bs=100,
                           **extra})
         del snr, rem, db, q, bf, codes, cases
 
+    check_fleet_axis(dev, gen, record, fleet_users // 10, fleet_bs)
+
     # -- Eq. (11) solve: K trial rows over U users, tcomp shared, one row
     # per path of bandwidth_plan: warp (main), block (medium), cluster
     # (fleet: 30% of the users a row; fleet_sparse: ~1e4 users a row) ------
@@ -784,6 +799,180 @@ def check_kernels(dev, fleet_users=1_000_000, fleet_bs=100,
     return results
 
 
+def wireless_all_bucket() -> int:
+    """Cells of the largest shape bucket of the ``wireless_all`` path
+    (every registered scenario, 2 seeds): the fleet its batched greedy
+    schedules each round."""
+    from repro_torch.core.scenario import SCENARIOS
+    from repro_torch.core.types import WirelessConfig
+    from repro_torch.launch import sweep
+
+    specs = [SCENARIOS[name] for name in SCENARIOS]
+    buckets = sweep._wireless_buckets(specs, WirelessConfig())
+    return 2 * max(len(group) for group in buckets.values())
+
+
+def _per_problem_times(fn, reps: int, what: str) -> dict:
+    """The yardstick of a fleet row: the F 2-D kernel calls that the one
+    fleet launch replaces, timed as the row is (events, graph, host)."""
+    return {"per_problem_ms": _time_ms(fn, reps),
+            "per_problem_graph_ms": _graph_ms(fn, reps, what + " per problem"),
+            "per_problem_host_us": _host_us(fn, reps)}
+
+
+def check_fleet_axis(dev, gen, record, n_fleet: int = 100_000,
+                     m_fleet: int = 100) -> None:
+    """Kernels 1-3 over a leading fleet axis (DAGSA's batched greedy), one
+    launch for the fleet: the largest bucket of ``wireless_all`` at [F,
+    50, 8] ("fleet_axis"), [8, n_fleet, m_fleet] (the run's [8, 1e5,
+    100]) in float32, bfloat16 and int8 + scale ("fleet_axis_f32" /
+    "_bf16" / "_int8"), and kernel 1 at the
+    matching [F x 8, 50] trial rows with tcomp [F, 50] ("fleet_axis").
+    Each against its plain version and against F calls on the problems'
+    2-D planes (indices exact; kernel 1 rtol 1e-5, atol 1e-7), and timed
+    beside that loop of F calls (``per_problem_*``) and, where one
+    PyTorch call computes the function, that call."""
+    from repro_torch.kernels import bandwidth_solve as kb
+    from repro_torch.kernels import select_topk as ks
+
+    f_bucket = wireless_all_bucket()
+    for label, f, n, m, kind, reps in (
+            ("fleet_axis", f_bucket, 50, 8, "f32", 200),
+            ("fleet_axis_f32", 8, n_fleet, m_fleet, "f32", 20),
+            ("fleet_axis_bf16", 8, n_fleet, m_fleet, "bf16", 20),
+            ("fleet_axis_int8", 8, n_fleet, m_fleet, "int8", 20)):
+        snr = torch.pow(10.0, torch.rand((f, n, m), generator=gen,
+                                         device=dev) * 6.0 - 1.0)
+        snr[:, n // 3] = snr[:, n // 5]             # duplicate user rows
+        snr[:, :, m - 1] = snr[:, :, 0]             # duplicate BS columns
+        rem = torch.rand((f, n), generator=gen, device=dev) < 0.5
+        rem[f // 2] = False                         # a problem with no user
+        scale = None
+        if kind == "int8":
+            db = 10.0 * torch.log10(snr)
+            scale = torch.clamp(db.abs().amax(dim=1), min=1e-6) / 127.0
+            codes = torch.clamp(torch.round(db / scale[:, None]), -127,
+                                127).to(torch.int8)
+            del db
+        elif kind == "bf16":
+            codes = snr.to(torch.bfloat16)
+            scale = 1.0 / snr.amax(dim=1)
+        else:
+            codes = snr
+        del snr
+        size = codes.element_size()
+
+        def per_problem_masked(codes=codes, scale=scale):
+            return [ks.masked_bs_argmax(codes[i], rem[i],
+                                        None if scale is None else scale[i])
+                    for i in range(f)]
+
+        def per_problem_best(codes=codes, scale=scale):
+            return [ks.best_bs_argmax(codes[i],
+                                      None if scale is None else scale[i])
+                    for i in range(f)]
+
+        cand, best = ks.masked_bs_argmax(codes, rem, scale)
+        pc, pb = ks.masked_bs_argmax_plain(codes, rem, scale)
+        _close(f"masked_bs_argmax {label} cand", cand, pc, exact=True)
+        _close(f"masked_bs_argmax {label} best", best, pb, exact=True)
+        for i, (c1, b1) in enumerate(per_problem_masked()):
+            _close(f"masked_bs_argmax {label} problem {i}", cand[i], c1,
+                   exact=True)
+            _close(f"masked_bs_argmax {label} problem {i} best", best[i], b1,
+                   exact=True)
+        if not (bool((cand[f // 2] == 0).all())
+                and bool(torch.isneginf(best[f // 2]).all())):
+            raise AssertionError("masked_bs_argmax: a problem with no user "
+                                 "left must give (0, -inf)")
+        sc_bytes = 0 if scale is None else f * m * 4
+        record("masked_bs_argmax", label, [f, n, m], 0.0,
+               lambda codes=codes, scale=scale: ks.masked_bs_argmax(
+                   codes, rem, scale),
+               lambda codes=codes, scale=scale: ks.masked_bs_argmax_plain(
+                   codes, rem, scale),
+               lambda codes=codes, scale=scale: torch.argmax(torch.where(
+                   rem[..., None], codes.float() if scale is None
+                   else codes.float() * scale[:, None], -torch.inf), dim=1),
+               f * (n * m * size + n + 2 * m * 4) + sc_bytes,
+               f * n * m * (1 if scale is None else 2), reps,
+               extra={"dtype": kind, "scaled": scale is not None,
+                      **_per_problem_times(per_problem_masked, reps,
+                                           f"masked_bs_argmax {label}")})
+
+        # kernel 3: the bf16 plane is read unscaled (the sweeps' bf16
+        # call), int8 codes with their scale
+        b_scale = scale if kind == "int8" else None
+        bb = ks.best_bs_argmax(codes, b_scale)
+        _close(f"best_bs_argmax {label}", bb,
+               ks.best_bs_argmax_plain(codes, b_scale), exact=True)
+        for i, one in enumerate(per_problem_best(codes, b_scale)):
+            _close(f"best_bs_argmax {label} problem {i}", bb[i], one,
+                   exact=True)
+        extra = {"dtype": kind, "scaled": b_scale is not None,
+                 **_per_problem_times(
+                     lambda codes=codes, s=b_scale: per_problem_best(codes, s),
+                     reps, f"best_bs_argmax {label}")}
+        if b_scale is None:
+            lib = lambda codes=codes: torch.argmax(codes, dim=2)  # noqa
+        else:
+            def two_op(codes=codes, s=b_scale):
+                return (codes.float() * s[:, None]).argmax(dim=2)
+            lib = None
+            extra |= {
+                "reference": "(snr.float() * scale).argmax(2), two ops",
+                "reference_ms": _time_ms(two_op, reps),
+                "reference_graph_ms": _graph_ms(
+                    two_op, reps, f"best_bs_argmax {label} reference"),
+                "reference_host_us": _host_us(two_op, reps)}
+        record("best_bs_argmax", label, [f, n, m], 0.0,
+               lambda codes=codes, s=b_scale: ks.best_bs_argmax(codes, s),
+               lambda codes=codes, s=b_scale: ks.best_bs_argmax_plain(
+                   codes, s), lib,
+               f * (n * m * size + n * 4) + (0 if b_scale is None
+                                             else f * m * 4),
+               f * n * m * (1 if b_scale is None else 2), reps, extra=extra)
+        del codes, rem, cand, best, pc, pb
+
+    # kernel 1: the bucket's F x 8 trial rows of 50 users, tcomp [F, 50]
+    f, k, u = f_bucket, 8, 50
+    c, _, mask, bw, lo = _bw_case(gen, dev, f * k, u, 0.3)
+    coeff, mask = c.view(f, k, u), mask.view(f, k, u)
+    bw, lo = bw.view(f, k), lo.view(f, k)
+    tcomp = 0.10 + 0.01 * torch.rand((f, u), generator=gen, device=dev)
+
+    def per_problem_solve():
+        return [kb.bandwidth_solve(coeff[i], tcomp[i], mask[i], bw[i],
+                                   lo=lo[i]) for i in range(f)]
+
+    err = 0.0
+    for method in ("newton", "bisect"):
+        got = kb.bandwidth_solve(coeff, tcomp, mask, bw, lo=lo, method=method)
+        want = kb.bandwidth_solve_fleet_plain(coeff, tcomp, mask, bw, lo=lo,
+                                              method=method)
+        err = max(err, _close(f"bandwidth_solve fleet_axis {method}", got,
+                              want, atol=1e-7))
+        for i in range(f):
+            _close(f"bandwidth_solve fleet_axis {method} problem {i}", got[i],
+                   kb.bandwidth_solve(coeff[i], tcomp[i], mask[i], bw[i],
+                                      lo=lo[i], method=method), atol=1e-7)
+    nnz = float(mask.sum())
+    data_bytes = f * k * u + nnz * 4 + float(mask.any(dim=1).sum()) * 4 \
+        + 3 * f * k * 4
+    record("bandwidth_solve", "fleet_axis", [f * k, u], err,
+           lambda: kb.bandwidth_solve(coeff, tcomp, mask, bw, lo=lo),
+           lambda: kb.bandwidth_solve_fleet_plain(coeff, tcomp, mask, bw,
+                                                  lo=lo),
+           None, data_bytes, (16 * 7 + 3) * nnz, 200,
+           extra={"plan": kb.bandwidth_plan(f * k, u)._asdict(),
+                  "tcomp_shape": [f, u],
+                  "bound_bytes_once_ms": _bound_ms(
+                      f * k * u * 5 + f * u * 4 + 3 * f * k * 4,
+                      (16 * 7 + 3) * nnz)[0],
+                  **_per_problem_times(per_problem_solve, 200,
+                                       "bandwidth_solve fleet_axis")})
+
+
 SMALL_RUNS = (
     ("sync", {}),
     ("hier", dict(aggregation="hierarchical", tau_global=2)),
@@ -796,6 +985,11 @@ SMALL_RUNS = (
     ("engine_faulty_async", dict(scheduler="dagsa-r", faults="faulty-uplink",
                                  aggregation_async=True, tick_s=0.5,
                                  staleness_alpha=0.5)),
+    # the stateful online policies, their estimates carried in the round
+    ("engine_ucb", dict(scheduler="ucb")),
+    ("engine_biased", dict(scheduler="biased-adaptive")),
+    ("engine_rr", dict(scheduler="rr")),
+    ("engine_pf", dict(scheduler="pf")),
 )
 
 
@@ -861,6 +1055,10 @@ PATHS = (
                           aggregation_async=True, tick_s=0.5,
                           staleness_alpha=0.5), 4,
      _SCHED + ("fedavg_reduce",)),
+    # a stateful online policy: top-k by its UCB index, kernel 3 for the
+    # best BS, kernel 1 for the Eq. (11) split
+    ("ucb", dict(scheduler="ucb"), 3,
+     ("best_bs_argmax", "bandwidth_solve", "fedavg_reduce")),
 )
 
 
@@ -1144,6 +1342,14 @@ SWEEP_PATHS = (
      dict(n_seeds=1, n_rounds=2, channel_dtype="bf16", fleet=True), _SCHED),
     ("fleet_int8", False, ["mega-fleet"],
      dict(n_seeds=1, n_rounds=2, channel_dtype="int8", fleet=True), _SCHED),
+    # a stateful policy's learning sweep, and the wireless sweep in user
+    # chunks (shadowed: the [N, M, 64] field in blocks of 16 users), whose
+    # records must equal the unchunked run's
+    ("sweep_ucb", True, ["paper-default"],
+     dict(n_seeds=2, n_rounds=3, scheduler="ucb"),
+     ("best_bs_argmax", "bandwidth_solve", "fedavg_reduce")),
+    ("wireless_chunk", False, ["paper-default", "shadowed"],
+     dict(n_seeds=2, n_rounds=5, user_chunk=16), _SCHED),
 )
 LEARNING = dict(dataset="mnist", n_train=4000, n_test=1000, local_epochs=10,
                 batch_size=16, eval_every=1, seed=0)
@@ -1156,7 +1362,12 @@ def run_sweep_path(dev, label: str, learning: bool, names, extra: dict,
     the kernels' launch counts zeroed just before it and read just after;
     prints its wall seconds a round (set-up included) and checks its
     records: finite positive latencies, the Eq. (8h) floor met (wireless,
-    single-tier synchronous), accuracies in [0, 1]."""
+    single-tier synchronous), accuracies in [0, 1].  A wireless sweep
+    runs a bucket's cells in lockstep, one batched greedy a round: it
+    prints the batched calls (kernel 3's launches), the greedy steps
+    (kernel 2's launches less one a call) and kernel 1's launches.  A
+    sweep with ``user_chunk`` is run again without it, and the two
+    records must be equal."""
     from repro_torch.core.scenario import SCENARIOS
     from repro_torch.core.types import WirelessConfig
     from repro_torch.kernels import _lib
@@ -1181,10 +1392,18 @@ def run_sweep_path(dev, label: str, learning: bool, names, extra: dict,
     wall = time.perf_counter() - t0
     launches = dict(_lib.LAUNCHES)
     cells = len(names) * n_seeds
+    calls = launches["best_bs_argmax"]
+    steps = launches["masked_bs_argmax"] - calls
+    greedy = ({"greedy_calls": calls, "greedy_steps": steps,
+               "steps_per_call": steps / calls,
+               "bandwidth_solve_per_call": launches["bandwidth_solve"] / calls,
+               "masked_bs_argmax_per_call":
+                   launches["masked_bs_argmax"] / calls}
+              if calls and launches["masked_bs_argmax"] else {})
     out = {"sweep_path": label, "scenarios": len(names), "seeds": n_seeds,
            "rounds": n_rounds, "n_users": cfg.n_users, "wall_s": wall,
            "wall_s_per_round": wall / (cells * n_rounds),
-           "launches": {k: v for k, v in launches.items() if v},
+           "launches": {k: v for k, v in launches.items() if v}, **greedy,
            **({"final_acc_mean": {r["scenario"]: r["final_acc_mean"]
                                   for r in recs}} if learning else
               {"t_round_mean_s": {r["scenario"]: r["t_round_mean_s"]
@@ -1195,6 +1414,14 @@ def run_sweep_path(dev, label: str, learning: bool, names, extra: dict,
     for name in required:
         if launches[name] <= 0:
             raise AssertionError(f"sweep {label} never launched {name}")
+    if "user_chunk" in kw:
+        kw.pop("user_chunk")
+        whole = sweep.run_sweep(names, cfg=cfg, device=dev, **kw)
+        if whole != recs:
+            raise AssertionError(f"sweep {label}: the records in user chunks "
+                                 f"differ from the unchunked run's")
+        print(f"sweep {label}: records equal to the unchunked run's",
+              flush=True)
     minp = math.ceil(cfg.rho2 * cfg.n_users)
     for r in recs:
         ts = r["curves"]["t_round_s"]
@@ -1215,44 +1442,57 @@ def run_sweep_path(dev, label: str, learning: bool, names, extra: dict,
     return out, launches
 
 
-def profile_sweep_round(dev, learning: bool, rounds: int = 3) -> dict:
-    """A paper-default sweep of one seed and ``rounds`` rounds through its
-    entry point (``run_learning_sweep`` at the paper's width, or
-    ``run_sweep``; the first round schedules every user, as Eq. (8g) makes
-    them all necessary, the later ones run the greedy) under
-    torch.profiler after a warm-up call: its wall ms (set-up included) and
-    that a round, the device's busy share, each round phase's host ms and
-    the device ms of the kernels launched inside it, and the device ops
-    that took the most time."""
+def profile_sweep_round(dev, learning: bool, rounds: int = 3,
+                        names=("paper-default",), n_seeds: int = 1) -> dict:
+    """A sweep of ``names`` (default paper-default), ``n_seeds`` seeds and
+    ``rounds`` rounds through its entry point (``run_learning_sweep`` at
+    the paper's width, or ``run_sweep``; the first round schedules every
+    user, as Eq. (8g) makes them all necessary, the later ones run the
+    greedy) under torch.profiler after a warm-up call: its wall ms
+    (set-up included) and that a round, the device's busy share, each
+    round phase's host ms and the device ms of the kernels launched
+    inside it (``round.schedule``: the greedy), the greedy steps a round
+    (from kernel 2's launches), and the device ops that took the most
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.core.scenario import SCENARIOS
+    from repro_torch.kernels import _lib
     from repro_torch.launch import sweep
     from repro_torch.models.cnn import CNNConfig
 
-    kw = dict(n_seeds=1, n_rounds=rounds, device=dev)
+    names = list(SCENARIOS) if names == _ALL else list(names)
+    kw = dict(n_seeds=n_seeds, n_rounds=rounds, device=dev)
 
     def call():
         if learning:
             return sweep.run_learning_sweep(
-                ["paper-default"], cnn_cfg=CNNConfig.paper_scale(),
-                **LEARNING, **kw)
-        return sweep.run_sweep(["paper-default"], **kw)
+                names, cnn_cfg=CNNConfig.paper_scale(), **LEARNING, **kw)
+        return sweep.run_sweep(names, **kw)
 
     call()
     torch.cuda.synchronize()
+    _lib.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_lib.LAUNCHES)
     phases, ops = _profile_phases(prof)
     busy = sum(t for t, _ in ops.values())
     top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:8]
+    sched = phases.get("round.schedule", {})
     out = {"kind": "learning" if learning else "wireless",
+           "scenarios": len(names), "seeds": n_seeds,
            "rounds": rounds, "wall_ms": wall_ms,
            "wall_ms_per_round": wall_ms / rounds,
            "device_busy_ms": busy, "device_busy_share": busy / wall_ms,
+           "greedy_host_ms_per_round": sched.get("host_ms", 0.0) / rounds,
+           "greedy_steps_per_round": (launches["masked_bs_argmax"]
+                                      - launches["best_bs_argmax"]) / rounds,
+           "launches": {k: v for k, v in launches.items() if v},
            "phases": phases,
            "top_device_ops": [{"name": k[:80], "ms": t, "calls": c}
                               for k, (t, c) in top]}
@@ -1700,6 +1940,7 @@ def main(argv: list[str]) -> int:
     profile_round(sims["sync"], "sync")
     profile_round(sims["hier_int8"], "hier_int8")
     profile_round(sims["faulty_async"], "faulty_async")
+    profile_round(sims["ucb"], "ucb")
     del sims
 
     check_small_sweeps(dev)
@@ -1709,6 +1950,8 @@ def main(argv: list[str]) -> int:
         torch.cuda.empty_cache()
     profile_sweep_round(dev, learning=True)
     profile_sweep_round(dev, learning=False)
+    # the largest buckets' batched greedy: every scenario, 2 seeds
+    profile_sweep_round(dev, learning=False, names=_ALL, n_seeds=2)
 
     check_zamba_full_f32(dev)
     torch.cuda.empty_cache()

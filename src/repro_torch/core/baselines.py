@@ -24,36 +24,38 @@ FEDCS_CHUNK = 64
 
 def _best_bs_assign(snr: torch.Tensor,
                     selected: torch.Tensor) -> torch.Tensor:
-    """[N, M] one-hot of argmax_k snr, zeroed for unselected users."""
+    """[..., N, M] one-hot of argmax_k snr, zeroed for unselected users
+    (a leading fleet axis: one kernel launch for the fleet)."""
     best = best_bs_argmax(snr.float().contiguous()).long()
-    onehot = torch.nn.functional.one_hot(best, snr.shape[1]).bool()
-    return onehot & selected[:, None]
+    onehot = torch.nn.functional.one_hot(best, snr.shape[-1]).bool()
+    return onehot & selected[..., None]
 
 
 def _optimal_result(problem: SchedulingProblem,
                     assign: torch.Tensor) -> ScheduleResult:
     t_k, user_bw = bandwidth.solve_all(problem.coeff, problem.tcomp, assign,
                                        problem.bs_bw)
-    return ScheduleResult(assign=assign, selected=assign.any(dim=1),
-                          bw=user_bw, bs_time=t_k, t_round=t_k.max())
+    return ScheduleResult(assign=assign, selected=assign.any(dim=-1),
+                          bw=user_bw, bs_time=t_k, t_round=t_k.amax(dim=-1))
 
 
 def _uniform_result(problem: SchedulingProblem,
                     assign: torch.Tensor) -> ScheduleResult:
     """Even bandwidth split inside each BS (UB / FedCS)."""
-    n_per_bs = assign.sum(dim=0)                             # [M]
-    per_user = problem.bs_bw / torch.clamp(n_per_bs, min=1)  # [M]
-    user_bw = torch.where(assign, per_user[None, :], 0.0).sum(dim=1)
+    n_per_bs = assign.sum(dim=-2)                            # [..., M]
+    per_user = problem.bs_bw / torch.clamp(n_per_bs, min=1)  # [..., M]
+    user_bw = torch.where(assign, per_user[..., None, :], 0.0).sum(dim=-1)
     t_k = bandwidth.uniform_time(problem.coeff, problem.tcomp, assign,
                                  problem.bs_bw)
-    return ScheduleResult(assign=assign, selected=assign.any(dim=1),
-                          bw=user_bw, bs_time=t_k, t_round=t_k.max())
+    return ScheduleResult(assign=assign, selected=assign.any(dim=-1),
+                          bw=user_bw, bs_time=t_k, t_round=t_k.amax(dim=-1))
 
 
 def _bernoulli_with_necessary(key: torch.Tensor, problem: SchedulingProblem,
                               p: float) -> torch.Tensor:
-    """Random participation at rate p; Eq. (8g)-necessary users always in."""
-    sel = rng.bernoulli(key, p, (problem.snr.shape[0],))
+    """Random participation at rate p; Eq. (8g)-necessary users always in.
+    Keys [F, 2] draw a fleet's [F, N] at once (one draw a key)."""
+    sel = rng.bernoulli(key, p, (problem.snr.shape[-2],))
     return sel | problem.necessary
 
 
@@ -73,7 +75,7 @@ def ub_schedule(problem: SchedulingProblem, key: torch.Tensor,
 
 def sa_schedule(problem: SchedulingProblem) -> ScheduleResult:
     """Select All: everyone participates, best-channel BS, OPTIMAL bw."""
-    selected = torch.ones((problem.snr.shape[0],), dtype=torch.bool,
+    selected = torch.ones(problem.snr.shape[:-1], dtype=torch.bool,
                           device=problem.snr.device)
     return _optimal_result(problem, _best_bs_assign(problem.snr, selected))
 
@@ -88,19 +90,20 @@ def fedcs_schedule(problem: SchedulingProblem,
     time under an EVEN split stays <= threshold: with j admitted users,
     t(j) = max_{i<=j} (tcomp_i + c_i * j / B_k), and the BS takes the
     largest feasible j.  t(j) is a masked max over the sorted prefix,
-    :data:`FEDCS_CHUNK` positions at a time for every BS at once.
+    :data:`FEDCS_CHUNK` positions at a time for every BS (and every
+    problem of a leading fleet axis) at once.
     """
     snr, coeff, tcomp, bs_bw = (problem.snr, problem.coeff, problem.tcomp,
                                 problem.bs_bw)
-    n = snr.shape[0]
+    n = snr.shape[-2]
     dev = snr.device
-    cand = _best_bs_assign(snr, torch.ones((n,), dtype=torch.bool,
-                                           device=dev))       # [N, M]
+    cand = _best_bs_assign(snr, torch.ones(snr.shape[:-1], dtype=torch.bool,
+                                           device=dev))       # [..., N, M]
     sort_key = torch.where(cand, snr, -torch.inf)
-    order = torch.argsort(-sort_key, dim=0, stable=True)      # [N, M]
-    c_s = torch.gather(coeff, 0, order)
-    tc_s = tcomp[order]
-    is_cand = torch.gather(cand, 0, order)
+    order = torch.argsort(-sort_key, dim=-2, stable=True)     # [..., N, M]
+    c_s = torch.gather(coeff, -2, order)
+    tc_s = torch.gather(tcomp[..., None].expand_as(order), -2, order)
+    is_cand = torch.gather(cand, -2, order)
     pos = torch.arange(n, device=dev)
     thr = torch.tensor(threshold_s, dtype=torch.float32, device=dev)
     t_for_j = []
@@ -108,14 +111,17 @@ def fedcs_schedule(problem: SchedulingProblem,
         js = pos[j0:j0 + FEDCS_CHUNK]                         # [C]
         jj = (js + 1).to(coeff.dtype)[:, None, None]
         # t(j+1) over the first j+1 sorted candidates: tc + c * (j+1) / bw
-        vals = tc_s[None] + c_s[None] * jj / bs_bw[None, None, :]
-        live = is_cand[None] & (pos[None, :, None] <= js[:, None, None])
-        t_for_j.append(torch.where(live, vals, -torch.inf).amax(dim=1))
-    t_for_j = torch.cat(t_for_j)                              # [N, M]
+        vals = (tc_s[..., None, :, :] + c_s[..., None, :, :] * jj
+                / bs_bw[..., None, None, :])                  # [..., C, N, M]
+        live = (is_cand[..., None, :, :]
+                & (pos[None, :, None] <= js[:, None, None]))
+        t_for_j.append(torch.where(live, vals, -torch.inf).amax(dim=-2))
+    t_for_j = torch.cat(t_for_j, dim=-2)                      # [..., N, M]
     counts = pos + 1
-    n_cand = is_cand.sum(dim=0)
-    feasible = (t_for_j <= thr) & (counts[:, None] <= n_cand[None, :])
-    n_take = torch.where(feasible, counts[:, None], 0).amax(dim=0)  # [M]
-    take_sorted = pos[:, None] < n_take[None, :]
-    take = torch.zeros_like(cand).scatter(0, order, take_sorted)
+    n_cand = is_cand.sum(dim=-2)
+    feasible = ((t_for_j <= thr)
+                & (counts[:, None] <= n_cand[..., None, :]))
+    n_take = torch.where(feasible, counts[:, None], 0).amax(dim=-2)  # [..., M]
+    take_sorted = pos[:, None] < n_take[..., None, :]
+    take = torch.zeros_like(cand).scatter(-2, order, take_sorted)
     return _uniform_result(problem, take & cand)

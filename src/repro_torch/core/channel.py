@@ -88,18 +88,27 @@ def dist_and_shadow(pos: torch.Tensor, bs_pos: torch.Tensor, shadow_sigma,
     """[N, M] distances and ``shadow_sigma`` times the unit shadowing field,
     or None for the field when ``shadow_sigma`` is 0: the JAX package's
     zero field changes no SNR (``10^(0 / 10)`` is 1 exactly), so the port
-    skips its [N, M, 64] features.  The JAX package can evaluate the
-    field in user blocks (``user_chunk``); the port evaluates it whole and
-    raises for a chunk (ROADMAP A.9b)."""
-    if user_chunk:
-        raise NotImplementedError(
-            "user_chunk (blockwise channel evaluation) is not ported to "
-            "repro_torch yet (ROADMAP A.9b)")
-    d = MobilityState(user_pos=pos, bs_pos=bs_pos).distances()
-    if not shadow_sigma > 0.0:
-        return d, None
-    sh = shadow_sigma * sample_shadowing(k_shadow, pos, bs_pos, cfg,
-                                         sigma_db=1.0)
+    skips its [N, M, 64] features.
+
+    ``user_chunk`` evaluates both in blocks of that many users, so the
+    field's features peak at [user_chunk, M, 64]: every value is a user's
+    own (the field's frequencies and phases come from ``k_shadow`` alone),
+    so the blocks give the unchunked call's values bit for bit.  The last
+    block is the remainder (the JAX package pads it to a whole block and
+    drops the padding)."""
+    def block(p):
+        d = MobilityState(user_pos=p, bs_pos=bs_pos).distances()
+        if not shadow_sigma > 0.0:
+            return d, None
+        return d, shadow_sigma * sample_shadowing(k_shadow, p, bs_pos, cfg,
+                                                  sigma_db=1.0)
+
+    n = pos.shape[0]
+    if not user_chunk or user_chunk >= n:
+        return block(pos)
+    parts = [block(pos[i0:i0 + user_chunk]) for i0 in range(0, n, user_chunk)]
+    d = torch.cat([q[0] for q in parts])
+    sh = None if parts[0][1] is None else torch.cat([q[1] for q in parts])
     return d, sh
 
 

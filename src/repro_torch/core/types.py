@@ -79,6 +79,9 @@ class ScheduleResult:
     bs_time: torch.Tensor
     t_round: torch.Tensor
 
+    def participation(self) -> torch.Tensor:
+        return self.selected.float()
+
 
 @dataclasses.dataclass
 class MobilityState:
@@ -128,10 +131,37 @@ class ServerState:
 
 
 @dataclasses.dataclass(frozen=True)
+class SchedulerState:
+    """Per-user running estimates of the stateful online schedulers
+    (``repro_torch.core.scheduler.STATEFUL_SCHEDULERS``); one layout
+    serves every policy, each reads the fields it needs:
+
+      n_obs:     [N] f32 rounds the user was scheduled (observations)
+      rate_sum:  [N] f32 summed observed best-BS spectral efficiency
+      tcomp_sum: [N] f32 summed observed compute latency
+      sel_count: [N] f32 selection counts (biased-adaptive's deficit)
+      ewma:      [N] f32 exponentially weighted rate average (PF)
+      ptr:       [] int32 round-robin window start
+      t:         [] f32 rounds elapsed (UCB's exploration clock)
+    """
+
+    n_obs: torch.Tensor
+    rate_sum: torch.Tensor
+    tcomp_sum: torch.Tensor
+    sel_count: torch.Tensor
+    ewma: torch.Tensor
+    ptr: torch.Tensor
+    t: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
 class RoundState:
-    """The full round-step state: one slot per concern + the PRNG key."""
+    """The full round-step state: one slot per concern + the PRNG key.
+    ``sched`` is the stateful scheduler's estimates (None for the
+    others)."""
 
     world: WorldState
     clients: ClientState
     server: ServerState
+    sched: Optional[SchedulerState]
     key: torch.Tensor       # [2] int64 threefry key (repro_torch.rng)

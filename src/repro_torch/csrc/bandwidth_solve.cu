@@ -9,7 +9,9 @@
 // of repro.core.bandwidth, with the bracket
 // [clip(lo, tmax, hi), tmax + sum(c)/bw + 1e-9] and 0 for an empty row.
 // tcomp may be shared by all rows: a row stride of 0 reads one [U] vector,
-// so DAGSA never broadcasts it to [M, N].
+// so DAGSA never broadcasts it to [M, N]; and a fleet of F problems passes
+// F vectors, each shared by its problem's M consecutive rows, so the
+// fleet's F x M trial rows solve in one launch.
 //
 // What bounds it on the H100.  The solve is 17 dependent passes over a
 // row (one set-up pass for the bracket, then one per iteration), each
@@ -126,14 +128,15 @@ template <int V>
 __global__ void __launch_bounds__(kWarpRows * 32)
 bw_warp_kernel(const float* __restrict__ coeff,
                const float* __restrict__ tcomp, long long tc_stride,
-               const uint8_t* __restrict__ mask, const float* __restrict__ bw,
+               int rows_per_tc, const uint8_t* __restrict__ mask,
+               const float* __restrict__ bw,
                const float* __restrict__ lo_hint, float* __restrict__ out,
                int k, int u, int iters, int bisect) {
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * kWarpRows + (threadIdx.x >> 5);
   if (row >= k) return;  // the whole warp: no barrier follows
   const float* c_row = coeff + row * u;
-  const float* tc_row = tcomp + row * tc_stride;
+  const float* tc_row = tcomp + (row / rows_per_tc) * tc_stride;
   const uint8_t* m_row = mask + row * u;
   const float b = bw[row], lo0 = lo_hint[row];
   float c[V], tc[V];
@@ -302,7 +305,7 @@ template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
 bw_cluster_kernel(const float* __restrict__ coeff,
                   const float* __restrict__ tcomp, long long tc_stride,
-                  const uint8_t* __restrict__ mask,
+                  int rows_per_tc, const uint8_t* __restrict__ mask,
                   const float* __restrict__ bw,
                   const float* __restrict__ lo_hint, float* __restrict__ out,
                   long long u, int slices, long long slice, int iters,
@@ -320,7 +323,7 @@ bw_cluster_kernel(const float* __restrict__ coeff,
   const long long beg = rank * slice, end = min(u, beg + slice);
   const long long n_units = end > beg ? (end - beg + E - 1) / E : 0;
   const float* c_row = coeff + row * u;
-  const float* tc_row = tcomp + row * tc_stride;
+  const float* tc_row = tcomp + (row / rows_per_tc) * tc_stride;
   const uint8_t* m_row = mask + row * u;
   float2* my_pairs = pairs + warp * smem_per_warp;
   float2* my_spill = spill + ((long long)blockIdx.x * kWarps + warp) *
@@ -445,18 +448,21 @@ bw_cluster_kernel(const float* __restrict__ coeff,
 
 template <int V>
 cudaError_t launch_warp(const float* coeff, const float* tcomp,
-                        long long tc_stride, const uint8_t* mask,
+                        long long tc_stride, int rows_per_tc,
+                        const uint8_t* mask,
                         const float* bw, const float* lo, float* out, int k,
                         int u, int iters, int bisect, cudaStream_t s) {
   const int blocks = (k + kWarpRows - 1) / kWarpRows;
   bw_warp_kernel<V><<<blocks, kWarpRows * 32, 0, s>>>(
-      coeff, tcomp, tc_stride, mask, bw, lo, out, k, u, iters, bisect);
+      coeff, tcomp, tc_stride, rows_per_tc, mask, bw, lo, out, k, u, iters,
+      bisect);
   return cudaGetLastError();
 }
 
 template <bool kVec>
 cudaError_t launch_cluster(const float* coeff, const float* tcomp,
-                           long long tc_stride, const uint8_t* mask,
+                           long long tc_stride, int rows_per_tc,
+                           const uint8_t* mask,
                            const float* bw, const float* lo, float* out,
                            int k, long long u, int iters, int bisect,
                            int slices, long long slice, int smem_per_warp,
@@ -479,8 +485,9 @@ cudaError_t launch_cluster(const float* coeff, const float* tcomp,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, coeff, tcomp, tc_stride, mask, bw,
-                           lo, out, u, slices, slice, iters, bisect,
+  err = cudaLaunchKernelEx(&cfg, kernel, coeff, tcomp, tc_stride,
+                           rows_per_tc, mask, bw, lo, out, u, slices, slice,
+                           iters, bisect,
                            smem_per_warp, spill_per_warp, spill);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -488,27 +495,32 @@ cudaError_t launch_cluster(const float* coeff, const float* tcomp,
 
 }  // namespace
 
+// tcomp: row r reads the [u] vector at tcomp + (r / rows_per_tc) *
+// tc_row_stride: stride 0 shares one vector with every row, stride u with
+// rows_per_tc 1 gives each row its own, and rows_per_tc K / G shares each
+// of G vectors with K / G consecutive rows (a fleet's F problems of M
+// trial rows: G = F, rows_per_tc = M).
+
 // One warp a row: `users_per_lane` users a lane, a power of two <= 8,
 // with 32 * users_per_lane >= u.
 extern "C" int bandwidth_solve_warp_f32(const float* coeff,
                                         const float* tcomp,
                                         long long tc_row_stride,
-                                        const uint8_t* mask, const float* bw,
-                                        const float* lo, float* out, int k,
-                                        int u, int iters, int bisect,
-                                        int users_per_lane, void* stream) {
+                                        int rows_per_tc, const uint8_t* mask,
+                                        const float* bw, const float* lo,
+                                        float* out, int k, int u, int iters,
+                                        int bisect, int users_per_lane,
+                                        void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k <= 0) return static_cast<int>(cudaGetLastError());
-  if (u > 32 * users_per_lane) return static_cast<int>(cudaErrorInvalidValue);
+  if (u > 32 * users_per_lane || rows_per_tc < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (users_per_lane) {
-    case 1: return launch_warp<1>(coeff, tcomp, tc_row_stride, mask, bw, lo,
-                                  out, k, u, iters, bisect, s);
-    case 2: return launch_warp<2>(coeff, tcomp, tc_row_stride, mask, bw, lo,
-                                  out, k, u, iters, bisect, s);
-    case 4: return launch_warp<4>(coeff, tcomp, tc_row_stride, mask, bw, lo,
-                                  out, k, u, iters, bisect, s);
-    case 8: return launch_warp<8>(coeff, tcomp, tc_row_stride, mask, bw, lo,
-                                  out, k, u, iters, bisect, s);
+#define WARP_CASE(V)                                                       \
+    case V: return launch_warp<V>(coeff, tcomp, tc_row_stride, rows_per_tc, \
+                                  mask, bw, lo, out, k, u, iters, bisect, s);
+    WARP_CASE(1) WARP_CASE(2) WARP_CASE(4) WARP_CASE(8)
+#undef WARP_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -521,19 +533,20 @@ extern "C" int bandwidth_solve_warp_f32(const float* coeff,
 // kernels/bandwidth_solve.py:pair_capacity gives the two.
 extern "C" int bandwidth_solve_cluster_f32(
     const float* coeff, const float* tcomp, long long tc_row_stride,
-    const uint8_t* mask, const float* bw, const float* lo, float* out, int k,
-    long long u, int iters, int bisect, int slices, long long slice, int vec,
-    int smem_per_warp, long long spill_per_warp, void* spill, void* stream) {
+    int rows_per_tc, const uint8_t* mask, const float* bw, const float* lo,
+    float* out, int k, long long u, int iters, int bisect, int slices,
+    long long slice, int vec, int smem_per_warp, long long spill_per_warp,
+    void* spill, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k <= 0) return static_cast<int>(cudaGetLastError());
   if (slices < 1 || slices > kMaxSlices || (slices & (slices - 1)) ||
       slice % 8 || (long long)slices * slice < u || smem_per_warp < 0 ||
-      smem_per_warp % 32 || spill_per_warp < 0 ||
+      smem_per_warp % 32 || spill_per_warp < 0 || rows_per_tc < 1 ||
       (spill_per_warp > 0 && !spill))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto launch = vec ? launch_cluster<true> : launch_cluster<false>;
-  return static_cast<int>(launch(coeff, tcomp, tc_row_stride, mask, bw, lo,
-                                 out, k, u, iters, bisect, slices, slice,
-                                 smem_per_warp, spill_per_warp,
+  return static_cast<int>(launch(coeff, tcomp, tc_row_stride, rows_per_tc,
+                                 mask, bw, lo, out, k, u, iters, bisect,
+                                 slices, slice, smem_per_warp, spill_per_warp,
                                  static_cast<float2*>(spill), s));
 }

@@ -45,7 +45,11 @@
 // in and equals the block-order strictly-greater combine of the TPU
 // kernel.  One launch a call; the keys and the ticket live in a workspace
 // the wrapper caches per device and stream (kernels/_lib.py:workspace; a
-// call captured into a CUDA graph gets one of its own).
+// call captured into a CUDA graph gets one of its own).  A fleet of F
+// problems ([F, N, M] planes, DAGSA's batched greedy) is one launch too:
+// grid axis y is the problem (the one-block kernel: one block a problem),
+// and each problem has its own keys and ticket in the workspace, so a
+// problem's last block is the last of its own blocks.
 //
 // best_bs_argmax.  The TPU kernel (`_rowmax_kernel`) takes a block of user
 // rows, multiplies each by the per-BS scale row (ones without one) and
@@ -53,7 +57,10 @@
 // dB codes; a value is f32(code) * scale[col], one float32 multiply
 // before any compare, since dequantisation keeps order only within a
 // column.  A block stages the scale row in shared memory when there is
-// one.  One kernel serves the three types: a group of G lanes (a power of
+// one.  A fleet of F planes [F, N, M] is one launch: grid axis y is the
+// problem, so a block reads one problem's rows and scale row, and problem
+// f's plane starts f N M codes past the first (its own offset from 16
+// bytes, which the row arithmetic below takes as it comes).  One kernel serves the three types: a group of G lanes (a power of
 // two <= 32) takes one row, so the 32 / G rows a warp holds are
 // neighbours in the plane, and lane j reads the row's 16-byte words j, j +
 // G, ... of the plane (4, 8 or 16 codes each), C words for each of U rows
@@ -135,6 +142,12 @@ __device__ __forceinline__ float code_f32(int8_t x) {
 
 constexpr int kTilesInFlight = 8;
 constexpr int kKeyStride = 16;  // a column's key on its own 128-byte line
+
+// A problem's region of the workspace, in 8-byte words: its M keys, then
+// its ticket, each on its own 128-byte line.
+__host__ __device__ __forceinline__ long long problem_words(int m) {
+  return (long long)(m + 1) * kKeyStride;
+}
 
 // The 4-byte word of V codes at p (V = Word<T>::V, p 4-byte aligned), or
 // one code as float32 bits (V = 1).
@@ -267,22 +280,33 @@ __device__ __forceinline__ void write_result(const float* sv, const int* si,
   }
 }
 
-// Block b takes rows [b * rows_per_block, ...), a multiple of
-// kTilesInFlight tiles of rows_per_tile rows; blockDim.x * V ==
-// rows_per_tile * m.  Dynamic shared memory: blockDim.x * V (value,
-// index) pairs, then the block's mask bytes.  packed (a column's key every
-// kKeyStride words) and ticket: zero between calls.
+// Block (b, f) takes rows [b * rows_per_block, ...) of problem f, a
+// multiple of kTilesInFlight tiles of rows_per_tile rows; blockDim.x * V
+// == rows_per_tile * m.  Dynamic shared memory: blockDim.x * V (value,
+// index) pairs, then the block's mask bytes.  Problem f's keys (a
+// column's key every kKeyStride words) and ticket lie in its region of
+// `work` (problem_words(m) words), zero between calls; its "last block"
+// is the last of its own gridDim.x blocks.
 template <typename T, int V>
 __global__ void masked_argmax_kernel(const T* __restrict__ snr,
                                      const uint8_t* __restrict__ remaining,
                                      const float* __restrict__ scale,
                                      long long n, int m, int rows_per_tile,
                                      long long rows_per_block,
-                                     unsigned long long* __restrict__ packed,
-                                     unsigned* __restrict__ ticket,
+                                     unsigned long long* __restrict__ work,
                                      int* __restrict__ cand,
                                      float* __restrict__ best_out) {
   extern __shared__ unsigned char smem[];
+  // this block's problem: its plane, mask, scale row, outputs and region
+  const long long f = blockIdx.y;
+  snr += f * n * m;
+  remaining += f * n;
+  if (scale) scale += f * m;
+  cand += f * m;
+  best_out += f * m;
+  unsigned long long* packed = work + f * problem_words(m);
+  unsigned* ticket =
+      reinterpret_cast<unsigned*>(packed + (long long)m * kKeyStride);
   const int tile = blockDim.x * V;
   float* sv = reinterpret_cast<float*>(smem);
   int* si = reinterpret_cast<int*>(sv + tile);
@@ -374,9 +398,10 @@ __global__ void masked_argmax_kernel(const T* __restrict__ snr,
 }
 
 // The whole plane in one block (N x M up to a block's entries; DAGSA's
-// [50, 8]): the mask from global memory and every code word in range, so
-// both loads are in flight together, then the same merge, and the result
-// written directly.  No workspace.
+// [50, 8]), one block a problem (block f takes problem f): the mask from
+// global memory and every code word in range, so both loads are in flight
+// together, then the same merge, and the result written directly.  No
+// workspace.
 template <typename T, int V>
 __global__ void masked_argmax_one_block(const T* __restrict__ snr,
                                         const uint8_t* __restrict__ remaining,
@@ -385,6 +410,12 @@ __global__ void masked_argmax_one_block(const T* __restrict__ snr,
                                         int* __restrict__ cand,
                                         float* __restrict__ best_out) {
   extern __shared__ unsigned char smem[];
+  const long long f = blockIdx.x;
+  snr += f * n * m;
+  remaining += f * n;
+  if (scale) scale += f * m;
+  cand += f * m;
+  best_out += f * m;
   const int tile = blockDim.x * V;
   float* sv = reinterpret_cast<float*>(smem);
   int* si = reinterpret_cast<int*>(sv + tile);
@@ -433,21 +464,20 @@ __global__ void masked_argmax_one_block(const T* __restrict__ snr,
 
 template <typename T, int V>
 int launch_masked(const T* snr, const uint8_t* remaining, const float* scale,
-                  long long n, int m, int threads, int rows_per_tile,
-                  long long rows_per_block, void* workspace, int* cand,
-                  float* best, cudaStream_t s) {
+                  long long n, int m, int fleet, int threads,
+                  int rows_per_tile, long long rows_per_block,
+                  void* workspace, int* cand, float* best, cudaStream_t s) {
   if ((long long)threads * V != (long long)rows_per_tile * m ||
-      rows_per_block % (kTilesInFlight * rows_per_tile))
+      rows_per_block % (kTilesInFlight * rows_per_tile) || fleet < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + rows_per_block - 1) / rows_per_block;
-  if (blocks > 1 && !workspace)
+  if (blocks > 1 && (!workspace || fleet > 65535))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto* packed = static_cast<unsigned long long*>(workspace);
-  auto* ticket = reinterpret_cast<unsigned*>(packed + (long long)m * kKeyStride);
   if (blocks == 1) {
     masked_argmax_one_block<T, V>
-        <<<1, threads, (size_t)threads * V * (sizeof(float) + sizeof(int)),
-           s>>>(snr, remaining, scale, (int)n, m, rows_per_tile, cand, best);
+        <<<fleet, threads,
+           (size_t)threads * V * (sizeof(float) + sizeof(int)), s>>>(
+            snr, remaining, scale, (int)n, m, rows_per_tile, cand, best);
     return static_cast<int>(cudaGetLastError());
   }
   const size_t smem =
@@ -457,9 +487,10 @@ int launch_masked(const T* snr, const uint8_t* remaining, const float* scale,
         repro_torch::allow_smem(masked_argmax_kernel<T, V>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  masked_argmax_kernel<T, V><<<(unsigned)blocks, threads, smem, s>>>(
-      snr, remaining, scale, n, m, rows_per_tile, rows_per_block, packed,
-      ticket, cand, best);
+  masked_argmax_kernel<T, V>
+      <<<dim3((unsigned)blocks, (unsigned)fleet), threads, smem, s>>>(
+          snr, remaining, scale, n, m, rows_per_tile, rows_per_block,
+          static_cast<unsigned long long*>(workspace), cand, best);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -550,13 +581,18 @@ __device__ __forceinline__ void fold_word(const uint4& q, int cb, int m,
 }
 
 // G lanes a row, C 16-byte words a lane and pass, U rows a lane group.
-// snr: the plane's 16-byte aligned base, its first code `off` codes in.
+// snr: the fleet's 16-byte aligned base, its first code `off` codes in;
+// block (x, f) takes rows of problem f, whose plane starts f n m codes
+// after that.
 template <typename T, int G, int C, int U, bool kScale>
 __global__ void __launch_bounds__(kRowThreads)
 best_bs_kernel(const T* __restrict__ snr, int off,
                const float* __restrict__ scale, long long n, int m,
                int* __restrict__ out) {
   extern __shared__ float sc[];
+  const long long f = blockIdx.y;
+  if (kScale) scale += f * m;
+  out += f * n;
   stage_scale<kScale>(scale, m, sc);
   constexpr int W = 16 / sizeof(T);     // codes a word
   constexpr int kPerLoad = 32 / G;
@@ -565,7 +601,8 @@ best_bs_kernel(const T* __restrict__ snr, int off,
   const long long warp =
       ((long long)blockIdx.x * kRowThreads + threadIdx.x) >> 5;
   const long long row0 = warp * (kPerLoad * U) + lane / G;
-  const long long total = off + n * m;
+  const long long first = off + f * n * m;  // the problem's first code
+  const long long total = off + (long long)gridDim.y * n * m;
   const int words_max = (m + W - 1) / W + 1;  // words a row touches, at most
   bool live[U];
   long long e0[U], w0[U];
@@ -576,7 +613,7 @@ best_bs_kernel(const T* __restrict__ snr, int off,
   for (int u = 0; u < U; ++u) {
     const long long r = row0 + u * kPerLoad;
     live[u] = r < n;
-    e0[u] = off + r * m;                  // the row's first code
+    e0[u] = first + r * m;                // the row's first code
     w0[u] = e0[u] / W;                    // ... and its word
     nw[u] = static_cast<int>((e0[u] + m - 1) / W - w0[u] + 1);
     best[u] = -INFINITY;
@@ -617,24 +654,26 @@ best_bs_kernel(const T* __restrict__ snr, int off,
 
 template <typename T, int G, int C, int U, bool kScale>
 int launch_best_bs(const T* snr, int off, const float* scale, long long n,
-                   int m, int* out, cudaStream_t s) {
+                   int m, int fleet, int* out, cudaStream_t s) {
   constexpr int kRowsPerBlock = kRowThreads / G * U;
   const long long blocks = (n + kRowsPerBlock - 1) / kRowsPerBlock;
   const size_t smem = kScale ? m * sizeof(float) : 0;
   best_bs_kernel<T, G, C, U, kScale>
-      <<<static_cast<unsigned>(blocks), kRowThreads, smem, s>>>(
-          snr, off, scale, n, m, out);
+      <<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(fleet)),
+         kRowThreads, smem, s>>>(snr, off, scale, n, m, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, bool kScale>
 int best_bs(const T* snr, int off, const float* scale, long long n, int m,
-            int lanes, int chunks, int rows, int* out, cudaStream_t s) {
+            int fleet, int lanes, int chunks, int rows, int* out,
+            cudaStream_t s) {
   if (chunks * rows != 4 || reinterpret_cast<uintptr_t>(snr) % 16 ||
-      off < 0 || off >= static_cast<int>(16 / sizeof(T)))
+      off < 0 || off >= static_cast<int>(16 / sizeof(T)) || fleet < 1 ||
+      fleet > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
 #define BEST_BS(G, C, U) \
-  launch_best_bs<T, G, C, U, kScale>(snr, off, scale, n, m, out, s)
+  launch_best_bs<T, G, C, U, kScale>(snr, off, scale, n, m, fleet, out, s)
   if (lanes == 1) {
     switch (chunks) {
       case 1: return BEST_BS(1, 1, 4);
@@ -656,44 +695,47 @@ int best_bs(const T* snr, int off, const float* scale, long long n, int m,
 
 }  // namespace
 
-// snr [n, m] of the entry's type, remaining [n], scale [m] or null;
-// `vec`: one 4-byte load of V codes (snr 4-byte aligned), else one code a
-// load; threads, rows_per_tile and rows_per_block as
-// select_topk.py:masked_bs_plan gives them; workspace: 16 m + 1 zeroed
-// 8-byte words (the packed keys, 128 bytes apart, and the ticket), unused
-// by one block.
+// snr [fleet, n, m] of the entry's type, remaining [fleet, n], scale
+// [fleet, m] or null, cand and best [fleet, m]; `vec`: one 4-byte load of
+// V codes (every problem's plane 4-byte aligned), else one code a load;
+// threads, rows_per_tile and rows_per_block as
+// select_topk.py:masked_bs_plan gives them for one problem; workspace:
+// fleet x 16 (m + 1) zeroed 8-byte words (a problem's packed keys, 128
+// bytes apart, and its ticket), unused by one block a problem.
 #define MASKED_ENTRY(NAME, T)                                                \
   extern "C" int NAME(const T* snr, int vec, const uint8_t* remaining,     \
-                      const float* scale, long long n, int m, int threads, \
-                      int rows_per_tile, long long rows_per_block,         \
-                      void* workspace, int* cand, float* best,             \
-                      void* stream) {                                      \
+                      const float* scale, long long n, int m, int fleet,   \
+                      int threads, int rows_per_tile,                      \
+                      long long rows_per_block, void* workspace,           \
+                      int* cand, float* best, void* stream) {              \
     const cudaStream_t s = static_cast<cudaStream_t>(stream);              \
     return vec ? launch_masked<T, Word<T>::V>(                             \
-                     snr, remaining, scale, n, m, threads, rows_per_tile,  \
-                     rows_per_block, workspace, cand, best, s)             \
-               : launch_masked<T, 1>(snr, remaining, scale, n, m, threads, \
-                                     rows_per_tile, rows_per_block,        \
-                                     workspace, cand, best, s);            \
+                     snr, remaining, scale, n, m, fleet, threads,          \
+                     rows_per_tile, rows_per_block, workspace, cand, best, \
+                     s)                                                    \
+               : launch_masked<T, 1>(snr, remaining, scale, n, m, fleet,   \
+                                     threads, rows_per_tile,               \
+                                     rows_per_block, workspace, cand,      \
+                                     best, s);                             \
   }
 MASKED_ENTRY(masked_bs_argmax_f32, float)
 MASKED_ENTRY(masked_bs_argmax_bf16, __nv_bfloat16)
 MASKED_ENTRY(masked_bs_argmax_i8, int8_t)
 #undef MASKED_ENTRY
 
-// snr: the 16-byte aligned base of an [n, m] plane of the entry's type
-// that starts `off` codes in (0 <= off < 16 / size); scale [m] or null;
-// lanes = G, chunks = C, rows = U as select_topk.py:best_bs_plan gives
-// them: C * U = 4, and C = 4 when G > 1.
+// snr: the 16-byte aligned base of a [fleet, n, m] plane of the entry's
+// type that starts `off` codes in (0 <= off < 16 / size); scale [fleet,
+// m] or null; out [fleet, n]; lanes = G, chunks = C, rows = U as
+// select_topk.py:best_bs_plan gives them: C * U = 4, and C = 4 when G > 1.
 #define BEST_ENTRY(NAME, T)                                                  \
   extern "C" int NAME(const T* snr, int off, const float* scale,            \
-                      long long n, int m, int lanes, int chunks, int rows,  \
-                      int* out, void* stream) {                             \
+                      long long n, int m, int fleet, int lanes, int chunks, \
+                      int rows, int* out, void* stream) {                   \
     const cudaStream_t s = static_cast<cudaStream_t>(stream);               \
-    return scale ? best_bs<T, true>(snr, off, scale, n, m, lanes, chunks,   \
-                                    rows, out, s)                           \
-                 : best_bs<T, false>(snr, off, scale, n, m, lanes, chunks,  \
-                                     rows, out, s);                         \
+    return scale ? best_bs<T, true>(snr, off, scale, n, m, fleet, lanes,    \
+                                    chunks, rows, out, s)                   \
+                 : best_bs<T, false>(snr, off, scale, n, m, fleet, lanes,   \
+                                     chunks, rows, out, s);                 \
   }
 BEST_ENTRY(best_bs_argmax_f32, float)
 BEST_ENTRY(best_bs_argmax_bf16, __nv_bfloat16)

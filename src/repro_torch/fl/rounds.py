@@ -91,7 +91,8 @@ from repro_torch.tree import tree_leaves, tree_map
 WORLDS = ("engine", "sweep")
 
 # The schedulers the buffered-async engine takes: JAX runs it only in its
-# traced round step, which the host schedulers cannot enter.
+# traced round step, which the host schedulers cannot enter (the stateful
+# policies enter it: their estimates ride RoundState.sched).
 ASYNC_SCHEDULERS = tuple(s for s in sched.SCHEDULERS
                          if s not in sched.HOST_SCHEDULERS)
 
@@ -558,7 +559,8 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
                     topk_frac: float = 1.0,
                     faults: fl_faults.FaultSpec = fl_faults.NO_FAULTS,
                     async_on: bool = False, tick_s: float = 1.0,
-                    staleness_alpha: float = 0.0, buffer_size: int = 1):
+                    staleness_alpha: float = 0.0, buffer_size: int = 1,
+                    user_chunk: int | None = None):
     """Build the round step: ``(init_state, step_fn)`` with
     ``step_fn(state, r) -> (state', out)`` and ``out`` a dict of 0-dim
     device tensors.
@@ -576,7 +578,8 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
       plane stored as ``channel_dtype`` (the int8 plane's Eq. (11)
       coefficients from its dequantised SNR), and the DAGSA greedy called
       on the stored plane.  ``scenario`` is one row of
-      ``launch.sweep._scenario_params``.
+      ``launch.sweep._scenario_params``; ``user_chunk`` evaluates the
+      channel (and, on the CPU, the greedy's selection) in user blocks.
 
     The shadowing field is drawn from ``k_shadow`` the same every round.
     ``aggregation``, ``tau_global``, ``compress``, ``topk_frac``,
@@ -623,6 +626,7 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
                          if hier else None),
             queue=(async_queue_init(params0, n, buffer_size)
                    if async_on else None)),
+        sched=sched.scheduler_state_init(cfg.scheduler, n, device=dev),
         key=key0)
 
     def engine_world(k_mob, k_prob, pos, aux, counts, r):
@@ -647,7 +651,7 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
             p["model_id"], k_mob, pos, aux, w.area_m, w.round_duration_s,
             p["speed"], p["pause_s"], p["gm_memory"])
         dist, shadow_db = channel.dist_and_shadow(pos, bs_pos, shadow_sigma,
-                                                  k_shadow, w)
+                                                  k_shadow, w, user_chunk)
         snr_raw = channel.sample_snr(k_snr, dist, w, shadow_db=shadow_db)
         if het_power is not None:
             # the power spread scales the SNR BEFORE encoding, so the
@@ -670,10 +674,19 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
                                  payload_mbit=payload0)
         return pos, aux, prob, (snr_store, snr_scale, coeff), dist
 
-    def schedule(prob, plane, p_est, k_sched, r):
+    def schedule(prob, plane, p_est, k_sched, r, sched_state):
+        """(the round's ScheduleResult, the scheduler state after it)."""
         if not sweep or cfg.scheduler not in ("dagsa_jit", "dagsa-r"):
+            if sweep:
+                # XLA's jitted sweep feeds these schedulers' Eq. (11)
+                # solves the float32 quotient of a bf16 plane, not its
+                # bf16 rounding (ROADMAP C.10, C.12)
+                prob = dataclasses.replace(prob, coeff=plane[2])
+            if cfg.scheduler in sched.STATEFUL_SCHEDULERS:
+                return sched.schedule_stateful(cfg.scheduler, prob, w,
+                                               k_sched, sched_state)
             return sched.schedule(cfg.scheduler, prob, w, k_sched,
-                                  seed=cfg.seed * 100003 + r)
+                                  seed=cfg.seed * 100003 + r), sched_state
         # the sweep calls the greedy on the stored plane, so bf16 / int8
         # codes and their scale stream through the selection kernels
         score, scale, solve_coeff = plane
@@ -684,9 +697,10 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
             scale = None
         assign, selected, user_bw, t_k, t_star = dagsa_jit._schedule(
             score, solve_coeff, prob.tcomp, bs_bw, prob.necessary, minp,
-            k_sched, snr_scale=scale, loop_coeff=prob.coeff)
+            k_sched, selection_block=user_chunk, snr_scale=scale,
+            loop_coeff=prob.coeff)
         return ScheduleResult(assign=assign, selected=selected, bw=user_bw,
-                              bs_time=t_k, t_round=t_star)
+                              bs_time=t_k, t_round=t_star), sched_state
 
     def step_fn(state: RoundState, r: int):
         params, queue = state.server.params, state.server.queue
@@ -720,7 +734,8 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
                 if not sweep:
                     prob = dataclasses.replace(prob, p_deliver=p_est)
         with span("round.schedule"):
-            res = schedule(prob, plane, p_est, k_sched, r)
+            res, sched_state = schedule(prob, plane, p_est, k_sched, r,
+                                        state.sched)
         # faults: stragglers stretch tcomp, outages and crashes kill
         # uplinks, the deadline drops late survivors
         corrupt = None
@@ -808,7 +823,7 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
             clients=ClientState(counts=counts, prev_bs=prev_bs),
             server=ServerState(params=params, edge_params=edge,
                                edge_weight=edge_w, queue=queue),
-            key=key)
+            sched=sched_state, key=key)
         return new_state, out
 
     return init_state, step_fn

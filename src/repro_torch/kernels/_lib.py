@@ -53,13 +53,14 @@ _SIGNATURES = {
        for t in ("f32", "bf16")},
     **{f"ssd_scan_{t}": (_P,) * 6 + (_I,) * 8 + (_P,)
        for t in ("f32", "bf16")},
-    "bandwidth_solve_warp_f32": (_P, _P, _LL, _P, _P, _P, _P) + (_I,) * 5
-    + (_P,),
-    "bandwidth_solve_cluster_f32": (_P, _P, _LL, _P, _P, _P, _P, _I, _LL, _I,
-                                    _I, _I, _LL, _I, _I, _LL, _P, _P),
-    **{f"masked_bs_argmax_{t}": (_P, _I, _P, _P, _LL, _I, _I, _I, _LL, _P,
-                                 _P, _P, _P) for t in ("f32", "bf16", "i8")},
-    **{f"best_bs_argmax_{t}": (_P, _I, _P, _LL, _I, _I, _I, _I, _P, _P)
+    "bandwidth_solve_warp_f32": (_P, _P, _LL, _I, _P, _P, _P, _P)
+    + (_I,) * 5 + (_P,),
+    "bandwidth_solve_cluster_f32": (_P, _P, _LL, _I, _P, _P, _P, _P, _I, _LL,
+                                    _I, _I, _I, _LL, _I, _I, _LL, _P, _P),
+    **{f"masked_bs_argmax_{t}": (_P, _I, _P, _P, _LL, _I, _I, _I, _I, _LL,
+                                 _P, _P, _P, _P)
+       for t in ("f32", "bf16", "i8")},
+    **{f"best_bs_argmax_{t}": (_P, _I, _P, _LL, _I, _I, _I, _I, _I, _P, _P)
        for t in ("f32", "bf16", "i8")},
     "fedavg_reduce_f32": (_P, _P, _LL, _LL, _P, _I, _I, _P),
     "fedavg_reduce_i8": (_P, _P, _LL, _LL, _P, _I, _I, _P),

@@ -76,16 +76,29 @@ def pair_capacity(plan: BwPlan, vec: bool) -> tuple[int, int]:
     return on_chip, users_per_warp - on_chip
 
 
+def _row_tcomp(tcomp: torch.Tensor, k: int) -> torch.Tensor:
+    """tcomp [U], [K, U] or [G, U] (each of the G rows shared by K / G
+    consecutive rows) -> a tensor that broadcasts against [K, U]."""
+    if tcomp.dim() == 2 and tcomp.shape[0] != k:
+        g = tcomp.shape[0]
+        if g == 0 or k % g:
+            raise ValueError(f"tcomp has {g} rows, which do not divide the "
+                             f"{k} rows of coeff")
+        return tcomp.repeat_interleave(k // g, dim=0)
+    return tcomp
+
+
 def bandwidth_solve_plain(coeff: torch.Tensor, tcomp: torch.Tensor,
                           mask: torch.Tensor, bw: torch.Tensor,
                           lo: torch.Tensor | None = None,
                           iters: int | None = None,
                           method: str = "newton") -> torch.Tensor:
-    """The kernel's arithmetic in torch ops (its CPU path and oracle)."""
+    """The kernel's arithmetic in torch ops (its CPU path and oracle) on
+    [K, U] rows."""
     method_default = default_iters(method)       # rejects unknown methods
     iters = method_default if iters is None else iters
     c = coeff.float()
-    tc = tcomp.float().expand_as(c)
+    tc = _row_tcomp(tcomp.float(), c.shape[0]).expand_as(c)
     m = mask.bool()
     bw = bw.float()
     any_user = m.any(dim=-1)
@@ -120,6 +133,29 @@ def bandwidth_solve_plain(coeff: torch.Tensor, tcomp: torch.Tensor,
     return torch.where(any_user, t, 0.0)
 
 
+def _flatten_fleet(coeff, tcomp, mask, bw, lo):
+    """[F, K, U] fleet operands -> the [F K, U] rows of one solve (views
+    of contiguous operands): tcomp [F, U] stays one vector a problem."""
+    f, k, u = coeff.shape
+    tc = tcomp if tcomp.dim() == 2 else tcomp.reshape(f * k, u)
+    return (coeff.reshape(f * k, u), tc, mask.reshape(f * k, u),
+            bw.reshape(f * k), None if lo is None else lo.reshape(f * k))
+
+
+def bandwidth_solve_fleet_plain(coeff: torch.Tensor, tcomp: torch.Tensor,
+                                mask: torch.Tensor, bw: torch.Tensor,
+                                lo: torch.Tensor | None = None,
+                                iters: int | None = None,
+                                method: str = "newton") -> torch.Tensor:
+    """The plain version over a leading fleet axis: coeff/mask [F, K, U],
+    tcomp [F, U] or [F, K, U], bw and lo [F, K] -> [F, K]; row for row
+    the arithmetic of :func:`bandwidth_solve_plain`."""
+    f, k = coeff.shape[:2]
+    return bandwidth_solve_plain(
+        *_flatten_fleet(coeff, tcomp, mask, bw, lo), iters=iters,
+        method=method).reshape(f, k)
+
+
 def _upcast(t: torch.Tensor) -> torch.Tensor:
     # compact channel storage may hand us bf16 coeff / tcomp: solve in f32
     return t.float() if t.dtype == torch.bfloat16 else t
@@ -130,12 +166,21 @@ def bandwidth_solve(coeff: torch.Tensor, tcomp: torch.Tensor,
                     lo: torch.Tensor | None = None,
                     iters: int | None = None,
                     method: str = "newton") -> torch.Tensor:
-    """coeff/mask [K, U], tcomp [U] (shared by every row) or [K, U], bw and
-    the optional warm start lo [K] -> t* [K] float32 (0 for an empty row).
+    """coeff/mask [K, U], tcomp [U] (shared by every row), [K, U] or [G, U]
+    (each row shared by K / G consecutive rows), bw and the optional warm
+    start lo [K] -> t* [K] float32 (0 for an empty row).
+
+    With a leading fleet axis, coeff/mask [F, K, U], tcomp [F, U] or [F,
+    K, U], bw and lo [F, K] -> [F, K]: the F x K rows in one launch, each
+    problem's tcomp read in place by its K rows.
 
     CUDA operands must be contiguous, coeff and tcomp float32 or bfloat16
     (upcast), mask bool, bw and lo float32.
     """
+    if coeff.dim() == 3:
+        f, k = coeff.shape[:2]
+        return bandwidth_solve(*_flatten_fleet(coeff, tcomp, mask, bw, lo),
+                               iters=iters, method=method).reshape(f, k)
     operands = [coeff, tcomp, mask, bw] + ([] if lo is None else [lo])
     index = _lib.cuda_index(*operands)
     if index is None:
@@ -157,10 +202,14 @@ def solve_cuda(index: int, coeff: torch.Tensor, tcomp: torch.Tensor,
     _lib.require(coeff, "coeff", torch.float32, (k, u))
     if tcomp.dim() == 1:
         _lib.require(tcomp, "tcomp", torch.float32, (u,))
-        tc_stride = 0
+        tc_stride, rows_per_tc = 0, 1
     else:
-        _lib.require(tcomp, "tcomp", torch.float32, (k, u))
-        tc_stride = u
+        g = tcomp.shape[0]
+        if g == 0 or k % g:
+            raise ValueError(f"tcomp has {g} rows, which do not divide the "
+                             f"{k} rows of coeff")
+        _lib.require(tcomp, "tcomp", torch.float32, (g, u))
+        tc_stride, rows_per_tc = u, k // g
     _lib.require(mask, "mask", torch.bool, (k, u))
     _lib.require(bw, "bw", torch.float32, (k,))
     if lo is None:
@@ -172,9 +221,10 @@ def solve_cuda(index: int, coeff: torch.Tensor, tcomp: torch.Tensor,
     cp, tp, mp = coeff.data_ptr(), tcomp.data_ptr(), mask.data_ptr()
     bisect = int(method == "bisect")
     if plan.path == "warp":
-        _lib.launch("bandwidth_solve_warp_f32", index, cp, tp, tc_stride, mp,
-                    bw.data_ptr(), lo.data_ptr(), out.data_ptr(), k, u, iters,
-                    bisect, plan.users_per_lane)
+        _lib.launch("bandwidth_solve_warp_f32", index, cp, tp, tc_stride,
+                    rows_per_tc, mp, bw.data_ptr(), lo.data_ptr(),
+                    out.data_ptr(), k, u, iters, bisect,
+                    plan.users_per_lane)
     else:
         vec = u % VEC_USERS == 0 and (cp | tp | mp) % 16 == 0
         on_chip, spill_per_warp = pair_capacity(plan, vec)
@@ -186,8 +236,9 @@ def solve_cuda(index: int, coeff: torch.Tensor, tcomp: torch.Tensor,
         spill = torch.empty((n_warps * spill_per_warp * 8,),
                             dtype=torch.uint8, device=coeff.device)
         _lib.launch("bandwidth_solve_cluster_f32", index, cp, tp, tc_stride,
-                    mp, bw.data_ptr(), lo.data_ptr(), out.data_ptr(), k, u,
-                    iters, bisect, plan.slices, plan.slice, int(vec),
-                    on_chip, spill_per_warp, spill.data_ptr())
+                    rows_per_tc, mp, bw.data_ptr(), lo.data_ptr(),
+                    out.data_ptr(), k, u, iters, bisect, plan.slices,
+                    plan.slice, int(vec), on_chip, spill_per_warp,
+                    spill.data_ptr())
     _lib.LAUNCHES["bandwidth_solve"] += 1
     return out

@@ -22,8 +22,10 @@ against a per-client, per-leaf scale:
 
 Payload accounting (Eq. (1)'s ``s_k``): a sparse update costs
 ``k * (value_bits + 32)`` bits per leaf (32-bit indices); ``topk_frac=1``
-sends dense values only.  The chunked twins of the JAX package
-(``*_chunked``) are not ported yet.
+sends dense values only.  The chunked twins (``*_chunked``, plain torch,
+``compress_delta_tree(block=)``) bound the temporaries to a block of
+features or clients and give the dense results bit for bit, as the JAX
+package's do.
 """
 from __future__ import annotations
 
@@ -77,6 +79,25 @@ def topk_threshold(x: torch.Tensor, k: int
     return vals[:, -1].contiguous(), vals[:, 0].contiguous()
 
 
+def topk_threshold_chunked(x: torch.Tensor, k: int, block: int
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Feature-blocked twin of :func:`topk_threshold`, bit-exact: each
+    block of ``block`` features keeps its ``min(k, block)`` largest |x|,
+    then the k-th largest of those candidates is the dense k-th value
+    (every global top-k entry is a candidate of its block; the rule
+    compares values, so ties resolve as in the dense version)."""
+    n, d = x.shape
+    ax = x.float().abs()
+    pad = (-d) % block
+    if pad:
+        # |x| >= 0, so the -1 padding never enters the top-k (k <= d)
+        ax = torch.nn.functional.pad(ax, (0, pad), value=-1.0)
+    cand = torch.topk(ax.reshape(n, -1, block), min(k, block),
+                      dim=-1).values.reshape(n, -1)
+    vals = torch.topk(cand, k, dim=1).values
+    return vals[:, -1].contiguous(), vals[:, 0].contiguous()
+
+
 def quant_scale(rowmax: torch.Tensor) -> torch.Tensor:
     """Per-row int8 step: max|x| / 127, 1.0 on all-zero rows.  The divisor
     is a tensor: torch may turn a division by a Python scalar into a
@@ -96,6 +117,20 @@ def sparsify_quantize_plain(x: torch.Tensor, thresh: torch.Tensor,
         q = torch.clamp(torch.floor(xf / scale[:, None] + u), -QMAX, QMAX)
         return torch.where(mask, q, 0.0).to(torch.int8)
     return torch.where(mask, xf, 0.0)
+
+
+def sparsify_quantize_chunked(x: torch.Tensor, thresh: torch.Tensor,
+                              scale: torch.Tensor, u: torch.Tensor | None, *,
+                              quantize: bool, block: int) -> torch.Tensor:
+    """Client-blocked twin of the plain version: the same elementwise rule
+    on [block, D] slabs, so the codes are the dense codes bit for bit."""
+    outs = []
+    for i0 in range(0, x.shape[0], block):
+        sl = slice(i0, i0 + block)
+        outs.append(sparsify_quantize_plain(
+            x[sl], thresh[sl], scale[sl], None if u is None else u[sl],
+            quantize=quantize))
+    return torch.cat(outs)
 
 
 def sparsify_quantize(x: torch.Tensor, thresh: torch.Tensor,
@@ -128,14 +163,17 @@ def sparsify_quantize(x: torch.Tensor, thresh: torch.Tensor,
 
 # --------------------------------------------------------- tree-level API --
 def compress_delta_tree(delta: Params, topk_frac: float, *, quantize: bool,
-                        key: torch.Tensor | None = None
-                        ) -> tuple[Params, Params]:
+                        key: torch.Tensor | None = None,
+                        block: int | None = None) -> tuple[Params, Params]:
     """Compress every [N, ...] leaf of a client-delta tree.
 
     Returns ``(codes, scales)``: codes keep the leaf shapes (int8 when
     ``quantize``), scales are [N] float32 dequant steps (ones when not
     quantizing).  Leaf i (sorted-key order) rounds with the noise
     ``uniform(fold_in(key, i), [N, D])``, as in the JAX package.
+    ``block`` takes the chunked twins: the thresholds in feature blocks
+    (leaves wider than ``block``) and, on CPU tensors, the codes in
+    client blocks (the kernel streams them on CUDA); same results.
     """
     if quantize and key is None:
         raise ValueError("quantize=True needs a PRNG key for the "
@@ -145,15 +183,23 @@ def compress_delta_tree(delta: Params, topk_frac: float, *, quantize: bool,
         n = leaf.shape[0]
         xf = leaf.reshape(n, -1).float()
         xf = torch.where(torch.isfinite(xf), xf, 0.0).contiguous()
-        k = nominal_k(xf.shape[1], topk_frac)
-        thresh, rowmax = topk_threshold(xf, k)
+        d = xf.shape[1]
+        k = nominal_k(d, topk_frac)
+        if block is not None and block < d:
+            thresh, rowmax = topk_threshold_chunked(xf, k, block)
+        else:
+            thresh, rowmax = topk_threshold(xf, k)
         if quantize:
             scale = quant_scale(rowmax)
             u = rng.uniform(rng.fold_in(key, i), tuple(xf.shape))
         else:
             scale = torch.ones((n,), dtype=torch.float32, device=xf.device)
             u = None
-        q = sparsify_quantize(xf, thresh, scale, u, quantize=quantize)
+        if block is not None and not xf.is_cuda:
+            q = sparsify_quantize_chunked(xf, thresh, scale, u,
+                                          quantize=quantize, block=block)
+        else:
+            q = sparsify_quantize(xf, thresh, scale, u, quantize=quantize)
         codes.append(q.reshape(leaf.shape))
         scales.append(scale)
     return tree_unflatten(delta, codes), tree_unflatten(delta, scales)

@@ -9,6 +9,7 @@
         --staleness-alpha 0.5
     PYTHONPATH=src python -m repro_torch.launch.fl_sim --scheduler \
         dagsa_jit --scenario non-iid-pathological --speed 50
+    PYTHONPATH=src python -m repro_torch.launch.fl_sim --scheduler ucb
 
 Runs on CUDA by default (``--device cpu`` to run on the CPU) and prints one
 line per round once the run ends.

@@ -10,9 +10,13 @@ the paper's accuracy against simulated wall clock (Figs. 2-4).  Each
 scenario's knobs are lowered to parameter rows (``_scenario_params``),
 and every (scenario, seed) cell draws its world from the JAX package's
 keys, so both packages simulate the same worlds.  The JAX package vmaps
-the cells of a shape bucket into one compiled call; the port runs them
-one after another, each on the device (the greedy syncs the host once a
-step, so batching cells waits for a batched scheduler, ROADMAP A.8b).
+the cells of a shape bucket into one compiled call.  The port runs a
+wireless bucket's cells in lockstep: each round every cell draws its
+world (mobility dispatches on the host by model id, cell by cell), then
+one batched greedy (``dagsa_jit._schedule_batch``) schedules the whole
+bucket, with one host sync a greedy step for the bucket.  Learning cells
+run one after another (their round step schedules inside the FL data
+plane).
 
     PYTHONPATH=src python -m repro_torch.launch.sweep \\
         --scenarios paper-default,high-mobility --seeds 2 --rounds 3
@@ -24,9 +28,13 @@ step, so batching cells waits for a batched scheduler, ROADMAP A.8b).
 Runs on CUDA by default (``--device cpu`` to run on the CPU).  The
 records are the JAX package's (its module docstring has the schema);
 seeds are paired across scenarios: ``split(key, n_seeds)`` is shared.
-Not ported yet, and raising with their ROADMAP labels: ``--user-chunk``
-(A.9b), ``--shard`` / ``--mesh`` (A.9b), ``compute="selected"`` (A.7)
-and the stateful schedulers (A.8b).
+``--user-chunk`` / ``user_chunk=`` evaluates the channel in user blocks
+(the shadowing field's [N, M, 64] features at most [chunk, M, 64]) and,
+on the CPU, streams the greedy's selection through the chunked twins;
+on CUDA the selection kernels stream the plane already, so there it
+bounds the channel intermediates only.  Same records either way.  Not
+ported yet, and raising with their ROADMAP labels: ``--shard`` /
+``--mesh`` (A.9b) and ``compute="selected"`` (A.7).
 """
 from __future__ import annotations
 
@@ -50,11 +58,9 @@ from repro_torch.core.types import WirelessConfig
 from repro_torch.fl import faults as fl_faults
 from repro_torch.fl.rounds import span
 
-# The JAX package's sweep schedulers; the stateful policies are ROADMAP
-# A.8b in the port.
+# The JAX package's sweep schedulers.
 SWEEP_SCHEDULERS = ("dagsa_jit", "dagsa-r", "rs", "ucb", "biased-adaptive",
                     "rr", "pf")
-_STATEFUL = ("ucb", "biased-adaptive", "rr", "pf")
 
 
 # -------------------------------------------------------------- lowering ---
@@ -113,10 +119,8 @@ def _bs_positions(key: torch.Tensor, layout_id: int,
 
 
 def _check_user_chunk(user_chunk: int | None) -> None:
-    if user_chunk is not None:
-        raise NotImplementedError(
-            "user_chunk (blockwise channel tensors and selection) is not "
-            "ported to repro_torch yet (ROADMAP A.9b)")
+    if user_chunk is not None and user_chunk < 1:
+        raise ValueError(f"user_chunk must be >= 1, got {user_chunk}")
 
 
 def _cell_world(p: dict, key: torch.Tensor, cfg: WirelessConfig):
@@ -132,45 +136,77 @@ def _cell_world(p: dict, key: torch.Tensor, cfg: WirelessConfig):
     return k_shadow, k_run, pos0, bs_pos, bs_bw, aux0
 
 
-def _one_cell(p: dict, key: torch.Tensor, cfg: WirelessConfig, n_rounds: int,
-              min_participants: int, channel_dtype: str = "f32") -> dict:
-    """One (scenario, seed) wireless cell: draw the world, run the rounds.
-    Returns ``t_round``, ``n_selected`` and ``min_part_rate``, [R] float32
-    each.  The channel plane is stored as ``channel_dtype`` and its Eq.
-    (11) coefficients are :func:`channel.plane_coefficients`'."""
-    k_shadow, key, pos, bs_pos, bs_bw, aux = _cell_world(p, key, cfg)
-    dev = pos.device
-    counts = torch.zeros((cfg.n_users,), device=dev)
+class _Cell:
+    """One (scenario, seed) wireless cell's world, drawn from its key as
+    the JAX sweep's ``_one_cell`` draws it, and its carry across rounds."""
+
+    def __init__(self, p: dict, key: torch.Tensor, cfg: WirelessConfig):
+        self.p = p
+        (self.k_shadow, self.key, self.pos, self.bs_pos, self.bs_bw,
+         self.aux) = _cell_world(p, key, cfg)
+
+    def draw(self, cfg: WirelessConfig, channel_dtype: str,
+             user_chunk: int | None):
+        """Advance the world a round: ``(k_sched, snr_store, snr_scale,
+        coeff, loop_coeff, tcomp)``.  The channel plane is stored as
+        ``channel_dtype`` and its Eq. (11) coefficients are
+        :func:`channel.plane_coefficients`'."""
+        p = self.p
+        self.key, k_mob, k_snr, k_tc, k_sched = rng.split(self.key,
+                                                          5).unbind(0)
+        self.pos, self.aux = mobility.step_switch(
+            p["model_id"], k_mob, self.pos, self.aux, cfg.area_m,
+            cfg.round_duration_s, p["speed"], p["pause_s"], p["gm_memory"])
+        dist, shadow_db = channel.dist_and_shadow(
+            self.pos, self.bs_pos, p["shadow_sigma"], self.k_shadow, cfg,
+            user_chunk)
+        snr_store, snr_scale, snr_lin = channel.encode_channel(
+            channel.sample_snr(k_snr, dist, cfg, shadow_db=shadow_db),
+            channel_dtype)
+        coeff, loop_coeff = channel.plane_coefficients(
+            snr_store, snr_lin, channel_dtype, cfg)
+        tcomp = rng.fma(rng.uniform(k_tc, (cfg.n_users,)),
+                        p["tcomp_max"] - p["tcomp_min"], p["tcomp_min"])
+        return k_sched, snr_store, snr_scale, coeff, loop_coeff, tcomp
+
+
+def _stack_or_none(xs: list) -> torch.Tensor | None:
+    return None if xs[0] is None else torch.stack(xs)
+
+
+def _bucket_cells(rows: list[dict], seed_keys: torch.Tensor,
+                  cfg: WirelessConfig, n_rounds: int, min_participants: int,
+                  channel_dtype: str = "f32",
+                  user_chunk: int | None = None) -> dict:
+    """Every (scenario, seed) cell of a bucket in lockstep, scenario-major:
+    each round each cell draws its world, then one batched greedy
+    schedules all G cells.  Returns ``t_round``, ``n_selected`` and
+    ``min_part_rate``, [G, R] float32 each."""
+    cells = [_Cell(p, k, cfg) for p in rows for k in seed_keys]
+    dev = seed_keys.device
+    bs_bw = torch.stack([c.bs_bw for c in cells])
+    counts = torch.zeros((len(cells), cfg.n_users), device=dev)
     t_rounds, n_sel, min_pr = [], [], []
     for r in range(n_rounds):
-        key, k_mob, k_snr, k_tc, k_sched = rng.split(key, 5).unbind(0)
         with span("round.world"):
-            pos, aux = mobility.step_switch(
-                p["model_id"], k_mob, pos, aux, cfg.area_m,
-                cfg.round_duration_s, p["speed"], p["pause_s"],
-                p["gm_memory"])
-            dist, shadow_db = channel.dist_and_shadow(
-                pos, bs_pos, p["shadow_sigma"], k_shadow, cfg)
-            snr_store, snr_scale, snr_lin = channel.encode_channel(
-                channel.sample_snr(k_snr, dist, cfg, shadow_db=shadow_db),
-                channel_dtype)
-            coeff, loop_coeff = channel.plane_coefficients(
-                snr_store, snr_lin, channel_dtype, cfg)
-            tcomp = rng.fma(rng.uniform(k_tc, (cfg.n_users,)),
-                            p["tcomp_max"] - p["tcomp_min"], p["tcomp_min"])
+            draws = [c.draw(cfg, channel_dtype, user_chunk) for c in cells]
+            keys, snr, scale, coeff, loop_coeff, tcomp = (
+                _stack_or_none(list(x)) for x in zip(*draws))
             # Eq. (8g), the post-round requirement, as make_problem's
             necessary = counts < (torch.tensor(cfg.rho1, device=dev)
                                   * torch.tensor(r + 1.0, device=dev))
         with span("round.schedule"):
-            _, selected, _, _, t_round = dagsa_jit._schedule(
-                snr_store, coeff, tcomp, bs_bw, necessary, min_participants,
-                k_sched, snr_scale=snr_scale, loop_coeff=loop_coeff)
+            _, selected, _, _, t_round = dagsa_jit._schedule_batch(
+                snr, coeff, tcomp, bs_bw, necessary, min_participants, keys,
+                selection_block=user_chunk, snr_scale=scale,
+                loop_coeff=loop_coeff)
         counts = counts + selected.to(counts.dtype)
         t_rounds.append(t_round)
-        n_sel.append(selected.sum().float())
-        min_pr.append(counts.min() / (r + 1.0))
-    return {"t_round": torch.stack(t_rounds), "n_selected": torch.stack(n_sel),
-            "min_part_rate": torch.stack(min_pr)}
+        n_sel.append(selected.sum(dim=-1).float())
+        min_pr.append(counts.amin(dim=-1) / (r + 1.0))
+    return {"t_round": torch.stack(t_rounds, dim=-1),
+            "n_selected": torch.stack(n_sel, dim=-1),
+            "min_part_rate": torch.stack(min_pr, dim=-1)}
 
 
 # ------------------------------------------------------------------- API ---
@@ -227,9 +263,13 @@ def run_sweep(scenarios: Sequence[str | ScenarioSpec], n_seeds: int = 4,
               channel_dtype: str = "f32", device=None) -> list[dict]:
     """The wireless sweep: one record dict per scenario, in the caller's
     order.  Every cell of a shape bucket (n_users, n_bs) uses the bucket's
-    seed keys ``split(PRNGKey(seed), n_seeds)``.  ``channel_dtype``
+    seed keys ``split(PRNGKey(seed), n_seeds)``, and the bucket's cells
+    run in lockstep, one batched greedy a round.  ``channel_dtype``
     stores the [N, M] channel plane as ``"f32"``, ``"bf16"`` or ``"int8"``
-    dB codes with a per-BS scale."""
+    dB codes with a per-BS scale.  ``user_chunk`` (any size >= 1) bounds
+    the channel's per-round intermediates to that many users and, on the
+    CPU, streams the greedy's selection in blocks of it; the records do
+    not change."""
     _check_user_chunk(user_chunk)
     if channel_dtype not in channel.CHANNEL_DTYPES:
         raise ValueError(f"unknown channel_dtype {channel_dtype!r}; "
@@ -243,11 +283,12 @@ def run_sweep(scenarios: Sequence[str | ScenarioSpec], n_seeds: int = 4,
         minp = int(np.ceil(bcfg.rho2 * n_users))
         params = _scenario_params([s for _, s in group], bcfg, device=dev)
         seed_keys = rng.split(rng.PRNGKey(seed, device=dev), n_seeds)
-        cells = [[_one_cell(_row(params, i), seed_keys[j], bcfg, n_rounds,
-                            minp, channel_dtype) for j in range(n_seeds)]
-                 for i in range(len(group))]
-        records.update(_wireless_records(group, _stack_cells(cells), n_seeds,
-                                         n_rounds))
+        outs = _bucket_cells([_row(params, i) for i in range(len(group))],
+                             seed_keys, bcfg, n_rounds, minp, channel_dtype,
+                             user_chunk)
+        outs = {k: v.reshape(len(group), n_seeds, n_rounds).cpu().numpy()
+                for k, v in outs.items()}
+        records.update(_wireless_records(group, outs, n_seeds, n_rounds))
     return [records[i] for i in range(len(specs))]
 
 
@@ -262,7 +303,8 @@ def _one_learning_cell(p: dict, key: torch.Tensor, x_c, y_c, params0,
                        staleness_alpha: float = 0.0, buffer_size: int = 1,
                        channel_dtype: str = "f32",
                        compress: str | None = None,
-                       topk_frac: float = 1.0) -> dict:
+                       topk_frac: float = 1.0,
+                       user_chunk: int | None = None) -> dict:
     """One (scenario, seed) FL cell: draw the world, then run the
     canonical round step (:func:`repro_torch.fl.rounds.make_round_step`,
     ``world="sweep"``) for ``n_rounds`` rounds (ticks of ``tick_s`` when
@@ -285,7 +327,7 @@ def _one_learning_cell(p: dict, key: torch.Tensor, x_c, y_c, params0,
         aggregation=aggregation, tau_global=tau_global, compress=compress,
         topk_frac=topk_frac, faults=faults, async_on=async_on,
         tick_s=tick_s, staleness_alpha=staleness_alpha,
-        buffer_size=buffer_size)
+        buffer_size=buffer_size, user_chunk=user_chunk)
     outs = []
     for r in range(n_rounds):
         state, out = step(state, r)
@@ -497,9 +539,11 @@ def run_learning_sweep(scenarios: Sequence[str | ScenarioSpec],
     their delivery estimate; ``aggregation_async`` runs ticks of
     ``tick_s``.  The dataset, and each seed's partition and model init,
     are shared across scenarios (paired seeds).  ``cnn_cfg`` picks the
-    CNN (None: the JAX sweep's small default).  ``compute="selected"``,
-    ``select_cap``, ``user_chunk`` and the stateful schedulers raise
-    (ROADMAP A.7, A.9b, A.8b)."""
+    CNN (None: the JAX sweep's small default).  ``scheduler`` may be a
+    stateful policy (``ucb``, ``biased-adaptive``, ``rr``, ``pf``), whose
+    estimates ride each cell's round state.  ``user_chunk`` evaluates the
+    channel in user blocks, as :func:`run_sweep` does.
+    ``compute="selected"`` and ``select_cap`` raise (ROADMAP A.7)."""
     from repro_torch.data.synthetic import make_dataset
     from repro_torch.kernels import compress_topk as ct
     from repro_torch.models import cnn
@@ -507,10 +551,6 @@ def run_learning_sweep(scenarios: Sequence[str | ScenarioSpec],
     if scheduler not in SWEEP_SCHEDULERS:
         raise ValueError(f"unknown sweep scheduler {scheduler!r}; "
                          f"choose from {SWEEP_SCHEDULERS}")
-    if scheduler in _STATEFUL:
-        raise NotImplementedError(
-            f"stateful scheduler {scheduler!r} is not ported to repro_torch "
-            f"yet (ROADMAP A.8b)")
     if compute != "full" or select_cap is not None:
         raise NotImplementedError(
             "compute='selected' / select_cap is not ported to repro_torch "
@@ -569,7 +609,8 @@ def run_learning_sweep(scenarios: Sequence[str | ScenarioSpec],
                 tick_s=float(tick_s) if aggregation_async else 1.0,
                 staleness_alpha=float(staleness_alpha),
                 buffer_size=buf if aggregation_async else 1,
-                channel_dtype=channel_dtype, compress=comp, topk_frac=frac)
+                channel_dtype=channel_dtype, compress=comp, topk_frac=frac,
+                user_chunk=user_chunk)
                 for j in range(n_seeds)])
         async_info = ({"aggregation_async": True, "tick_s": float(tick_s),
                        "staleness_alpha": float(staleness_alpha),
@@ -609,7 +650,9 @@ def main(argv=None) -> None:
     ap.add_argument("--mesh", type=int, default=None, metavar="D",
                     help="not ported yet (ROADMAP A.9b)")
     ap.add_argument("--user-chunk", type=int, default=None, metavar="B",
-                    help="not ported yet (ROADMAP A.9b)")
+                    help="evaluate the channel (and, on the CPU, the "
+                         "greedy's selection) in blocks of B users; same "
+                         "records")
     ap.add_argument("--n-users", type=int, default=None, metavar="N",
                     help="override WirelessConfig.n_users (fleet size) for "
                          "every scenario")
@@ -650,9 +693,9 @@ def main(argv=None) -> None:
     ap.add_argument("--scheduler", default="dagsa_jit",
                     choices=SWEEP_SCHEDULERS,
                     help="round scheduler; 'dagsa-r' discounts candidates "
-                         "by estimated delivery probability "
-                         "(--learning only; the stateful ones are ROADMAP "
-                         "A.8b)")
+                         "by estimated delivery probability; ucb, "
+                         "biased-adaptive, rr and pf carry per-user "
+                         "estimates across rounds (--learning only)")
     ap.add_argument("--faults", default=None,
                     choices=tuple(fl_faults.FAULT_PRESETS),
                     help="override every scenario's fault model with this "
@@ -735,7 +778,7 @@ def main(argv=None) -> None:
             buffer_size=args.buffer_size, channel_dtype=args.channel_dtype,
             compress=args.compress, topk_frac=args.topk_frac,
             partition=args.partition, dirichlet_alpha=args.dirichlet_alpha,
-            seed=args.seed, device=args.device)
+            user_chunk=args.user_chunk, seed=args.seed, device=args.device)
         summary = " ".join(
             f"{r['scenario']}={r['final_acc_mean']:.3f}"
             if r["final_acc_mean"] is not None else f"{r['scenario']}=n/a"
@@ -743,7 +786,8 @@ def main(argv=None) -> None:
     else:
         records = run_sweep(names, n_seeds=args.seeds, n_rounds=args.rounds,
                             cfg=cfg, channel_dtype=args.channel_dtype,
-                            seed=args.seed, device=args.device)
+                            seed=args.seed, user_chunk=args.user_chunk,
+                            device=args.device)
         summary = " ".join(f"{r['scenario']}={r['t_round_mean_s']:.3f}s"
                            for r in records)
     payload = json.dumps(records, indent=2)

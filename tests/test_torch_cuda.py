@@ -1062,3 +1062,183 @@ def test_small_sweep_on_card_matches_cpu(dev, channel_dtype):
         assert g["curves"]["n_selected"] == w["curves"]["n_selected"]
         np.testing.assert_allclose(g["curves"]["t_round_s"],
                                    w["curves"]["t_round_s"], rtol=rtol)
+
+
+# ------------------------------------------------------- the fleet axis ---
+def _fleet_planes(f, n, m, dtype, dev, seed):
+    """[F, N, M] planes of ``dtype`` (int8 dB codes, or bf16 / f32 values
+    with ties), [F, M] scales (one negative a problem) and [F, N] masks."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if dtype == torch.int8:
+        snr = torch.randint(-127, 128, (f, n, m), generator=gen, device=dev,
+                            dtype=torch.int8)
+    else:
+        snr = (torch.rand((f, n, m), generator=gen, device=dev) * 8.0).round()
+        snr = snr.to(dtype)                     # few values: many ties
+    scale = torch.rand((f, m), generator=gen, device=dev) + 0.05
+    scale[:, m // 2] = -scale[:, m // 2]
+    rem = torch.rand((f, n), generator=gen, device=dev) < 0.5
+    rem[f // 2] = False                         # a problem with no user left
+    return snr, scale, rem
+
+
+# [F, 50, 8]: one block a problem; [3, 7001, 33]: a grid a problem, each
+# problem's plane off 4 and 16 bytes (int8 and bf16); [2, 70000, 100]:
+# many blocks a problem
+@pytest.mark.parametrize("f,n,m", [(36, 50, 8), (3, 7001, 33),
+                                   (2, 70000, 100), (5, 1, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_fleet_selection_kernels(dev, f, n, m, dtype):
+    """Kernels 2 and 3 on a fleet, one launch each, against their plain
+    versions and against F calls on the problems' [N, M] planes."""
+    snr, scale, rem = _fleet_planes(f, n, m, dtype, dev, f * n + m)
+    for sc in ((scale, None) if dtype != torch.int8 else (scale,)):
+        before = dict(_lib.LAUNCHES)
+        cand, best = ks.masked_bs_argmax(snr, rem, sc)
+        bb = ks.best_bs_argmax(snr, sc)
+        assert _lib.LAUNCHES["masked_bs_argmax"] == \
+            before["masked_bs_argmax"] + 1
+        assert _lib.LAUNCHES["best_bs_argmax"] == before["best_bs_argmax"] + 1
+        pc, pb = ks.masked_bs_argmax_plain(snr, rem, sc)
+        assert torch.equal(cand, pc) and torch.equal(best, pb)
+        assert torch.equal(bb, ks.best_bs_argmax_plain(snr, sc))
+        for i in range(f):
+            s_i = None if sc is None else sc[i]
+            c1, b1 = ks.masked_bs_argmax(snr[i], rem[i], s_i)
+            assert torch.equal(cand[i], c1) and torch.equal(best[i], b1)
+            assert torch.equal(bb[i], ks.best_bs_argmax(snr[i], s_i))
+        assert (cand[f // 2] == 0).all() and torch.isinf(best[f // 2]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_fleet_best_bs_plane_off_alignment(dev, dtype):
+    """A fleet whose first plane starts one code past 16 bytes: every
+    problem's rows at their own offset, read in place."""
+    f, n, m = 4, 333, 7
+    snr, scale, _ = _fleet_planes(f, n, m, dtype, dev, 3)
+    buf = torch.empty(f * n * m + 1, dtype=dtype, device=dev)
+    off = buf[1:].view(f, n, m)
+    off.copy_(snr)
+    assert off.data_ptr() % 16 != 0
+    for sc in (scale, None):
+        assert torch.equal(ks.best_bs_argmax(off, sc),
+                           ks.best_bs_argmax_plain(snr, sc))
+
+
+def test_fleet_masked_bs_argmax_under_a_graph(dev):
+    """Kernel 2 on a fleet of 4 [70000, 100] problems (107 blocks each,
+    each problem its own keys and ticket) captured into a CUDA graph and
+    replayed five times, then eager again."""
+    f, n, m = 4, 70000, 100
+    assert ks.masked_bs_plan(n, m, torch.float32, True)[4] > 1
+    gen = torch.Generator(device=dev).manual_seed(8)
+    snr = torch.rand((f, n, m), generator=gen, device=dev)
+    rem = torch.rand((f, n), generator=gen, device=dev) < 0.5
+    want = ks.masked_bs_argmax_plain(snr, rem)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ks.masked_bs_argmax(snr, rem)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        cand, best = ks.masked_bs_argmax(snr, rem)
+    for _ in range(5):
+        cand.zero_()
+        best.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(cand, want[0]) and torch.equal(best, want[1])
+    for _ in range(2):
+        got = ks.masked_bs_argmax(snr, rem)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("f,k,u", [(36, 8, 50), (4, 8, 300), (2, 4, 20000)])
+def test_fleet_bandwidth_solve(dev, f, k, u):
+    """Kernel 1 on [F, K, U] rows with tcomp [F, U] (each read by its
+    problem's K rows) in one launch, against the plain version and F 2-D
+    calls: the warp, block and cluster paths."""
+    rs = _rs(f + k + u)
+    c, _, mask, bw, lo = _bw_inputs(rs, f * k, u, dev)
+    coeff, mask = c.view(f, k, u), mask.view(f, k, u)
+    bw, lo = bw.view(f, k), lo.view(f, k)
+    tcomp = torch.tensor(rs.uniform(0.1, 0.11, (f, u)), dtype=torch.float32,
+                         device=dev)
+    mask[1, 0] = False                          # an empty row
+    for method in ("newton", "bisect"):
+        before = _lib.LAUNCHES["bandwidth_solve"]
+        got = kb.bandwidth_solve(coeff, tcomp, mask, bw, lo=lo, method=method)
+        assert _lib.LAUNCHES["bandwidth_solve"] == before + 1
+        want = kb.bandwidth_solve_fleet_plain(coeff, tcomp, mask, bw, lo=lo,
+                                              method=method)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+        for i in range(f):
+            one = kb.bandwidth_solve(coeff[i], tcomp[i], mask[i], bw[i],
+                                     lo=lo[i], method=method)
+            torch.testing.assert_close(got[i], one, rtol=1e-5, atol=1e-7)
+        assert got[1, 0].item() == 0.0
+
+
+@pytest.mark.parametrize("channel_dtype", ["f32", "int8"])
+def test_batched_greedy_on_card_matches_cpu(dev, channel_dtype):
+    """The fleet greedy on 12 problems of 50 users x 8 BSs: assignments
+    equal the CPU's, times rtol 1e-5; one best_bs_argmax launch a call."""
+    from repro_torch.core import channel
+    f, n, m = 12, 50, 8
+    rs = _rs(11)
+    snr = (10.0 ** rs.uniform(0, 4, (f, n, m))
+           * rs.exponential(size=(f, n, m))).astype(np.float32)
+    arrays = dict(tcomp=rs.uniform(0.1, 0.11, (f, n)).astype(np.float32),
+                  bs_bw=rs.uniform(0.5, 1.5, (f, m)).astype(np.float32),
+                  necessary=rs.random((f, n)) < 0.2)
+    keys = torch.stack([torch.tensor([0, s]) for s in range(f)])
+    res = {}
+    for d in ("cpu", dev):
+        t = {k: torch.tensor(v, device=d) for k, v in arrays.items()}
+        plane = torch.tensor(snr, device=d)
+        scale = None
+        if channel_dtype == "int8":
+            enc = [channel.encode_channel(p, "int8") for p in plane]
+            plane = torch.stack([e[0] for e in enc])
+            scale = torch.stack([e[1] for e in enc])
+            lin = torch.stack([e[2] for e in enc])
+        else:
+            lin = plane
+        coeff = channel.bandwidth_time_coeff(lin, WirelessConfig())
+        before = _lib.LAUNCHES["best_bs_argmax"]
+        res[str(d)] = dagsa_jit.dagsa_schedule_batch(
+            SchedulingProblem(snr=plane, coeff=coeff, min_participants=25,
+                              **t), keys.to(d), snr_scale=scale)
+        if d == dev:
+            assert _lib.LAUNCHES["best_bs_argmax"] == before + 1
+    cpu, gpu = res["cpu"], res[str(dev)]
+    assert torch.equal(cpu.assign, gpu.assign.cpu())
+    torch.testing.assert_close(gpu.bs_time.cpu(), cpu.bs_time, rtol=1e-5,
+                               atol=1e-7)
+
+
+@pytest.mark.parametrize("scheduler", ["ucb", "biased-adaptive", "rr", "pf"])
+def test_stateful_run_on_card_matches_cpu(dev, scheduler):
+    """A stateful policy's small run (12 users, 4 BSs, 3 rounds): decisions
+    and the carried estimates on the card equal the CPU's."""
+    cfg = FLConfig(wireless=WirelessConfig(n_users=12, n_bs=4), n_train=120,
+                   n_test=40, local_epochs=1, batch_size=10, seed=7,
+                   scheduler=scheduler)
+    _lib.reset_launches()
+    gsim = FLSimulation(cfg, device=dev)
+    gpu = gsim.run(3)
+    for name in ("bandwidth_solve", "best_bs_argmax", "fedavg_reduce"):
+        assert _lib.LAUNCHES[name] > 0, _lib.LAUNCHES
+    csim = FLSimulation(cfg, device="cpu")
+    cpu = csim.run(3)
+    for g, c in zip(gpu, cpu):
+        assert (g.n_selected, g.min_part_rate) == (c.n_selected,
+                                                   c.min_part_rate)
+        assert math.isclose(g.t_round, c.t_round, rel_tol=1e-5)
+    gs, cs = gsim._state.sched, csim._state.sched
+    for field in ("n_obs", "sel_count", "ptr", "t"):
+        assert torch.equal(getattr(gs, field).cpu(), getattr(cs, field))
+    for field in ("rate_sum", "tcomp_sum", "ewma"):
+        torch.testing.assert_close(getattr(gs, field).cpu(),
+                                   getattr(cs, field), rtol=1e-6, atol=0.0)

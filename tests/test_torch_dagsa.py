@@ -143,9 +143,16 @@ def test_registry_routes_and_rejects_later_schedulers():
     direct = t_host.dagsa_schedule(prob, seed=5)
     assert torch.equal(res.assign, direct.assign)
     assert torch.equal(res.bs_time, direct.bs_time)
-    for name, msg in (("ucb", "not ported"), ("nope", "unknown")):
-        with pytest.raises(ValueError, match=msg):
-            schedule(name, prob, WirelessConfig(n_users=12, n_bs=4), key)
+    # a stateful policy from the registry is its round 0 from fresh state
+    from repro_torch.core.scheduler import (schedule_stateful,
+                                            scheduler_state_init)
+    w = WirelessConfig(n_users=12, n_bs=4)
+    res = schedule("ucb", prob, w, key)
+    direct, _ = schedule_stateful("ucb", prob, w, key,
+                                  scheduler_state_init("ucb", 12))
+    assert torch.equal(res.assign, direct.assign)
+    with pytest.raises(ValueError, match="unknown"):
+        schedule("nope", prob, w, key)
 
 
 def test_solve_all_satisfies_eq11_and_eq12():

@@ -195,9 +195,12 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_config_rejects_what_the_port_lacks():
+    # the stateful policies are ported: the config takes them, and so
+    # does the buffered-async engine (their state rides the round step)
+    from repro_torch.fl.rounds import ASYNC_SCHEDULERS
     for name in ("ucb", "biased-adaptive", "rr", "pf"):
-        with pytest.raises(ValueError, match="not ported"):
-            FLConfig(scheduler=name)
+        assert FLConfig(scheduler=name).scheduler == name
+        assert name in ASYNC_SCHEDULERS
     with pytest.raises(ValueError, match="unknown scheduler"):
         FLConfig(scheduler="nope")
     with pytest.raises(ValueError, match="bs_layout"):

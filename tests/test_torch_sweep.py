@@ -170,17 +170,19 @@ def test_learning_seed_inputs_match_jax():
 
 def test_what_the_port_lacks_raises_with_its_label():
     w = WirelessConfig(n_users=12, n_bs=4)
-    with pytest.raises(NotImplementedError, match="A.9b"):
-        sweep.run_sweep(["paper-default"], cfg=w, user_chunk=8,
+    # user_chunk is ported: it is validated as in the JAX package
+    with pytest.raises(ValueError, match="user_chunk must be >= 1"):
+        sweep.run_sweep(["paper-default"], cfg=w, user_chunk=0,
                         device="cpu")
+    with pytest.raises(ValueError, match="user_chunk must be >= 1"):
+        sweep.main(["--user-chunk", "0", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="A.7"):
         sweep.run_learning_sweep(["paper-default"], cfg=w, compute="selected",
                                  device="cpu")
+    # the stateful policies are sweep schedulers (run in test_torch_state)
     for name in ("ucb", "biased-adaptive", "rr", "pf"):
-        with pytest.raises(NotImplementedError, match="A.8b"):
-            sweep.run_learning_sweep(["paper-default"], cfg=w,
-                                     scheduler=name, device="cpu")
-    for argv in (["--shard"], ["--mesh", "2"], ["--user-chunk", "64"]):
+        assert name in sweep.SWEEP_SCHEDULERS
+    for argv in (["--shard"], ["--mesh", "2"]):
         with pytest.raises(NotImplementedError, match="A.9b"):
             sweep.main(argv + ["--device", "cpu"])
     with pytest.raises(ValueError, match="unknown sweep scheduler"):

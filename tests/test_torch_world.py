@@ -171,8 +171,12 @@ def test_shadowing_and_dist_and_shadow(sigma):
     else:
         np.testing.assert_allclose(tsh.numpy(), np.asarray(sh), rtol=1e-5,
                                    atol=1e-4)
-    with pytest.raises(NotImplementedError, match="A.9b"):
-        channel.dist_and_shadow(tpos, tbs, sigma, tk, W, user_chunk=64)
+    # in user blocks (a partial last block): the same values bit for bit
+    cd, csh = channel.dist_and_shadow(tpos, tbs, sigma, tk, W, user_chunk=7)
+    assert torch.equal(cd, td)
+    assert (csh is None) == (tsh is None)
+    if tsh is not None:
+        assert torch.equal(csh, tsh)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
