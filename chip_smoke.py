@@ -24,8 +24,10 @@
    FedAvg (M=8 and M=100, 50%-dense and the path's one-hot weights) and
    the uplink compressor over 1,000 clients of the fc1 leaf; FedAvg also
    as the faulty async tick weights it, "main_weighted_clip": staleness
-   weights, clip_norm, a NaN client and a masked-out one), in float32
-   and over int8 codes, and times the kernel, the plain version and one
+   weights, clip_norm, a NaN client and a masked-out one; FedAvg, per-BS
+   FedAvg and the compressor also on the [cap] rows of
+   ``compute="selected"``, "selected_cap25" and "selected_cap100"), in
+   float32 and over int8 codes, and times the kernel, the plain version and one
    PyTorch call as a yardstick: each row's ``ms`` (CUDA events around
    back-to-back calls), ``graph_ms`` (the same calls captured in one CUDA
    graph and replayed: device time alone) and ``host_us`` (host time of
@@ -58,10 +60,21 @@
    aggregation (``faulty_async``, 4 ticks of 0.5 s, alpha 0.5) and the
    ``ucb`` policy (3 rounds); on ``faulty`` and ``faulty_async`` a spy on
    the engine's FedAvg call shows the delivery mask (and the staleness
-   weights) reaching kernel 4;
-6. profiles one more round of ``sync``, ``hier_int8``, ``faulty_async``
-   and ``ucb`` each (torch.profiler: host and device time per round
-   phase, the busiest device ops, the device's busy share);
+   weights) reaching kernel 4; then ``compute="selected"``:
+   ``sync_selected`` (the default cap of 25, 3 rounds, each round's
+   ``n_selected`` beside the cap), ``hier_int8_selected`` (5 rounds) and
+   ``faulty_async_selected`` (cap 8, 4 ticks), a spy showing local SGD
+   and kernels 4-6 getting [cap] rows (the async tick's kernel 4 the [N]
+   scatter of what was delivered), and ``sync_selected_cover`` (cap 50,
+   2 rounds) against its ``compute="full"`` twin: records exactly equal,
+   the model within rtol 1e-5;
+6. profiles one more round of ``sync``, ``sync_selected``, ``hier_int8``,
+   ``faulty_async`` and ``ucb`` each (torch.profiler: host and device
+   time per round phase, the busiest device ops, the device's busy
+   share), then runs ``fleet_selected``: 2 rounds of the mega-fleet world
+   at 20,000 users x 100 BSs with ``compute="selected"`` (cap 100), its
+   peak allocated bytes beside the dense fleet's 2 N P float32
+   parameters and gradients, which it must stay below;
 6b. the scenario sweeps (``repro_torch.launch.sweep``): the four golden
    sweep configurations small on the card against the CPU, then, each
    with the launch counts zeroed just before it and read just after, the
@@ -75,7 +88,8 @@
    bf16 and in int8, a ``ucb`` learning sweep (``sweep_ucb``, 2 x 3) and
    the wireless sweep in user chunks of 16 (``wireless_chunk``,
    paper-default and shadowed, 2 x 5; its records equal the unchunked
-   run's); wall seconds a round and launches for each (a wireless
+   run's), a ``compute="selected"`` learning sweep (``sweep_selected``,
+   paper-default and high-mobility, cap 16, 2 x 3); wall seconds a round and launches for each (a wireless
    bucket runs its cells in lockstep, one batched greedy a round: the
    batched calls and greedy steps too), and the profiled busy share of
    one learning round, one wireless round and a round of every scenario
@@ -681,6 +695,24 @@ def check_kernels(dev, fleet_users=1_000_000, fleet_bs=100,
            lambda: kf.reduce_leaf(w, x), lambda: kf.reduce_leaf_plain(w, x),
            lambda: w @ x, n_fleet * d * 4 + n_fleet * 4 + d * 4,
            2 * n_fleet * d, 20)
+    # compute="selected": the [cap] gathered rows, the scheduled clients
+    # first and padding rows of weight 0 (sync_selected's default cap of
+    # 25; fleet_selected's 100)
+    for label, cap, pad in (("selected_cap25", 25, 3),
+                            ("selected_cap100", 100, 0)):
+        x = torch.randn((cap, d), generator=gen, device=dev)
+        x[cap // 2, d // 3] = float("nan")          # poisoned
+        w = torch.rand((cap,), generator=gen, device=dev)
+        w[cap - pad:] = 0.0                         # padding rows
+        err = _close(f"fedavg_reduce {label}", kf.reduce_leaf(w, x),
+                     kf.reduce_leaf_plain(w, x),
+                     scale=kf.reduce_leaf_plain(w, x.abs()))
+        record("fedavg_reduce", label, [cap, d], err,
+               lambda: kf.reduce_leaf(w, x),
+               lambda: kf.reduce_leaf_plain(w, x), lambda: w @ x,
+               cap * d * 4 + cap * 4 + d * 4, 2 * cap * d, 200,
+               extra={"plan": list(kf.reduce_plan(
+                   torch.float32, cap, d, x.data_ptr() % 16 == 0))})
 
     # -- the same reduction over int8 codes (compressed uplink) ------------
     def int8_codes(n, d):
@@ -739,7 +771,9 @@ def check_kernels(dev, fleet_users=1_000_000, fleet_bs=100,
                 ("fleet", fleet_clients, 8, False, 20),
                 ("fleet_m100", fleet_clients, 100, False, 10),
                 ("fleet_onehot", fleet_clients, 8, True, 20),
-                ("fleet_m100_onehot", fleet_clients, 100, True, 20)):
+                ("fleet_m100_onehot", fleet_clients, 100, True, 20),
+                # hier_int8_selected's [cap] rows at the default cap
+                ("selected_cap25", 25, 8, True, 200)):
             w, x = segment_case(n, m, int8, onehot)
             got = kf.segment_reduce_leaf(w, x)
             err = _close(f"{kernel} {label}", got,
@@ -766,7 +800,8 @@ def check_kernels(dev, fleet_users=1_000_000, fleet_bs=100,
             del w, x, got
 
     # -- the uplink compressor: top-k mask (+ int8 stochastic round) -------
-    for label, n, reps in (("main", 50, 200), ("fleet", fleet_clients, 20)):
+    for label, n, reps in (("main", 50, 200), ("fleet", fleet_clients, 20),
+                           ("selected_cap25", 25, 200)):
         k = ct.nominal_k(d, 0.1)
         x = torch.randn((n, d), generator=gen, device=dev) * 0.01
         x[0] = 0.25                                 # a row of magnitude ties
@@ -1059,7 +1094,32 @@ PATHS = (
     # best BS, kernel 1 for the Eq. (11) split
     ("ucb", dict(scheduler="ucb"), 3,
      ("best_bs_argmax", "bandwidth_solve", "fedavg_reduce")),
+    # compute="selected": local SGD and the reductions on [cap] rows (the
+    # default cap is ceil(rho2 N) = 25); the async tick trains and admits
+    # [8] rows and reduces the [N] scatter of what was delivered
+    ("sync_selected", dict(compute="selected"), 3,
+     _SCHED + ("fedavg_reduce",)),
+    ("hier_int8_selected", dict(aggregation="hierarchical", tau_global=5,
+                                compress="topk-int8", topk_frac=0.1,
+                                compute="selected"), 5,
+     _SCHED + ("sparsify_quantize", "fedavg_segment_reduce_int8")),
+    ("faulty_async_selected", dict(scheduler="dagsa-r", faults="faulty-uplink",
+                                   aggregation_async=True, tick_s=0.5,
+                                   staleness_alpha=0.5, compute="selected",
+                                   select_cap=8), 4,
+     _SCHED + ("fedavg_reduce",)),
 )
+# sync_selected_cover: a cap covering the fleet (50), against its
+# compute="full" twin in the same call
+COVER = ("sync_selected_cover", dict(compute="selected", select_cap=50), 2,
+         _SCHED + ("fedavg_reduce",))
+# fleet_selected: the mega-fleet world at 20,000 users and 100 BSs, 10
+# samples a user, the default cap ceil(5e-3 N) = 100; no dense twin (its
+# 2 N P float32 parameters and gradients alone take 16.9 GB)
+FLEET_SELECTED = ("fleet_selected", dict(
+    scenario="mega-fleet", n_train=200_000, batch_size=10, local_epochs=2,
+    compute="selected", wireless=dict(n_users=20_000, rho1=0.0, rho2=5e-3)),
+    2, _SCHED + ("fedavg_reduce",))
 
 
 def _fedavg_spy(rounds_mod) -> tuple:
@@ -1086,32 +1146,102 @@ def _fedavg_spy(rounds_mod) -> tuple:
     return calls, real
 
 
+def _row_spy() -> tuple[dict, callable]:
+    """Wrap the client-row entry points of a round: local SGD (both
+    flavours) and the wrappers of kernels 4, 5 and 6, wherever the engine
+    and the compressor look them up, to record the client rows each call
+    gets.  Returns ``{entry: [rows, ...]}`` and the function that undoes
+    the wrapping."""
+    from repro_torch.fl import client as fl_client
+    from repro_torch.kernels import compress_topk as ct
+    from repro_torch.kernels import fedavg_reduce as kf
+
+    rows: dict = {}
+    undo = []
+
+    def wrap(mod, name, key, arg):
+        real = getattr(mod, name)
+
+        def spy(*args, **kwargs):
+            rows.setdefault(key, []).append(int(args[arg].shape[0]))
+            return real(*args, **kwargs)
+
+        setattr(mod, name, spy)
+        undo.append((mod, name, real))
+
+    wrap(fl_client, "fleet_local_sgd", "local_sgd", 1)
+    wrap(fl_client, "fleet_local_sgd_per_client", "local_sgd", 1)
+    for mod in (kf, ct):
+        wrap(mod, "reduce_leaf", "fedavg_reduce", 1)
+        wrap(mod, "segment_reduce_leaf", "fedavg_segment_reduce", 1)
+    wrap(ct, "sparsify_quantize", "sparsify_quantize", 0)
+
+    def restore():
+        for mod, name, real in undo:
+            setattr(mod, name, real)
+    return rows, restore
+
+
+def _check_selected_rows(label: str, rows: dict, cap: int, n: int,
+                         is_async: bool) -> None:
+    """compute="selected": local SGD ran on [cap] rows, and so did every
+    kernel 4-6 call, except an async tick's kernel 4, which reduces the
+    [N] scatter of what was delivered."""
+    print(f"path {label} client rows a call (cap {cap}, N {n}): "
+          f"{json.dumps({k: sorted(set(v)) for k, v in rows.items()})}",
+          flush=True)
+    if set(rows.get("local_sgd", [])) != {cap}:
+        raise AssertionError(f"path {label}: local SGD did not run on "
+                             f"[{cap}] rows")
+    for key in ("fedavg_reduce", "fedavg_segment_reduce",
+                "sparsify_quantize"):
+        want = n if (is_async and key == "fedavg_reduce") else cap
+        if key in rows and set(rows[key]) != {want}:
+            raise AssertionError(f"path {label}: {key} got rows "
+                                 f"{sorted(set(rows[key]))}, not {want}")
+    if not ({"fedavg_reduce", "fedavg_segment_reduce"} & set(rows)):
+        raise AssertionError(f"path {label}: no FedAvg kernel call seen")
+
+
 def run_path(dev, label: str, extra: dict, rounds: int,
-             required: tuple) -> tuple:
+             required: tuple, on_ready=None) -> tuple:
     """``rounds`` full-width rounds of one path (the paper configuration,
-    50 users, 8 BSs, paper-scale CNN); returns the simulation and the
-    launch counts of the run.  On a faulty path a spy on the engine's
-    FedAvg call checks that the delivery mask (and on an async path the
-    staleness weights) reach kernel 4."""
+    50 users, 8 BSs, paper-scale CNN, unless ``extra`` says otherwise);
+    returns the simulation, the launch counts of the run and its records.
+    On a faulty path a spy on the engine's FedAvg call checks that the
+    delivery mask (and on an async path the staleness weights) reach
+    kernel 4; on a ``compute="selected"`` path a spy on local SGD and the
+    wrappers of kernels 4-6 checks the client rows they get, and each
+    round's ``n_selected`` prints beside the cap.  ``on_ready()`` runs
+    between the set-up and the first round."""
+    from repro_torch.core.types import WirelessConfig
     from repro_torch.fl import rounds as fl_rounds
     from repro_torch.fl.rounds import FLConfig, FLSimulation
     from repro_torch.kernels import _lib
     from repro_torch.models.cnn import CNNConfig, n_params
 
+    kw = dict(extra)
+    if "wireless" in kw:
+        kw["wireless"] = WirelessConfig(**kw["wireless"])
     cfg = FLConfig(**{"dataset": "mnist", "scheduler": "dagsa_jit",
                       "cnn": CNNConfig.paper_scale(), "local_epochs": 10,
-                      "batch_size": 16, "seed": 0, **extra})
+                      "batch_size": 16, "seed": 0, **kw})
     t0 = time.perf_counter()
     sim = FLSimulation(cfg, device=dev)
     torch.cuda.synchronize()
     print(f"path {label}: set-up {time.perf_counter() - t0:.3f} s, "
-          f"{cfg.wireless.n_users} users, {cfg.wireless.n_bs} BSs, "
+          f"{sim.wireless.n_users} users, {sim.wireless.n_bs} BSs, "
           f"{n_params(sim.params)} params, n_train "
           f"{sim.data.x_train.shape[0]}, n_test {sim.data.x_test.shape[0]}, "
           f"{json.dumps(extra)}", flush=True)
     faulty, is_async = sim.faults.active, cfg.aggregation_async
+    selected = sim.compute == "selected"
     if faulty:
         calls, real = _fedavg_spy(fl_rounds)
+    if selected:
+        rows, restore = _row_spy()
+    if on_ready is not None:
+        on_ready()
     _lib.reset_launches()
     recs = []
     try:
@@ -1121,10 +1251,17 @@ def run_path(dev, label: str, extra: dict, rounds: int,
             torch.cuda.synchronize()
             print(f"path {label} round {rec} wall_s="
                   f"{time.perf_counter() - t0:.4f}", flush=True)
+            if selected:
+                print(f"path {label} round {rec.round_idx}: n_selected "
+                      f"{rec.n_selected} cap {sim.select_cap}"
+                      f"{' (cut)' if rec.n_selected > sim.select_cap else ''}",
+                      flush=True)
             recs.append(rec)
     finally:
         if faulty:
             fl_rounds.fedavg_reduce = real
+        if selected:
+            restore()
     launches = dict(_lib.LAUNCHES)
     print(f"path {label} launches: {json.dumps(launches)}", flush=True)
     for name in required:
@@ -1176,7 +1313,90 @@ def run_path(dev, label: str, extra: dict, rounds: int,
                 if not bool(torch.isfinite(p).all()):
                     raise AssertionError(f"path {label}: a model went "
                                          f"non-finite")
-    return sim, launches
+    if selected:
+        _check_selected_rows(label, rows, sim.select_cap,
+                             sim.wireless.n_users, is_async)
+    return sim, launches, recs
+
+
+def run_cover_pair(dev) -> dict:
+    """``sync_selected_cover``: a cap covering the fleet trains every
+    client, the scheduled ones first, so it must reproduce its
+    ``compute="full"`` twin run in the same call: decisions, t_round and
+    the clock exactly, test_acc within one of the 1,000 test samples, the
+    global model within rtol 1e-5 (prints the largest difference).
+    Returns the cover path's launch counts."""
+    label, extra, rounds, required = COVER
+    sim, launches, recs = run_path(dev, label, extra, rounds, required)
+    twin, _, want = run_path(dev, "sync_full_twin", {}, rounds, required)
+    for g, w in zip(recs, want):
+        for f in ("n_selected", "min_part_rate", "t_round", "wall_clock"):
+            if getattr(g, f) != getattr(w, f):
+                raise AssertionError(f"{label}: {f} differs from the full "
+                                     f"run's: {g} vs {w}")
+        if abs(g.test_acc - w.test_acc) > 1.0 / 1000 + 1e-9:
+            raise AssertionError(f"{label}: test_acc differs by more than "
+                                 f"one sample")
+    diff, rel = 0.0, 0.0
+    for k, sub in sim.params.items():
+        for leaf, p in sub.items():
+            q = twin.params[k][leaf]
+            diff = max(diff, float((p - q).abs().max()))
+            rel = max(rel, float(((p - q).abs() - 1e-5 * q.abs()).max()))
+    print(json.dumps({"cover": label, "rounds": rounds,
+                      "max_abs_param_diff": diff,
+                      "within_rtol_1e-5": rel <= 0.0}), flush=True)
+    if rel > 0.0:
+        raise AssertionError(f"{label}: parameters differ from the full "
+                             f"run's beyond rtol 1e-5 (max abs {diff})")
+    return launches
+
+
+def run_fleet_selected(dev) -> tuple:
+    """``fleet_selected``: 2 rounds at 20,000 users with
+    ``compute="selected"``; prints the card's peak allocated bytes of the
+    run (``max_memory_allocated``, set-up included), and of the set-up and
+    the rounds each, beside the dense fleet's 2 N P float32 parameters and
+    gradients, and fails unless the peak is below them."""
+    from repro_torch.models.cnn import n_params
+
+    label, extra, rounds, required = FLEET_SELECTED
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    phases = {}
+
+    def ready():                    # the set-up's peak; the rounds' next
+        torch.cuda.synchronize()
+        phases["setup_peak"] = torch.cuda.max_memory_allocated()
+        phases["setup_end"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        phases["t_rounds"] = time.perf_counter()
+
+    sim, launches, recs = run_path(dev, label, extra, rounds, required,
+                                   on_ready=ready)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - phases.pop("t_rounds")
+    rounds_peak = torch.cuda.max_memory_allocated()
+    peak = max(phases["setup_peak"], rounds_peak)
+    n, p = sim.wireless.n_users, n_params(sim.params)
+    dense = 2 * n * p * 4
+    out = {"fleet_selected": {
+        "n_users": n, "n_bs": sim.wireless.n_bs, "cap": sim.select_cap,
+        "params": p, "rounds": rounds, "wall_s": wall,
+        "wall_s_per_round": wall / rounds,
+        "n_selected": [r.n_selected for r in recs],
+        "max_memory_allocated": peak, "allocated_before": base,
+        **phases, "rounds_peak": rounds_peak,
+        "dense_2NP4_bytes": dense, "peak_over_dense": peak / dense,
+        "rounds_peak_over_dense": rounds_peak / dense}}
+    print(json.dumps(out), flush=True)
+    if not peak < dense:
+        raise AssertionError(f"{label}: peak {peak} B is not below the "
+                             f"dense fleet's {dense} B")
+    del sim
+    return launches
 
 
 def _profile_phases(prof) -> tuple[dict, dict]:
@@ -1350,6 +1570,10 @@ SWEEP_PATHS = (
      ("best_bs_argmax", "bandwidth_solve", "fedavg_reduce")),
     ("wireless_chunk", False, ["paper-default", "shadowed"],
      dict(n_seeds=2, n_rounds=5, user_chunk=16), _SCHED),
+    # compute="selected" in the learning sweep: [16] rows a round
+    ("sweep_selected", True, ["paper-default", "high-mobility"],
+     dict(n_seeds=2, n_rounds=3, compute="selected", select_cap=16),
+     _SCHED + ("fedavg_reduce",)),
 )
 LEARNING = dict(dataset="mnist", n_train=4000, n_test=1000, local_epochs=10,
                 batch_size=16, eval_every=1, seed=0)
@@ -1935,13 +2159,16 @@ def main(argv: list[str]) -> int:
     check_zamba_small(dev)
     sims, launches = {}, {}
     for label, extra, rounds, required in PATHS:
-        sims[label], launches[label] = run_path(dev, label, extra, rounds,
-                                                required)
+        sims[label], launches[label], _ = run_path(dev, label, extra, rounds,
+                                                   required)
+    launches[COVER[0]] = run_cover_pair(dev)
     profile_round(sims["sync"], "sync")
+    profile_round(sims["sync_selected"], "sync_selected")
     profile_round(sims["hier_int8"], "hier_int8")
     profile_round(sims["faulty_async"], "faulty_async")
     profile_round(sims["ucb"], "ucb")
     del sims
+    launches[FLEET_SELECTED[0]] = run_fleet_selected(dev)
 
     check_small_sweeps(dev)
     for label, learning, names, extra, required in SWEEP_PATHS:

@@ -5,8 +5,12 @@ The whole fleet trains in one batched loop over (epoch, batch): every
 parameter leaf carries a leading ``[N]`` client axis, and one backward pass
 of the summed per-client mean losses gives each client exactly its own
 gradient (the clients share no parameter), which is what ``vmap(grad)``
-computes in the JAX package.  Unscheduled clients train too; the mask only
-enters the Eq. (2) aggregation, as in the JAX engine's ``compute="full"``.
+computes in the JAX package.  With ``compute="full"`` unscheduled clients
+train too and the mask only enters the Eq. (2) aggregation; with
+``compute="selected"`` the round engine first gathers a static-size
+padded subset of scheduled clients (:func:`topk_selected_indices`) and
+trains only those rows, so per-client learning state is ``[cap, model]``
+and not ``[N, model]``.
 
 Client i's epoch-e batches come from
 ``permutation(split(key_i, epochs)[e], n_i)[:n_used]``, as in the JAX
@@ -21,6 +25,24 @@ import torch
 from repro_torch import rng
 from repro_torch.models import cnn
 from repro_torch.tree import Params, tree_leaves, tree_map, tree_unflatten
+
+
+def resolve_cap(n: int, select_cap: int | None) -> int:
+    """Static gather width for ``compute="selected"``: ``select_cap``
+    clamped to the fleet size, or the whole fleet when unset."""
+    return n if select_cap is None else min(int(select_cap), n)
+
+
+def topk_selected_indices(selected: torch.Tensor, cap: int) -> torch.Tensor:
+    """[cap] client indices, every selected client first in index order,
+    unselected ones padding the tail (their Eq. (2) weight is 0).
+
+    A cap that covers the selection reproduces the full-fleet result; a
+    smaller one drops the selected clients past it from the round.  The
+    stable sort of the negated mask gives the JAX package's indices
+    exactly."""
+    order = torch.argsort((~selected.bool()).to(torch.int8), stable=True)
+    return order[:cap]
 
 
 def gather_client_tree(tree: Params, idx: torch.Tensor) -> Params:

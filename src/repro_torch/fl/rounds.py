@@ -1,5 +1,6 @@
 """The mobility-aware FL round engine (PyTorch port of ``repro.fl.rounds``:
-the ``"engine"`` and ``"sweep"`` worlds, ``compute="full"``).
+the ``"engine"`` and ``"sweep"`` worlds, ``compute="full"`` and
+``"selected"``).
 
 Per communication round:
   1. users move (the scenario's mobility model; ``rd`` by default),
@@ -18,8 +19,12 @@ Per communication round:
      and ``bandwidth_solve`` for the optimal splits),
   4. with faults, the round's stragglers, outages, crashes and poisoned
      updates are drawn (:mod:`repro_torch.fl.faults`) and a deadline
-     drops late clients; every client runs E epochs of local SGD (the
-     mask enters only the aggregation),
+     drops late clients; clients run E epochs of local SGD: every client
+     with ``compute="full"`` (the mask enters only the aggregation), or
+     with ``compute="selected"`` a static-size gather of ``cap`` clients,
+     the scheduled ones first (:func:`repro_torch.fl.client.
+     topk_selected_indices`), each with its own key, mask entry, data
+     size and fault draw, so the reductions below take ``[cap]`` rows,
   5. aggregation, Eq. (2), over the DELIVERED clients (the scheduled
      ones in the perfect world):
      * ``aggregation="single"``: masked FedAvg into the global model
@@ -89,6 +94,7 @@ from repro_torch.models import cnn
 from repro_torch.tree import tree_leaves, tree_map
 
 WORLDS = ("engine", "sweep")
+COMPUTE_MODES = ("full", "selected")
 
 # The schedulers the buffered-async engine takes: JAX runs it only in its
 # traced round step, which the host schedulers cannot enter (the stateful
@@ -144,6 +150,14 @@ class FLConfig:
     hetero_bw: bool = False            # Fig. 3: B_k ~ U[0.5, 1.5] MHz
     speed_mps: Optional[float] = None  # override the resolved speed (Fig. 4)
     scenario: Optional[str] = None     # registry name (core.scenario)
+    compute: str = "full"              # full: every client trains, the
+                                       # mask enters at aggregation;
+                                       # selected: a static-size padded
+                                       # gather of the scheduled clients
+                                       # (client.topk_selected_indices)
+    select_cap: Optional[int] = None   # the gather's size for selected;
+                                       # None: ceil(rho2 * N), the Eq. (8h)
+                                       # floor
     partition: Optional[str] = None    # shard | dirichlet (None: the
                                        # scenario's, else shard)
     dirichlet_alpha: Optional[float] = None   # Dir(alpha) concentration;
@@ -151,6 +165,7 @@ class FLConfig:
 
     def __post_init__(self):
         sched.check_scheduler(self.scheduler)
+        check_compute(self.compute)
         if self.bs_layout not in BS_LAYOUTS:
             raise ValueError(f"unknown bs_layout {self.bs_layout!r}; "
                              f"choose from {BS_LAYOUTS}")
@@ -251,6 +266,24 @@ class RoundRecord:
                               # this tick (-1 on synchronous runs)
 
 
+def check_compute(compute: str) -> None:
+    """Raise on a compute mode outside :data:`COMPUTE_MODES`."""
+    if compute not in COMPUTE_MODES:
+        raise ValueError(f"unknown compute mode {compute!r}; "
+                         f"choose from {COMPUTE_MODES}")
+
+
+def _selected_rows(mask: torch.Tensor, compute: str,
+                   select_cap: int | None) -> torch.Tensor | None:
+    """The ``[cap]`` client rows a ``compute="selected"`` round trains
+    (``mask``'s clients first), or None for the whole fleet."""
+    check_compute(compute)
+    if compute == "full":
+        return None
+    return fl_client.topk_selected_indices(
+        mask, fl_client.resolve_cap(mask.shape[0], select_cap))
+
+
 def camped_bs(dist: torch.Tensor) -> torch.Tensor:
     """[N] int32 serving cell: the geometrically nearest BS (lowest index
     on a tie)."""
@@ -283,21 +316,33 @@ def _poison(client_params, corrupt, corrupt_mode_id, corrupt_scale):
 
 def train_and_aggregate(params, x_clients, y_clients, keys, selected,
                         data_sizes, *, epochs: int, batch_size: int,
-                        lr: float, delivered=None, corrupt=None,
-                        corrupt_mode_id: int = 0, corrupt_scale: float = 1.0,
-                        clip_norm=None, compress: str | None = None,
-                        topk_frac: float = 1.0, compress_key=None):
-    """The single-tier data plane: local SGD on every client, then masked
-    FedAvg (Eq. 2), over compressed deltas when ``compress`` is set.
+                        lr: float, compute: str = "full",
+                        select_cap: int | None = None, delivered=None,
+                        corrupt=None, corrupt_mode_id: int = 0,
+                        corrupt_scale: float = 1.0, clip_norm=None,
+                        compress: str | None = None, topk_frac: float = 1.0,
+                        compress_key=None):
+    """The single-tier data plane: local SGD, then masked FedAvg (Eq. 2),
+    over compressed deltas when ``compress`` is set.
 
+    ``compute="full"`` trains every client; ``compute="selected"`` trains
+    the ``select_cap`` rows of :func:`fl_client.topk_selected_indices`
+    (the whole fleet when None), each row with its client's data, key,
+    mask entry, data size and fault draw, and aggregates those rows.
     Fault layer: ``delivered`` [N] replaces ``selected`` as the
     aggregation mask, ``corrupt`` [N] poisons those clients' updates after
     SGD and ``clip_norm`` turns on the server's norm clip."""
+    sel = selected if delivered is None else delivered
     with span("round.local_sgd"):
+        idx = _selected_rows(selected, compute, select_cap)
+        if idx is not None:
+            x_clients, y_clients, keys = x_clients[idx], y_clients[idx], \
+                keys[idx]
+            sel, data_sizes = sel[idx], data_sizes[idx]
+            corrupt = None if corrupt is None else corrupt[idx]
         client_params = fl_client.fleet_local_sgd(
             params, x_clients, y_clients, keys, epochs=epochs,
             batch_size=batch_size, lr=lr)
-    sel = selected if delivered is None else delivered
     client_params = _poison(client_params, corrupt, corrupt_mode_id,
                             corrupt_scale)
     if compress is None:
@@ -353,7 +398,7 @@ def async_busy(queue: tuple, n_users: int) -> torch.Tensor:
 
 def async_queue_step(queue: tuple, client_params, dispatch: torch.Tensor,
                      comp_time: torch.Tensor, data_sizes: torch.Tensor, r,
-                     tick_end, staleness_alpha) -> tuple:
+                     tick_end, staleness_alpha, admit_idx=None) -> tuple:
     """Advance the event queue by one tick: admit, deliver, evict.
 
     The queue's rows come first, then this tick's dispatch rows in client
@@ -361,6 +406,13 @@ def async_queue_step(queue: tuple, client_params, dispatch: torch.Tensor,
     times).  Every live entry completing by ``tick_end`` is delivered; the
     rest are sorted by completion time (stable, so equal times keep row
     order) and cut to capacity (the latest completions are evicted).
+
+    ``admit_idx`` [cap] admits ``compute="selected"`` rows:
+    ``client_params`` leaves are [cap, ...], row j owned by client
+    ``admit_idx[j]``.  Those indices list the dispatched clients in client
+    order, so a cap that covers the dispatch set admits the live entries
+    in the dense admit's order; undispatched padding rows enter as empty
+    slots.
 
     Returns ``(queue', delivered, wstale, delivered_updates, diag)``:
     ``delivered`` [N] bool, ``wstale`` [N] f32 and ``delivered_updates``
@@ -371,17 +423,22 @@ def async_queue_step(queue: tuple, client_params, dispatch: torch.Tensor,
     n = dispatch.shape[0]
     b = comp_q.shape[0]
     dev = dispatch.device
-    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    if admit_idx is None:
+        rows = torch.arange(n, dtype=torch.int32, device=dev)
+    else:
+        rows = admit_idx.to(torch.int32)
+        dispatch, comp_time = dispatch[admit_idx], comp_time[admit_idx]
+        data_sizes = data_sizes[admit_idx]
     comp = torch.cat([comp_q, torch.where(dispatch, comp_time, torch.inf)])
-    tick = torch.cat([tick_q, torch.full((n,), int(r), dtype=torch.int32,
-                                         device=dev)])
+    tick = torch.cat([tick_q, torch.full((rows.shape[0],), int(r),
+                                         dtype=torch.int32, device=dev)])
     idx = torch.cat([idx_q, torch.where(dispatch, rows, n)])
     size = torch.cat([size_q, torch.where(dispatch, data_sizes.float(),
                                           0.0)])
     upd = tree_map(lambda q, c: torch.cat([q, c.to(q.dtype)]), upd_q,
                    client_params)
 
-    deliver = torch.isfinite(comp) & (comp <= tick_end)       # [B+N]
+    deliver = torch.isfinite(comp) & (comp <= tick_end)       # [B+rows]
     wst = fl_server.staleness_weights(int(r) - tick, staleness_alpha)
     # delivered entries land in their client's row (busy-masking makes
     # those indices unique); the others go to the sentinel and drop
@@ -422,14 +479,18 @@ def aggregate_weighted(params, delivered_updates, delivered: torch.Tensor,
 def async_round_tick(params, queue: tuple, x_clients, y_clients, keys,
                      dispatch, t_user, data_sizes, r, *, tick_s: float,
                      staleness_alpha, epochs: int, batch_size: int,
-                     lr: float, corrupt=None, corrupt_mode_id: int = 0,
-                     corrupt_scale: float = 1.0, clip_norm=None,
-                     compress: str | None = None, topk_frac: float = 1.0,
-                     compress_key=None) -> tuple:
-    """One buffered-async tick of the data plane: local SGD on the fleet,
-    each dispatched client's completion time ``now + t_user`` with ``now
-    = r * tick_s``, one step of the event queue, and the
-    staleness-weighted Eq. (2) over what landed by ``now + tick_s``.
+                     lr: float, compute: str = "full",
+                     select_cap: int | None = None, corrupt=None,
+                     corrupt_mode_id: int = 0, corrupt_scale: float = 1.0,
+                     clip_norm=None, compress: str | None = None,
+                     topk_frac: float = 1.0, compress_key=None) -> tuple:
+    """One buffered-async tick of the data plane: local SGD on the fleet
+    (``compute="full"``) or on the ``select_cap`` rows of the dispatch
+    set (``compute="selected"``: training and the queue admit are [cap]
+    rows), each dispatched client's completion time ``now + t_user`` with
+    ``now = r * tick_s``, one step of the event queue, and the
+    staleness-weighted Eq. (2) over what landed by ``now + tick_s`` (the
+    deliveries scattered to [N] client rows).
 
     A compressed uplink's lossy round trip happens at dispatch (the queue
     parks what the server will decode), and a client whose raw update
@@ -437,6 +498,11 @@ def async_round_tick(params, queue: tuple, x_clients, y_clients, keys,
     delivered, diag)``.
     """
     with span("round.local_sgd"):
+        admit_idx = _selected_rows(dispatch, compute, select_cap)
+        if admit_idx is not None:
+            x_clients, y_clients, keys = x_clients[admit_idx], \
+                y_clients[admit_idx], keys[admit_idx]
+            corrupt = None if corrupt is None else corrupt[admit_idx]
         client_params = fl_client.fleet_local_sgd(
             params, x_clients, y_clients, keys, epochs=epochs,
             batch_size=batch_size, lr=lr)
@@ -448,6 +514,11 @@ def async_round_tick(params, queue: tuple, x_clients, y_clients, keys,
                 params, client_params, compress, topk_frac, compress_key)
             client_params = tree_map(lambda g, d: g[None] + d.to(g.dtype),
                                      params, ct.decompress_tree(codes, scales))
+        if admit_idx is not None:
+            # the [cap] rows' screen back onto the [N] dispatch mask
+            finite = fl_client.scatter_client_tree(
+                dispatch.shape[0], admit_idx, finite,
+                base=torch.ones_like(dispatch))
         dispatch = dispatch & finite
     dev = dispatch.device
     tick = torch.tensor(tick_s, dtype=torch.float32, device=dev)
@@ -455,7 +526,7 @@ def async_round_tick(params, queue: tuple, x_clients, y_clients, keys,
     with span("round.queue"):
         queue, delivered, wstale, delivered_upd, diag = async_queue_step(
             queue, client_params, dispatch, now + t_user, data_sizes, r,
-            now + tick, staleness_alpha)
+            now + tick, staleness_alpha, admit_idx=admit_idx)
     with span("round.fedavg"):
         params = aggregate_weighted(params, delivered_upd, delivered,
                                     data_sizes, wstale, clip_norm=clip_norm)
@@ -463,9 +534,10 @@ def async_round_tick(params, queue: tuple, x_clients, y_clients, keys,
 
 
 def hierarchical_round(global_params, edge_params, edge_weight, prev_bs,
-                       x_clients, y_clients, keys, assign, serving,
+                       x_clients, y_clients, keys, assign, selected, serving,
                        data_sizes, r: int, *, tau_global: int, epochs: int,
-                       batch_size: int, lr: float, delivered=None,
+                       batch_size: int, lr: float, compute: str = "full",
+                       select_cap: int | None = None, delivered=None,
                        corrupt=None, corrupt_mode_id: int = 0,
                        corrupt_scale: float = 1.0, clip_norm=None,
                        compress: str | None = None, topk_frac: float = 1.0,
@@ -480,6 +552,10 @@ def hierarchical_round(global_params, edge_params, edge_weight, prev_bs,
     an undelivered client's upload reaches no BS (``delivered`` masks
     ``assign``), ``corrupt`` poisons updates after SGD and ``clip_norm``
     clips each update against its assigned edge model.
+    ``compute="selected"`` trains only the ``select_cap`` rows of
+    ``selected`` (:func:`fl_client.topk_selected_indices`): their serving
+    cells are gathered first, so only those rows' edge models are pulled
+    and the segment reductions take [cap] rows.
 
     Returns ``(global_params, edge_params, edge_weight, serving,
     handover_rate)``.
@@ -488,8 +564,16 @@ def hierarchical_round(global_params, edge_params, edge_weight, prev_bs,
     handover_rate = moved.float().mean()
     if delivered is not None:
         assign = assign & delivered[:, None]
+    serving_r = serving
     with span("round.local_sgd"):
-        init = fl_client.gather_client_tree(edge_params, serving)
+        idx = _selected_rows(selected, compute, select_cap)
+        if idx is not None:
+            serving_r = serving[idx]
+            x_clients, y_clients, keys = x_clients[idx], y_clients[idx], \
+                keys[idx]
+            assign, data_sizes = assign[idx], data_sizes[idx]
+            corrupt = None if corrupt is None else corrupt[idx]
+        init = fl_client.gather_client_tree(edge_params, serving_r)
         client_params = fl_client.fleet_local_sgd_per_client(
             init, x_clients, y_clients, keys, epochs=epochs,
             batch_size=batch_size, lr=lr)
@@ -509,7 +593,7 @@ def hierarchical_round(global_params, edge_params, edge_weight, prev_bs,
         assign = assign & finite[:, None]
         with span("round.fedavg"):
             edge_params = ct.fedavg_decompress_segment_reduce(
-                edge_params, codes, scales, assign, serving, data_sizes,
+                edge_params, codes, scales, assign, serving_r, data_sizes,
                 clip_norm=clip_norm)
     # as in the JAX engine, without the finite-update screen that the
     # uncompressed segmented reduction applies inside
@@ -560,7 +644,8 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
                     faults: fl_faults.FaultSpec = fl_faults.NO_FAULTS,
                     async_on: bool = False, tick_s: float = 1.0,
                     staleness_alpha: float = 0.0, buffer_size: int = 1,
-                    user_chunk: int | None = None):
+                    user_chunk: int | None = None, compute: str = "full",
+                    select_cap: int | None = None):
     """Build the round step: ``(init_state, step_fn)`` with
     ``step_fn(state, r) -> (state', out)`` and ``out`` a dict of 0-dim
     device tensors.
@@ -583,10 +668,12 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
 
     The shadowing field is drawn from ``k_shadow`` the same every round.
     ``aggregation``, ``tau_global``, ``compress``, ``topk_frac``,
-    ``faults`` and the async knobs are the resolved knobs of ``cfg``; an
-    inert ``faults`` runs the exact fault-free round."""
+    ``faults``, the async knobs, ``compute`` and ``select_cap`` (None:
+    the whole fleet) are the resolved knobs of ``cfg``; an inert
+    ``faults`` runs the exact fault-free round."""
     if world not in WORLDS:
         raise ValueError(f"unknown world {world!r}; choose from {WORLDS}")
+    check_compute(compute)
     n = w.n_users
     dev = counts0.device
     hier = aggregation == "hierarchical"
@@ -751,7 +838,8 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
         ck = (rng.fold_in(k_fleet, n + 1) if compress == "topk-int8"
               else None)
         data_kw = dict(epochs=cfg.local_epochs, batch_size=cfg.batch_size,
-                       lr=cfg.lr, corrupt=corrupt,
+                       lr=cfg.lr, compute=compute, select_cap=select_cap,
+                       corrupt=corrupt,
                        corrupt_mode_id=fp["corrupt_mode_id"],
                        corrupt_scale=fp["corrupt_scale"],
                        clip_norm=faults.clip_norm, compress=compress,
@@ -776,7 +864,8 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
                 params, edge, edge_w, prev_bs, handover_rate = \
                     hierarchical_round(params, edge, edge_w, prev_bs,
                                        x_clients, y_clients, keys,
-                                       res.assign, serving, data_sizes, r,
+                                       res.assign, res.selected, serving,
+                                       data_sizes, r,
                                        tau_global=tau_global, **deliv_kw,
                                        **data_kw)
             else:
@@ -939,6 +1028,15 @@ class FLSimulation:
                  "compute_spread": compute_spread,
                  "power_spread_db": power_spread_db}
 
+        # the selected gather's size defaults to the Eq. (8h) floor.  The
+        # JAX package runs the host schedulers in its eager round, which
+        # trains the whole fleet whatever the compute mode: so does the
+        # port, to schedule and train as the reference does
+        self.compute = (cfg.compute if cfg.scheduler not in
+                        sched.HOST_SCHEDULERS else "full")
+        self.select_cap = (int(cfg.select_cap) if cfg.select_cap is not None
+                           else int(math.ceil(w.rho2 * w.n_users)))
+
         self.wall_clock = 0.0
         self.round_idx = 0
         self._state, self._step_fn = make_round_step(
@@ -953,7 +1051,8 @@ class FLSimulation:
             async_on=self.aggregation_async,
             tick_s=float(cfg.tick_s) if cfg.tick_s is not None else 1.0,
             staleness_alpha=float(cfg.staleness_alpha),
-            buffer_size=buffer_size)
+            buffer_size=buffer_size, compute=self.compute,
+            select_cap=self.select_cap)
 
     @property
     def params(self):

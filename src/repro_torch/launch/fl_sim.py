@@ -10,9 +10,13 @@
     PYTHONPATH=src python -m repro_torch.launch.fl_sim --scheduler \
         dagsa_jit --scenario non-iid-pathological --speed 50
     PYTHONPATH=src python -m repro_torch.launch.fl_sim --scheduler ucb
+    PYTHONPATH=src python -m repro_torch.launch.fl_sim --scheduler \
+        dagsa_jit --compute selected --select-cap 10
 
 Runs on CUDA by default (``--device cpu`` to run on the CPU) and prints one
-line per round once the run ends.
+line per round once the run ends.  ``--compute selected`` trains only a
+static-size gather of the scheduled clients; like the JAX package, the
+host schedulers (``dagsa``, ``dagsa-r-host``) train the whole fleet.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ from repro_torch.core.scheduler import SCHEDULERS
 from repro_torch.data.synthetic import DATASETS
 from repro_torch.fl.faults import FAULT_PRESETS
 from repro_torch.fl.rounds import (AGGREGATIONS, BS_LAYOUTS, COMPRESS_MODES,
-                                   FLConfig, FLSimulation,
+                                   COMPUTE_MODES, FLConfig, FLSimulation,
                                    accuracy_at_budget)
 from repro_torch.models.cnn import CNNConfig
 
@@ -53,6 +57,11 @@ def main(argv=None) -> None:
     ap.add_argument("--paper-cnn", action="store_true",
                     help="the 16/32/64 CNN (CNNConfig.paper_scale) instead "
                          "of the small default")
+    ap.add_argument("--compute", default="full", choices=COMPUTE_MODES,
+                    help="selected: train only a static-size padded top-K "
+                         "subset of scheduled clients")
+    ap.add_argument("--select-cap", type=int, default=None,
+                    help="K for --compute selected (default ceil(rho2*N))")
     ap.add_argument("--aggregation", default=None, choices=AGGREGATIONS,
                     help="hierarchical: per-BS edge aggregation with a "
                          "global sync every --tau-global rounds (default: "
@@ -116,7 +125,8 @@ def main(argv=None) -> None:
                    lr=args.lr, shards_per_user=args.shards_per_user,
                    eval_every=args.eval_every, seed=args.seed,
                    n_train=args.n_train, n_test=args.n_test, cnn=cnn_cfg,
-                   bs_layout=args.bs_layout, aggregation=args.aggregation,
+                   bs_layout=args.bs_layout, compute=args.compute,
+                   select_cap=args.select_cap, aggregation=args.aggregation,
                    tau_global=args.tau_global, faults=args.faults,
                    deadline_s=args.deadline, aggregation_async=args.async_agg,
                    tick_s=args.tick, staleness_alpha=args.staleness_alpha,

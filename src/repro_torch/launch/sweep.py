@@ -32,9 +32,11 @@ seeds are paired across scenarios: ``split(key, n_seeds)`` is shared.
 (the shadowing field's [N, M, 64] features at most [chunk, M, 64]) and,
 on the CPU, streams the greedy's selection through the chunked twins;
 on CUDA the selection kernels stream the plane already, so there it
-bounds the channel intermediates only.  Same records either way.  Not
-ported yet, and raising with their ROADMAP labels: ``--shard`` /
-``--mesh`` (A.9b) and ``compute="selected"`` (A.7).
+bounds the channel intermediates only.  Same records either way.
+``--compute selected --select-cap K`` trains only a static-size gather
+of each learning round's scheduled clients (the whole fleet when K is
+unset).  Not ported yet, and raising with their ROADMAP label:
+``--shard`` / ``--mesh`` (A.9b).
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ from repro_torch.core.scenario import (BS_LAYOUTS, COMPRESS_MODES, PARTITIONS,
 from repro_torch.core.types import WirelessConfig
 # registers the faulty-* scenarios
 from repro_torch.fl import faults as fl_faults
-from repro_torch.fl.rounds import span
+from repro_torch.fl.rounds import COMPUTE_MODES, check_compute, span
 
 # The JAX package's sweep schedulers.
 SWEEP_SCHEDULERS = ("dagsa_jit", "dagsa-r", "rs", "ucb", "biased-adaptive",
@@ -304,12 +306,16 @@ def _one_learning_cell(p: dict, key: torch.Tensor, x_c, y_c, params0,
                        channel_dtype: str = "f32",
                        compress: str | None = None,
                        topk_frac: float = 1.0,
-                       user_chunk: int | None = None) -> dict:
+                       user_chunk: int | None = None,
+                       compute: str = "full",
+                       select_cap: int | None = None) -> dict:
     """One (scenario, seed) FL cell: draw the world, then run the
     canonical round step (:func:`repro_torch.fl.rounds.make_round_step`,
     ``world="sweep"``) for ``n_rounds`` rounds (ticks of ``tick_s`` when
-    ``async_on``).  ``faults`` is the scenario's resolved fault model.
-    Returns the step's records, [R] tensors each."""
+    ``async_on``).  ``faults`` is the scenario's resolved fault model;
+    ``select_cap`` None trains the whole fleet under
+    ``compute="selected"``.  Returns the step's records, [R] tensors
+    each."""
     from repro_torch.fl.rounds import FLConfig, make_round_step
 
     k_shadow, k_run, pos0, bs_pos, bs_bw, aux0 = _cell_world(p, key, cfg)
@@ -327,7 +333,8 @@ def _one_learning_cell(p: dict, key: torch.Tensor, x_c, y_c, params0,
         aggregation=aggregation, tau_global=tau_global, compress=compress,
         topk_frac=topk_frac, faults=faults, async_on=async_on,
         tick_s=tick_s, staleness_alpha=staleness_alpha,
-        buffer_size=buffer_size, user_chunk=user_chunk)
+        buffer_size=buffer_size, user_chunk=user_chunk, compute=compute,
+        select_cap=select_cap)
     outs = []
     for r in range(n_rounds):
         state, out = step(state, r)
@@ -543,7 +550,10 @@ def run_learning_sweep(scenarios: Sequence[str | ScenarioSpec],
     stateful policy (``ucb``, ``biased-adaptive``, ``rr``, ``pf``), whose
     estimates ride each cell's round state.  ``user_chunk`` evaluates the
     channel in user blocks, as :func:`run_sweep` does.
-    ``compute="selected"`` and ``select_cap`` raise (ROADMAP A.7)."""
+    ``compute="selected"`` trains a static ``select_cap``-row gather of
+    each round's scheduled (async: dispatched) clients in the sync and
+    async engines; unlike :class:`~repro_torch.fl.rounds.FLSimulation`, a
+    None cap is the whole fleet, as in the JAX package's sweep."""
     from repro_torch.data.synthetic import make_dataset
     from repro_torch.kernels import compress_topk as ct
     from repro_torch.models import cnn
@@ -551,10 +561,7 @@ def run_learning_sweep(scenarios: Sequence[str | ScenarioSpec],
     if scheduler not in SWEEP_SCHEDULERS:
         raise ValueError(f"unknown sweep scheduler {scheduler!r}; "
                          f"choose from {SWEEP_SCHEDULERS}")
-    if compute != "full" or select_cap is not None:
-        raise NotImplementedError(
-            "compute='selected' / select_cap is not ported to repro_torch "
-            "yet (ROADMAP A.7)")
+    check_compute(compute)
     _check_user_chunk(user_chunk)
     _check_async_args(aggregation_async, tick_s, staleness_alpha,
                       buffer_size, compute, aggregation)
@@ -610,7 +617,7 @@ def run_learning_sweep(scenarios: Sequence[str | ScenarioSpec],
                 staleness_alpha=float(staleness_alpha),
                 buffer_size=buf if aggregation_async else 1,
                 channel_dtype=channel_dtype, compress=comp, topk_frac=frac,
-                user_chunk=user_chunk)
+                user_chunk=user_chunk, compute=compute, select_cap=select_cap)
                 for j in range(n_seeds)])
         async_info = ({"aggregation_async": True, "tick_s": float(tick_s),
                        "staleness_alpha": float(staleness_alpha),
@@ -679,10 +686,13 @@ def main(argv=None) -> None:
     ap.add_argument("--batch-size", type=int, default=10)
     ap.add_argument("--lr", type=float, default=0.01)
     ap.add_argument("--eval-every", type=int, default=1)
-    ap.add_argument("--compute", default="full", choices=("full", "selected"),
-                    help="'selected' is not ported yet (ROADMAP A.7)")
+    ap.add_argument("--compute", default="full", choices=COMPUTE_MODES,
+                    help="selected: train only a static-size padded top-K "
+                         "subset of each round's scheduled clients "
+                         "(--learning only)")
     ap.add_argument("--select-cap", type=int, default=None,
-                    help="not ported yet (ROADMAP A.7)")
+                    help="K for --compute selected (default: the whole "
+                         "fleet)")
     ap.add_argument("--aggregation", default=None,
                     choices=("single", "hierarchical"),
                     help="override every scenario's aggregation "

@@ -1242,3 +1242,84 @@ def test_stateful_run_on_card_matches_cpu(dev, scheduler):
     for field in ("rate_sum", "tcomp_sum", "ewma"):
         torch.testing.assert_close(getattr(gs, field).cpu(),
                                    getattr(cs, field), rtol=1e-6, atol=0.0)
+
+
+# ------------------------------------------ compute="selected" [cap] rows --
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+@pytest.mark.parametrize("n,cap,m,d", [(50, 25, 8, 100352),
+                                       (20000, 100, 100, 4608),
+                                       (12, 6, 4, 1000), (50, 8, 8, 144)])
+def test_fedavg_kernels_on_selected_rows(dev, dtype, n, cap, m, d):
+    """Kernels 4 and 5 on the [cap] rows of a selected round (the
+    scheduled clients first, padding of weight 0), where the plans key on
+    the rows handed, not the fleet's N: against their plain versions."""
+    from repro_torch.fl import client
+    gen = torch.Generator(device=dev).manual_seed(n + cap)
+    selected = torch.rand((n,), generator=gen, device=dev) < 0.3
+    idx = client.topk_selected_indices(selected, cap)
+    sizes = torch.randint(50, 150, (n,), generator=gen, device=dev)
+    bs = torch.randint(0, m, (n,), generator=gen, device=dev)
+    assign = torch.nn.functional.one_hot(bs, m).bool() & selected[:, None]
+    x = _leaf(cap, d, dtype, dev)
+    w = (selected[idx].float() * sizes[idx].float()).contiguous()
+    key = "fedavg_reduce_int8" if dtype == torch.int8 else "fedavg_reduce"
+    before = _lib.LAUNCHES[key]
+    got = kf.reduce_leaf(w, x)
+    assert _lib.LAUNCHES[key] == before + 1
+    want = kf.reduce_leaf_plain(w, x)
+    scale = kf.reduce_leaf_plain(w, torch.where(torch.isfinite(
+        x.float()), x.float(), 0.0).abs())
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+    ws, _ = segment_weights(assign[idx], sizes[idx])
+    _segment_check(ws.contiguous(), x)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("cap,d", [(25, 100352), (100, 4608), (6, 1000)])
+def test_sparsify_quantize_on_selected_rows(dev, quantize, cap, d):
+    """Kernel 6 on the [cap] client deltas of a selected round: exact."""
+    gen = torch.Generator(device=dev).manual_seed(cap + d)
+    x = torch.randn((cap, d), generator=gen, device=dev) * 0.01
+    x[cap - 1] = 0.0                         # a padding row's zero delta
+    k = ct.nominal_k(d, 0.1)
+    thresh, rowmax = ct.topk_threshold(x, k)
+    scale = ct.quant_scale(rowmax) if quantize else torch.ones_like(rowmax)
+    u = (torch.rand((cap, d), generator=gen, device=dev) if quantize
+         else None)
+    before = _lib.LAUNCHES["sparsify_quantize"]
+    got = ct.sparsify_quantize(x, thresh, scale, u, quantize=quantize)
+    assert _lib.LAUNCHES["sparsify_quantize"] == before + 1
+    assert torch.equal(got, ct.sparsify_quantize_plain(
+        x, thresh, scale, u, quantize=quantize))
+
+
+def test_covering_cap_on_card_equals_full_compute(dev):
+    """sync_selected_cover small: a cap of N on the card reproduces the
+    compute="full" run on the card, records exactly, the global model
+    within rtol 1e-5; and the selected run on the card matches it on the
+    CPU."""
+    base = dict(wireless=WirelessConfig(n_users=12, n_bs=4), n_train=120,
+                n_test=40, local_epochs=1, batch_size=10, seed=7,
+                scheduler="dagsa_jit")
+    full = FLSimulation(FLConfig(**base), device=dev)
+    want = full.run(3)
+    sel = FLSimulation(FLConfig(**base, compute="selected", select_cap=12),
+                       device=dev)
+    got = sel.run(3)
+    for g, w in zip(got, want):
+        assert (g.n_selected, g.min_part_rate, g.t_round, g.wall_clock) == \
+            (w.n_selected, w.min_part_rate, w.t_round, w.wall_clock)
+        assert abs(g.test_acc - w.test_acc) <= 1.0 / 40 + 1e-9
+    for k, sub in sel.params.items():
+        for leaf, p in sub.items():
+            torch.testing.assert_close(p, full.params[k][leaf], rtol=1e-5,
+                                       atol=0.0)
+    cut = FLConfig(**base, compute="selected")           # the cap of 6 cuts
+    gpu = FLSimulation(cut, device=dev).run(3)
+    cpu = FLSimulation(cut, device="cpu").run(3)
+    assert any(g.n_selected > 6 for g in gpu)
+    for g, c in zip(gpu, cpu):
+        assert (g.n_selected, g.min_part_rate) == (c.n_selected,
+                                                   c.min_part_rate)
+        assert math.isclose(g.t_round, c.t_round, rel_tol=1e-5)
+        assert abs(g.test_acc - c.test_acc) <= 1.0 / 40 + 1e-9

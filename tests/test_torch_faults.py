@@ -296,8 +296,8 @@ def test_adversarial_updates_run_matches_jax_and_stays_finite():
     routes to another cell and the conv leaves move apart by ~1e-3; the
     dense layers, which the routing does not reach, still match."""
     extra = dict(scheduler="dagsa-r", faults="adversarial-updates")
-    check_run_against_live_jax(extra, rounds=2)
-    sim, recs = check_run_against_live_jax(extra, layers=("fc1", "fc2"))
+    sim, recs = check_run_against_live_jax(extra, layers=("fc1", "fc2"),
+                                           prefix=2)
     for k, sub in params_to_numpy(sim.params).items():
         for leaf, v in sub.items():
             assert np.isfinite(v).all(), f"{k}.{leaf}"

@@ -20,6 +20,7 @@ fault layer's and the async engine's records too; the other
 import argparse
 import ast
 import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -53,11 +54,22 @@ def test_engine_sync_slice_matches_live_jax_run():
 
 
 def test_engine_sync_slice_with_host_dagsa_matches_live_jax_eager_run():
-    _check_slice_against_live_jax("dagsa", "eager")
+    check_run_against_live_jax(dict(scheduler="dagsa"), mode="eager",
+                               port=_host_dagsa_run())
 
 
 def _check_slice_against_live_jax(scheduler, mode):
     check_run_against_live_jax(dict(scheduler=scheduler), mode=mode)
+
+
+@functools.cache
+def _host_dagsa_run():
+    """The port's 3-round ``engine_sync`` run under the default host
+    greedy, (sim, records): built once, read by the host-greedy slice test
+    and the resume test."""
+    sim = FLSimulation(FLConfig(wireless=WirelessConfig(n_users=12, n_bs=4),
+                                **ENGINE_SYNC), device="cpu")
+    return sim, sim.run(3)
 
 
 def _same(got, want) -> bool:
@@ -65,7 +77,10 @@ def _same(got, want) -> bool:
 
 
 def check_run_against_live_jax(extra: dict, mode=None, rounds: int = 3,
-                               layers=None, params_check=None):
+                               layers=None, params_check=None,
+                               jax_extra: dict | None = None,
+                               edges: bool = False, prefix: int | None = None,
+                               port=None):
     """The port's run of the ``engine_sync`` world with the FLConfig
     fields ``extra`` against a live JAX run of the same config (``mode``
     as JAX's ``run`` takes it).  Exact: ``n_selected``, ``n_delivered``,
@@ -74,17 +89,45 @@ def check_run_against_live_jax(extra: dict, mode=None, rounds: int = 3,
     ``delivered_rate`` and ``goodput_mbit_s``; parameters rtol=1e-4,
     atol=1e-5 (the layers named in ``layers``; None: all of them), or
     ``params_check(port_params, jax_params)`` where given; ``test_acc``
-    within one of the 40 samples.  Returns the port's simulation and
+    within one of the 40 samples.  ``jax_extra`` overrides fields of
+    JAX's config (a ``FaultSpec`` of its own package); ``edges`` holds
+    the hierarchical edge models as the global ones.  ``prefix`` also
+    holds every parameter, rtol=1e-4, atol=1e-5, after the first
+    ``prefix`` rounds: both runs stop there and resume (a run resumes
+    exactly where it stopped).  ``port``: the port's (sim, records) of
+    this config, run already.  Returns the port's simulation and
     records."""
+    segments = [rounds] if prefix is None else [prefix, rounds - prefix]
     with jax.threefry_partitionable(True):
         jsim = JSimulation(JConfig(wireless=JWireless(n_users=12, n_bs=4),
-                                   **ENGINE_SYNC, **extra))
-        want = jsim.run(rounds, mode=mode)
-        j_params = jax.tree.map(np.asarray, jsim.params)
-    tsim = FLSimulation(FLConfig(wireless=WirelessConfig(n_users=12, n_bs=4),
-                                 **ENGINE_SYNC, **extra), device="cpu")
-    got = tsim.run(rounds)
+                                   **ENGINE_SYNC,
+                                   **{**extra, **(jax_extra or {})}))
+        want, j_prefix = [], None
+        for n in segments:
+            if want:
+                j_prefix = jax.tree.map(np.asarray, jsim.params)
+            want += jsim.run(n, mode=mode)
+        j_trees = [jax.tree.map(np.asarray, jsim.params)]
+        if edges:
+            j_trees.append(jax.tree.map(np.asarray, jsim.edge_params))
+    if port is not None:
+        tsim, got = port
+    else:
+        tsim = FLSimulation(FLConfig(wireless=WirelessConfig(n_users=12,
+                                                             n_bs=4),
+                                     **ENGINE_SYNC, **extra), device="cpu")
+        got, t_prefix = [], None
+        for n in segments:
+            if got:
+                t_prefix = params_to_numpy(tsim.params)
+            got += tsim.run(n)
     assert [r.round_idx for r in got] == list(range(1, rounds + 1))
+    if prefix is not None:
+        for k in j_prefix:
+            for leaf in j_prefix[k]:
+                np.testing.assert_allclose(
+                    t_prefix[k][leaf], j_prefix[k][leaf], rtol=1e-4,
+                    atol=1e-5, err_msg=f"round {prefix}: {k}.{leaf}")
     for g, w in zip(got, want):
         for field in ("n_selected", "n_delivered", "n_inflight",
                       "n_dropped", "handover_rate"):
@@ -98,15 +141,18 @@ def check_run_against_live_jax(extra: dict, mode=None, rounds: int = 3,
             np.testing.assert_allclose(getattr(g, field), getattr(w, field),
                                        rtol=1e-5, err_msg=field)
         assert abs(g.test_acc - w.test_acc) <= 1.0 / 40 + 1e-7
-    t_params = params_to_numpy(tsim.params)
-    if params_check is not None:
-        params_check(t_params, j_params)
-        return tsim, got
-    for k in (j_params if layers is None else layers):
-        for leaf in j_params[k]:
-            np.testing.assert_allclose(t_params[k][leaf], j_params[k][leaf],
-                                       rtol=1e-4, atol=1e-5,
-                                       err_msg=f"{k}.{leaf}")
+    t_trees = [params_to_numpy(tsim.params)]
+    if edges:
+        t_trees.append(params_to_numpy(tsim.edge_params))
+    for t_params, j_params in zip(t_trees, j_trees):
+        if params_check is not None:
+            params_check(t_params, j_params)
+            continue
+        for k in (j_params if layers is None else layers):
+            for leaf in j_params[k]:
+                np.testing.assert_allclose(
+                    t_params[k][leaf], j_params[k][leaf], rtol=1e-4,
+                    atol=1e-5, err_msg=f"{k}.{leaf}")
     return tsim, got
 
 
@@ -140,7 +186,7 @@ def test_default_scheduler_is_the_references(monkeypatch):
 
 def test_run_resumes_where_it_stopped():
     cfg = FLConfig(wireless=WirelessConfig(n_users=12, n_bs=4), **ENGINE_SYNC)
-    whole = FLSimulation(cfg, device="cpu").run(3)
+    whole = _host_dagsa_run()[1]
     sim = FLSimulation(cfg, device="cpu")
     parts = sim.run(1) + sim.run(2)
     assert sim.run(0) == []

@@ -176,8 +176,10 @@ def test_what_the_port_lacks_raises_with_its_label():
                         device="cpu")
     with pytest.raises(ValueError, match="user_chunk must be >= 1"):
         sweep.main(["--user-chunk", "0", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A.7"):
-        sweep.run_learning_sweep(["paper-default"], cfg=w, compute="selected",
+    # compute="selected" is ported (test_torch_selected.py); an unknown
+    # mode raises
+    with pytest.raises(ValueError, match="unknown compute mode"):
+        sweep.run_learning_sweep(["paper-default"], cfg=w, compute="sparse",
                                  device="cpu")
     # the stateful policies are sweep schedulers (run in test_torch_state)
     for name in ("ucb", "biased-adaptive", "rr", "pf"):

@@ -16,6 +16,7 @@ the full 38 = 6 x 6 + 2).  Float32 throughout, PRNG pinned with
   ``serve_decode.serve`` equal those of the same loop in JAX.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -50,12 +51,20 @@ def _configs(variant):
     return jc, tc
 
 
+@functools.cache
+def _jax_params(variant):
+    """JAX's ``init_params(PRNGKey(0))`` of a variant, built once for the
+    module: the fixture, the init test and the serving test read it."""
+    jc, _ = _configs(variant)
+    with jax.threefry_partitionable(True):
+        return j_api.init_params(jax.random.PRNGKey(0), jc)
+
+
 @pytest.fixture(scope="module", params=list(VARIANTS))
 def model(request):
     """(jax cfg, port cfg, jax params, the same params as tensors)."""
     jc, tc = _configs(request.param)
-    with jax.threefry_partitionable(True):
-        jp = j_api.init_params(jax.random.PRNGKey(0), jc)
+    jp = _jax_params(request.param)
     return jc, tc, jp, params_from_numpy(jax.tree.map(np.asarray, jp))
 
 
@@ -116,8 +125,7 @@ def test_unported_branches_raise(field, value, item):
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_init_params_matches_jax(variant):
     jc, tc = _configs(variant)
-    with jax.threefry_partitionable(True):
-        want = j_api.init_params(jax.random.PRNGKey(0), jc)
+    want = _jax_params(variant)
     got = api.init_params(rng.PRNGKey(0), tc)
     want_leaves = jax.tree_util.tree_flatten_with_path(want)[0]
     got_leaves = tree_leaves(got)
@@ -271,9 +279,9 @@ def test_cached_decode_matches_jax(model):
 def test_serve_decode_greedy_tokens_match_jax():
     jc, tc = _configs("reduced")
     batch, prompt_len, gen_len = 2, 12, 6
+    jp = _jax_params("reduced")
     with jax.threefry_partitionable(True):
         key = jax.random.PRNGKey(0)
-        jp = j_api.init_params(key, jc)
         cache = j_api.init_cache(jc, batch, prompt_len + gen_len)
         prompt = jax.random.randint(key, (batch, prompt_len), 0, jc.vocab)
     decode = jax.jit(lambda p, c, t, pos: j_api.decode_step(p, jc, c, t, pos))
