@@ -94,6 +94,21 @@
    batched calls and greedy steps too), and the profiled busy share of
    one learning round, one wireless round and a round of every scenario
    x 2 seeds;
+6c. the ``shard`` phase: the same four paths unsharded here and on two
+   gloo ranks sharing the card (``torchrun``, this script with
+   ``--shard-rank DIR``): (a) the wireless sweep over every scenario x 2
+   seeds x 3 rounds, (b) the faulty-uplink ``dagsa-r`` learning sweep at
+   the paper's width (2 x 3), (c) ``shard_schedule_batch`` over the
+   ``wireless_all`` bucket's 28 problems, (d) ``FLSimulation(shard=True)``
+   synchronous, 3 rounds, 50 users; (a) and (b) byte-identical records,
+   (c) exact decisions, (d) exact round records; a ``{"shard": ...}``
+   line with each path's wall at world 1 and 2, the card's busy share in
+   each (a profiled wireless sweep), the all-gather's ms a round, the
+   verdicts, (d)'s largest parameter difference and its entries past
+   rtol 1e-4 / atol 1e-5 beside a one-process control (half the clients
+   trained alone against the same clients in the whole fleet), and each
+   rank's launches a path (``shard_<path>_rank<r>`` in the kernels
+   line);
 7. the LM serving slice (Zamba2-1.2B, 38 Mamba2 layers + one shared
    attention block every 6, at full width and full depth):
    a. holds kernels 7-9 (flash_attention, rmsnorm, ssd_scan) against their
@@ -1724,6 +1739,342 @@ def profile_sweep_round(dev, learning: bool, rounds: int = 3,
     return out
 
 
+# ------------------------------------------------------- sharded paths ----
+# The sharded sweeps and FLConfig.shard on a gloo world of SHARD_WORLD
+# ranks, all on cuda:0, against the same paths unsharded in this process.
+SHARD_WORLD = 2
+SHARD_WIRELESS = dict(n_seeds=2, n_rounds=3)          # every scenario
+SHARD_LEARNING = dict(n_seeds=2, n_rounds=3, scheduler="dagsa-r")
+SHARD_FL = dict(dataset="mnist", scheduler="dagsa_jit", local_epochs=10,
+                batch_size=16, seed=0)                  # and the paper CNN
+SHARD_FL_ROUNDS = 3
+SHARD_GATHER_REPS = 5
+SHARD_PROFILED = 4          # scenarios of the profiled wireless sweep
+
+
+def _shard_fleet(dev) -> tuple:
+    """The ``wireless_all`` bucket's fleet: F paper-width problems (F =
+    :func:`wireless_all_bucket`), one prior participation each, and their
+    keys."""
+    from repro_torch import rng
+    from repro_torch.core import channel, mobility
+    from repro_torch.core.types import WirelessConfig
+
+    cfg = WirelessConfig()
+    key = rng.PRNGKey(0, device=dev)
+    probs = []
+    for s in range(wireless_all_bucket()):
+        k0, k1 = rng.split(rng.fold_in(key, s)).unbind(0)
+        st = mobility.init_positions_grid_bs(k0, cfg)
+        probs.append(channel.make_problem(
+            k1, st, cfg, torch.ones((cfg.n_users,), device=dev), 0))
+    return probs, rng.split(rng.PRNGKey(1, device=dev), len(probs))
+
+
+def shard_paths(dev, mesh=None) -> dict:
+    """(a) the wireless sweep over every scenario, (b) the faulty-uplink
+    ``dagsa-r`` learning sweep at the paper's width, (c) the fleet
+    scheduler over the ``wireless_all`` bucket and (d) the synchronous
+    FLSimulation (50 users, paper CNN), each through its entry point:
+    unsharded with ``mesh`` None, else sharded over ``mesh`` (this rank's
+    part).  Each phase's wall seconds (between barriers) and the kernel
+    launches of this process, the outputs, the card's utilization
+    sampled by nvidia-smi through the timed wireless sweep (on rank 0:
+    the card's, both ranks together), the device busy ms of a profiled
+    wireless sweep of the first SHARD_PROFILED scenarios of the largest
+    bucket (device activity alone: a trace of every scenario takes a
+    minute to read back), and the seconds since the start at each step's
+    end.  Unsharded, also the batch-split control of
+    :func:`_split_control`."""
+    from functools import partial
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.dagsa_jit import dagsa_schedule_batch
+    from repro_torch.core.scenario import SCENARIOS
+    from repro_torch.core.types import WirelessConfig
+    from repro_torch.fl.rounds import FLConfig, FLSimulation
+    from repro_torch.interop import params_to_numpy
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import shard_sweep, sweep
+    from repro_torch.models.cnn import CNNConfig, n_params
+
+    names = list(SCENARIOS)
+    if mesh is None:
+        wireless, learning = sweep.run_sweep, sweep.run_learning_sweep
+        schedule = dagsa_schedule_batch
+    else:
+        wireless = partial(shard_sweep.run_shard_sweep, mesh=mesh)
+        learning = partial(shard_sweep.run_shard_learning_sweep, mesh=mesh)
+        schedule = partial(shard_sweep.shard_schedule_batch, mesh=mesh)
+
+    def barrier():
+        torch.cuda.synchronize()
+        if mesh is not None:
+            dist.barrier()
+
+    out = {"steps_s": {}}
+    t_start = time.perf_counter()
+
+    def step(label):
+        out["steps_s"][label] = time.perf_counter() - t_start
+
+    def timed(label, fn):
+        barrier()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        barrier()
+        out[label] = {"wall_s": time.perf_counter() - t0,
+                      "launches": dict(_lib.LAUNCHES)}
+        step(label)
+        return res
+
+    wireless(names, n_seeds=1, n_rounds=1, device=dev)          # warm-up
+    step("warm_up")
+    smi = (None if mesh is not None and mesh.rank else subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=utilization.gpu",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True))
+    out["wireless_records"] = timed("wireless", lambda: wireless(
+        names, device=dev, **SHARD_WIRELESS))
+    if smi is not None:
+        smi.terminate()
+        util = [float(v) for v in smi.communicate(timeout=30)[0].split()]
+        out["smi_util_mean"] = sum(util) / max(len(util), 1) / 100.0
+        out["smi_samples"] = len(util)
+    buckets = sweep._wireless_buckets([SCENARIOS[n] for n in names],
+                                      WirelessConfig())
+    biggest = max(buckets.values(), key=len)
+    profiled = [spec.name for _, spec in biggest[:SHARD_PROFILED]]
+    barrier()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        wireless(profiled, device=dev, **SHARD_WIRELESS)
+        barrier()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    step("profiled_run")
+    _, ops = _profile_phases(prof)
+    out["profile"] = {"scenarios": profiled, "wall_ms": wall_ms,
+                      "device_busy_ms": sum(t for t, _ in ops.values())}
+    step("profile_read")
+    out["learning_records"] = timed("learning", lambda: learning(
+        ["faulty-uplink"], device=dev, cnn_cfg=CNNConfig.paper_scale(),
+        **LEARNING, **SHARD_LEARNING))
+    probs, keys = _shard_fleet(dev)
+    res = timed("schedule", lambda: schedule(probs, keys))
+    out["schedule_result"] = {k: v.cpu() for k, v in vars(res).items()
+                              if v is not None}
+    sim = FLSimulation(FLConfig(**SHARD_FL, cnn=CNNConfig.paper_scale(),
+                                shard=mesh is not None), device=dev)
+    step("fl_setup")
+    recs = timed("fl", lambda: sim.run(SHARD_FL_ROUNDS))
+    out["fl_records"] = [vars(r) for r in recs]
+    out["fl_params"] = params_to_numpy(sim.params)
+    if mesh is not None:
+        rows = torch.zeros((sim.wireless.n_users // mesh.size,
+                            n_params(sim.params)), device=dev)
+        mesh.gather_rows(rows)                                  # warm-up
+        barrier()
+        t0 = time.perf_counter()
+        for _ in range(SHARD_GATHER_REPS):
+            mesh.gather_rows(rows)
+        barrier()
+        out["gather_ms"] = (time.perf_counter() - t0) * 1e3 \
+            / SHARD_GATHER_REPS
+        out["gather_bytes"] = rows.numel() * 4 * mesh.size
+    else:
+        out["split_params"], out["split_records"] = _split_control(dev)
+    step("end")
+    return out
+
+
+def _split_control(dev) -> tuple:
+    """(d) in one process with each round's local SGD run as the ranks
+    run it, the clients in SHARD_WORLD blocks one after another, and no
+    process group: (parameters, round records).  The sharded run must
+    equal it bit for bit; its distance from the whole-fleet run is the
+    batched SGD's rounding, which moves with the clients trained at
+    once."""
+    from repro_torch.fl import client as fl_client
+    from repro_torch.fl.rounds import FLConfig, FLSimulation
+    from repro_torch.interop import params_to_numpy
+    from repro_torch.models.cnn import CNNConfig
+    from repro_torch.tree import tree_map
+
+    real = fl_client.fleet_local_sgd_per_client
+
+    def in_blocks(init, x, y, keys, *args, **kw):
+        b = x.shape[0] // SHARD_WORLD
+        parts = [real(tree_map(lambda t: t[r * b:(r + 1) * b], init),
+                      x[r * b:(r + 1) * b], y[r * b:(r + 1) * b],
+                      keys[r * b:(r + 1) * b], *args, **kw)
+                 for r in range(SHARD_WORLD)]
+        return tree_map(lambda *ts: torch.cat(ts), *parts)
+
+    fl_client.fleet_local_sgd_per_client = in_blocks
+    try:
+        sim = FLSimulation(FLConfig(**SHARD_FL, cnn=CNNConfig.paper_scale()),
+                           device=dev)
+        recs = sim.run(SHARD_FL_ROUNDS)
+    finally:
+        fl_client.fleet_local_sgd_per_client = real
+    return params_to_numpy(sim.params), [vars(r) for r in recs]
+
+
+def shard_rank(out_dir: Path) -> int:
+    """One rank of the ``shard`` phase (``--shard-rank DIR`` under
+    torchrun): :func:`shard_paths` over the gloo mesh of every rank, its
+    outputs pickled to ``DIR/rank{r}.pkl``."""
+    import pickle
+
+    from repro_torch.launch.mesh import make_data_mesh
+
+    mesh = make_data_mesh()
+    torch.cuda.set_device(mesh.device)
+    try:
+        res = shard_paths(mesh.device, mesh)
+    finally:
+        mesh.close()
+    with open(out_dir / f"rank{mesh.rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+    return 0
+
+
+def _same_json(a, b) -> bool:
+    return json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
+
+
+def _same_value(a, b) -> bool:
+    return a == b or (a != a and b != b)                    # NaN == NaN
+
+
+def run_shard_phase(dev) -> dict:
+    """The ``shard`` phase: :func:`shard_paths` unsharded here, then on
+    SHARD_WORLD ranks sharing this card (torchrun, gloo) in child
+    processes; checks (a) and (b) byte-identical records, (c) exact
+    decisions and (d) exact round records; prints the ``{"shard": ...}``
+    line (wall seconds a cell round at world 1 and 2, the busy shares,
+    the all-gather's ms a round, the verdicts, (d)'s parameter
+    differences beside the batch control's, each step's end) and returns
+    each rank's launch counts a path."""
+    import os
+    import pickle
+    import tempfile
+
+    t_phase = time.perf_counter()
+    one = shard_paths(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                                   if p]))
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(SHARD_WORLD), str(ROOT / "chip_smoke.py"),
+             "--shard-rank", tmp], env=env, cwd=ROOT, timeout=600,
+            capture_output=True, text=True)
+        print(proc.stdout[-2000:], end="", flush=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-6000:], file=sys.stderr, flush=True)
+            raise AssertionError(f"shard: the {SHARD_WORLD}-rank job exited "
+                                 f"with {proc.returncode}")
+        ranks = []
+        for r in range(SHARD_WORLD):
+            with open(Path(tmp) / f"rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+
+    verdicts = {
+        "wireless_bytes_equal": all(_same_json(
+            r["wireless_records"], one["wireless_records"]) for r in ranks),
+        "learning_bytes_equal": all(_same_json(
+            r["learning_records"], one["learning_records"]) for r in ranks),
+        "schedule_decisions_exact": all(
+            torch.equal(r["schedule_result"][k], one["schedule_result"][k])
+            for r in ranks for k in ("assign", "selected")),
+        "fl_records_exact": all(
+            _same_value(g[k], w[k]) for r in ranks
+            for g, w in zip(r["fl_records"], one["fl_records"]) for k in w),
+    }
+    sched_err = max(float((r["schedule_result"][k].double()
+                           - one["schedule_result"][k].double()).abs().max())
+                    for r in ranks for k in ("bw", "bs_time", "t_round"))
+    param_err, past_tol, n_entries, split_err = 0.0, 0, 0, 0.0
+    for r in ranks:
+        for k, leaves in one["fl_params"].items():
+            for leaf, want in leaves.items():
+                got = r["fl_params"][k][leaf].astype("float64")
+                err = abs(got - want)
+                param_err = max(param_err, float(err.max()))
+                past_tol += int((err > 1e-5 + 1e-4 * abs(want)).sum())
+                n_entries += err.size
+                split_err = max(split_err, float(abs(
+                    got - one["split_params"][k][leaf]).max()))
+    verdicts["fl_equals_split_control"] = split_err == 0.0 and all(
+        _same_value(g[k], w[k]) for r in ranks
+        for g, w in zip(r["fl_records"], one["split_records"]) for k in w)
+    cells = len(one["wireless_records"]) * SHARD_WIRELESS["n_seeds"]
+    cell_rounds = cells * SHARD_WIRELESS["n_rounds"]
+    learn_rounds = SHARD_LEARNING["n_seeds"] * SHARD_LEARNING["n_rounds"]
+    wall2 = {p: max(r[p]["wall_s"] for r in ranks)
+             for p in ("wireless", "learning", "schedule", "fl")}
+    prof_wall2 = max(r["profile"]["wall_ms"] for r in ranks)
+    out = {
+        "world": SHARD_WORLD, "device": torch.cuda.get_device_name(0),
+        "wireless_cells": cells,
+        "wireless_s_per_cell_round": {
+            "world1": one["wireless"]["wall_s"] / cell_rounds,
+            "world2": wall2["wireless"] / cell_rounds},
+        "wireless_ratio_world2_world1": wall2["wireless"]
+        / one["wireless"]["wall_s"],
+        "learning_s_per_cell_round": {
+            "world1": one["learning"]["wall_s"] / learn_rounds,
+            "world2": wall2["learning"] / learn_rounds},
+        "schedule_s": {"world1": one["schedule"]["wall_s"],
+                       "world2": wall2["schedule"]},
+        "fl_s_per_round": {"world1": one["fl"]["wall_s"] / SHARD_FL_ROUNDS,
+                           "world2": wall2["fl"] / SHARD_FL_ROUNDS},
+        "device_busy_share": {
+            "world1": one["profile"]["device_busy_ms"]
+            / one["profile"]["wall_ms"],
+            "world2": sum(r["profile"]["device_busy_ms"] for r in ranks)
+            / prof_wall2},
+        "device_busy_share_profiled": one["profile"]["scenarios"],
+        "smi_util_mean": {"world1": one["smi_util_mean"],
+                          "world2": ranks[0]["smi_util_mean"]},
+        "smi_samples": {"world1": one["smi_samples"],
+                        "world2": ranks[0]["smi_samples"]},
+        "gather_ms_per_round": max(r["gather_ms"] for r in ranks),
+        "gather_bytes": ranks[0]["gather_bytes"],
+        "schedule_max_abs_err": sched_err,
+        "fl_params_max_abs_err": param_err,
+        "fl_params_past_rtol1e-4_atol1e-5": [past_tol, n_entries],
+        "fl_split_control_max_abs_err": split_err,
+        "steps_s": {"world1": one["steps_s"],
+                    **{f"rank{i}": r["steps_s"]
+                       for i, r in enumerate(ranks)}},
+        "verdicts": verdicts,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    print(json.dumps({"shard": out}), flush=True)
+    failed = [k for k, ok in verdicts.items() if not ok]
+    if failed:
+        raise AssertionError(f"shard: {failed} failed")
+    launches = {}
+    for r, res in enumerate(ranks):
+        for path, required in (("wireless", _SCHED),
+                               ("learning", _SCHED + ("fedavg_reduce",)),
+                               ("schedule", _SCHED),
+                               ("fl", _SCHED + ("fedavg_reduce",))):
+            counts = res[path]["launches"]
+            for name in required:
+                if counts[name] <= 0:
+                    raise AssertionError(f"shard {path} rank {r} never "
+                                         f"launched {name}")
+            launches[f"shard_{path}_rank{r}"] = counts
+    return launches
+
+
 # ------------------------------------------------------- the LM slice ------
 # Tolerances of tests/test_kernels.py (float32, bfloat16), which the Pallas
 # kernels are held to against their oracles.
@@ -2115,7 +2466,9 @@ def kernel_rows(results: dict, launches: dict) -> list:
 def main(argv: list[str]) -> int:
     kernels_only = argv == ["--kernels"]
     sweeps_only = argv == ["--sweeps"]
-    if argv and not (kernels_only or sweeps_only):
+    shard_rank_dir = (Path(argv[1]) if len(argv) == 2
+                      and argv[0] == "--shard-rank" else None)
+    if argv and not (kernels_only or sweeps_only or shard_rank_dir):
         print(f"chip_smoke: unknown arguments {argv}; takes none, "
               f"--kernels or --sweeps", file=sys.stderr)
         return 2
@@ -2130,6 +2483,8 @@ def main(argv: list[str]) -> int:
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if shard_rank_dir is not None:
+        return shard_rank(shard_rank_dir)
     print("tf32: off for matmul and cudnn (float32 means float32)")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2179,6 +2534,7 @@ def main(argv: list[str]) -> int:
     profile_sweep_round(dev, learning=False)
     # the largest buckets' batched greedy: every scenario, 2 seeds
     profile_sweep_round(dev, learning=False, names=_ALL, n_seeds=2)
+    launches.update(run_shard_phase(dev))
 
     check_zamba_full_f32(dev)
     torch.cuda.empty_cache()

@@ -23,6 +23,8 @@ from typing import Callable
 import torch
 
 from repro_torch import rng
+from repro_torch.launch.sharding import (pad_leading, padded_count,
+                                         unpad_leading)
 from repro_torch.models import cnn
 from repro_torch.tree import Params, tree_leaves, tree_map, tree_unflatten
 
@@ -81,7 +83,8 @@ def scatter_client_tree(n: int, idx: torch.Tensor, tree: Params,
 def fleet_local_sgd(global_params: Params, x_all: torch.Tensor,
                     y_all: torch.Tensor, keys: torch.Tensor, epochs: int,
                     batch_size: int, lr: float,
-                    losses: Callable = cnn.client_losses) -> Params:
+                    losses: Callable = cnn.client_losses,
+                    mesh=None) -> Params:
     """E epochs of SGD on every client, all starting from ``global_params``
     (broadcast into :func:`fleet_local_sgd_per_client`)."""
     n_clients = x_all.shape[0]
@@ -89,22 +92,28 @@ def fleet_local_sgd(global_params: Params, x_all: torch.Tensor,
         lambda g: g.detach()[None].repeat((n_clients,) + (1,) * g.dim()),
         global_params)
     return fleet_local_sgd_per_client(init, x_all, y_all, keys, epochs,
-                                      batch_size, lr, losses)
+                                      batch_size, lr, losses, mesh=mesh)
 
 
 def fleet_local_sgd_per_client(init_params: Params, x_all: torch.Tensor,
                                y_all: torch.Tensor, keys: torch.Tensor,
                                epochs: int, batch_size: int, lr: float,
-                               losses: Callable = cnn.client_losses
-                               ) -> Params:
+                               losses: Callable = cnn.client_losses,
+                               mesh=None) -> Params:
     """E epochs of SGD on every client, client i starting from row i of
     ``init_params`` (leaves [N, ...]; the hierarchical engine's serving
     edge models).
 
     x_all [N, n_i, ...], y_all [N, n_i], keys [N, 2].  Returns the client
     models, leaves [N, ...].  ``losses(params, x, y) -> [N]`` is each
-    client's mean loss on its batch.
+    client's mean loss on its batch.  With a ``mesh`` of more than one
+    rank (:class:`repro_torch.launch.mesh.DataMesh`, ``FLConfig.shard``)
+    the rows pad to a multiple of the mesh size, each rank trains its
+    block and one all-gather returns every row to every rank.
     """
+    if mesh is not None and mesh.world_size > 1:
+        return _sharded_sgd(mesh, init_params, x_all, y_all, keys, epochs,
+                            batch_size, lr, losses)
     n_clients, n = x_all.shape[0], x_all.shape[1]
     n_batches = n // batch_size
     if n_batches == 0:
@@ -129,6 +138,37 @@ def fleet_local_sgd_per_client(init_params: Params, x_all: torch.Tensor,
                 params = tree_unflatten(
                     params, [p - lr * g for p, g in zip(leaves, grads)])
     return params
+
+
+def _sharded_sgd(mesh, init_params: Params, x_all, y_all, keys, epochs,
+                 batch_size, lr, losses) -> Params:
+    """:func:`fleet_local_sgd_per_client` split over ``mesh``: rank r
+    trains rows ``[r b, (r + 1) b)`` of the rows padded by
+    :func:`~repro_torch.launch.sharding.pad_leading` to ``D b``, and one
+    all-gather of the trained rows, flattened to [b, P] float32, returns
+    the [N, ...] client models.  A client's SGD reads only its own row, so
+    each row is what the unsharded fleet computes, up to the rounding of
+    the batched matmuls, which may move with the rows trained at once."""
+    n_clients = x_all.shape[0]
+    n_pad = padded_count(n_clients, mesh.size)
+    b = n_pad // mesh.size
+    like = tree_leaves(init_params)
+    sizes = [leaf[0].numel() for leaf in like]
+    if mesh.rank < mesh.size:
+        rows = slice(mesh.rank * b, (mesh.rank + 1) * b)
+        init, x_r, y_r, k_r = (tree_map(lambda a: a[rows], t) for t in
+                               pad_leading((init_params, x_all, y_all, keys),
+                                           n_pad))
+        trained = tree_leaves(fleet_local_sgd_per_client(
+            init, x_r, y_r, k_r, epochs, batch_size, lr, losses))
+        flat = torch.cat([leaf.reshape(b, -1).float() for leaf in trained],
+                         dim=1)
+    else:                             # takes no rows, joins the gather
+        flat = torch.zeros((b, sum(sizes)), device=x_all.device)
+    flat = unpad_leading(mesh.gather_rows(flat), n_clients)
+    return tree_unflatten(init_params, [
+        part.reshape(leaf.shape).to(leaf.dtype)
+        for part, leaf in zip(flat.split(sizes, dim=1), like)])
 
 
 def local_sgd(params: Params, x: torch.Tensor, y: torch.Tensor,

@@ -90,6 +90,7 @@ from repro_torch.fl.partition import dirichlet_partition, shard_partition
 from repro_torch.kernels import compress_topk as ct
 from repro_torch.kernels.fedavg_reduce import (fedavg_reduce,
                                                fedavg_segment_reduce)
+from repro_torch.launch.mesh import make_data_mesh
 from repro_torch.models import cnn
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -162,6 +163,13 @@ class FLConfig:
                                        # scenario's, else shard)
     dirichlet_alpha: Optional[float] = None   # Dir(alpha) concentration;
                                               # REQUIRED iff dirichlet
+    shard: bool = False                # split each round's local SGD over
+                                       # the torch.distributed ranks (one
+                                       # all-gather a round; every rank
+                                       # runs the rest of the round).
+                                       # Numerically equal, not bit-equal
+    mesh_devices: Optional[int] = None  # ranks that train for shard
+                                        # (None: every rank of the world)
 
     def __post_init__(self):
         sched.check_scheduler(self.scheduler)
@@ -183,6 +191,9 @@ class FLConfig:
                     f"aggregation='hierarchical' (resolved aggregation is "
                     f"{self.aggregation or 'single'!r}); it would silently "
                     f"do nothing")
+        if self.mesh_devices is not None and not self.shard:
+            raise ValueError("mesh_devices only applies with shard=True; "
+                             "it would silently do nothing")
         if self.deadline_s is not None and not self.deadline_s > 0.0:
             raise ValueError("deadline_s must be > 0")
         if (self.faults is not None and not isinstance(self.faults, str)
@@ -321,7 +332,7 @@ def train_and_aggregate(params, x_clients, y_clients, keys, selected,
                         corrupt=None, corrupt_mode_id: int = 0,
                         corrupt_scale: float = 1.0, clip_norm=None,
                         compress: str | None = None, topk_frac: float = 1.0,
-                        compress_key=None):
+                        compress_key=None, mesh=None):
     """The single-tier data plane: local SGD, then masked FedAvg (Eq. 2),
     over compressed deltas when ``compress`` is set.
 
@@ -331,7 +342,8 @@ def train_and_aggregate(params, x_clients, y_clients, keys, selected,
     mask entry, data size and fault draw, and aggregates those rows.
     Fault layer: ``delivered`` [N] replaces ``selected`` as the
     aggregation mask, ``corrupt`` [N] poisons those clients' updates after
-    SGD and ``clip_norm`` turns on the server's norm clip."""
+    SGD and ``clip_norm`` turns on the server's norm clip.  ``mesh``
+    splits the local SGD over its ranks (``FLConfig.shard``)."""
     sel = selected if delivered is None else delivered
     with span("round.local_sgd"):
         idx = _selected_rows(selected, compute, select_cap)
@@ -342,7 +354,7 @@ def train_and_aggregate(params, x_clients, y_clients, keys, selected,
             corrupt = None if corrupt is None else corrupt[idx]
         client_params = fl_client.fleet_local_sgd(
             params, x_clients, y_clients, keys, epochs=epochs,
-            batch_size=batch_size, lr=lr)
+            batch_size=batch_size, lr=lr, mesh=mesh)
     client_params = _poison(client_params, corrupt, corrupt_mode_id,
                             corrupt_scale)
     if compress is None:
@@ -483,7 +495,8 @@ def async_round_tick(params, queue: tuple, x_clients, y_clients, keys,
                      select_cap: int | None = None, corrupt=None,
                      corrupt_mode_id: int = 0, corrupt_scale: float = 1.0,
                      clip_norm=None, compress: str | None = None,
-                     topk_frac: float = 1.0, compress_key=None) -> tuple:
+                     topk_frac: float = 1.0, compress_key=None,
+                     mesh=None) -> tuple:
     """One buffered-async tick of the data plane: local SGD on the fleet
     (``compute="full"``) or on the ``select_cap`` rows of the dispatch
     set (``compute="selected"``: training and the queue admit are [cap]
@@ -505,7 +518,7 @@ def async_round_tick(params, queue: tuple, x_clients, y_clients, keys,
             corrupt = None if corrupt is None else corrupt[admit_idx]
         client_params = fl_client.fleet_local_sgd(
             params, x_clients, y_clients, keys, epochs=epochs,
-            batch_size=batch_size, lr=lr)
+            batch_size=batch_size, lr=lr, mesh=mesh)
     client_params = _poison(client_params, corrupt, corrupt_mode_id,
                             corrupt_scale)
     if compress is not None:
@@ -541,7 +554,7 @@ def hierarchical_round(global_params, edge_params, edge_weight, prev_bs,
                        corrupt=None, corrupt_mode_id: int = 0,
                        corrupt_scale: float = 1.0, clip_norm=None,
                        compress: str | None = None, topk_frac: float = 1.0,
-                       compress_key=None):
+                       compress_key=None, mesh=None):
     """One hierarchical data-plane round (arXiv 2108.09103's architecture).
 
     Each client trains from the edge model of its serving (camped) cell and
@@ -576,7 +589,7 @@ def hierarchical_round(global_params, edge_params, edge_weight, prev_bs,
         init = fl_client.gather_client_tree(edge_params, serving_r)
         client_params = fl_client.fleet_local_sgd_per_client(
             init, x_clients, y_clients, keys, epochs=epochs,
-            batch_size=batch_size, lr=lr)
+            batch_size=batch_size, lr=lr, mesh=mesh)
     client_params = _poison(client_params, corrupt, corrupt_mode_id,
                             corrupt_scale)
     if compress is None:
@@ -645,7 +658,7 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
                     async_on: bool = False, tick_s: float = 1.0,
                     staleness_alpha: float = 0.0, buffer_size: int = 1,
                     user_chunk: int | None = None, compute: str = "full",
-                    select_cap: int | None = None):
+                    select_cap: int | None = None, mesh=None):
     """Build the round step: ``(init_state, step_fn)`` with
     ``step_fn(state, r) -> (state', out)`` and ``out`` a dict of 0-dim
     device tensors.
@@ -670,7 +683,9 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
     ``aggregation``, ``tau_global``, ``compress``, ``topk_frac``,
     ``faults``, the async knobs, ``compute`` and ``select_cap`` (None:
     the whole fleet) are the resolved knobs of ``cfg``; an inert
-    ``faults`` runs the exact fault-free round."""
+    ``faults`` runs the exact fault-free round.  ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.DataMesh`) splits every round's local
+    SGD over its ranks; each rank runs the rest of the round itself."""
     if world not in WORLDS:
         raise ValueError(f"unknown world {world!r}; choose from {WORLDS}")
     check_compute(compute)
@@ -843,7 +858,7 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
                        corrupt_mode_id=fp["corrupt_mode_id"],
                        corrupt_scale=fp["corrupt_scale"],
                        clip_norm=faults.clip_norm, compress=compress,
-                       topk_frac=topk_frac, compress_key=ck)
+                       topk_frac=topk_frac, compress_key=ck, mesh=mesh)
         if async_on:
             # a dead or late uplink never enters the queue
             eligible = res.selected & ~async_busy(queue, n)
@@ -923,11 +938,22 @@ class FLSimulation:
 
     def __init__(self, cfg: FLConfig, device=None):
         self.cfg = cfg
-        self.device = dev = resolve_device(device)
         # the world: explicit fields beat the scenario, which beats the
         # base WirelessConfig
         spec = get_scenario(cfg.scenario) if cfg.scenario else None
         w = spec.wireless(cfg.wireless) if spec else cfg.wireless
+        # shard: every rank runs the run from the same seed and trains its
+        # block of the clients
+        self.mesh = None
+        if cfg.shard:
+            self.mesh = make_data_mesh(cfg.mesh_devices, device=device)
+            if w.n_users % self.mesh.size:
+                raise ValueError(
+                    f"shard=True needs n_users ({w.n_users}) divisible by "
+                    f"the mesh size ({self.mesh.size}); pass "
+                    f"mesh_devices=D for a divisor D")
+        self.device = dev = (self.mesh.device if self.mesh is not None
+                             else resolve_device(device))
         if cfg.speed_mps is not None:
             if spec and spec.mobility == "static" and cfg.speed_mps > 0.0:
                 raise ValueError(
@@ -1052,7 +1078,7 @@ class FLSimulation:
             tick_s=float(cfg.tick_s) if cfg.tick_s is not None else 1.0,
             staleness_alpha=float(cfg.staleness_alpha),
             buffer_size=buffer_size, compute=self.compute,
-            select_cap=self.select_cap)
+            select_cap=self.select_cap, mesh=self.mesh)
 
     @property
     def params(self):

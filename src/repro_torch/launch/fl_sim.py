@@ -12,11 +12,15 @@
     PYTHONPATH=src python -m repro_torch.launch.fl_sim --scheduler ucb
     PYTHONPATH=src python -m repro_torch.launch.fl_sim --scheduler \
         dagsa_jit --compute selected --select-cap 10
+    torchrun --nproc-per-node 2 -m repro_torch.launch.fl_sim --shard \
+        --device cpu --scheduler dagsa_jit
 
 Runs on CUDA by default (``--device cpu`` to run on the CPU) and prints one
 line per round once the run ends.  ``--compute selected`` trains only a
 static-size gather of the scheduled clients; like the JAX package, the
 host schedulers (``dagsa``, ``dagsa-r-host``) train the whole fleet.
+``--shard [--mesh D]`` splits each round's local SGD over the
+``torch.distributed`` ranks (``FLConfig.shard``); rank 0 alone prints.
 """
 from __future__ import annotations
 
@@ -104,6 +108,14 @@ def main(argv=None) -> None:
                     metavar="A",
                     help="Dirichlet concentration for --partition dirichlet "
                          "(small = pathological non-IID)")
+    ap.add_argument("--shard", action="store_true",
+                    help="split each round's local SGD over the "
+                         "torch.distributed ranks (launch with torchrun "
+                         "--nproc-per-node D); numerically equal to the "
+                         "unsharded run, not bit-equal")
+    ap.add_argument("--mesh", type=int, default=None, metavar="D",
+                    help="ranks that train for --shard (default: every "
+                         "rank; must divide n_users)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without it)")
     args = ap.parse_args(argv)
@@ -134,9 +146,16 @@ def main(argv=None) -> None:
                    topk_frac=args.topk_frac, speed_mps=args.speed,
                    hetero_bw=args.hetero_bw, scenario=args.scenario,
                    partition=args.partition,
-                   dirichlet_alpha=args.dirichlet_alpha)
+                   dirichlet_alpha=args.dirichlet_alpha, shard=args.shard,
+                   mesh_devices=args.mesh)
     sim = FLSimulation(cfg, device=args.device)
-    recs = sim.run(args.rounds)
+    try:
+        recs = sim.run(args.rounds)
+    finally:
+        if sim.mesh is not None:
+            sim.mesh.close()
+    if sim.mesh is not None and sim.mesh.rank != 0:
+        return
     hier = sim.aggregation == "hierarchical"
     faulty = sim.faults.active
     is_async = cfg.aggregation_async

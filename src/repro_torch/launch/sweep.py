@@ -35,8 +35,12 @@ on CUDA the selection kernels stream the plane already, so there it
 bounds the channel intermediates only.  Same records either way.
 ``--compute selected --select-cap K`` trains only a static-size gather
 of each learning round's scheduled clients (the whole fleet when K is
-unset).  Not ported yet, and raising with their ROADMAP label:
-``--shard`` / ``--mesh`` (A.9b).
+unset).  ``--shard [--mesh D]`` splits every bucket's cells over the
+``torch.distributed`` ranks (:mod:`repro_torch.launch.shard_sweep`); the
+records are the same bytes, and rank 0 alone prints or writes them:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.sweep --shard \\
+        --device cpu --scenarios paper-default,high-mobility --seeds 3
 """
 from __future__ import annotations
 
@@ -176,16 +180,17 @@ def _stack_or_none(xs: list) -> torch.Tensor | None:
     return None if xs[0] is None else torch.stack(xs)
 
 
-def _bucket_cells(rows: list[dict], seed_keys: torch.Tensor,
+def _bucket_cells(cells: list[tuple[dict, torch.Tensor]],
                   cfg: WirelessConfig, n_rounds: int, min_participants: int,
                   channel_dtype: str = "f32",
                   user_chunk: int | None = None) -> dict:
-    """Every (scenario, seed) cell of a bucket in lockstep, scenario-major:
-    each round each cell draws its world, then one batched greedy
-    schedules all G cells.  Returns ``t_round``, ``n_selected`` and
+    """The G (scenario row, seed key) cells of a bucket in lockstep: each
+    round each cell draws its world, then one batched greedy schedules
+    all G cells.  A cell's results do not depend on which cells share
+    its batch.  Returns ``t_round``, ``n_selected`` and
     ``min_part_rate``, [G, R] float32 each."""
-    cells = [_Cell(p, k, cfg) for p in rows for k in seed_keys]
-    dev = seed_keys.device
+    dev = cells[0][1].device
+    cells = [_Cell(p, k, cfg) for p, k in cells]
     bs_bw = torch.stack([c.bs_bw for c in cells])
     counts = torch.zeros((len(cells), cfg.n_users), device=dev)
     t_rounds, n_sel, min_pr = [], [], []
@@ -224,12 +229,37 @@ def _wireless_buckets(specs: Sequence[ScenarioSpec], base: WirelessConfig
     return buckets
 
 
-def _stack_cells(cells: list[list[dict]]) -> dict:
-    """[S][seeds] cell outputs ([R] tensors) -> [S, seeds, R] float32
-    numpy arrays."""
-    return {k: np.stack([np.stack([c[k].float().cpu().numpy() for c in row])
-                         for row in cells]).astype(np.float32)
-            for k in cells[0][0]}
+def _grid_cells(n_scen: int, n_seeds: int) -> list[tuple[int, int]]:
+    """A bucket's cells in row-major order: cell ``g`` is (scenario
+    ``g // n_seeds``, seed ``g % n_seeds``), the order the outputs
+    reshape back to [S, seeds, ...]."""
+    return [(g // n_seeds, g % n_seeds) for g in range(n_scen * n_seeds)]
+
+
+def _grid_shape(outs: dict, n_scen: int, n_seeds: int) -> dict:
+    """[G, ...] cell outputs -> the [S, seeds, ...] float32 numpy arrays
+    the record builders take."""
+    return {k: v.float().reshape(n_scen, n_seeds, *v.shape[1:]).cpu()
+            .numpy() for k, v in outs.items()}
+
+
+def _run_grid(mesh, n_scen: int, n_seeds: int, run) -> dict:
+    """A bucket's S x seeds cells through ``run(cells) -> {name:
+    [len(cells), ...] tensor}``: every cell here when ``mesh`` is None,
+    else this rank's block of the padded grid
+    (:meth:`~repro_torch.launch.mesh.DataMesh.block`: the padding, which
+    JAX recomputes and cuts off, is not run), the blocks gathered from
+    every rank in rank order.  Returns :func:`_grid_shape`'s arrays."""
+    cells = _grid_cells(n_scen, n_seeds)
+    if mesh is None:
+        outs = run(cells)
+    else:
+        mine = [cells[g] for g in mesh.block(len(cells))]
+        part = ({k: v.cpu() for k, v in run(mine).items()} if mine
+                else None)
+        parts = [p for p in mesh.gather(part) if p is not None]
+        outs = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    return _grid_shape(outs, n_scen, n_seeds)
 
 
 def _wireless_records(group: list[tuple[int, ScenarioSpec]], outs: dict,
@@ -262,7 +292,8 @@ def _wireless_records(group: list[tuple[int, ScenarioSpec]], outs: dict,
 def run_sweep(scenarios: Sequence[str | ScenarioSpec], n_seeds: int = 4,
               n_rounds: int = 10, cfg: WirelessConfig | None = None,
               seed: int = 0, user_chunk: int | None = None,
-              channel_dtype: str = "f32", device=None) -> list[dict]:
+              channel_dtype: str = "f32", device=None,
+              mesh=None) -> list[dict]:
     """The wireless sweep: one record dict per scenario, in the caller's
     order.  Every cell of a shape bucket (n_users, n_bs) uses the bucket's
     seed keys ``split(PRNGKey(seed), n_seeds)``, and the bucket's cells
@@ -271,7 +302,9 @@ def run_sweep(scenarios: Sequence[str | ScenarioSpec], n_seeds: int = 4,
     dB codes with a per-BS scale.  ``user_chunk`` (any size >= 1) bounds
     the channel's per-round intermediates to that many users and, on the
     CPU, streams the greedy's selection in blocks of it; the records do
-    not change."""
+    not change.  ``mesh`` (a :class:`~repro_torch.launch.mesh.DataMesh`)
+    runs this rank's block of each bucket's cells and gathers the rest:
+    every rank returns the same records (:mod:`.shard_sweep`)."""
     _check_user_chunk(user_chunk)
     if channel_dtype not in channel.CHANNEL_DTYPES:
         raise ValueError(f"unknown channel_dtype {channel_dtype!r}; "
@@ -284,12 +317,14 @@ def run_sweep(scenarios: Sequence[str | ScenarioSpec], n_seeds: int = 4,
         bcfg = dataclasses.replace(base, n_bs=n_bs)
         minp = int(np.ceil(bcfg.rho2 * n_users))
         params = _scenario_params([s for _, s in group], bcfg, device=dev)
+        rows = [_row(params, i) for i in range(len(group))]
         seed_keys = rng.split(rng.PRNGKey(seed, device=dev), n_seeds)
-        outs = _bucket_cells([_row(params, i) for i in range(len(group))],
-                             seed_keys, bcfg, n_rounds, minp, channel_dtype,
-                             user_chunk)
-        outs = {k: v.reshape(len(group), n_seeds, n_rounds).cpu().numpy()
-                for k, v in outs.items()}
+
+        def run(cells):
+            return _bucket_cells([(rows[i], seed_keys[j]) for i, j in cells],
+                                 bcfg, n_rounds, minp, channel_dtype,
+                                 user_chunk)
+        outs = _run_grid(mesh, len(group), n_seeds, run)
         records.update(_wireless_records(group, outs, n_seeds, n_rounds))
     return [records[i] for i in range(len(specs))]
 
@@ -534,7 +569,7 @@ def run_learning_sweep(scenarios: Sequence[str | ScenarioSpec],
                        partition: str | None = None,
                        dirichlet_alpha: float | None = None,
                        seed: int = 0, cnn_cfg=None,
-                       device=None) -> list[dict]:
+                       device=None, mesh=None) -> list[dict]:
     """Accuracy against simulated wall clock, one record per scenario.
 
     The arguments and records are the JAX package's
@@ -553,7 +588,9 @@ def run_learning_sweep(scenarios: Sequence[str | ScenarioSpec],
     ``compute="selected"`` trains a static ``select_cap``-row gather of
     each round's scheduled (async: dispatched) clients in the sync and
     async engines; unlike :class:`~repro_torch.fl.rounds.FLSimulation`, a
-    None cap is the whole fleet, as in the JAX package's sweep."""
+    None cap is the whole fleet, as in the JAX package's sweep.  ``mesh``
+    runs this rank's block of each bucket's cells, one after another, and
+    gathers the rest, as :func:`run_sweep` does."""
     from repro_torch.data.synthetic import make_dataset
     from repro_torch.kernels import compress_topk as ct
     from repro_torch.models import cnn
@@ -603,29 +640,33 @@ def run_learning_sweep(scenarios: Sequence[str | ScenarioSpec],
             data, cnn_cfg, k_part, k_init, n_seeds, n_users, shards_per_user,
             partition=part, dirichlet_alpha=alpha)
         params = _scenario_params([s for _, s in group], bcfg, device=dev)
-        cells = []
-        for i, (_, spec) in enumerate(group):
-            fs = spec.faults if faults_on else fl_faults.NO_FAULTS
-            cells.append([_one_learning_cell(
+        cell_kw = dict(
+            cfg=bcfg, n_rounds=n_rounds, minp=minp, epochs=local_epochs,
+            batch_size=batch_size, lr=float(lr), eval_every=eval_every,
+            aggregation=agg, tau_global=tau, scheduler=scheduler,
+            async_on=aggregation_async,
+            tick_s=float(tick_s) if aggregation_async else 1.0,
+            staleness_alpha=float(staleness_alpha),
+            buffer_size=buf if aggregation_async else 1,
+            channel_dtype=channel_dtype, compress=comp, topk_frac=frac,
+            user_chunk=user_chunk, compute=compute, select_cap=select_cap)
+
+        def run(cells):
+            outs = [_one_learning_cell(
                 _row(params, i), seed_keys[j], x_c[j], y_c[j], w0[j],
-                data.x_test, data.y_test, cfg=bcfg, n_rounds=n_rounds,
-                minp=minp, epochs=local_epochs, batch_size=batch_size,
-                lr=float(lr), eval_every=eval_every, aggregation=agg,
-                tau_global=tau, scheduler=scheduler, faults=fs,
-                async_on=aggregation_async,
-                tick_s=float(tick_s) if aggregation_async else 1.0,
-                staleness_alpha=float(staleness_alpha),
-                buffer_size=buf if aggregation_async else 1,
-                channel_dtype=channel_dtype, compress=comp, topk_frac=frac,
-                user_chunk=user_chunk, compute=compute, select_cap=select_cap)
-                for j in range(n_seeds)])
+                data.x_test, data.y_test,
+                faults=(group[i][1].faults if faults_on
+                        else fl_faults.NO_FAULTS), **cell_kw)
+                for i, j in cells]
+            return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
         async_info = ({"aggregation_async": True, "tick_s": float(tick_s),
                        "staleness_alpha": float(staleness_alpha),
                        "buffer_size": buf}
                       if aggregation_async else None)
-        recs = _learning_records(group, _stack_cells(cells), n_seeds,
-                                 n_rounds, dataset, agg, tau, scheduler,
-                                 async_info)
+        recs = _learning_records(group,
+                                 _run_grid(mesh, len(group), n_seeds, run),
+                                 n_seeds, n_rounds, dataset, agg, tau,
+                                 scheduler, async_info)
         if comp is not None:
             ratio = ct.compression_ratio(w0[0], frac, comp == "topk-int8")
             for pos, _ in group:
@@ -653,9 +694,13 @@ def main(argv=None) -> None:
                     help="torch device (default: cuda; raises without it)")
     ap.add_argument("--seed", type=int, default=0, help="PRNG root seed")
     ap.add_argument("--shard", action="store_true",
-                    help="not ported yet (ROADMAP A.9b)")
+                    help="split the seeds x scenarios grid over the "
+                         "torch.distributed ranks (launch with torchrun "
+                         "--nproc-per-node D); the output is the same bytes "
+                         "as the unsharded sweep's")
     ap.add_argument("--mesh", type=int, default=None, metavar="D",
-                    help="not ported yet (ROADMAP A.9b)")
+                    help="ranks that take cells for --shard (default: "
+                         "every rank of the torchrun world)")
     ap.add_argument("--user-chunk", type=int, default=None, metavar="B",
                     help="evaluate the channel (and, on the CPU, the "
                          "greedy's selection) in blocks of B users; same "
@@ -743,10 +788,6 @@ def main(argv=None) -> None:
                          "(lower = more pathological)")
     args = ap.parse_args(argv)
 
-    if args.shard or args.mesh is not None:
-        raise NotImplementedError(
-            "--shard / --mesh (device-sharded sweeps) are not ported to "
-            "repro_torch yet (ROADMAP A.9b)")
     _check_user_chunk(args.user_chunk)
     names = list(SCENARIOS) if args.scenarios == "all" \
         else args.scenarios.split(",")
@@ -755,6 +796,9 @@ def main(argv=None) -> None:
                                    ("rho2", args.rho2)) if v is not None}
     cfg = dataclasses.replace(WirelessConfig(), **overrides) \
         if overrides else None
+    if args.mesh is not None and not args.shard:
+        ap.error("--mesh only applies with --shard; it would silently "
+                 "do nothing")
     if not args.learning and (args.faults is not None
                               or args.deadline is not None
                               or args.scheduler != "dagsa_jit"):
@@ -774,8 +818,38 @@ def main(argv=None) -> None:
                               or args.dirichlet_alpha is not None):
         ap.error("--compress/--topk-frac/--partition/--dirichlet-alpha "
                  "shape the FL round loop; they only apply with --learning")
+    mesh = None
+    if args.shard:
+        from repro_torch.launch.mesh import make_data_mesh
+        mesh = make_data_mesh(args.mesh, device=args.device)
+    try:
+        records, summary = _run_cli(args, names, cfg, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+    if mesh is not None and mesh.rank != 0:
+        return
+    payload = json.dumps(records, indent=2)
+    if args.out == "-":
+        print(payload)
+    else:
+        with open(args.out, "w") as f:
+            f.write(payload + "\n")
+        print(f"wrote {args.out}: {summary}")
+
+
+def _run_cli(args, names: list[str], cfg, mesh) -> tuple[list[dict], str]:
+    """The sweep :func:`main` asked for: (records, a one-line summary)."""
+    learning_fn, wireless_fn, device = run_learning_sweep, run_sweep, \
+        args.device
+    if mesh is not None:
+        # local import: shard_sweep imports this module
+        from repro_torch.launch import shard_sweep
+        learning_fn = shard_sweep.run_shard_learning_sweep
+        wireless_fn = shard_sweep.run_shard_sweep
+        device = mesh.device
     if args.learning:
-        records = run_learning_sweep(
+        records = learning_fn(
             names, n_seeds=args.seeds, n_rounds=args.rounds, cfg=cfg,
             dataset=args.dataset, n_train=args.n_train, n_test=args.n_test,
             local_epochs=args.local_epochs, batch_size=args.batch_size,
@@ -788,25 +862,20 @@ def main(argv=None) -> None:
             buffer_size=args.buffer_size, channel_dtype=args.channel_dtype,
             compress=args.compress, topk_frac=args.topk_frac,
             partition=args.partition, dirichlet_alpha=args.dirichlet_alpha,
-            user_chunk=args.user_chunk, seed=args.seed, device=args.device)
+            user_chunk=args.user_chunk, seed=args.seed, device=device,
+            mesh=mesh)
         summary = " ".join(
             f"{r['scenario']}={r['final_acc_mean']:.3f}"
             if r["final_acc_mean"] is not None else f"{r['scenario']}=n/a"
             for r in records)
     else:
-        records = run_sweep(names, n_seeds=args.seeds, n_rounds=args.rounds,
-                            cfg=cfg, channel_dtype=args.channel_dtype,
-                            seed=args.seed, user_chunk=args.user_chunk,
-                            device=args.device)
+        records = wireless_fn(
+            names, n_seeds=args.seeds, n_rounds=args.rounds, cfg=cfg,
+            channel_dtype=args.channel_dtype, seed=args.seed,
+            user_chunk=args.user_chunk, device=device, mesh=mesh)
         summary = " ".join(f"{r['scenario']}={r['t_round_mean_s']:.3f}s"
                            for r in records)
-    payload = json.dumps(records, indent=2)
-    if args.out == "-":
-        print(payload)
-    else:
-        with open(args.out, "w") as f:
-            f.write(payload + "\n")
-        print(f"wrote {args.out}: {summary}")
+    return records, summary
 
 
 if __name__ == "__main__":

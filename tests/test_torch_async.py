@@ -26,6 +26,9 @@ from repro_torch.launch import fl_sim  # noqa: E402
 from tests.test_torch_compress import (_flip_budget,  # noqa: E402
                                        assert_params_close)
 from tests.test_torch_slice import check_run_against_live_jax  # noqa: E402
+from tests.test_torch_slice import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 T = torch.from_numpy
 ASYNC = dict(aggregation_async=True, tick_s=0.5, staleness_alpha=0.5)

@@ -33,6 +33,9 @@ from repro_torch.core.types import SchedulingProblem as TProblem  # noqa: E402
 from repro_torch.core.types import WirelessConfig  # noqa: E402
 from repro_torch.interop import key_from_numpy  # noqa: E402
 from tests.test_torch_slice import check_run_against_live_jax  # noqa: E402
+from tests.test_torch_slice import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 T = torch.from_numpy
 SHAPES = [(12, 4), (50, 8), (30, 1), (40, 5)]

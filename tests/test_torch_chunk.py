@@ -27,6 +27,9 @@ from repro_torch.interop import key_from_numpy  # noqa: E402
 from repro_torch.kernels import compress_topk as ct  # noqa: E402
 from repro_torch.kernels import select_topk as ks  # noqa: E402
 from repro_torch.launch import sweep  # noqa: E402
+from tests.test_torch_slice import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 T = torch.from_numpy
 

@@ -1323,3 +1323,36 @@ def test_covering_cap_on_card_equals_full_compute(dev):
                                                    c.min_part_rate)
         assert math.isclose(g.t_round, c.t_round, rel_tol=1e-5)
         assert abs(g.test_acc - c.test_acc) <= 1.0 / 40 + 1e-9
+
+
+def test_world_of_one_shard_paths_on_card_equal_unsharded(dev):
+    """run_shard_sweep (an uneven 2 x 3 grid) and shard_schedule_batch (a
+    fleet of 5) on a world of one on the card: the same records and the
+    same schedules, field for field, as run_sweep and
+    dagsa_schedule_batch there."""
+    import json
+
+    from repro_torch import rng
+    from repro_torch.core import channel, mobility
+    from repro_torch.launch import shard_sweep, sweep
+
+    names, kw = ["paper-default", "high-mobility"], dict(n_seeds=3,
+                                                         n_rounds=2)
+    want = sweep.run_sweep(names, device=dev, **kw)
+    got = shard_sweep.run_shard_sweep(names, device=dev, **kw)
+    assert json.dumps(got, sort_keys=True) == json.dumps(want,
+                                                         sort_keys=True)
+    cfg = WirelessConfig()
+    probs = []
+    for s in range(5):
+        k0, k1 = rng.split(rng.fold_in(rng.PRNGKey(0, device=dev),
+                                       s)).unbind(0)
+        st = mobility.init_positions_grid_bs(k0, cfg)
+        probs.append(channel.make_problem(
+            k1, st, cfg, torch.ones((cfg.n_users,), device=dev), 0))
+    keys = rng.split(rng.PRNGKey(1, device=dev), 5)
+    ref = dagsa_jit.dagsa_schedule_batch(probs, keys)
+    out = shard_sweep.shard_schedule_batch(probs, keys)
+    for field in ("assign", "selected", "bw", "bs_time", "t_round"):
+        assert getattr(out, field).device == getattr(ref, field).device
+        assert torch.equal(getattr(out, field), getattr(ref, field)), field

@@ -27,6 +27,9 @@ from repro_torch.core.scheduler import schedule  # noqa: E402
 from repro_torch.core.types import SchedulingProblem as TProblem  # noqa: E402
 from repro_torch.core.types import WirelessConfig  # noqa: E402
 from repro_torch.interop import key_from_numpy  # noqa: E402
+from tests.test_torch_slice import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 
 def _problem(seed, n, m):

@@ -35,6 +35,9 @@ from repro_torch.core.types import WirelessConfig  # noqa: E402
 from repro_torch.fl import faults  # noqa: E402
 from repro_torch.interop import key_from_numpy, params_to_numpy  # noqa: E402
 from tests.test_torch_slice import check_run_against_live_jax  # noqa: E402
+from tests.test_torch_slice import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 T = torch.from_numpy
 ALL_ON = dict(outage_base=0.1, outage_edge=0.3, outage_handover=0.2,

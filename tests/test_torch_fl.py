@@ -25,6 +25,9 @@ from repro_torch.fl.partition import shard_partition  # noqa: E402
 from repro_torch.interop import (key_from_numpy, params_from_numpy,  # noqa: E402
                                  params_to_numpy)
 from repro_torch.models import cnn  # noqa: E402
+from tests.test_torch_slice import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 SMALL = dict(c1=4, c2=8, hidden=16)
 

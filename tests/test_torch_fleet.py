@@ -30,6 +30,9 @@ from repro_torch.core.types import SchedulingProblem as TProblem  # noqa: E402
 from repro_torch.interop import key_from_numpy  # noqa: E402
 from repro_torch.kernels import bandwidth_solve as kb  # noqa: E402
 from repro_torch.kernels import select_topk as ks  # noqa: E402
+from tests.test_torch_slice import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 T = torch.from_numpy
 FIELDS = ("snr", "tcomp", "bs_bw", "coeff", "necessary")

@@ -36,6 +36,9 @@ from repro_torch.interop import (key_from_numpy, params_from_numpy,  # noqa: E40
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels import fedavg_reduce as kf  # noqa: E402
 from repro_torch.launch import fl_sim  # noqa: E402
+from tests.test_torch_slice import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 T = torch.from_numpy
 

@@ -24,6 +24,9 @@ from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels import bandwidth_solve as kb  # noqa: E402
 from repro_torch.kernels import fedavg_reduce as kf  # noqa: E402
 from repro_torch.kernels import select_topk as ks  # noqa: E402
+from tests.test_torch_slice import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 T = torch.from_numpy
 

@@ -23,6 +23,9 @@ from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import rmsnorm as krn  # noqa: E402
 from repro_torch.kernels import ssd_scan as kss  # noqa: E402
+from tests.test_torch_slice import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

@@ -14,6 +14,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro_torch import rng  # noqa: E402
 from repro_torch.interop import key_from_numpy  # noqa: E402
+from tests.test_torch_slice import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 SEEDS = (0, 7, 12345, 2**31 - 1, -3)
 

@@ -45,6 +45,9 @@ from repro_torch.launch import fl_sim, sweep  # noqa: E402
 from test_torch_compress import _flip_budget, assert_params_close  # noqa: E402
 from test_torch_slice import ENGINE_SYNC, check_run_against_live_jax  # noqa: E402
 from test_torch_sweep import LEARN, _check_learning  # noqa: E402
+from test_torch_slice import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 W12 = dict(n_users=12, n_bs=4)
 # faulty-uplink's outages with adversarial-updates' NaN poisoning and clip

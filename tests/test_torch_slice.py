@@ -44,6 +44,22 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import fl_sim, serve_decode  # noqa: E402
 from repro_torch.models.api import init_cache  # noqa: E402
 
+
+
+def cap_torch_threads() -> None:
+    """Under pytest-xdist, cap this worker's torch to its share of the
+    cores (cores // workers, at least one thread): each worker's default
+    pool of one thread a core would contend with the others' on the same
+    cores.  Outside xdist, torch keeps its default.  The port's test files
+    call this at import; it changes no case, check or tolerance."""
+    if "PYTEST_XDIST_WORKER" not in os.environ:
+        return
+    workers = int(os.environ["PYTEST_XDIST_WORKER_COUNT"])
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+
+
+cap_torch_threads()
+
 PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 ENGINE_SYNC = dict(n_train=120, n_test=40, local_epochs=1, batch_size=10,
                    eval_every=1, seed=7)

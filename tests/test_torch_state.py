@@ -27,6 +27,9 @@ from repro_torch.core.types import WirelessConfig  # noqa: E402
 from repro_torch.launch import sweep  # noqa: E402
 from test_torch_slice import check_run_against_live_jax  # noqa: E402
 from test_torch_sweep import LEARN, _check_learning  # noqa: E402
+from test_torch_slice import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 T = torch.from_numpy
 STATEFUL = ("ucb", "biased-adaptive", "rr", "pf")

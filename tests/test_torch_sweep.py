@@ -24,7 +24,9 @@ from repro_torch.core import scenario  # noqa: E402
 from repro_torch.core.types import WirelessConfig  # noqa: E402
 from repro_torch.launch import sweep  # noqa: E402
 
-from test_torch_slice import _parser_default  # noqa: E402
+from test_torch_slice import _parser_default, cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 NAMES = list(scenario.SCENARIOS)          # the built-ins and faulty worlds
 TINY = dict(n_seeds=2, n_rounds=3, seed=7)
@@ -55,6 +57,12 @@ def wireless(request):
 def test_wireless_sweep_matches_live_jax(wireless):
     dt, want, got = wireless
     assert [r["scenario"] for r in got] == NAMES
+    _check_wireless(want, got, dt)
+
+
+def _check_wireless(want, got, dt):
+    """The wireless records against JAX's: decisions exact, latencies and
+    participation rtol 1e-5 (``dt`` labels a failure)."""
     for w, g in zip(want, got):
         assert set(g) == set(w) and set(g["curves"]) == set(w["curves"])
         for k in ("scenario", "mobility", "speed_mps", "n_seeds",
@@ -168,7 +176,7 @@ def test_learning_seed_inputs_match_jax():
                             rtol=1e-5, atol=1e-6)
 
 
-def test_what_the_port_lacks_raises_with_its_label():
+def test_what_the_port_lacks_raises_with_its_label(capsys):
     w = WirelessConfig(n_users=12, n_bs=4)
     # user_chunk is ported: it is validated as in the JAX package
     with pytest.raises(ValueError, match="user_chunk must be >= 1"):
@@ -184,9 +192,18 @@ def test_what_the_port_lacks_raises_with_its_label():
     # the stateful policies are sweep schedulers (run in test_torch_state)
     for name in ("ucb", "biased-adaptive", "rr", "pf"):
         assert name in sweep.SWEEP_SCHEDULERS
-    for argv in (["--shard"], ["--mesh", "2"]):
-        with pytest.raises(NotImplementedError, match="A.9b"):
-            sweep.main(argv + ["--device", "cpu"])
+    # --shard / --mesh are ported (test_torch_shard.py): --mesh alone is
+    # the argparse error, and --shard on a world of one prints the
+    # unsharded JSON
+    with pytest.raises(SystemExit):
+        sweep.main(["--mesh", "2", "--device", "cpu"])
+    assert "--mesh only applies with --shard" in capsys.readouterr().err
+    small = ["--device", "cpu", "--scenarios", "paper-default", "--seeds",
+             "1", "--rounds", "1", "--n-users", "12"]
+    sweep.main(small)
+    plain = capsys.readouterr().out
+    sweep.main(small + ["--shard"])
+    assert capsys.readouterr().out == plain
     with pytest.raises(ValueError, match="unknown sweep scheduler"):
         sweep.run_learning_sweep(["paper-default"], scheduler="greedy",
                                  device="cpu")

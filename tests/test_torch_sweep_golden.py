@@ -20,6 +20,9 @@ from repro_torch.core.types import WirelessConfig  # noqa: E402
 from repro_torch.launch import sweep  # noqa: E402
 
 from test_torch_sweep import GOLDEN, LEARN, _check_learning  # noqa: E402
+from tests.test_torch_slice import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 
 @pytest.mark.parametrize("case", sorted(GOLDEN))

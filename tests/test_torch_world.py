@@ -49,6 +49,9 @@ from repro_torch.launch import fl_sim  # noqa: E402
 from test_torch_compress import _flip_budget, assert_params_close  # noqa: E402
 from test_torch_slice import (_parser_default,  # noqa: E402
                               check_run_against_live_jax)
+from test_torch_slice import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 BUILTINS = [s.name for s in scenario._BUILTINS]
 W = WirelessConfig(n_users=40, n_bs=5)

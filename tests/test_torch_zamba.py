@@ -38,6 +38,9 @@ from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.launch import serve_decode  # noqa: E402
 from repro_torch.models import api, attention, blocks, layers, lm, ssm  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+from tests.test_torch_slice import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 VARIANTS = {"reduced": None, "tail": 5}
 
