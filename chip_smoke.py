@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py              # everything below, one card
-    python3 chip_smoke.py --kernels    # steps 1-3 and 7a only
+    python3 chip_smoke.py --kernels    # steps 1-3, 7a and 7f only
     python3 chip_smoke.py --sweeps     # step 1, the build, the plans' sweeps
+    python3 chip_smoke.py --lm         # step 1, the build, steps 7f-7g
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
 2. builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` with
@@ -128,6 +129,26 @@
       prompts and at B=8, S=2048;
    e. profiles one bfloat16 prefill (B=4, S=512) and one decode step
       (kernel 9's device ms a prefill among them);
+   f. holds kernels 7 and 8 at the shapes of the nine other configs
+      against their plain versions and times them (``check_lm_arch_
+      kernels``): kernel 7 bf16 at D = 128 with GQA 16/8 ("qwen3"), a
+      window of 256 ("qwen3_window256", and its float32 twin), 16 and 1,
+      64/8, 32/4, 28/4 over 1,536 positions, MHA 16/16, 8 x 2048, and
+      Whisper's D = 64 encoder (1,500 frames), decoder (375 tokens) and
+      cross attention (375 x 1,500; a decode step's one query over 80
+      and 1,500 positions); kernel 8 at widths 384 to 8,192;
+   g. the nine other configs (``run_lm_archs``; depth cut where LM_ARCHS
+      says, every width kept), each (a) reduced in float32 on the card
+      against the CPU (forward, prefill, 8 decode steps; Whisper also with
+      the encoder's memory in the cache) within 1e-4, (b) at full width
+      in float32, ``forward`` against 64 cached decode steps within
+      rtol=atol=5e-3, (c) serving in bfloat16: ``serve`` (B=4, prompt 64,
+      16 new tokens) and a timed ``prefill_fn`` at 4 x 512 (Whisper 1,500
+      frames + 375 tokens, Qwen2-VL 1,024 patches + 512 tokens), launch
+      counts zeroed just before and read just after; qwen3-0.6b also
+      prefills 8 x 2048 and serves with a 256-token window over a
+      512-token prompt (a spy shows kernel 7 got the window); one
+      ``{"lm_path": ...}`` line a path;
 8. prints one JSON line with every kernel's numbers, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
@@ -2104,6 +2125,19 @@ def _ssd_ops(b, s, h, p, n, q) -> float:
     return 2.0 * b * h * (s // q) * (pairs * (n + p) + 2 * q * n * p)
 
 
+def _lm_record(results, kernel, label, shape, err, fn, plain, lib, n_bytes,
+               n_ops, peak, reps, extra=None) -> None:
+    """Time a checked LM kernel row into ``results[kernel][label]`` (and
+    print it): the wrapper, its plain version and the yardstick, beside
+    the bound."""
+    bound, by = _bound_ms(n_bytes, n_ops, peak)
+    row = {"name": kernel, "shape": shape, "max_abs_err": err,
+           **_timings(kernel, label, fn, plain, lib, reps),
+           "bound_ms": bound, "bound_by": by, **(extra or {})}
+    results[kernel][label] = row
+    print(json.dumps({"check": label, **row}), flush=True)
+
+
 def check_lm_kernels(dev, main=(4, 512), long=(8, 2048), ragged=200,
                      decode_rows=4) -> dict:
     """Kernels 7-9 against their plain versions on the card at Zamba2's
@@ -2125,14 +2159,8 @@ def check_lm_kernels(dev, main=(4, 512), long=(8, 2048), ragged=200,
     def normal(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def record(kernel, label, shape, err, fn, plain, lib, n_bytes, n_ops,
-               peak, reps, extra=None):
-        bound, by = _bound_ms(n_bytes, n_ops, peak)
-        row = {"name": kernel, "shape": shape, "max_abs_err": err,
-               **_timings(kernel, label, fn, plain, lib, reps),
-               "bound_ms": bound, "bound_by": by, **(extra or {})}
-        results[kernel][label] = row
-        print(json.dumps({"check": label, **row}), flush=True)
+    def record(*args, **kwargs):
+        _lm_record(results, *args, **kwargs)
 
     for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
         esize = 2 if dtype == torch.bfloat16 else 4
@@ -2140,7 +2168,7 @@ def check_lm_kernels(dev, main=(4, 512), long=(8, 2048), ragged=200,
         peak = PEAK_BF16_OPS_S if dtype == torch.bfloat16 else PEAK_F32_OPS_S
 
         # -- 8 rmsnorm: rows = B*S in prefill, B in decode; "qk_norm" the
-        # per-head norm of 16 heads of 128 (Qwen3, ROADMAP A.1a) at the main
+        # per-head norm of 16 heads of 128 (qwen3-0.6b's qk_norm) at the main
         # prompt; "unaligned" the main rows one element off 16-byte
         # alignment (a slice of a larger buffer: the scalar path) ----------
         for label, rows, d, offset, reps in (
@@ -2209,6 +2237,121 @@ def check_lm_kernels(dev, main=(4, 512), long=(8, 2048), ragged=200,
             del x, dt, Bm, Cm, y
     torch.cuda.synchronize()
     return results
+
+
+def _attn_pairs(s: int, t: int, causal: bool, window: int = 0) -> int:
+    """(query, key) pairs attention computes: all S x T, the causal
+    triangle, or the causal band of ``window`` keys a query."""
+    if not causal:
+        return s * t
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def check_lm_arch_kernels(dev, results: dict, main=(4, 512)) -> None:
+    """Kernels 7 and 8 at the shapes the nine configs beside Zamba2 give
+    them, against their plain versions, timed beside the bound and the
+    yardstick (rows added to ``results``): kernel 7 bf16 at D = 128 with
+    GQA 16/8 (qwen3-0.6b; "qwen3"), the same with a window of 256
+    ("qwen3_window256", and its float32 twin) and with windows of 16 and
+    1 (where a key wrongly kept or dropped at the window's edge moves an
+    output by about its own size), 64/8 (qwen3-32b,
+    deepseek-67b), 32/4 (qwen3-moe), 28/4 over qwen2-vl's 1,024 patches +
+    512 tokens, MHA 16/16 (olmo), qwen3's 8 x 2048 prefill, and Whisper's
+    D = 64 MHA 6/6: the encoder over 1,500 frames (non-causal), the
+    decoder over 375 tokens (causal), its cross attention (375 x 1,500,
+    non-causal) and a decode step's cross attention, one query a sequence
+    over the serve path's memory of prompt + generated positions
+    ("whisper_cross_decode") and over 1,500 encoder frames; kernel 8 bf16 at each new row width over the 4 x 512
+    prefill rows ("d384" ... "d8192"; the per-head qk_norm width 128 is
+    check_lm_kernels' "qk_norm")."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rmsnorm as krn
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    b0, s0 = main
+
+    def normal(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def record(*args):
+        _lm_record(results, *args)
+
+    for label, (b, s, t), h, kv, d, causal, window, dtype, reps in (
+            ("qwen3", (b0, s0, s0), 16, 8, 128, True, 0, torch.bfloat16, 20),
+            ("qwen3_window256", (b0, s0, s0), 16, 8, 128, True, 256,
+             torch.bfloat16, 20),
+            ("qwen3_window256_f32", (b0, s0, s0), 16, 8, 128, True, 256,
+             torch.float32, 5),
+            ("qwen3_window16", (b0, s0, s0), 16, 8, 128, True, 16,
+             torch.bfloat16, 10),
+            ("qwen3_window1", (b0, s0, s0), 16, 8, 128, True, 1,
+             torch.bfloat16, 10),
+            ("qwen3_long", (8, 2048, 2048), 16, 8, 128, True, 0,
+             torch.bfloat16, 5),
+            ("gqa64_8", (b0, s0, s0), 64, 8, 128, True, 0, torch.bfloat16,
+             10),
+            ("gqa32_4", (b0, s0, s0), 32, 4, 128, True, 0, torch.bfloat16,
+             10),
+            ("vlm_gqa28_4", (b0, 1536, 1536), 28, 4, 128, True, 0,
+             torch.bfloat16, 5),
+            ("olmo_mha16", (b0, s0, s0), 16, 16, 128, True, 0,
+             torch.bfloat16, 10),
+            ("whisper_enc", (b0, 1500, 1500), 6, 6, 64, False, 0,
+             torch.bfloat16, 10),
+            ("whisper_dec", (b0, 375, 375), 6, 6, 64, True, 0,
+             torch.bfloat16, 20),
+            ("whisper_cross", (b0, 375, 1500), 6, 6, 64, False, 0,
+             torch.bfloat16, 20),
+            ("whisper_cross_decode",
+             (b0, 1, LM_SERVE["prompt_len"] + LM_SERVE["gen_len"]), 6, 6,
+             64, False, 0, torch.bfloat16, 50),
+            ("whisper_cross_decode_1500", (b0, 1, 1500), 6, 6, 64, False, 0,
+             torch.bfloat16, 50)):
+        q = normal((b, s, h, d), dtype)
+        k, v = (normal((b, t, kv, d), dtype) for _ in range(2))
+        tol = LM_TOL["flash_attention"][dtype == torch.bfloat16]
+        err = _close_tol(f"flash_attention {label}",
+                         kfa.flash_attention(q, k, v, causal, window),
+                         kfa.flash_attention_plain(q, k, v, causal,
+                                                   window=window), tol)
+        if window:
+            i = torch.arange(s, device=dev)[:, None]
+            j = torch.arange(t, device=dev)[None, :]
+            mask = (j <= i) & (i - j < window)
+            sdpa_kw = {"attn_mask": mask}
+        else:
+            sdpa_kw = {"is_causal": causal}
+        esize = q.element_size()
+        record("flash_attention", label, [b, s, t, h, kv, d], err,
+               lambda: kfa.flash_attention(q, k, v, causal, window),
+               lambda: kfa.flash_attention_plain(q, k, v, causal,
+                                                 window=window),
+               lambda: F.scaled_dot_product_attention(
+                   q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                   enable_gqa=h != kv, **sdpa_kw),
+               (2 * b * s * h + 2 * b * t * kv) * d * esize,
+               4.0 * b * h * _attn_pairs(s, t, causal, window) * d,
+               PEAK_BF16_OPS_S if dtype == torch.bfloat16
+               else PEAK_F32_OPS_S, reps)
+        del q, k, v
+
+    rows = b0 * s0
+    for d in (384, 512, 1024, 1536, 2048, 2560, 3584, 5120, 8192):
+        x = normal((rows, d), torch.bfloat16)
+        scale = (1.0 + 0.1 * normal((d,), torch.float32)).to(torch.bfloat16)
+        err = _close_tol(f"rmsnorm d{d}", krn.rmsnorm(x, scale),
+                         krn.rmsnorm_plain(x, scale), LM_TOL["rmsnorm"][1])
+        record("rmsnorm", f"d{d}", [rows, d], err,
+               lambda: krn.rmsnorm(x, scale),
+               lambda: krn.rmsnorm_plain(x, scale),
+               lambda: F.rms_norm(x, (d,), weight=scale, eps=1e-6),
+               4 * rows * d + 2 * d, 4.0 * rows * d, PEAK_F32_OPS_S, 20)
+        del x
+    torch.cuda.synchronize()
 
 
 def _zamba(**changes):
@@ -2347,6 +2490,296 @@ def run_zamba_serve(dev, batch=4, prompt_len=512, gen_len=32,
     return params, cfg, res.prompt, launches
 
 
+# ------------------------------------------------------ the nine configs ---
+# The LM configs beside Zamba2: (id, the depth the card runs (None: full
+# depth; a cut keeps every width), the kernels its path must launch).
+# deepseek-67b is ~134 GB in bfloat16 and does not fit one 80 GB card;
+# the others are cut to keep the phase short.  MLA's attention, the MoE
+# experts and OLMo's LayerNorm are plain, as in JAX.
+LM_ARCHS = (
+    ("qwen3_0_6b", None, ("flash_attention", "rmsnorm")),
+    ("qwen3_32b", 4, ("flash_attention", "rmsnorm")),
+    ("deepseek_67b", 2, ("flash_attention", "rmsnorm")),
+    ("olmo_1b", None, ("flash_attention",)),
+    ("mamba2_2_7b", None, ("rmsnorm", "ssd_scan")),
+    ("qwen3_moe_30b_a3b", 4, ("flash_attention", "rmsnorm")),
+    ("deepseek_v2_236b", 2, ("rmsnorm",)),   # first_dense + 1 MoE layer
+    ("whisper_tiny", None, ("flash_attention", "rmsnorm")),
+    ("qwen2_vl_7b", 4, ("flash_attention", "rmsnorm")),
+)
+LM_STEPS = 8                 # (a): cached decode steps, reduced
+LM_FULL_STEPS = 64           # (b): forward vs cached decode, full width
+LM_SERVE = dict(batch=4, prompt_len=64, gen_len=16)      # (c)
+LM_PREFILL = (4, 512)        # (c): the timed prefill
+WHISPER_PREFILL = (1500, 375)      # encoder frames, decoder tokens
+VLM_TEXT = 512               # text tokens after qwen2-vl's 1,024 patches
+QWEN3_LONG = (8, 2048)
+QWEN3_WINDOW = dict(sliding_window=256, prompt_len=512, gen_len=16)
+def _lm_cfg(arch: str, depth, **changes):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if depth is not None:
+        changes["n_layers"] = depth
+    return dataclasses.replace(cfg, **changes)
+
+
+def _lm_forward(params, cfg, batch):
+    from repro_torch.models import encdec, lm
+    fwd = encdec.forward if cfg.encoder_decoder else lm.forward
+    return fwd(params, cfg, batch)[0]
+
+
+def check_lm_small(arch, dev, required) -> dict:
+    """(a) the reduced float32 config on the card against the CPU: forward,
+    prefill and LM_STEPS cached decode steps (Whisper also with the
+    encoder's memory in the cache) within 1e-4, the card's run launching
+    each kernel of ``required``; ``api.cast_params`` of the weights to
+    bfloat16 equals a bfloat16 init bit for bit.  tests/test_torch_cuda.py
+    runs it too."""
+    import dataclasses
+
+    from repro_torch import rng
+    from repro_torch.kernels import _lib
+    from repro_torch.models import api, encdec
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = _lm_cfg(arch, None).reduced()
+    params = api.init_params(rng.PRNGKey(0), cfg)
+    bf16_cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    bf16 = api.init_params(rng.PRNGKey(0), bf16_cfg)
+    for g, w in zip(tree_leaves(api.cast_params(params, bf16_cfg)),
+                    tree_leaves(bf16)):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"{arch}: the bfloat16 cast of the float32 "
+                                 f"init is not the bfloat16 init")
+    batch = api.make_train_batch(rng.PRNGKey(1), cfg, 2, 32)
+    out = {}
+    for d in ("cpu", dev):
+        p = tree_map(lambda w: w.to(d), params)
+        bt = {k: v.to(d) for k, v in batch.items()}
+        _lib.reset_launches()
+        runs = [_lm_forward(p, cfg, bt),
+                api.prefill_fn(p, cfg, dict(bt, tokens=bt["tokens"][:, :-1]))]
+        memories = [None]
+        if cfg.encoder_decoder:
+            memories.append(encdec.encode(p, cfg, bt["audio_embeds"][:, :8]))
+        for memory in memories:
+            cache = api.init_cache(cfg, 2, LM_STEPS, device=d)
+            if memory is not None:
+                cache["memory"] = memory
+            runs.append(torch.stack([
+                api.decode_step(p, cfg, cache, bt["tokens"][:, i:i + 1], i)[0]
+                for i in range(LM_STEPS)]))
+        out[str(d)] = runs
+    for name in required:
+        if _lib.LAUNCHES[name] <= 0:
+            raise AssertionError(f"{arch} small: the card's run never "
+                                 f"launched {name}")
+    return {what: _close_tol(f"{arch} small {what}", g.cpu(), c, 1e-4)
+            for what, g, c in zip(("forward", "prefill", "decode",
+                                   "decode_memory"),
+                                  out[str(dev)], out["cpu"])}
+
+
+def _lm_full_f32(arch, depth, dev, params, cfg) -> dict:
+    """(b) full width in float32: the forward's logits over LM_FULL_STEPS
+    tokens against as many cached decode steps, within rtol=atol=5e-3
+    (tests/test_models.py's tolerance).  MoE configs route with capacity
+    factor 16, as that test does: capacity drops legitimately differ
+    between a whole sequence's routing groups and one token's; qwen2-vl
+    runs a text-only request (no patches), whose M-RoPE positions a
+    decode step reproduces; Whisper decodes with ``encode``'s memory of
+    4 x LM_FULL_STEPS frames in the cache."""
+    import dataclasses
+
+    from repro_torch import rng
+    from repro_torch.models import api, encdec
+
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg, capacity_factor=16.0)
+    if cfg.frontend == "vision":
+        cfg = dataclasses.replace(cfg, n_patches=0)
+    b, t = 2, LM_FULL_STEPS
+    batch = api.make_train_batch(rng.PRNGKey(1, device=dev), cfg, b,
+                                 4 * t if cfg.encoder_decoder else t)
+    toks = batch["tokens"]
+    fwd = _lm_forward(params, cfg, batch)
+    if cfg.encoder_decoder:
+        cache = encdec.init_cache(cfg, b, t, s_enc=4 * t, device=dev)
+        cache["memory"] = encdec.encode(params, cfg, batch["audio_embeds"])
+    else:
+        cache = api.init_cache(cfg, b, t, device=dev)
+    t0 = time.perf_counter()
+    steps = torch.stack([api.decode_step(params, cfg, cache,
+                                         toks[:, i:i + 1], i)[0]
+                         for i in range(t)], dim=1)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / t * 1e3
+    err = (steps - fwd).abs()
+    if not bool(torch.isfinite(fwd).all()) or bool(
+            (err > 5e-3 + 5e-3 * fwd.abs()).any()):
+        raise AssertionError(f"{arch} f32: forward and {t} cached decode "
+                             f"steps disagree past rtol=atol=5e-3 (max abs "
+                             f"err {err.max().item():.3e})")
+    return {"max_abs_err": err.max().item(),
+            "logit_scale": fwd[..., :cfg.vocab].abs().max().item(),
+            "decode_ms": step_ms}
+
+
+def _lm_prefill_batch(cfg, dev):
+    """The timed prefill's inputs: LM_PREFILL tokens; Whisper 1,500 audio
+    frames and 375 decoder tokens; qwen2-vl 1,024 patches and VLM_TEXT
+    tokens."""
+    from repro_torch import rng
+    b, s = LM_PREFILL
+    ks = rng.split(rng.PRNGKey(2, device=dev), 2)
+    if cfg.encoder_decoder:
+        frames, s = WHISPER_PREFILL
+        return {"tokens": rng.randint(ks[0], (b, s), 0, cfg.vocab),
+                "audio_embeds": rng.normal(ks[1], (b, frames,
+                                                   cfg.frontend_dim)
+                                           ).to(cfg.param_dtype)}
+    if cfg.frontend == "vision":
+        return {"tokens": rng.randint(ks[0], (b, VLM_TEXT), 0, cfg.vocab),
+                "patch_embeds": rng.normal(ks[1], (b, cfg.n_patches,
+                                                   cfg.frontend_dim)
+                                           ).to(cfg.param_dtype)}
+    return {"tokens": rng.randint(ks[0], (b, s), 0, cfg.vocab)}
+
+
+def _timed_prefill(params, cfg, batch, reps: int = 3) -> tuple:
+    from repro_torch.models import api
+    api.prefill_fn(params, cfg, batch)              # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = api.prefill_fn(params, cfg, batch)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) / reps * 1e3
+
+
+def _lm_serve(label, arch, params, cfg, dev, required, serve_kw,
+              prefills) -> dict:
+    """(c) the bfloat16 serving path, launch counts zeroed just before and
+    read just after: ``serve_decode.serve`` and the timed prefills; finite
+    logits, greedy tokens inside the vocab, and every required kernel
+    launched.  A spy on kernel 7's wrapper records the windows it got."""
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import serve_decode
+    from repro_torch.models import attention
+
+    windows = set()
+    inner = attention.flash_attention
+
+    def spy(q, k, v, causal=True, window=0):
+        windows.add(window)
+        return inner(q, k, v, causal=causal, window=window)
+
+    attention.flash_attention = spy
+    try:
+        _lib.reset_launches()
+        res = serve_decode.serve(cfg, label, device=dev, params=params,
+                                 **serve_kw)
+        timed = {}
+        for name, batch in prefills.items():
+            logits, ms = _timed_prefill(params, cfg, batch)
+            # positions prefilled: tokens, patches and audio frames
+            n_tok = sum(batch[k].shape[:2].numel() for k in (
+                "tokens", "patch_embeds", "audio_embeds") if k in batch)
+            if not bool(torch.isfinite(logits.float()).all()):
+                raise AssertionError(f"{label}: {name} logits not finite")
+            timed[name] = {"shape": [batch["tokens"].shape[0],
+                                     n_tok // batch["tokens"].shape[0]],
+                           "ms": ms, "tok_per_s": n_tok / ms * 1e3}
+        launches = dict(_lib.LAUNCHES)
+    finally:
+        attention.flash_attention = inner
+    lm_launches = {k: launches[k] for k in _LM_KERNEL_NAMES}
+    for name in required:
+        if launches[name] <= 0:
+            raise AssertionError(f"path {label} never launched {name}")
+    if not bool(torch.isfinite(res.prompt_logits.float()).all()):
+        raise AssertionError(f"{label}: stepped prompt logits not finite")
+    if not bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()):
+        raise AssertionError(f"{label}: a greedy token outside the vocab")
+    gen = res.tokens.shape[1]
+    return {"serve": {**serve_kw, "fill_by_steps_s": res.fill_s,
+                      "decode_ms_per_token": res.decode_s / gen * 1e3,
+                      "decode_tok_per_s": res.tokens.numel() / res.decode_s,
+                      "serve_tok_per_s": res.tok_per_s,
+                      "sample": res.tokens[0, :8].tolist()},
+            "prefill": timed, "launches": launches,
+            "lm_launches": lm_launches, "flash_windows": sorted(windows)}
+
+
+def run_lm_archs(dev) -> dict:
+    """The nine configs beside Zamba2, each (a) reduced on the card vs the
+    CPU, (b) at full width in float32 at its depth, forward vs cached
+    decode, (c) serving in bfloat16 at its depth, with launch counts;
+    qwen3-0.6b also prefills QWEN3_LONG and serves with a 256-token window
+    over a 512-token prompt.  One ``{"lm_path": ...}`` line a path; returns
+    the launches by path."""
+    import dataclasses
+
+    from repro_torch import rng
+    from repro_torch.models import api, lm
+
+    t_phase = time.perf_counter()
+    launches = {}
+    for arch, depth, required in LM_ARCHS:
+        t0 = time.perf_counter()
+        small = check_lm_small(arch, dev, required)
+        cfg = _lm_cfg(arch, depth, dtype="float32")
+        t1 = time.perf_counter()
+        params = api.init_params(rng.PRNGKey(0, device=dev), cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t1
+        n_params = lm.n_params(params)
+        full = _lm_full_f32(arch, depth, dev, params, cfg)
+        cfg = dataclasses.replace(cfg, dtype="bfloat16")
+        params = api.cast_params(params, cfg)
+        torch.cuda.empty_cache()
+        label = f"lm_{arch}"
+        prefills = {"prefill": _lm_prefill_batch(cfg, dev)}
+        if arch == "qwen3_0_6b":
+            prefills["prefill_long"] = {"tokens": rng.randint(
+                rng.PRNGKey(3, device=dev), QWEN3_LONG, 0, cfg.vocab)}
+        served = _lm_serve(label, arch, params, cfg, dev, required,
+                           LM_SERVE, prefills)
+        launches[label] = served.pop("launches")
+        print(json.dumps({"lm_path": label, "depth": cfg.n_layers,
+                          "n_params": n_params, "init_f32_s": init_s,
+                          "small_max_abs_err": small, "full_f32": full,
+                          **served, "seconds": time.perf_counter() - t0}),
+              flush=True)
+        if arch == "qwen3_0_6b":
+            t0 = time.perf_counter()
+            w = QWEN3_WINDOW["sliding_window"]
+            wcfg = dataclasses.replace(cfg, sliding_window=w)
+            label = f"lm_{arch}_window{w}"
+            served = _lm_serve(
+                label, arch, params, wcfg, dev, required,
+                dict(batch=LM_SERVE["batch"],
+                     prompt_len=QWEN3_WINDOW["prompt_len"],
+                     gen_len=QWEN3_WINDOW["gen_len"]),
+                {"prefill": _lm_prefill_batch(wcfg, dev)})
+            if served["flash_windows"] != [w]:
+                raise AssertionError(f"{label}: kernel 7 got windows "
+                                     f"{served['flash_windows']}, not [{w}]")
+            launches[label] = served.pop("launches")
+            print(json.dumps({"lm_path": label, "depth": cfg.n_layers,
+                              **served,
+                              "seconds": time.perf_counter() - t0}),
+                  flush=True)
+        del params
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(json.dumps({"lm_phase_seconds": seconds}), flush=True)
+    return launches
+
+
 def _device_ops(prof) -> dict:
     from torch.autograd import DeviceType
     ops = {}
@@ -2466,11 +2899,13 @@ def kernel_rows(results: dict, launches: dict) -> list:
 def main(argv: list[str]) -> int:
     kernels_only = argv == ["--kernels"]
     sweeps_only = argv == ["--sweeps"]
+    lm_only = argv == ["--lm"]
     shard_rank_dir = (Path(argv[1]) if len(argv) == 2
                       and argv[0] == "--shard-rank" else None)
-    if argv and not (kernels_only or sweeps_only or shard_rank_dir):
+    if argv and not (kernels_only or sweeps_only or lm_only
+                     or shard_rank_dir):
         print(f"chip_smoke: unknown arguments {argv}; takes none, "
-              f"--kernels or --sweeps", file=sys.stderr)
+              f"--kernels, --sweeps or --lm", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2505,9 +2940,14 @@ def main(argv: list[str]) -> int:
         sweep_bandwidth(dev, torch.Generator(device=dev).manual_seed(0),
                         100, 1_000_000)
         return 0
+    if lm_only:
+        check_lm_arch_kernels(dev, {"flash_attention": {}, "rmsnorm": {}})
+        run_lm_archs(dev)
+        return 0
     host_costs(dev)
     results = check_kernels(dev)
     results.update(check_lm_kernels(dev))
+    check_lm_arch_kernels(dev, results)
     if kernels_only:
         return 0
     check_small_runs(dev)
@@ -2540,6 +2980,9 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     params, cfg, prompt, launches["zamba2_serve"] = run_zamba_serve(dev)
     profile_zamba(params, cfg, prompt, dev)
+    del params
+    torch.cuda.empty_cache()
+    launches.update(run_lm_archs(dev))
 
     print(json.dumps({"kernels": kernel_rows(results, launches)}))
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,12 @@
 """Architecture registry (PyTorch port of ``repro.configs``):
-``get_config(arch_id)`` with the JAX package's ids and aliases.
+``get_config(arch_id)`` with the JAX package's ten ids and their aliases.
 
-Only ``zamba2_1_2b`` is ported; every other id raises
-``NotImplementedError`` naming the ROADMAP.md item that will port it.
+Every config cites its source; the exact numbers come from the assignment
+table (public-literature pool).
 """
 from __future__ import annotations
 
 import importlib
-
-from repro_torch.models.config import unported
 
 ARCH_IDS = [
     "whisper_tiny", "qwen3_0_6b", "zamba2_1_2b", "qwen3_moe_30b_a3b",
@@ -30,24 +28,12 @@ ALIASES = {
     "deepseek-67b": "deepseek_67b",
 }
 
-PORTED = ("zamba2_1_2b",)
-
-# The ROADMAP.md item that ports each other id.
-ROADMAP_ITEM = {
-    "qwen3_0_6b": "A.1a", "qwen3_32b": "A.1a", "deepseek_67b": "A.1a",
-    "olmo_1b": "A.1a", "mamba2_2_7b": "A.1a",
-    "qwen3_moe_30b_a3b": "A.1c", "deepseek_v2_236b": "A.1c",
-    "whisper_tiny": "A.1d", "qwen2_vl_7b": "A.1e",
-}
-
 
 def get_config(arch: str):
     arch_id = ALIASES.get(arch, arch)
     if arch_id not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch!r}; choose from "
                          f"{sorted(ALIASES) + ARCH_IDS}")
-    if arch_id not in PORTED:
-        raise unported(f"config {arch_id!r}", ROADMAP_ITEM[arch_id])
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     return mod.config()
 

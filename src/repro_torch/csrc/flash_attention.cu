@@ -18,6 +18,17 @@
 //     the TPU kernel visits them with every entry masked, which leaves
 //     (m, ell, acc) unchanged, so skipping them is exact.
 //
+// Added here, not in the TPU kernel: a sliding window (`window` > 0, with
+// causal only; 0 means none).  A key with q_pos - k_pos >= window is
+// masked, as the JAX model's jnp mask `i - j < sliding_window` does
+// (src/repro/models/attention.py:77-80; the Pallas kernel has no window,
+// JAX computes windowed attention in jnp).  Key tiles wholly before a
+// query tile's first row's window are skipped, so a windowed prefill reads
+// O(S * window) keys, not O(S^2).  A row's first visited tiles may hold only
+// masked keys for it (running max -1e30); the tile holding its own key
+// comes later and rescales what they added by exp(-1e30 - m) = 0, so the
+// skip and the mask together are exact.
+//
 // What bounds it on the H100: at the prefill shapes (S = 512-2048, D = 64)
 // the two products, 4*S*T*D flops a head (half of them for causal), over
 // the bytes of q, k, v and out: operations, on the tensor cores in
@@ -264,7 +275,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        __nv_bfloat16* __restrict__ out, int S, int Tk, int H,
-                       int KV, int causal, float scale_log2) {
+                       int KV, int causal, int window, float scale_log2) {
   using L = WgTiles<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
@@ -274,19 +285,20 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int q0 = qt * kRows, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int kv_end = causal ? min(Tk, q0 + kRows) : Tk;
-  const int n_tiles = (kv_end + kRows - 1) / kRows;
+  const int j0 = window ? max(0, q0 - window + 1) / kRows : 0;
+  const int n_tiles = (kv_end + kRows - 1) / kRows - j0;  // tiles visited
 
   auto stage_k = [&](int s) { return base + L::kTile * (1 + 2 * s); };
   auto stage_v = [&](int s) { return base + L::kTile * (2 + 2 * s); };
   auto stage_bar = [&](int s) { return bar_q + 8 * (1 + s); };
-  auto load_kv = [&](int j, int s) {  // key tile j into stage s
+  auto load_kv = [&](int j, int s) {  // key tile j0 + j into stage s
     mbar_expect_tx(stage_bar(s), 2 * L::kTile);
 #pragma unroll
     for (int p = 0; p < L::kPanels; ++p) {
       tma_load(stage_k(s) + p * kPanelBytes, &tk, stage_bar(s), 64 * p, kvh,
-               j * kRows, b);
+               (j0 + j) * kRows, b);
       tma_load(stage_v(s) + p * kPanelBytes, &tv, stage_bar(s), 64 * p, kvh,
-               j * kRows, b);
+               (j0 + j) * kRows, b);
     }
   };
 
@@ -333,13 +345,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait_all();
     fence_regs(sc);
 
-    const int k0 = j * kRows;
-    if (k0 + kRows > Tk || (causal && k0 + kRows - 1 > q0)) {
+    const int k0 = (j0 + j) * kRows;
+    if (k0 + kRows > Tk || (causal && k0 + kRows - 1 > q0) ||
+        (window && q0 + kRows - 1 - k0 >= window)) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int key = k0 + 8 * (i >> 2) + cq + (i & 1);
         const int row = (i & 2) ? row1 : row0;
-        if (key >= Tk || (causal && key > row)) sc[i] = -1e30f;
+        if (key >= Tk || (causal && key > row) ||
+            (window && row - key >= window))
+          sc[i] = -1e30f;
       }
     }
     float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -354,7 +369,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const float alpha1 = fast_exp2((m1 - mn1) * scale_log2);
     m0 = mn0;
     m1 = mn1;
-    const float b0 = -mn0 * scale_log2, b1 = -mn1 * scale_log2;
+    // A row with every key so far masked (max -1e30; only a window's first
+    // tile does this) takes p = exp2(-1e30 scale) = 0: the fused form's
+    // -1e30 s + round(1e30 s) would leave the rounding error, ~1e22.
+    const float b0 = mn0 <= -1e30f ? 0.0f : -mn0 * scale_log2;
+    const float b1 = mn1 <= -1e30f ? 0.0f : -mn1 * scale_log2;
     float rs0 = 0.0f, rs1 = 0.0f;
 #pragma unroll
     for (int i = 0; i < 32; i += 4) {
@@ -449,7 +468,7 @@ cudaError_t allow_smem_once(K kernel, size_t bytes, unsigned& done) {
 template <int D>
 int launch_bf16_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
                   const __nv_bfloat16* v, __nv_bfloat16* out, int B, int S,
-                  int Tk, int H, int KV, int causal, float scale,
+                  int Tk, int H, int KV, int causal, int window, float scale,
                   cudaStream_t stream) {
   static unsigned smem_set = 0;
   const size_t smem = WgTiles<D>::kSmem;
@@ -462,14 +481,14 @@ int launch_bf16_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((S + kRows - 1) / kRows, H, B);
   flash_fwd_wgmma_kernel<D><<<grid, kWgThreads, smem, stream>>>(
-      tq, tk, tv, out, S, Tk, H, KV, causal, scale * kLog2e);
+      tq, tk, tv, out, S, Tk, H, KV, causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                 const __nv_bfloat16* v, __nv_bfloat16* out, int B, int S,
-                int Tk, int H, int KV, int D, int causal, float scale,
-                void* stream) {
+                int Tk, int H, int KV, int D, int causal, int window,
+                float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
@@ -479,10 +498,11 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
     return static_cast<int>(cudaMemsetAsync(
         out, 0, sizeof(__nv_bfloat16) * B * S * H * D, st));
   if (D == 64)
-    return launch_bf16_d<64>(q, k, v, out, B, S, Tk, H, KV, causal, scale, st);
+    return launch_bf16_d<64>(q, k, v, out, B, S, Tk, H, KV, causal, window,
+                             scale, st);
   if (D == 128)
-    return launch_bf16_d<128>(q, k, v, out, B, S, Tk, H, KV, causal, scale,
-                              st);
+    return launch_bf16_d<128>(q, k, v, out, B, S, Tk, H, KV, causal, window,
+                              scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -513,7 +533,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ out,
-                      int S, int Tk, int H, int KV, int causal, float scale) {
+                      int S, int Tk, int H, int KV, int causal, int window,
+                      float scale) {
   constexpr int DP = D + 1;      // padded rows: conflict-free column reads
   constexpr int PP = kBc + 1;
   constexpr int NC = D / 16;     // output columns a thread owns
@@ -548,7 +569,8 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const int kv_end = causal ? min(Tk, q0 + kBr) : Tk;
-  for (int k0 = 0; k0 < kv_end; k0 += kBc) {
+  const int kv_begin = window ? max(0, q0 - window + 1) / kBc * kBc : 0;
+  for (int k0 = kv_begin; k0 < kv_end; k0 += kBc) {
     __syncthreads();  // the last tile's reads are done (and qs is written)
     for (int i = tid; i < kBc * D; i += kThreads) {
       const int r = i / D, c = i % D, t = k0 + r;
@@ -585,7 +607,8 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tx + 16 * j;
-        if (kp >= Tk || (causal && kp > qp)) s[i][j] = -1e30f;
+        if (kp >= Tk || (causal && kp > qp) || (window && qp - kp >= window))
+          s[i][j] = -1e30f;
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], half_warp_max(mx));
@@ -632,27 +655,28 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 int launch_f32_d(const float* q, const float* k, const float* v, float* out,
-                 int B, int S, int Tk, int H, int KV, int causal, float scale,
-                 cudaStream_t stream) {
+                 int B, int S, int Tk, int H, int KV, int causal, int window,
+                 float scale, cudaStream_t stream) {
   static unsigned smem_set = 0;
   const size_t smem = smem_floats<D>() * sizeof(float);
   cudaError_t err = allow_smem_once(flash_fwd_simt_kernel<D>, smem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBr - 1) / kBr, H, B);
   flash_fwd_simt_kernel<D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, out, S, Tk, H, KV, causal, scale);
+      q, k, v, out, S, Tk, H, KV, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_f32(const float* q, const float* k, const float* v, float* out,
                int B, int S, int Tk, int H, int KV, int D, int causal,
-               float scale, void* stream) {
+               int window, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return launch_f32_d<64>(q, k, v, out, B, S, Tk, H, KV, causal, scale, st);
+    return launch_f32_d<64>(q, k, v, out, B, S, Tk, H, KV, causal, window,
+                            scale, st);
   if (D == 128)
-    return launch_f32_d<128>(q, k, v, out, B, S, Tk, H, KV, causal, scale,
-                             st);
+    return launch_f32_d<128>(q, k, v, out, B, S, Tk, H, KV, causal, window,
+                             scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -661,8 +685,9 @@ int launch_f32(const float* q, const float* k, const float* v, float* out,
 extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, float* out, int B, int S,
                                    int Tk, int H, int KV, int D, int causal,
-                                   float scale, void* stream) {
-  return launch_f32(q, k, v, out, B, S, Tk, H, KV, D, causal, scale, stream);
+                                   int window, float scale, void* stream) {
+  return launch_f32(q, k, v, out, B, S, Tk, H, KV, D, causal, window, scale,
+                    stream);
 }
 
 extern "C" int flash_attention_bf16(const __nv_bfloat16* q,
@@ -670,6 +695,7 @@ extern "C" int flash_attention_bf16(const __nv_bfloat16* q,
                                     const __nv_bfloat16* v,
                                     __nv_bfloat16* out, int B, int S, int Tk,
                                     int H, int KV, int D, int causal,
-                                    float scale, void* stream) {
-  return launch_bf16(q, k, v, out, B, S, Tk, H, KV, D, causal, scale, stream);
+                                    int window, float scale, void* stream) {
+  return launch_bf16(q, k, v, out, B, S, Tk, H, KV, D, causal, window, scale,
+                     stream);
 }

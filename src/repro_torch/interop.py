@@ -1,9 +1,9 @@
 """Carry weights and keys between the JAX package and the port.
 
-Both packages keep their parameters as nested dicts in the same layouts
-(the CNN's ``{"conv1": {"w", "b"}, ...}``, the LM's ``{"embed":
-{"table"}, "layers": {...}, ...}``), so moving a model across is a
-leaf-by-leaf copy of numpy arrays.  The tests use these to run both
+Both packages keep their parameters as nested dicts and lists in the same
+layouts (the CNN's ``{"conv1": {"w", "b"}, ...}``, the LM's ``{"embed":
+{"table"}, "layers": {...}, "first_dense": [...], ...}``), so moving a
+model across is a leaf-by-leaf copy of numpy arrays.  The tests use these to run both
 packages on identical parameters; nothing here imports JAX.
 """
 from __future__ import annotations
@@ -26,8 +26,8 @@ def _leaf_to_torch(a, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree, device="cpu", keep_dtype: bool = False) -> Params:
-    """Nested dicts of arrays (e.g. ``jax.tree.map(np.asarray, params)``)
-    -> the same dicts of tensors on ``device``: float32 by default, or each
+    """Nested dicts and lists of arrays (e.g. ``jax.tree.map(np.asarray,
+    params)``) -> the same tree of tensors on ``device``: float32 by default, or each
     leaf in its own dtype with ``keep_dtype`` (bfloat16 weights beside the
     float32 ``A_log`` / ``D`` / ``dt_bias`` of an LM)."""
     if keep_dtype:
@@ -37,7 +37,7 @@ def params_from_numpy(tree, device="cpu", keep_dtype: bool = False) -> Params:
 
 
 def params_to_numpy(params: Params):
-    """Dicts of tensors -> dicts of numpy arrays (host copies)."""
+    """A tree of tensors -> the same tree of numpy arrays (host copies)."""
     return tree_map(lambda t: t.detach().cpu().numpy(), params)
 
 

@@ -49,7 +49,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 _SIGNATURES = {
     **{f"rmsnorm_{t}": (_P, _P, _P, _LL, _I, _F, _I, _I, _I, _P)
        for t in ("f32", "bf16")},
-    **{f"flash_attention_{t}": (_P, _P, _P, _P) + (_I,) * 7 + (_F, _P)
+    **{f"flash_attention_{t}": (_P, _P, _P, _P) + (_I,) * 8 + (_F, _P)
        for t in ("f32", "bf16")},
     **{f"ssd_scan_{t}": (_P,) * 6 + (_I,) * 8 + (_P,)
        for t in ("f32", "bf16")},

@@ -1,15 +1,21 @@
 """Batched serving loop of the PyTorch port (counterpart of
 ``examples/serve_decode.py``): fill the decode cache by stepping the prompt
-through it, then decode greedily.
+through it, then decode greedily.  Any of the ten configs (ids or aliases
+of ``repro_torch.configs``); ``--sliding-window W`` serves it with a
+W-token attention window, as the JAX example's windowed run does.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_decode \
-        --device cpu --reduced
+        --config qwen3_0_6b --device cpu --reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve_decode \
+        --config qwen3_0_6b --device cpu --reduced --sliding-window 16
     PYTHONPATH=src python -m repro_torch.launch.serve_decode \
         --config zamba2_1_2b --batch 4 --prompt-len 512 --gen-len 32
 
 Runs on CUDA by default (``--device cpu`` to run on the CPU) and raises
 without it.  The weights and the prompt both come from ``PRNGKey(0)``, as
 in the JAX example, so the port serves the same model the same tokens.
+An encoder-decoder (Whisper) decodes against the cache's zero encoder
+memory, as the JAX example does (ROADMAP.md C.15).
 """
 from __future__ import annotations
 
@@ -90,6 +96,9 @@ def main(argv=None) -> ServeResult:
     ap.add_argument("--dtype", default=None,
                     choices=["bfloat16", "float32"],
                     help="parameter dtype (default: the config's)")
+    ap.add_argument("--sliding-window", type=int, default=None,
+                    help="attention window in tokens (default: the "
+                         "config's, none)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without it)")
     args = ap.parse_args(argv)
@@ -99,6 +108,8 @@ def main(argv=None) -> ServeResult:
         cfg = cfg.reduced()
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
+    if args.sliding_window:
+        cfg = dataclasses.replace(cfg, sliding_window=args.sliding_window)
     return serve(cfg, cfg.name, batch=args.batch, prompt_len=args.prompt_len,
                  gen_len=args.gen_len, device=dev)
 

@@ -4,8 +4,7 @@ One frozen dataclass covers dense / MoE / SSM / hybrid / enc-dec / VLM /
 audio; per-arch constructors live in ``repro_torch.configs.<id>``.  The
 fields and derived properties are a copy of the JAX package's, so a config
 built here describes the same model; only ``param_dtype`` answers with a
-``torch.dtype``.  The port runs the branches Zamba2 needs (ROADMAP.md A.1
-lists the rest).
+``torch.dtype``.  The port serves every branch the ten configs use.
 """
 from __future__ import annotations
 
@@ -177,26 +176,3 @@ class ModelConfig:
             n_patches=16 if self.frontend == "vision" else self.n_patches,
             dtype="float32",
         )
-
-
-def unported(what: str, item: str):
-    """The error of a branch the port does not run yet, naming the
-    ROADMAP.md item that will port it."""
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               f"(ROADMAP.md {item})")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a config that needs a branch the port lacks."""
-    if cfg.encoder_decoder:
-        raise unported("the encoder-decoder (Whisper)", "A.1d")
-    if cfg.frontend is not None or cfg.mrope:
-        raise unported("the VLM frontend and M-RoPE", "A.1e")
-    if cfg.is_moe or cfg.attention == "mla" or cfg.first_k_dense:
-        raise unported("MoE, MLA and first_k_dense layers", "A.1c")
-    if cfg.sliding_window:
-        raise unported("sliding-window attention", "A.1b")
-    if cfg.norm != "rmsnorm":
-        raise unported(f"norm={cfg.norm!r}", "A.1a")
-    if cfg.mlp != "swiglu":
-        raise unported(f"mlp={cfg.mlp!r}", "A.1d")

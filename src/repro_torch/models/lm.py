@@ -1,11 +1,15 @@
-"""Decoder-only LM assembly (PyTorch port of ``repro.models.lm``), for the
-dense, SSM and hybrid archs the port runs.
+"""Decoder-only LM assembly (PyTorch port of ``repro.models.lm``) for the
+dense, MoE, SSM, hybrid and VLM archs.
 
 Per-layer weights are stacked with a leading [L] axis as in JAX; where JAX
 scans the stack with ``lax.scan``, the port walks it layer by layer.
+DeepSeek-V2's ``first_k_dense`` dense layers come first, as a list (JAX
+keeps them as one), then the stack of the remaining layers.
 Zamba2-style hybrids run GROUPS of ``shared_attn_every`` Mamba2 layers and
 apply the single SHARED attention block after each whole group, not after
-the tail (one set of weights, reused: the Zamba trick).
+the tail (one set of weights, reused: the Zamba trick).  The VLM prepends
+its projected patch embeddings to the text and rotates by M-RoPE's three
+position streams (:func:`build_positions`).
 
 Serving: :func:`prefill` is the one-shot prompt forward (kernels 7, 8 and
 9); :func:`init_cache` and :func:`decode_step` are the cached decode
@@ -20,7 +24,7 @@ import torch
 
 from repro_torch import resolve_device, rng
 from repro_torch.models import blocks, layers
-from repro_torch.models.config import ModelConfig, check_supported, unported
+from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
@@ -36,6 +40,9 @@ def _stacked_init(key: torch.Tensor, n: int, init_fn) -> PyTree:
     """``vmap(init_fn)(split(key, n))`` of the JAX package, built layer by
     layer into preallocated stacks, so no draw is ever n layers wide."""
     keys = rng.split(key, n)
+    if n == 0:      # vmap over no keys: empty stacks of the layer's shapes
+        return tree_map(lambda w: w.new_empty((0,) + tuple(w.shape)),
+                        init_fn(rng.split(key, 1)[0]))
     stack = None
     for i in range(n):
         layer = init_fn(keys[i])
@@ -50,16 +57,24 @@ def _stacked_init(key: torch.Tensor, n: int, init_fn) -> PyTree:
 def init_params(key: torch.Tensor, cfg: ModelConfig) -> PyTree:
     """Weights on ``key.device``, the same numbers as JAX's from the same
     key."""
-    check_supported(cfg)
     ks = rng.split(key, 6).unbind(0)
     params: dict = {"embed": layers.embed_init(ks[0], cfg),
                     "final_norm": layers.norm_init(cfg, cfg.d_model,
                                                    key.device)}
     main_kind = cfg.layer_kinds()[-1]
     params["layers"] = _stacked_init(
-        ks[1], cfg.n_layers, lambda k: blocks.BLOCK_INIT[main_kind](k, cfg))
+        ks[1], cfg.n_layers - cfg.first_k_dense,
+        lambda k: blocks.BLOCK_INIT[main_kind](k, cfg))
+    if cfg.first_k_dense:
+        params["first_dense"] = [
+            blocks.dense_block_init(rng.fold_in(ks[2], i), cfg,
+                                    d_ff=cfg.d_ff_dense or cfg.d_ff)
+            for i in range(cfg.first_k_dense)]
     if cfg.arch_type == "hybrid":
         params["shared"] = blocks.dense_block_init(ks[3], cfg)
+    if cfg.frontend == "vision":
+        params["patch_proj"] = layers.dense_init(
+            ks[4], cfg.frontend_dim, cfg.d_model, cfg.param_dtype)
     return params
 
 
@@ -68,12 +83,30 @@ def n_params(params: PyTree) -> int:
 
 
 # -------------------------------------------------------------- positions --
+def grid_side(cfg: ModelConfig) -> int:
+    side = int(round(cfg.n_patches ** 0.5))
+    if side * side != cfg.n_patches:
+        raise ValueError(f"n_patches must be square, got {cfg.n_patches}")
+    return side
+
+
 def build_positions(cfg: ModelConfig, b: int, s: int,
                     device=None) -> torch.Tensor:
-    """[B, S] int32 (plain RoPE)."""
-    if cfg.mrope:
-        raise unported("M-RoPE positions", "A.1e")
-    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+    """[B, S] int32 (plain RoPE) or [3, B, S] (M-RoPE: the patch grid's
+    (0, row, column) ids, then text at side + i on all three streams)."""
+    ar = torch.arange(s, dtype=torch.int32, device=device)
+    if not cfg.mrope:
+        return ar.expand(b, s)
+    side = grid_side(cfg)
+    npch = cfg.n_patches
+    grid = torch.arange(side, dtype=torch.int32, device=device)
+    text = side + ar[:s - npch]
+    pos3 = torch.stack([
+        torch.cat([torch.zeros(npch, dtype=torch.int32, device=device),
+                   text]),
+        torch.cat([grid.repeat_interleave(side), text]),
+        torch.cat([grid.repeat(side), text])])                 # [3, S]
+    return pos3[:, None, :].expand(3, b, s)
 
 
 # ---------------------------------------------------------------- forward --
@@ -85,12 +118,26 @@ def _hybrid_groups(cfg: ModelConfig) -> tuple[int, int]:
     return 0, 0
 
 
+def _embed_sequence(params, cfg: ModelConfig, tokens,
+                    patch_embeds=None) -> torch.Tensor:
+    """Token (+ projected patch prefix) embedding -> [B, S, d]."""
+    x = layers.embed_apply(params["embed"], tokens)
+    if cfg.frontend == "vision":
+        patches = patch_embeds.to(cfg.param_dtype) @ params["patch_proj"]
+        x = torch.cat([patches, x], dim=1)
+    return x
+
+
 def _run_layers(params, cfg: ModelConfig, x, positions):
-    """The layer stack (plus the hybrid shared-block insertions)."""
+    """The first dense layers, then the layer stack (plus the hybrid
+    shared-block insertions)."""
     apply_fn = blocks.BLOCK_APPLY[cfg.layer_kinds()[-1]]
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p_dense in params.get("first_dense", []):
+        x, aux = blocks.dense_block_apply(p_dense, cfg, x, positions)
+        aux_total = aux_total + aux
     _, every = _hybrid_groups(cfg)
-    for i in range(cfg.n_layers):
+    for i in range(cfg.n_layers - cfg.first_k_dense):
         x, aux = apply_fn(_layer(params["layers"], i), cfg, x, positions)
         aux_total = aux_total + aux
         if every and (i + 1) % every == 0:
@@ -102,10 +149,11 @@ def _run_layers(params, cfg: ModelConfig, x, positions):
 
 def forward(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor,
                                                       torch.Tensor]:
-    """batch {"tokens": [B, T+1]} -> (logits [B, T, V], aux); the last
-    token is the target of the one before and is not an input."""
-    check_supported(cfg)
-    x = layers.embed_apply(params["embed"], batch["tokens"][:, :-1])
+    """batch {"tokens": [B, T+1], ["patch_embeds"]} -> (logits [B, S, V],
+    aux), S = T (+ the patches); the last token is the target of the one
+    before and is not an input."""
+    x = _embed_sequence(params, cfg, batch["tokens"][:, :-1],
+                        batch.get("patch_embeds"))
     b, s, _ = x.shape
     positions = build_positions(cfg, b, s, x.device)
     x, aux = _run_layers(params, cfg, x, positions)
@@ -114,12 +162,11 @@ def forward(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor,
 
 
 def prefill(params, cfg: ModelConfig, batch) -> torch.Tensor:
-    """One-shot prompt forward: batch {"tokens": [B, S]} (all inputs) ->
-    the logits of the last position [B, V]."""
-    check_supported(cfg)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = layers.embed_apply(params["embed"], tokens)
+    """One-shot prompt forward: batch {"tokens": [B, S], ["patch_embeds"]}
+    (all inputs) -> the logits of the last position [B, V]."""
+    x = _embed_sequence(params, cfg, batch["tokens"],
+                        batch.get("patch_embeds"))
+    b, s, _ = x.shape
     positions = build_positions(cfg, b, s, x.device)
     x, _ = _run_layers(params, cfg, x, positions)
     x = layers.norm_apply(cfg, params["final_norm"], x)
@@ -130,14 +177,18 @@ def prefill(params, cfg: ModelConfig, batch) -> torch.Tensor:
 def init_cache(cfg: ModelConfig, b: int, s: int, device=None) -> PyTree:
     """Preallocated decode cache for sequence capacity ``s`` on ``device``
     (default CUDA; raises without it)."""
-    check_supported(cfg)
     dev = resolve_device(device)
     dt = cfg.param_dtype
 
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
     def attn_cache(lead):
+        if cfg.attention == "mla":
+            return {"ckv": zeros(lead + (b, s, cfg.kv_lora_rank)),
+                    "kpe": zeros(lead + (b, s, 1, cfg.qk_rope_head_dim))}
         shape = lead + (b, s, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dt, device=dev),
-                "v": torch.zeros(shape, dtype=dt, device=dev)}
+        return {"k": zeros(shape), "v": zeros(shape)}
 
     cache: dict = {}
     if cfg.layer_kinds()[-1] == "ssm":
@@ -152,7 +203,10 @@ def init_cache(cfg: ModelConfig, b: int, s: int, device=None) -> PyTree:
         if n_groups:
             cache["shared"] = attn_cache((n_groups,))
     else:
-        cache["layers"] = attn_cache((cfg.n_layers,))
+        cache["layers"] = attn_cache((cfg.n_layers - cfg.first_k_dense,))
+    if cfg.first_k_dense:
+        cache["first_dense"] = [attn_cache(())
+                                for _ in range(cfg.first_k_dense)]
     return cache
 
 
@@ -171,12 +225,14 @@ def decode_step(params, cfg: ModelConfig, cache: PyTree,
 
     Returns (logits [B, V], cache), the cache updated in place.
     """
-    check_supported(cfg)
     pos = int(pos)
     x = layers.embed_apply(params["embed"], token)
+    for p_dense, c in zip(params.get("first_dense", []),
+                          cache.get("first_dense", [])):
+        x, _ = blocks.dense_block_decode(p_dense, cfg, x, c, pos)
     decode_fn = blocks.BLOCK_DECODE[cfg.layer_kinds()[-1]]
     _, every = _hybrid_groups(cfg)
-    for i in range(cfg.n_layers):
+    for i in range(cfg.n_layers - cfg.first_k_dense):
         x, new = decode_fn(_layer(params["layers"], i), cfg, x,
                            _layer(cache["layers"], i), pos)
         _store(cache["layers"], i, new)

@@ -24,6 +24,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init
 
 NGROUPS = 1  # B/C shared across heads (Mamba2 default ngroups=1)
+# Leaves ssm_init makes float32 whatever cfg.dtype (api.cast_params keeps
+# them so).
+FLOAT32_LEAVES = ("A_log", "D", "dt_bias")
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

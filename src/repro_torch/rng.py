@@ -46,15 +46,45 @@ def threefry2x32(k1, k2, x1, x2) -> tuple[torch.Tensor, torch.Tensor]:
     return x[0], x[1]
 
 
-def _hash(key: torch.Tensor, shape: tuple) -> tuple[torch.Tensor, torch.Tensor]:
-    """threefry of the 64-bit iota of ``shape`` under each key: two words
-    of shape ``key.shape[:-1] + shape``."""
-    n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
-    lead = key.shape[:-1]
-    k1 = key[..., 0].reshape(lead + (1,) * len(shape))
-    k2 = key[..., 1].reshape(lead + (1,) * len(shape))
+# Elements of one draw hashed at a time.  Element i's bits are a function of
+# the key and i alone (partitionable threefry), so a draw walks its flat
+# counter range in blocks of this many and returns the same numbers as in
+# one piece; each block's int64 and float64 temporaries (~100 bytes a
+# value) are freed before the next, which bounds a full-width init.
+BLOCK = 1 << 24
+
+
+def _hash(key: torch.Tensor, start: int,
+          stop: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """threefry of the 64-bit counters ``start`` .. ``stop - 1`` under each
+    key: two words of shape ``key.shape[:-1] + (stop - start,)``."""
+    idx = torch.arange(start, stop, dtype=torch.int64, device=key.device)
+    k1, k2 = key[..., 0, None], key[..., 1, None]
     return threefry2x32(k1, k2, idx >> 32, idx & _M32)
+
+
+def _blocked(key: torch.Tensor, shape: tuple, fn,
+             dtype: torch.dtype) -> torch.Tensor:
+    """``fn(bits)`` of every element's 32 random bits (the counters of a
+    draw of ``shape`` are its row-major iota), ``key.shape[:-1] + shape``
+    of ``dtype``: in one piece up to :data:`BLOCK` elements over all keys,
+    else in blocks of the counter range written into one preallocated
+    output.  ``fn`` works element by element, so the blocks give the
+    one-piece numbers bit for bit."""
+    shape = tuple(shape)
+    lead = tuple(key.shape[:-1])
+    n = math.prod(shape)
+    per = max(1, BLOCK // max(1, math.prod(lead)))
+    if n <= per:
+        b1, b2 = _hash(key, 0, n)
+        return fn(b1 ^ b2).reshape(lead + shape)
+    out = torch.empty(lead + (n,), dtype=dtype, device=key.device)
+    for start in range(0, n, per):
+        stop = min(n, start + per)
+        b1, b2 = _hash(key, start, stop)
+        out[..., start:stop] = fn(b1 ^ b2)
+        del b1, b2
+    return out.reshape(lead + shape)
 
 
 def PRNGKey(seed: int, device=None) -> torch.Tensor:
@@ -67,7 +97,7 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: ``[..., 2] -> [..., num, 2]``."""
-    b1, b2 = _hash(key, (num,))
+    b1, b2 = _hash(key, 0, num)
     return torch.stack([b1, b2], dim=-1)
 
 
@@ -79,8 +109,7 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
 
 def random_bits(key: torch.Tensor, shape: tuple) -> torch.Tensor:
     """32 random bits per element, ``key.shape[:-1] + shape`` (int64)."""
-    b1, b2 = _hash(key, tuple(shape))
-    return b1 ^ b2
+    return _blocked(key, shape, lambda bits: bits, torch.int64)
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -94,16 +123,21 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
+def _uniform_of(bits: torch.Tensor, lo: torch.Tensor,
+                hi: torch.Tensor) -> torch.Tensor:
+    fbits = (bits >> 9) | 0x3F800000
+    floats = fbits.to(torch.int32).view(torch.float32) - 1.0
+    return torch.maximum(lo, fma(floats, hi - lo, lo))
+
+
 def uniform(key: torch.Tensor, shape: tuple, minval=0.0,
             maxval=1.0) -> torch.Tensor:
     """f32 ``U[minval, maxval)``: 23 mantissa bits under exponent 0, minus
     one, then ``floats * (maxval - minval) + minval`` as one fused
     multiply-add, as ``jax.random.uniform`` computes it under XLA."""
-    bits = random_bits(key, shape)
-    fbits = (bits >> 9) | 0x3F800000
-    floats = fbits.to(torch.int32).view(torch.float32) - 1.0
     lo, hi = _f32(minval, key.device), _f32(maxval, key.device)
-    return torch.maximum(lo, fma(floats, hi - lo, lo))
+    return _blocked(key, shape, lambda bits: _uniform_of(bits, lo, hi),
+                    torch.float32)
 
 
 def bernoulli(key: torch.Tensor, p, shape: tuple) -> torch.Tensor:
@@ -144,10 +178,13 @@ def normal(key: torch.Tensor, shape: tuple, divisor: float = 1.0
     ``divisor`` gives ``normal / divisor`` as jitted XLA computes it: the
     two constants fold into one, ``erfinv(u) * f32(f32(sqrt 2) /
     divisor)``."""
-    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(key, shape, lo, 1.0)
-    c = np.float32(np.sqrt(2.0)) / np.float32(divisor)
-    return _f32(c, key.device) * _erfinv(u)
+    dev = key.device
+    lo = _f32(float(np.nextafter(np.float32(-1.0), np.float32(0.0))), dev)
+    one = _f32(1.0, dev)
+    c = _f32(np.float32(np.sqrt(2.0)) / np.float32(divisor), dev)
+    return _blocked(key, shape,
+                    lambda bits: c * _erfinv(_uniform_of(bits, lo, one)),
+                    torch.float32)
 
 
 def exponential(key: torch.Tensor, shape: tuple) -> torch.Tensor:

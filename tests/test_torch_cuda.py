@@ -18,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import chip_smoke  # noqa: E402
 from repro_torch.core import dagsa_jit  # noqa: E402
 from repro_torch.core.types import SchedulingProblem  # noqa: E402
 from repro_torch.core.types import WirelessConfig  # noqa: E402
@@ -817,15 +818,79 @@ def test_flash_attention_bf16_tiles(dev, b, s, t, h, kv, d, causal):
                   "flash", torch.bfloat16)
 
 
-def test_flash_attention_cross_shape(dev):
-    """Non-causal with T != S (keys past a ragged T masked)."""
-    gen = torch.Generator(device=dev).manual_seed(3)
-    q = _normal(gen, (1, 100, 4, 64), dev)
-    k = _normal(gen, (1, 333, 4, 64), dev)
-    v = _normal(gen, (1, 333, 4, 64), dev)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,kv,d", [
+    (1, 100, 333, 4, 4, 64),
+    (4, 1, 80, 6, 6, 64),     # whisper's decode step over a served memory
+    (4, 1, 1500, 6, 6, 64),   # ... over 1,500 encoder frames
+    (4, 1, 333, 16, 8, 128),  # one query, GQA 2:1
+])
+def test_flash_attention_cross_shape(dev, dtype, b, s, t, h, kv, d):
+    """Non-causal with T != S (keys past a ragged T masked), down to one
+    query a sequence (S = 1), as a decode step's cross attention calls
+    it."""
+    gen = torch.Generator(device=dev).manual_seed(s + t + h)
+    q = _normal(gen, (b, s, h, d), dev, dtype)
+    k = _normal(gen, (b, t, kv, d), dev, dtype)
+    v = _normal(gen, (b, t, kv, d), dev, dtype)
     _assert_close(kfa.flash_attention(q, k, v, causal=False),
                   kfa.flash_attention_plain(q, k, v, causal=False), "flash",
-                  torch.float32)
+                  dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,d", [
+    (2, 300, 8, 4, 64),       # ragged S, GQA 2:1
+    (1, 512, 16, 8, 128),     # qwen3-0.6b's heads
+    (2, 130, 6, 6, 64),       # whisper's MHA
+])
+@pytest.mark.parametrize("window", [1, 16, 100, "S", "past S"])
+def test_flash_attention_window(dev, dtype, b, s, h, kv, d, window):
+    """The causal sliding window (key tiles before a query tile's window
+    skipped) against the plain version's mask, from one key a query to
+    a window at or past S (the plain causal mask)."""
+    w = {"S": s, "past S": s + 50}.get(window, window)
+    gen = torch.Generator(device=dev).manual_seed(b * s + h + w)
+    q = _normal(gen, (b, s, h, d), dev, dtype)
+    k = _normal(gen, (b, s, kv, d), dev, dtype)
+    v = _normal(gen, (b, s, kv, d), dev, dtype)
+    before = _lib.LAUNCHES["flash_attention"]
+    got = kfa.flash_attention(q, k, v, causal=True, window=w)
+    assert _lib.LAUNCHES["flash_attention"] == before + 1
+    want = kfa.flash_attention_plain(q, k, v, causal=True, window=w)
+    _assert_close(got, want, "flash", dtype)
+    if w >= s:
+        _assert_close(got, kfa.flash_attention_plain(q, k, v, causal=True),
+                      "flash", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rank,rope", [(512, 64), (32, 16)])
+def test_rmsnorm_on_mla_latent_slice(dev, dtype, rank, rope):
+    """MLA's kv_norm: the latent slice of ``x @ wkv_a`` is a strided view,
+    which the kernel refuses; made contiguous, it matches the plain
+    version on the view."""
+    gen = torch.Generator(device=dev).manual_seed(rank)
+    kv_a = _normal(gen, (2, 40, rank + rope), dev, dtype)
+    scale = (1.0 + 0.1 * _normal(gen, (rank,), dev)).to(dtype)
+    view = kv_a[..., :rank]
+    with pytest.raises(ValueError, match="contiguous"):
+        krn.rmsnorm(view, scale)
+    before = _lib.LAUNCHES["rmsnorm"]
+    got = krn.rmsnorm(view.contiguous(), scale)
+    assert _lib.LAUNCHES["rmsnorm"] == before + 1
+    _assert_close(got, krn.rmsnorm_plain(view, scale), "rmsnorm", dtype)
+
+
+@pytest.mark.parametrize("arch,required", [
+    (arch, required) for arch, _, required in chip_smoke.LM_ARCHS],
+    ids=[arch for arch, _, _ in chip_smoke.LM_ARCHS])
+def test_lm_config_small_run_on_card_matches_cpu(dev, arch, required):
+    """Each reduced float32 config: forward, prefill and 8 cached decode
+    steps on the card against the CPU (Whisper also with the encoder's
+    memory in the cache), within 1e-4, through the kernels its path
+    reaches (chip_smoke.py's check (a))."""
+    chip_smoke.check_lm_small(arch, dev, required)
 
 
 def _ssd_inputs(gen, dev, b, s, h, p, n, dtype, g=1):
@@ -921,6 +986,8 @@ def test_lm_wrappers_validate(dev):
     with pytest.raises(ValueError, match="D in"):
         kfa.flash_attention(q[..., :32].contiguous(), q[..., :32].contiguous(),
                             q[..., :32].contiguous())
+    with pytest.raises(ValueError, match="window"):
+        kfa.flash_attention(q, q, q, causal=False, window=16)
     x = torch.rand((8, 256), device=dev)
     with pytest.raises(TypeError):
         krn.rmsnorm(x.double(), torch.ones(256, device=dev).double())

@@ -103,25 +103,26 @@ def test_config_registry_mirrors_jax():
         get_config("nope")
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("qwen3_0_6b", "A.1a"), ("olmo-1b", "A.1a"), ("mamba2_2_7b", "A.1a"),
-    ("deepseek_67b", "A.1a"), ("qwen3_32b", "A.1a"),
-    ("qwen3_moe_30b_a3b", "A.1c"), ("deepseek-v2-236b", "A.1c"),
-    ("whisper_tiny", "A.1d"), ("qwen2-vl-7b", "A.1e")])
-def test_unported_configs_name_their_roadmap_item(arch, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        get_config(arch)
-
-
-@pytest.mark.parametrize("field,value,item", [
-    ("sliding_window", 16, "A.1b"), ("norm", "nonparametric_ln", "A.1a"),
-    ("mlp", "gelu", "A.1d"), ("n_experts", 4, "A.1c"),
-    ("encoder_decoder", True, "A.1d"), ("mrope", True, "A.1e")])
-def test_unported_branches_raise(field, value, item):
-    cfg = dataclasses.replace(get_config("zamba2_1_2b").reduced(),
-                              **{field: value})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        api.init_params(rng.PRNGKey(0), cfg)
+@pytest.mark.parametrize("field,value", [
+    ("sliding_window", 16), ("norm", "nonparametric_ln"), ("mlp", "gelu"),
+    ("n_experts", 4), ("encoder_decoder", True), ("mrope", True)])
+def test_branch_init_matches_jax(field, value):
+    """The reduced Zamba2 with one branch switched on inits as JAX does,
+    leaf by leaf (the branches' own parity: tests/test_torch_lm_*.py)."""
+    jc = dataclasses.replace(j_get_config("zamba2_1_2b").reduced(),
+                             **{field: value})
+    tc = dataclasses.replace(get_config("zamba2_1_2b").reduced(),
+                             **{field: value})
+    with jax.threefry_partitionable(True):
+        want = j_api.init_params(jax.random.PRNGKey(0), jc)
+    got = api.init_params(rng.PRNGKey(0), tc)
+    want_leaves = jax.tree_util.tree_flatten_with_path(want)[0]
+    got_leaves = tree_leaves(got)
+    assert len(got_leaves) == len(want_leaves)
+    for (path, w), g in zip(want_leaves, got_leaves):
+        assert tuple(g.shape) == w.shape, path
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
+                                   atol=1e-7, err_msg=str(path))
 
 
 # -------------------------------------------------------------------- init --
