@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels    # steps 1-3, 7a and 7f only
     python3 chip_smoke.py --sweeps     # step 1, the build, the plans' sweeps
     python3 chip_smoke.py --lm         # step 1, the build, steps 7f-7g
+    python3 chip_smoke.py --train      # step 1, the build, step 7h
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
 2. builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` with
@@ -149,8 +150,29 @@
       prefills 8 x 2048 and serves with a 256-token window over a
       512-token prompt (a spy shows kernel 7 got the window); one
       ``{"lm_path": ...}`` line a path;
-8. prints one JSON line with every kernel's numbers, then, as the last
-   line, ``{"ok": true, "device": {...}}``.
+   h. the training slice (``run_train_phase``): (a) the backward kernels
+      of 7 and 8 against the plain versions' autograd, bfloat16 (2e-2 of
+      each gradient's largest magnitude) and float32 (1e-4), a second
+      call bit-equal, timed beside the bound, the plain version and a
+      yardstick (SDPA's backward with enable_gqa, the window as a mask;
+      F.rms_norm's backward): kernel 7 at qwen3-0.6b's [4, 512, 16 / 8
+      heads, 128] causal and with windows of 256 and 16, an MHA [4, 512,
+      32, 64] and Whisper's cross attention [4, 375 x 1,500, 6, 64];
+      kernel 8 at [4096, 1024] and qk_norm's [65536, 128]; (b) one
+      training step of each reduced config without SSM layers on the
+      card against the CPU (loss, gradients and the SGD step within
+      1e-4, the forward and backward kernels launched), mamba2 and zamba2
+      refusing with A.1g's error; (c) qwen3-0.6b at full width and depth
+      in bfloat16 through ``launch.train``'s loop, B = 8, T = 512, 30
+      steps (falling finite loss; exact launch counts: each forward
+      kernel twice a layer a step under remat; step ms, tokens/s, peak
+      allocated bytes, the model-FLOP share), a checkpoint round trip
+      bit for bit and one more step from each tree, then 5
+      ``sgd_train_step``s of whisper-tiny on 4 x 1,500-frame batches;
+8. prints one JSON line with every kernel's numbers (the backward rows
+   ``flash_attention_bwd`` and ``rmsnorm_bwd`` with the launches of
+   ``train_qwen3_0_6b``), then, as the last line, ``{"ok": true,
+   "device": {...}}``.
 
 Any failure exits non-zero before the last line.  TF32 is turned off for
 matmuls and convolutions, so float32 on the card means float32.  Exits
@@ -203,6 +225,15 @@ KERNELS = {
                 "src/repro/kernels/rmsnorm.py:40", "zamba2_serve"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:72", "zamba2_serve"),
+    # the gradients of kernels 7 and 8: port-only, the TPU kernels have no
+    # backward (JAX differentiates its jnp attention and norm)
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention.py:82 "
+                            "(its gradient; no TPU backward)",
+                            "train_qwen3_0_6b"),
+    "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm.py:40 (its gradient; no TPU "
+                    "backward)", "train_qwen3_0_6b"),
 }
 
 
@@ -2780,6 +2811,382 @@ def run_lm_archs(dev) -> dict:
     return launches
 
 
+# ------------------------------------------------------ the training slice --
+# The kernels a reduced config's training step must launch on the card,
+# forward and backward; mamba2 and zamba2 (kernel 9, no backward kernel
+# yet) must refuse (ROADMAP.md A.1g).
+_ATTN_NORM = ("flash_attention", "flash_attention_bwd", "rmsnorm",
+              "rmsnorm_bwd")
+TRAIN_ARCHS = (
+    ("qwen3_0_6b", _ATTN_NORM), ("qwen3_32b", _ATTN_NORM),
+    ("deepseek_67b", _ATTN_NORM),
+    ("olmo_1b", ("flash_attention", "flash_attention_bwd")),
+    ("qwen3_moe_30b_a3b", _ATTN_NORM),
+    ("deepseek_v2_236b", ("rmsnorm", "rmsnorm_bwd")),
+    ("whisper_tiny", _ATTN_NORM), ("qwen2_vl_7b", _ATTN_NORM),
+)
+TRAIN_REFUSED = ("mamba2_2_7b", "zamba2_1_2b")
+TRAIN_TOL = 1e-4             # (b): card vs CPU, relative to a leaf's max
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}    # (a)
+TRAIN_FULL = dict(arch="qwen3_0_6b", batch=8, seq=512, steps=30, lr=3e-3)
+WHISPER_TRAIN = dict(batch=4, frames=1500, steps=5)
+# (a): kernel 7's backward, (label, (B, S, T, H, KV, D), causal, window)
+FLASH_BWD_CASES = (
+    ("main", (4, 512, 512, 16, 8, 128), True, 0),            # qwen3-0.6b
+    ("qwen3_window256", (4, 512, 512, 16, 8, 128), True, 256),
+    ("qwen3_window16", (4, 512, 512, 16, 8, 128), True, 16),
+    ("mha", (4, 512, 512, 32, 32, 64), True, 0),
+    ("whisper_cross", (4, 375, 1500, 6, 6, 64), False, 0),
+)
+RMSNORM_BWD_CASES = (("main", (4096, 1024)), ("qk_norm", (65536, 128)))
+
+
+def _grad_err(name, got, want, tol, scale=None) -> float:
+    """max |got - want| / scale of one gradient, scale = max |want| unless
+    given; raises past tol."""
+    got, want = got.detach().float(), want.detach().float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite gradient")
+    if scale is None:
+        scale = want.abs().max().item()
+    scale = max(scale, 1e-30)
+    rel = (got - want).abs().max().item() / scale
+    if rel > tol:
+        raise AssertionError(f"{name}: max abs err {rel:.3e} of the largest "
+                             f"magnitude, past {tol}")
+    return rel
+
+
+def _grads_err(name, got, want, tol) -> float:
+    """The worst :func:`_grad_err` of a kernel's gradients (dq, dk, dv or
+    dx, dscale) against their plain versions, each relative to the largest
+    magnitude among them: a gradient that is exactly zero (dq and dk
+    under a window of 1, where each softmax row holds one key) is held to
+    the scale of the others."""
+    scale = max(w.detach().float().abs().max().item() for w in want)
+    return max(_grad_err(f"{name} {i}", g, w, tol, scale)
+               for i, (g, w) in enumerate(zip(got, want)))
+
+
+def _band_mask(s, t, window, dev):
+    """The causal band of ``window`` keys a query as SDPA's boolean mask
+    (True: attended)."""
+    i = torch.arange(s, device=dev)[:, None]
+    j = torch.arange(t, device=dev)[None, :]
+    return (j <= i) & (i - j < window)
+
+
+def check_train_kernels(dev) -> dict:
+    """(a) the backward kernels of 7 and 8 against the plain versions'
+    autograd on the card, in bfloat16 and float32 (suffix "_f32"): the
+    gradients within BWD_TOL of their largest magnitude, a second call equal
+    bit for bit; timed beside the bound (backward ops ~2.5x the forward's
+    pair FLOPs for kernel 7), the plain version and a yardstick: SDPA's
+    backward with enable_gqa (the window as a mask) and F.rms_norm's
+    backward, each from a retained graph."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rmsnorm as krn
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    results = {"flash_attention_bwd": {}, "rmsnorm_bwd": {}}
+
+    def normal(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def same(name, a, b):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{name}: two calls differ")
+
+    for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        esize = 2 if dtype == torch.bfloat16 else 4
+        peak = PEAK_BF16_OPS_S if dtype == torch.bfloat16 else PEAK_F32_OPS_S
+        tol = BWD_TOL[dtype]
+        for label, (b, s, t, h, kv, d), causal, window in FLASH_BWD_CASES:
+            name = f"flash_attention_bwd {label}{suffix}"
+            q = normal((b, s, h, d), dtype)
+            k, v = (normal((b, t, kv, d), dtype) for _ in range(2))
+            dout = normal((b, s, h, d), dtype)
+            out = kfa.flash_attention(q, k, v, causal=causal, window=window)
+
+            def kernel():
+                return kfa.flash_attention_bwd(q, k, v, out, dout,
+                                               causal=causal, window=window)
+
+            def plain():
+                return kfa.flash_attention_bwd_plain(
+                    q, k, v, out, dout, causal=causal, window=window)
+
+            got, want = kernel(), plain()
+            same(name, got, kernel())
+            err = _grads_err(name, got, want, tol)
+            lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_(True)
+                          for x in (q, k, v))
+            lo = F.scaled_dot_product_attention(
+                lq, lk, lv, enable_gqa=True,
+                is_causal=causal and not window,
+                attn_mask=_band_mask(s, t, window, dev) if window else None)
+            ldout = dout.transpose(1, 2)
+
+            def lib():
+                return torch.autograd.grad(lo, (lq, lk, lv), ldout,
+                                           retain_graph=True)
+
+            pairs = _attn_pairs(s, t, causal, window)
+            _lm_record(results, "flash_attention_bwd", label + suffix,
+                       [b, s, t, h, kv, d], err, kernel, plain, lib,
+                       (4 * b * s * h + 4 * b * t * kv) * d * esize,
+                       2.5 * 4.0 * b * h * pairs * d, peak, 5,
+                       extra={"causal": causal, "window": window})
+            del q, k, v, dout, out, got, want, lq, lk, lv, lo
+        for label, (rows, d) in RMSNORM_BWD_CASES:
+            name = f"rmsnorm_bwd {label}{suffix}"
+            x = normal((rows, d), dtype)
+            scale = (1.0 + 0.1 * normal((d,), torch.float32)).to(dtype)
+            g = normal((rows, d), dtype)
+
+            def kernel():
+                return krn.rmsnorm_bwd(x, scale, g)
+
+            def plain():
+                return krn.rmsnorm_bwd_plain(x, scale, g)
+
+            got, want = kernel(), plain()
+            same(name, got, kernel())
+            if got[1].dtype != dtype or got[0].dtype != dtype:
+                raise AssertionError(f"{name}: gradients not in {dtype}")
+            err = _grads_err(name, got, want, tol)
+            lx = x.detach().requires_grad_(True)
+            ls = scale.detach().requires_grad_(True)
+            lo = F.rms_norm(lx, (d,), weight=ls, eps=1e-6)
+
+            def lib():
+                return torch.autograd.grad(lo, (lx, ls), g,
+                                           retain_graph=True)
+
+            _lm_record(results, "rmsnorm_bwd", label + suffix, [rows, d],
+                       err, kernel, plain, lib,
+                       (3 * rows * d + 2 * d) * esize, 10.0 * rows * d,
+                       PEAK_F32_OPS_S, 20)
+            del x, g, got, want, lx, ls, lo
+    torch.cuda.synchronize()
+    return results
+
+
+def check_train_small(arch, dev, required) -> dict:
+    """(b) one training step of the reduced float32 config on the card
+    against the CPU: the loss, nll and aux, every gradient (within
+    TRAIN_TOL of its largest magnitude) and the parameters after one
+    ``api.sgd_train_step``, the card's run launching each kernel of
+    ``required``.  tests/test_torch_cuda.py runs it too."""
+    from repro_torch import rng
+    from repro_torch.kernels import _lib
+    from repro_torch.models import api
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = _lm_cfg(arch, None).reduced()
+    params = api.init_params(rng.PRNGKey(0), cfg)
+    batch = api.make_train_batch(rng.PRNGKey(1), cfg, 2, 32)
+    runs = {}
+    for d in ("cpu", dev):
+        p = tree_map(lambda w: w.to(d), params)
+        bt = {k: v.to(d) for k, v in batch.items()}
+        _lib.reset_launches()
+        (loss, (nll, aux)), grads = api.value_and_grad(p, cfg, bt)
+        new, _ = api.sgd_train_step(p, cfg, bt)
+        runs[str(d)] = ([loss, nll, aux], tree_leaves(grads),
+                        tree_leaves(new), dict(_lib.LAUNCHES))
+    card, cpu = runs[str(dev)], runs["cpu"]
+    for name in required:
+        if card[3][name] <= 0:
+            raise AssertionError(f"{arch} train: the card's step never "
+                                 f"launched {name}")
+    out = {"loss": max(_close_tol(f"{arch} train {w}", g.cpu(), c, TRAIN_TOL)
+                       for w, g, c in zip(("loss", "nll", "aux"), card[0],
+                                          cpu[0])),
+           "grads": max(_grad_err(f"{arch} train grad {i}", g.cpu(), c,
+                                  TRAIN_TOL)
+                        for i, (g, c) in enumerate(zip(card[1], cpu[1]))),
+           "params": max(_close_tol(f"{arch} train params", g.cpu(), c,
+                                    TRAIN_TOL)
+                         for g, c in zip(card[2], cpu[2])),
+           "launches": {k: card[3][k] for k in _ATTN_NORM}}
+    return out
+
+
+def check_train_refused(arch, dev) -> str:
+    """(b) a reduced SSM config's gradient on the card raises A.1g's
+    NotImplementedError (kernel 9 has no backward kernel yet)."""
+    from repro_torch import rng
+    from repro_torch.models import api
+
+    cfg = _lm_cfg(arch, None).reduced()
+    params = api.init_params(rng.PRNGKey(0, device=dev), cfg)
+    batch = api.make_train_batch(rng.PRNGKey(1, device=dev), cfg, 2, 32)
+    try:
+        api.value_and_grad(params, cfg, batch)
+    except NotImplementedError as err:
+        if "A.1g" not in str(err):
+            raise AssertionError(f"{arch}: refused without naming A.1g: "
+                                 f"{err}") from err
+        return str(err)
+    raise AssertionError(f"{arch}: the card differentiated kernel 9")
+
+
+def run_train_full(dev) -> dict:
+    """(c) qwen3-0.6b at full width and depth in bfloat16 through
+    ``launch.train``'s loop (TRAIN_FULL), launch counts zeroed just before
+    and read just after (remat: each forward kernel twice a layer a step,
+    each backward kernel once); every loss finite and the last below the
+    first; step ms, tokens/s, peak allocated bytes and the model-FLOP
+    share (6ND over the median step at 989 TFLOP/s); then a checkpoint
+    saved and loaded into a fresh tree bit for bit, and one more step from
+    each: equal losses, parameters within one bfloat16 ulp (the
+    embedding's gradient may add in another order).  Returns the
+    launches."""
+    import tempfile
+
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.data import token_batches
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import train as train_mod
+    from repro_torch.roofline import report
+    from repro_torch.tree import tree_leaves, tree_map
+
+    arch, b, s, steps = (TRAIN_FULL[k] for k in ("arch", "batch", "seq",
+                                                   "steps"))
+    cfg = _lm_cfg(arch, None)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    res = train_mod.train(cfg, steps, b, s, TRAIN_FULL["lr"], dev,
+                          log=lambda line: print(f"train {line}",
+                                                 flush=True))
+    launches = dict(_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    layers = cfg.n_layers
+    want = {"flash_attention": 2 * layers * steps,
+            "flash_attention_bwd": layers * steps,
+            # norm1, q_norm, k_norm, norm2 a layer (twice: remat), the
+            # final norm once
+            "rmsnorm": (8 * layers + 1) * steps,
+            "rmsnorm_bwd": (4 * layers + 1) * steps}
+    got = {k: launches[k] for k in want}
+    losses = res.losses
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"train_{arch}: losses {losses}")
+    step_s = statistics.median(res.step_s[1:])
+    flops = report.model_flops(arch, {"global_batch": b, "seq_len": s},
+                               "train")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = str(Path(tmp) / "params.npz")
+        t0 = time.perf_counter()
+        save_pytree(path, res.params, step=steps)
+        fresh = load_pytree(path, tree_map(torch.empty_like, res.params))
+        ckpt_s = time.perf_counter() - t0
+    for a, c in zip(tree_leaves(fresh), tree_leaves(res.params)):
+        if a.dtype != c.dtype or not torch.equal(a, c):
+            raise AssertionError(f"train_{arch}: checkpoint not bit for bit")
+    step = train_mod.make_step(cfg, res.opt)
+    batch = next(token_batches(2, cfg.vocab, b, s, 1, top=8, device=dev))
+    p1, _, l1 = step(res.params, res.opt_state, batch)
+    p2, _, l2 = step(fresh, res.opt_state, batch)
+    if not torch.equal(l1, l2):
+        raise AssertionError(f"train_{arch}: the step from the loaded "
+                             f"checkpoint gives loss {float(l2)}, not "
+                             f"{float(l1)}")
+    ulps, bit_equal = 0.0, True
+    for a, c in zip(tree_leaves(p1), tree_leaves(p2)):
+        if not torch.equal(a, c):
+            bit_equal = False
+            d = (a.float() - c.float()).abs()
+            ulp = torch.clamp(c.float().abs(), min=1e-30) * 2.0 ** -7
+            ulps = max(ulps, (d / ulp).max().item())
+    if ulps > 1.0:
+        raise AssertionError(f"train_{arch}: the steps from the loaded and "
+                             f"the trained weights differ by {ulps} ulps")
+    row = {"train_path": f"train_{arch}", "depth": layers, "dtype":
+           str(cfg.param_dtype).split(".")[-1], "batch": b, "seq": s,
+           "steps": steps, "loss_first": losses[0], "loss_last": losses[-1],
+           "step_ms_median": step_s * 1e3,
+           "step_ms": [x * 1e3 for x in res.step_s],
+           "tokens_per_s": b * s / step_s, "peak_allocated_bytes": peak,
+           "model_flops_per_step": flops,
+           "model_flop_share": flops / step_s / PEAK_BF16_OPS_S,
+           "launches": got, "launches_expected": want,
+           "checkpoint_s": ckpt_s, "resumed_bit_equal": bit_equal,
+           "resumed_max_ulps": ulps}
+    print(json.dumps(row), flush=True)
+    if got != want:
+        raise AssertionError(f"train_{arch}: launches {got}, expected "
+                             f"{want}")
+    del res, fresh, p1, p2
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_whisper_train(dev) -> dict:
+    """(c) whisper-tiny at full width: WHISPER_TRAIN's
+    ``api.sgd_train_step``s on ``make_train_batch`` batches (audio frames
+    and 1/4 as many decoder tokens), launch counts zeroed just before and
+    read just after; finite losses, kernels 7 and 8 launched forward and
+    backward."""
+    from repro_torch import rng
+    from repro_torch.kernels import _lib
+    from repro_torch.models import api
+
+    cfg = _lm_cfg("whisper_tiny", None)
+    params = api.init_params(rng.PRNGKey(0, device=dev), cfg)
+    _lib.reset_launches()
+    w_losses, w_ms = [], []
+    for i in range(WHISPER_TRAIN["steps"]):
+        batch = api.make_train_batch(rng.PRNGKey(10 + i, device=dev), cfg,
+                                     WHISPER_TRAIN["batch"],
+                                     WHISPER_TRAIN["frames"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, metrics = api.sgd_train_step(params, cfg, batch)
+        w_losses.append(float(metrics["loss"]))
+        w_ms.append((time.perf_counter() - t0) * 1e3)
+    w_launches = dict(_lib.LAUNCHES)
+    if not all(math.isfinite(x) for x in w_losses):
+        raise AssertionError(f"train_whisper_tiny: losses {w_losses}")
+    for name in _ATTN_NORM:
+        if w_launches[name] <= 0:
+            raise AssertionError(f"train_whisper_tiny never launched {name}")
+    print(json.dumps({"train_path": "train_whisper_tiny",
+                      "batch": WHISPER_TRAIN["batch"],
+                      "frames": WHISPER_TRAIN["frames"],
+                      "tokens": batch["tokens"].shape[1] - 1,
+                      "losses": w_losses, "step_ms": w_ms,
+                      "launches": {k: w_launches[k] for k in _ATTN_NORM}}),
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return w_launches
+
+
+def run_train_phase(dev) -> tuple[dict, dict]:
+    """The training slice: (a) the backward kernel rows, (b) the reduced
+    configs card vs CPU and the SSM refusals, (c) the full-width runs.
+    Returns (kernel rows by kernel, launches by path)."""
+    t_phase = time.perf_counter()
+    results = check_train_kernels(dev)
+    small = {arch: check_train_small(arch, dev, required)
+             for arch, required in TRAIN_ARCHS}
+    refused = {arch: check_train_refused(arch, dev) for arch in TRAIN_REFUSED}
+    print(json.dumps({"train_small": small, "train_refused": refused,
+                      "seconds": time.perf_counter() - t_phase}), flush=True)
+    full = run_train_full(dev)
+    whisper = run_whisper_train(dev)
+    print(json.dumps({"train_phase_seconds": time.perf_counter() - t_phase}),
+          flush=True)
+    return results, {f"train_{TRAIN_FULL['arch']}": full,
+                     "train_whisper_tiny": whisper}
+
+
 def _device_ops(prof) -> dict:
     from torch.autograd import DeviceType
     ops = {}
@@ -2900,12 +3307,13 @@ def main(argv: list[str]) -> int:
     kernels_only = argv == ["--kernels"]
     sweeps_only = argv == ["--sweeps"]
     lm_only = argv == ["--lm"]
+    train_only = argv == ["--train"]
     shard_rank_dir = (Path(argv[1]) if len(argv) == 2
                       and argv[0] == "--shard-rank" else None)
-    if argv and not (kernels_only or sweeps_only or lm_only
+    if argv and not (kernels_only or sweeps_only or lm_only or train_only
                      or shard_rank_dir):
         print(f"chip_smoke: unknown arguments {argv}; takes none, "
-              f"--kernels, --sweeps or --lm", file=sys.stderr)
+              f"--kernels, --sweeps, --lm or --train", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2943,6 +3351,9 @@ def main(argv: list[str]) -> int:
     if lm_only:
         check_lm_arch_kernels(dev, {"flash_attention": {}, "rmsnorm": {}})
         run_lm_archs(dev)
+        return 0
+    if train_only:
+        run_train_phase(dev)
         return 0
     host_costs(dev)
     results = check_kernels(dev)
@@ -2983,6 +3394,9 @@ def main(argv: list[str]) -> int:
     del params
     torch.cuda.empty_cache()
     launches.update(run_lm_archs(dev))
+    train_results, train_launches = run_train_phase(dev)
+    results.update(train_results)
+    launches.update(train_launches)
 
     print(json.dumps({"kernels": kernel_rows(results, launches)}))
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,25 @@
 //          not a multiple of the vector width or a base off 16-byte
 //          alignment (a slice of a larger buffer).
 // out is always 16-byte aligned: the wrapper allocates it.
+//
+// The backward (rmsnorm_bwd_*; the TPU has none: JAX differentiates its
+// jnp norm, and the port's training path needs one on the card) takes x,
+// scale and g = dL/dout and recomputes each row's r = rsqrt(mean(x^2) +
+// eps), so the forward stays as it is:
+//   dx     = r (g s) - x r^3 mean(g s x)      (rmsnorm_bwd_rows)
+//   dscale = sum over rows of g x r           (two passes, below)
+// It reads x and g and writes dx, so memory bounds it too.  A warp takes a
+// row: 16-byte vectors when every base is aligned and d a multiple of the
+// vector width, element loads otherwise, so it takes every shape the
+// forward's three paths take; the row's two sums reduce by xor shuffles
+// and a second pass over the row (from L1/L2) writes dx and keeps r.
+// dscale is a column sum over every row, and float atomics would add in an
+// order that changes from run to run; so a block of 32 columns x 8 row
+// lanes sums one chunk of rows into a partial row (rmsnorm_bwd_partial),
+// and one thread a column adds the chunks' partial rows in order
+// (rmsnorm_bwd_colsum): two runs agree bit for bit.  The partial pass
+// reads x and g a second time (5 row reads and writes where 3 would do):
+// the first design, kept simple.
 #include "common.cuh"
 
 namespace {
@@ -231,6 +250,157 @@ int launch(const T* x, const T* scale, T* out, long long rows, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------- backward --
+constexpr int kBwdWarps = 8;     // rows a block in rmsnorm_bwd_rows
+constexpr int kColThreads = 32;  // columns a block in rmsnorm_bwd_partial
+constexpr int kRowLanes = 8;     // row lanes a block in rmsnorm_bwd_partial
+
+__device__ __forceinline__ float warp_allsum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// dx of one row a warp; r of the row into rrow.  VEC: 16-byte vectors.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kBwdWarps * 32)
+rmsnorm_bwd_rows(const T* __restrict__ x, const T* __restrict__ scale,
+                 const T* __restrict__ g, T* __restrict__ dx,
+                 float* __restrict__ rrow, long long rows, int d, float eps) {
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      (long long)blockIdx.x * kBwdWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;  // the whole warp leaves together
+  const long long base = row * d;
+  float ss = 0.0f, dot = 0.0f;
+  if (VEC) {
+    constexpr int kN = Vec<T>::kN;
+    const uint4* xv = reinterpret_cast<const uint4*>(x + base);
+    const uint4* gv = reinterpret_cast<const uint4*>(g + base);
+    const uint4* sv = reinterpret_cast<const uint4*>(scale);
+    for (int c = lane; c < d / kN; c += 32) {
+      float xf[kN], gf[kN], sf[kN];
+      Vec<T>::unpack(__ldg(xv + c), xf);
+      Vec<T>::unpack(__ldg(gv + c), gf);
+      Vec<T>::unpack(__ldg(sv + c), sf);
+#pragma unroll
+      for (int e = 0; e < kN; ++e) {
+        ss = fmaf(xf[e], xf[e], ss);
+        dot = fmaf(gf[e] * sf[e], xf[e], dot);
+      }
+    }
+  } else {
+    for (int c = lane; c < d; c += 32) {
+      const float xf = repro_torch::to_f32(x[base + c]);
+      const float gs = repro_torch::to_f32(g[base + c]) *
+                       repro_torch::to_f32(scale[c]);
+      ss = fmaf(xf, xf, ss);
+      dot = fmaf(gs, xf, dot);
+    }
+  }
+  ss = warp_allsum(ss);
+  dot = warp_allsum(dot);
+  const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+  const float coef = r * r * r * (dot / static_cast<float>(d));
+  if (VEC) {
+    constexpr int kN = Vec<T>::kN;
+    const uint4* xv = reinterpret_cast<const uint4*>(x + base);
+    const uint4* gv = reinterpret_cast<const uint4*>(g + base);
+    const uint4* sv = reinterpret_cast<const uint4*>(scale);
+    uint4* ov = reinterpret_cast<uint4*>(dx + base);
+    for (int c = lane; c < d / kN; c += 32) {
+      float xf[kN], gf[kN], sf[kN];
+      Vec<T>::unpack(__ldg(xv + c), xf);
+      Vec<T>::unpack(__ldg(gv + c), gf);
+      Vec<T>::unpack(__ldg(sv + c), sf);
+#pragma unroll
+      for (int e = 0; e < kN; ++e) xf[e] = r * (gf[e] * sf[e]) - xf[e] * coef;
+      ov[c] = Vec<T>::pack(xf);
+    }
+  } else {
+    for (int c = lane; c < d; c += 32) {
+      const float xf = repro_torch::to_f32(x[base + c]);
+      const float gs = repro_torch::to_f32(g[base + c]) *
+                       repro_torch::to_f32(scale[c]);
+      dx[base + c] = repro_torch::from_f32<T>(r * gs - xf * coef);
+    }
+  }
+  if (lane == 0) rrow[row] = r;
+}
+
+// partial[chunk][c] = sum over the chunk's rows of g x r, column c: 32
+// columns x 8 row lanes a block, the lanes added in order.
+template <typename T>
+__global__ void __launch_bounds__(kColThreads * kRowLanes)
+rmsnorm_bwd_partial(const T* __restrict__ x, const T* __restrict__ g,
+                    const float* __restrict__ rrow, float* __restrict__ part,
+                    long long rows, int d, int chunk) {
+  __shared__ float sh[kRowLanes][kColThreads + 1];
+  const int tx = threadIdx.x % kColThreads, ty = threadIdx.x / kColThreads;
+  const int col = blockIdx.x * kColThreads + tx;
+  const long long r0 = (long long)blockIdx.y * chunk;
+  const long long r1 = min(rows, r0 + chunk);
+  float acc = 0.0f;
+  if (col < d) {
+    for (long long r = r0 + ty; r < r1; r += kRowLanes) {
+      const long long i = r * d + col;
+      acc = fmaf(repro_torch::to_f32(g[i]) * repro_torch::to_f32(x[i]),
+                 rrow[r], acc);
+    }
+  }
+  sh[ty][tx] = acc;
+  __syncthreads();
+  if (ty == 0 && col < d) {
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kRowLanes; ++k) s += sh[k][tx];
+    part[(long long)blockIdx.y * d + col] = s;
+  }
+}
+
+// dscale[c] = the chunks' partial rows added in order, in T.
+template <typename T>
+__global__ void __launch_bounds__(256)
+rmsnorm_bwd_colsum(const float* __restrict__ part, T* __restrict__ dscale,
+                   int n_chunks, int d) {
+  const int col = blockIdx.x * 256 + threadIdx.x;
+  if (col >= d) return;
+  float s = 0.0f;
+  for (int k = 0; k < n_chunks; ++k) s += part[(long long)k * d + col];
+  dscale[col] = repro_torch::from_f32<T>(s);
+}
+
+template <typename T>
+int launch_bwd(const T* x, const T* scale, const T* g, T* dx, T* dscale,
+               float* work, long long rows, int d, float eps, int vec,
+               int chunk, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int kN = Vec<T>::kN;
+  const long long n_chunks = (rows + chunk - 1) / chunk;
+  if (rows <= 0 || d <= 0 || chunk <= 0 || n_chunks > 65535 ||
+      (vec && d % kN)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  float* rrow = work;
+  float* part = work + rows;
+  const long long blocks = (rows + kBwdWarps - 1) / kBwdWarps;
+  if (vec) {
+    rmsnorm_bwd_rows<T, true><<<static_cast<unsigned>(blocks),
+                                kBwdWarps * 32, 0, s>>>(x, scale, g, dx, rrow,
+                                                        rows, d, eps);
+  } else {
+    rmsnorm_bwd_rows<T, false><<<static_cast<unsigned>(blocks),
+                                 kBwdWarps * 32, 0, s>>>(x, scale, g, dx, rrow,
+                                                         rows, d, eps);
+  }
+  const dim3 pgrid((d + kColThreads - 1) / kColThreads,
+                   static_cast<unsigned>(n_chunks));
+  rmsnorm_bwd_partial<T><<<pgrid, kColThreads * kRowLanes, 0, s>>>(
+      x, g, rrow, part, rows, d, chunk);
+  rmsnorm_bwd_colsum<T><<<(d + 255) / 256, 256, 0, s>>>(
+      part, dscale, static_cast<int>(n_chunks), d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // path: PATH_*; lanes and vpl (vectors per lane) are read by PATH_ROWS.
@@ -245,4 +415,25 @@ extern "C" int rmsnorm_bf16(const __nv_bfloat16* x,
                             long long rows, int d, float eps, int path,
                             int lanes, int vpl, void* stream) {
   return launch(x, scale, out, rows, d, eps, path, lanes, vpl, stream);
+}
+
+// work: rows + ceil(rows / chunk) * d floats of scratch (each row's r, then
+// the partial rows of dscale); vec: 16-byte vectors (every base aligned, d
+// a multiple of the vector width).
+extern "C" int rmsnorm_bwd_f32(const float* x, const float* scale,
+                               const float* g, float* dx, float* dscale,
+                               float* work, long long rows, int d, float eps,
+                               int vec, int chunk, void* stream) {
+  return launch_bwd(x, scale, g, dx, dscale, work, rows, d, eps, vec, chunk,
+                    stream);
+}
+
+extern "C" int rmsnorm_bwd_bf16(const __nv_bfloat16* x,
+                                const __nv_bfloat16* scale,
+                                const __nv_bfloat16* g, __nv_bfloat16* dx,
+                                __nv_bfloat16* dscale, float* work,
+                                long long rows, int d, float eps, int vec,
+                                int chunk, void* stream) {
+  return launch_bwd(x, scale, g, dx, dscale, work, rows, d, eps, vec, chunk,
+                    stream);
 }

@@ -42,7 +42,7 @@ LAUNCHES = {"bandwidth_solve": 0, "masked_bs_argmax": 0,
             "best_bs_argmax": 0, "fedavg_reduce": 0, "fedavg_reduce_int8": 0,
             "fedavg_segment_reduce": 0, "fedavg_segment_reduce_int8": 0,
             "sparsify_quantize": 0, "flash_attention": 0, "rmsnorm": 0,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -50,6 +50,10 @@ _SIGNATURES = {
     **{f"rmsnorm_{t}": (_P, _P, _P, _LL, _I, _F, _I, _I, _I, _P)
        for t in ("f32", "bf16")},
     **{f"flash_attention_{t}": (_P, _P, _P, _P) + (_I,) * 8 + (_F, _P)
+       for t in ("f32", "bf16")},
+    **{f"rmsnorm_bwd_{t}": (_P,) * 6 + (_LL, _I, _F, _I, _I, _P)
+       for t in ("f32", "bf16")},
+    **{f"flash_attention_bwd_{t}": (_P,) * 10 + (_I,) * 8 + (_F, _P)
        for t in ("f32", "bf16")},
     **{f"ssd_scan_{t}": (_P,) * 6 + (_I,) * 8 + (_P,)
        for t in ("f32", "bf16")},

@@ -4,6 +4,13 @@ On CUDA tensors :func:`rmsnorm` launches the hand-written kernel in
 ``csrc/rmsnorm.cu``; on CPU tensors it runs :func:`rmsnorm_plain`, the
 oracle ``repro.kernels.ref.rmsnorm``.  Both compute in float32,
 ``(x * rsqrt(mean(x^2) + eps)) * scale``, and return x's dtype.
+
+Gradients: where autograd records the call (grad enabled and an input
+requiring it), :func:`rmsnorm` goes through an ``autograd.Function`` whose
+backward is :func:`rmsnorm_bwd`, the hand-written kernels of the same
+source on CUDA tensors, the plain version's autograd on CPU tensors.
+Otherwise it launches the forward directly, as the serving path always
+does.
 """
 from __future__ import annotations
 
@@ -53,12 +60,34 @@ def rmsnorm_plan(dtype: torch.dtype, d: int,
     return "rows", lanes, _lib.pow2_ceil(-(-vecs // lanes))
 
 
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps, index):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _forward(x, scale, eps, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x, scale, g.contiguous(), ctx.eps)
+        return dx, dscale, None, None
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """x [..., D] float32 or bfloat16, scale [D] of x's dtype -> [..., D]."""
     index = _lib.cuda_index(x, scale)
     if index is None:
         return rmsnorm_plain(x, scale, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNorm.apply(x.contiguous(), scale.contiguous(), eps, index)
+    return _forward(x, scale, eps, index)
+
+
+def _forward(x: torch.Tensor, scale: torch.Tensor, eps: float,
+             index: int) -> torch.Tensor:
+    """The forward kernel's launch (the serving path's direct call)."""
     kind = _lib.float_kind(x, "x")
     d = x.shape[-1]
     _lib.require(x, "x", x.dtype, x.shape)
@@ -73,3 +102,54 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
                 float(eps), PATHS[path], lanes, vecs)
     _lib.LAUNCHES["rmsnorm"] += 1
     return out
+
+
+# Rows a block of the backward sums into one partial row of dscale (more
+# where the rows would need more than the grid's 65,535 chunks).
+BWD_CHUNK_ROWS = 256
+
+
+def rmsnorm_bwd_plain(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                      eps: float = 1e-6):
+    """(dx, dscale): autograd of :func:`rmsnorm_plain` given g =
+    dL/dout."""
+    with torch.enable_grad():
+        xs = x.detach().requires_grad_(True)
+        ss = scale.detach().requires_grad_(True)
+        return torch.autograd.grad(rmsnorm_plain(xs, ss, eps), (xs, ss), g)
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                eps: float = 1e-6):
+    """The gradients (dx in x's dtype, dscale in scale's) of ``out =
+    rmsnorm(x, scale, eps)`` given g = dL/dout.
+
+    With r = rsqrt(mean(x^2) + eps) recomputed from x:
+    dx = r (g s) - x r^3 mean(g s x) and dscale = sum over rows of g x r.
+    On CUDA (csrc/rmsnorm.cu): a warp a row for dx (16-byte vectors when
+    every base is aligned and D a multiple of the vector width, element
+    loads otherwise), then dscale by a two-pass reduction with no atomics,
+    so two runs agree bit for bit: one partial row a chunk of rows, then
+    a column sum over the chunks in order."""
+    index = _lib.cuda_index(x, scale, g)
+    if index is None:
+        return rmsnorm_bwd_plain(x, scale, g, eps)
+    kind = _lib.float_kind(x, "x")
+    d = x.shape[-1]
+    _lib.require(x, "x", x.dtype, x.shape)
+    _lib.require(scale, "scale", x.dtype, (d,))
+    _lib.require(g, "g", x.dtype, x.shape)
+    dx, dscale = torch.empty_like(x), torch.empty_like(scale)
+    rows = x.numel() // d if d else 0
+    if rows == 0:
+        return dx, dscale.zero_()
+    chunk = max(BWD_CHUNK_ROWS, -(-rows // 65535))
+    work = torch.empty((rows + -(-rows // chunk) * d,), dtype=torch.float32,
+                       device=x.device)
+    ptrs = (x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr())
+    vec = d % (VEC_BYTES // x.dtype.itemsize) == 0 and all(
+        p % VEC_BYTES == 0 for p in ptrs)
+    _lib.launch(f"rmsnorm_bwd_{kind}", index, *ptrs, dscale.data_ptr(),
+                work.data_ptr(), rows, d, float(eps), int(vec), chunk)
+    _lib.LAUNCHES["rmsnorm_bwd"] += 1
+    return dx, dscale

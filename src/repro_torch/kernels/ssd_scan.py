@@ -12,6 +12,11 @@ x [B, S, H, P] and B/C [B, S, G, N] float32 or bfloat16 (one dtype), dt
 float32 whatever x's dtype, as the model's path computes it.  The kernels
 take a chunk that is a multiple of 16 up to 128, N a multiple of 8 up to
 128 and P a multiple of 32 (:func:`ssd_plan` raises on anything else).
+
+The kernels have no backward yet (ROADMAP.md A.1g): on CUDA tensors that
+autograd would record (grad enabled and an input requiring it),
+:func:`ssd_scan` raises NotImplementedError and computes nothing.  On CPU
+tensors the plain version's autograd differentiates it.
 """
 from __future__ import annotations
 
@@ -81,6 +86,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     index = _lib.cuda_index(x, dt, A, B, C)
     if index is None:
         return ssd_scan_plain(x, dt, A, B, C, chunk)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B, C)):
+        raise NotImplementedError(
+            "ssd_scan has no backward kernel on CUDA yet (ROADMAP.md A.1g): "
+            "Mamba2 and Zamba2 train on the CPU only")
     kind = _lib.float_kind(x, "x")
     if g < 1 or h % g:
         raise ValueError(f"ssd_scan needs H a multiple of G, got H={h}, G={g}")

@@ -113,6 +113,13 @@ def forward(params, cfg: ModelConfig, batch):
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
+def loss_fn(params, cfg: ModelConfig, batch):
+    """(nll + aux, (nll, aux)) of the teacher-forced decoder; aux is 0."""
+    logits, aux = forward(params, cfg, batch)
+    nll = layers.cross_entropy(logits, batch["tokens"][:, 1:])
+    return nll + aux, (nll, aux)
+
+
 # ------------------------------------------------------------------ decode --
 def init_cache(cfg: ModelConfig, b: int, s: int, s_enc: int,
                device=None) -> PyTree:

@@ -1,5 +1,6 @@
 """Shared neural building blocks (PyTorch port of ``repro.models.layers``):
-norms, the SwiGLU and GELU MLPs, the tied embedding, RoPE and M-RoPE.
+norms, the SwiGLU and GELU MLPs, the tied embedding, RoPE, M-RoPE and
+the token cross entropy.
 
 Convention as in JAX: every layer is ``init(key, cfg, ...) -> params dict``
 and ``apply(params, x, ...) -> y`` on plain dicts of tensors in the JAX
@@ -135,3 +136,19 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, cfg: ModelConfig,
                              device=x.device)
     pos = positions3[sec_id]                                   # [half, B, S]
     return _rotate(x, pos.permute(1, 2, 0).float() * freqs)
+
+
+# ------------------------------------------------------------------- loss --
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token NLL in float32: logsumexp minus the gold logit; labels
+    [B, T] int, logits [B, T, V]; ``mask`` [B, T] weights the tokens (the
+    mean over its sum, at least 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -15,12 +15,19 @@ Serving: :func:`prefill` is the one-shot prompt forward (kernels 7, 8 and
 9); :func:`init_cache` and :func:`decode_step` are the cached decode
 (kernel 8; attention and the SSM recurrence plain, as in JAX).
 :func:`decode_step` updates the cache in place and returns it.
+
+Training: :func:`loss_fn` is the next-token NLL plus the MoE aux loss.
+With ``cfg.remat`` set, a differentiated forward checkpoints each layer of
+the stack (``torch.utils.checkpoint``, JAX's ``jax.checkpoint`` of the
+scanned block): the backward recomputes the layer, so only its input is
+kept.  Serving differentiates nothing and takes no checkpoint.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device, rng
 from repro_torch.models import blocks, layers
@@ -128,17 +135,35 @@ def _embed_sequence(params, cfg: ModelConfig, tokens,
     return x
 
 
+def _differentiated(x: torch.Tensor, stack: PyTree) -> bool:
+    """True when autograd records a layer on ``x`` with weights from
+    ``stack``: grad is enabled and the input or a weight requires it."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(w.requires_grad for w in tree_leaves(stack)))
+
+
 def _run_layers(params, cfg: ModelConfig, x, positions):
     """The first dense layers, then the layer stack (plus the hybrid
-    shared-block insertions)."""
+    shared-block insertions); each layer of the stack checkpointed when
+    ``cfg.remat`` is set and the forward is differentiated, as JAX
+    checkpoints its scanned block (not the first dense layers nor the
+    shared block)."""
     apply_fn = blocks.BLOCK_APPLY[cfg.layer_kinds()[-1]]
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p_dense in params.get("first_dense", []):
         x, aux = blocks.dense_block_apply(p_dense, cfg, x, positions)
         aux_total = aux_total + aux
     _, every = _hybrid_groups(cfg)
+    if cfg.remat and _differentiated(x, params["layers"]):
+        def layer_fn(lp, h):
+            # the layers draw no random numbers: no RNG state to replay
+            return checkpoint(apply_fn, lp, cfg, h, positions,
+                              use_reentrant=False, preserve_rng_state=False)
+    else:
+        def layer_fn(lp, h):
+            return apply_fn(lp, cfg, h, positions)
     for i in range(cfg.n_layers - cfg.first_k_dense):
-        x, aux = apply_fn(_layer(params["layers"], i), cfg, x, positions)
+        x, aux = layer_fn(_layer(params["layers"], i), x)
         aux_total = aux_total + aux
         if every and (i + 1) % every == 0:
             x, aux = blocks.dense_block_apply(params["shared"], cfg, x,
@@ -159,6 +184,18 @@ def forward(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor,
     x, aux = _run_layers(params, cfg, x, positions)
     x = layers.norm_apply(cfg, params["final_norm"], x)
     return layers.unembed_logits(params["embed"], x, cfg), aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """(nll + aux, (nll, aux)): the mean NLL of each next token (the VLM's
+    text positions only; its logits begin with the patch prefix) and the
+    MoE load-balance loss."""
+    logits, aux = forward(params, cfg, batch)
+    labels = batch["tokens"][:, 1:]
+    if cfg.frontend == "vision":
+        logits = logits[:, -labels.shape[1]:]
+    nll = layers.cross_entropy(logits, labels)
+    return nll + aux, (nll, aux)
 
 
 def prefill(params, cfg: ModelConfig, batch) -> torch.Tensor:

@@ -14,6 +14,10 @@ re-implements the default ``jax.random`` implementation (threefry2x32 in
 * the counters of a draw of shape ``s`` are the 64-bit row-major iota of
   ``s`` split into (hi, lo) words, and the 32-bit bits are ``b1 ^ b2``.
 
+A key on the ``meta`` device draws ``meta`` tensors of the right shapes and
+dtypes without hashing anything: an init from such a key gives the
+parameters' shapes alone (``roofline.report``'s parameter counts).
+
 The legacy (non-partitionable) layout is not implemented.  Keys are explicit
 and handed down every call, as in the JAX package; there is no hidden state.
 """
@@ -58,6 +62,9 @@ def _hash(key: torch.Tensor, start: int,
           stop: int) -> tuple[torch.Tensor, torch.Tensor]:
     """threefry of the 64-bit counters ``start`` .. ``stop - 1`` under each
     key: two words of shape ``key.shape[:-1] + (stop - start,)``."""
+    if key.device.type == "meta":
+        words = key.new_empty(tuple(key.shape[:-1]) + (stop - start,))
+        return words, words
     idx = torch.arange(start, stop, dtype=torch.int64, device=key.device)
     k1, k2 = key[..., 0, None], key[..., 1, None]
     return threefry2x32(k1, k2, idx >> 32, idx & _M32)
@@ -73,6 +80,8 @@ def _blocked(key: torch.Tensor, shape: tuple, fn,
     one-piece numbers bit for bit."""
     shape = tuple(shape)
     lead = tuple(key.shape[:-1])
+    if key.device.type == "meta":
+        return torch.empty(lead + shape, dtype=dtype, device="meta")
     n = math.prod(shape)
     per = max(1, BLOCK // max(1, math.prod(lead)))
     if n <= per:
@@ -103,6 +112,8 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in`` with a scalar uint32 ``data``."""
+    if key.device.type == "meta":
+        return key.new_empty(key.shape)
     b1, b2 = threefry2x32(key[..., 0], key[..., 1], 0, int(data) & _M32)
     return torch.stack([b1, b2], dim=-1)
 

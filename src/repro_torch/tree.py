@@ -37,3 +37,17 @@ def tree_unflatten(like: Params, leaves) -> Params:
     :func:`tree_leaves` order)."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), like)
+
+
+def tree_leaves_with_path(tree: Params,
+                          path: tuple = ()) -> list[tuple[tuple, Any]]:
+    """(path, leaf) pairs in :func:`tree_leaves` order; a path holds the
+    dict keys and list indices from the root (JAX's ``DictKey`` and
+    ``SequenceKey`` entries)."""
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree)
+                for pair in tree_leaves_with_path(tree[k], path + (k,))]
+    if isinstance(tree, list):
+        return [pair for i, t in enumerate(tree)
+                for pair in tree_leaves_with_path(t, path + (i,))]
+    return [(path, tree)]

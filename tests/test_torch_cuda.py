@@ -1423,3 +1423,148 @@ def test_world_of_one_shard_paths_on_card_equal_unsharded(dev):
     for field in ("assign", "selected", "bw", "bs_time", "t_round"):
         assert getattr(out, field).device == getattr(ref, field).device
         assert torch.equal(getattr(out, field), getattr(ref, field)), field
+
+
+# ------------------------------------------------- the backward kernels ----
+# A call's gradients within 1e-4 (float32) / 2e-2 (bfloat16) of their
+# largest magnitude, against the plain versions' autograd on the card.
+_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _assert_grads(got, want, dtype):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape
+    chip_smoke._grads_err("grad", got, want, _BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,kv,d,causal,window", [
+    (1, 67, 67, 4, 4, 64, True, 0),          # odd S = T, one row past a tile
+    (2, 130, 333, 8, 4, 128, False, 0),      # odd S and T, non-causal
+    (2, 100, 100, 8, 1, 64, True, 1),        # a window of 1, GQA 8/1
+    (1, 300, 300, 16, 8, 128, True, 16),     # qwen3's heads, window 16
+    (1, 200, 200, 4, 2, 64, True, 300),      # a window past S
+    (4, 1, 80, 6, 6, 64, False, 0),          # one query a sequence
+    (2, 75, 300, 6, 6, 64, False, 0),        # whisper's cross attention
+])
+def test_flash_attention_bwd(dev, dtype, b, s, t, h, kv, d, causal, window):
+    gen = torch.Generator(device=dev).manual_seed(b * s + t + h + window)
+    q = _normal(gen, (b, s, h, d), dev, dtype)
+    k = _normal(gen, (b, t, kv, d), dev, dtype)
+    v = _normal(gen, (b, t, kv, d), dev, dtype)
+    dout = _normal(gen, (b, s, h, d), dev, dtype)
+    out = kfa.flash_attention(q, k, v, causal=causal, window=window)
+    before = _lib.LAUNCHES["flash_attention_bwd"]
+    got = kfa.flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                                  window=window)
+    assert _lib.LAUNCHES["flash_attention_bwd"] == before + 1
+    _assert_grads(got, kfa.flash_attention_bwd_plain(
+        q, k, v, out, dout, causal=causal, window=window), dtype)
+    again = kfa.flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                                    window=window)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(37, 128), (3, 7, 2048), (9, 8192),
+                                   (5, 202), (1, 6), (4096, 1024),
+                                   (20000, 128)])
+def test_rmsnorm_bwd(dev, dtype, shape):
+    """The backward over every shape the forward's paths take: the "rows"
+    widths, a "wide" row of 8,192, "scalar" widths (202, 6), and rows
+    past one chunk of the dscale reduction."""
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = _normal(gen, shape, dev, dtype)
+    scale = (1.0 + 0.1 * _normal(gen, shape[-1:], dev)).to(dtype)
+    g = _normal(gen, shape, dev, dtype)
+    before = _lib.LAUNCHES["rmsnorm_bwd"]
+    got = krn.rmsnorm_bwd(x, scale, g)
+    assert _lib.LAUNCHES["rmsnorm_bwd"] == before + 1
+    _assert_grads(got, krn.rmsnorm_bwd_plain(x, scale, g), dtype)
+    again = krn.rmsnorm_bwd(x, scale, g)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_rmsnorm_autograd_non_contiguous_and_unaligned(dev, dtype, offset):
+    """Autograd through the wrapper on a non-contiguous slice (MLA's
+    latent rows), and the backward on a base off 16-byte alignment (its
+    element loads): gradients of x and scale against the plain
+    version's."""
+    gen = torch.Generator(device=dev).manual_seed(7 + offset)
+    base = _normal(gen, (40 * 160 + offset,), dev, dtype)[offset:]
+    x = base.view(40, 160)[:, :128].detach().requires_grad_(True)
+    scale = (1.0 + 0.1 * _normal(gen, (128,), dev)).to(dtype)
+    scale.requires_grad_(True)
+    g = _normal(gen, (40, 128), dev, dtype)
+    before = (_lib.LAUNCHES["rmsnorm"], _lib.LAUNCHES["rmsnorm_bwd"])
+    got = torch.autograd.grad(krn.rmsnorm(x, scale), (x, scale), g)
+    assert (_lib.LAUNCHES["rmsnorm"],
+            _lib.LAUNCHES["rmsnorm_bwd"]) == (before[0] + 1, before[1] + 1)
+    _assert_grads(got, krn.rmsnorm_bwd_plain(x, scale, g), dtype)
+    flat = base[:40 * 128].view(40, 128)        # contiguous, maybe unaligned
+    assert (flat.data_ptr() % 16 != 0) == bool(offset)
+    _assert_grads(krn.rmsnorm_bwd(flat, scale.detach(), g),
+                  krn.rmsnorm_bwd_plain(flat, scale.detach(), g), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_through_the_kernels(dev, dtype):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = _normal(gen, (2, 96, 8, 64), dev, dtype).requires_grad_(True)
+    k = _normal(gen, (2, 96, 2, 64), dev, dtype).requires_grad_(True)
+    v = _normal(gen, (2, 96, 2, 64), dev, dtype).requires_grad_(True)
+    dout = _normal(gen, (2, 96, 8, 64), dev, dtype)
+    before = (_lib.LAUNCHES["flash_attention"],
+              _lib.LAUNCHES["flash_attention_bwd"])
+    out = kfa.flash_attention(q, k, v, causal=True, window=40)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    assert (_lib.LAUNCHES["flash_attention"],
+            _lib.LAUNCHES["flash_attention_bwd"]) == (before[0] + 1,
+                                                      before[1] + 1)
+    want = kfa.flash_attention_bwd_plain(q, k, v, out, dout, causal=True,
+                                         window=40)
+    _assert_grads(got, want, dtype)
+
+
+def test_serving_calls_launch_the_forward_directly(dev):
+    """Without a differentiated input (serving), the wrappers launch the
+    forward as before: no autograd node, no backward launch."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = _normal(gen, (8, 256), dev)
+    scale = torch.ones(256, device=dev, requires_grad=True)
+    q = _normal(gen, (1, 64, 4, 64), dev)
+    before = dict(_lib.LAUNCHES)
+    assert krn.rmsnorm(x, scale.detach()).grad_fn is None
+    with torch.no_grad():
+        assert krn.rmsnorm(x, scale).grad_fn is None
+    assert kfa.flash_attention(q, q, q).grad_fn is None
+    after = dict(_lib.LAUNCHES)
+    assert after["rmsnorm"] == before["rmsnorm"] + 2
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["rmsnorm_bwd"] == before["rmsnorm_bwd"]
+
+
+@pytest.mark.parametrize("arch,required", chip_smoke.TRAIN_ARCHS,
+                         ids=[a for a, _ in chip_smoke.TRAIN_ARCHS])
+def test_lm_config_train_step_on_card_matches_cpu(dev, arch, required):
+    """One reduced float32 training step a config on the card against the
+    CPU: loss, gradients and the SGD step within 1e-4, through the
+    forward and backward kernels (chip_smoke.py's check (b))."""
+    chip_smoke.check_train_small(arch, dev, required)
+
+
+@pytest.mark.parametrize("arch", chip_smoke.TRAIN_REFUSED)
+def test_ssm_training_refused_on_card(dev, arch):
+    """Kernel 9 has no backward kernel yet: differentiating Mamba2 or
+    Zamba2 on the card raises ROADMAP.md A.1g's error."""
+    chip_smoke.check_train_refused(arch, dev)
+    from repro_torch.kernels import ssd_scan as kss_mod
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x, dt, A, B, C = _ssd_inputs(gen, dev, 1, 64, 2, 32, 16, torch.float32)
+    x.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="A.1g"):
+        kss_mod.ssd_scan(x, dt, A, B, C, 32)
+    with torch.no_grad():
+        kss_mod.ssd_scan(x, dt, A, B, C, 32)
