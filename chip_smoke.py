@@ -6,6 +6,7 @@
     python3 chip_smoke.py --sweeps     # step 1, the build, the plans' sweeps
     python3 chip_smoke.py --lm         # step 1, the build, steps 7f-7g
     python3 chip_smoke.py --train      # step 1, the build, step 7h
+    python3 chip_smoke.py --train-probe  # step 1, the build, run_train_probe
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
 2. builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` with
@@ -151,27 +152,41 @@
       512-token prompt (a spy shows kernel 7 got the window); one
       ``{"lm_path": ...}`` line a path;
    h. the training slice (``run_train_phase``): (a) the backward kernels
-      of 7 and 8 against the plain versions' autograd, bfloat16 (2e-2 of
-      each gradient's largest magnitude) and float32 (1e-4), a second
-      call bit-equal, timed beside the bound, the plain version and a
+      of 7, 8 and 9 against the plain versions' autograd, bfloat16 (2e-2
+      of the largest magnitude) and float32 (1e-4), a second call
+      bit-equal, timed beside the bound, the plain version and a
       yardstick (SDPA's backward with enable_gqa, the window as a mask;
-      F.rms_norm's backward): kernel 7 at qwen3-0.6b's [4, 512, 16 / 8
-      heads, 128] causal and with windows of 256 and 16, an MHA [4, 512,
-      32, 64] and Whisper's cross attention [4, 375 x 1,500, 6, 64];
-      kernel 8 at [4096, 1024] and qk_norm's [65536, 128]; (b) one
-      training step of each reduced config without SSM layers on the
-      card against the CPU (loss, gradients and the SGD step within
-      1e-4, the forward and backward kernels launched), mamba2 and zamba2
-      refusing with A.1g's error; (c) qwen3-0.6b at full width and depth
-      in bfloat16 through ``launch.train``'s loop, B = 8, T = 512, 30
-      steps (falling finite loss; exact launch counts: each forward
-      kernel twice a layer a step under remat; step ms, tokens/s, peak
-      allocated bytes, the model-FLOP share), a checkpoint round trip
-      bit for bit and one more step from each tree, then 5
-      ``sgd_train_step``s of whisper-tiny on 4 x 1,500-frame batches;
+      F.rms_norm's backward; none for kernel 9): kernel 7 at
+      qwen3-0.6b's [4, 512, 16 / 8 heads, 128] causal and with windows
+      of 256 and 16, an MHA [4, 512, 32, 64] and Whisper's cross
+      attention [4, 375 x 1,500, 6, 64]; kernel 8 at [4096, 1024] and
+      qk_norm's [65536, 128]; kernel 9 at one Mamba2 layer of Zamba2
+      ("main", [4, 512, 64 heads of 64, state 64]) and of mamba2-2.7b
+      ("state128", [4, 512, 80, 64, 128]), chunk 128, on data at the
+      model's scale (``ssd_bwd_inputs``) whose gradients move by at
+      least SSD_CARRY_MARGIN times the tolerance when the state carries
+      one chunk only (``ssd_carry_share``), and on the forward tests'
+      large dt; (b) one training step of each of the ten reduced configs
+      on the card against the CPU (loss, gradients and the SGD step
+      within 1e-4, the forward and backward kernels launched: mamba2 and
+      zamba2 through kernel 9's, over four chunks of 32 tokens);
+      (c) through ``launch.train``'s loop in bfloat16, B = 8, T = 512,
+      at full width: qwen3-0.6b 30 steps, zamba2-1.2b (38 Mamba2 layers
+      and the shared block) 20, mamba2-2.7b 10 at 32 of its 64 layers
+      (at 64 AdamW's step passes the card's memory) (falling
+      finite loss; exact launch counts (``train_launches``): each forward
+      kernel twice a layer a step under remat, the shared block's once;
+      step ms, tokens/s, peak allocated bytes, the model-FLOP share), on
+      qwen3-0.6b a checkpoint round trip bit for bit and one more step
+      from each tree, then 5 ``sgd_train_step``s of whisper-tiny on 4 x
+      1,500-frame batches; a ``{"train_path": ...}`` line a run
+      (``--train-probe`` instead runs ``run_train_probe``: zamba2-1.2b
+      at lr 3e-3 through the kernels and through the plain forward's
+      autograd, and mamba2-2.7b at 64 layers);
 8. prints one JSON line with every kernel's numbers (the backward rows
    ``flash_attention_bwd`` and ``rmsnorm_bwd`` with the launches of
-   ``train_qwen3_0_6b``), then, as the last line, ``{"ok": true,
+   ``train_qwen3_0_6b``, ``ssd_scan_bwd`` with those of
+   ``train_zamba2_1_2b``), then, as the last line, ``{"ok": true,
    "device": {...}}``.
 
 Any failure exits non-zero before the last line.  TF32 is turned off for
@@ -182,13 +197,24 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import torch
+if __name__ == "__main__":
+    # The caching allocator's expandable segments, set before torch loads:
+    # with fixed segments, what the earlier phases and paths freed stays
+    # cut into segments that a long run cannot release, and mamba2-2.7b's
+    # AdamW step (~49 GB) ran out of memory with ~45 GiB reserved but
+    # unused (PERF.md).
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
@@ -234,6 +260,10 @@ KERNELS = {
     "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:40 (its gradient; no TPU "
                     "backward)", "train_qwen3_0_6b"),
+    # kernel 9's gradient: port-only (JAX differentiates its jnp scan)
+    "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan_bwd.cu",
+                     "src/repro/kernels/ssd_scan.py:72 (its gradient; no TPU "
+                     "backward)", "train_zamba2_1_2b"),
 }
 
 
@@ -2157,14 +2187,17 @@ def _ssd_ops(b, s, h, p, n, q) -> float:
 
 
 def _lm_record(results, kernel, label, shape, err, fn, plain, lib, n_bytes,
-               n_ops, peak, reps, extra=None) -> None:
+               n_ops, peak, reps, extra=None, after=None) -> None:
     """Time a checked LM kernel row into ``results[kernel][label]`` (and
     print it): the wrapper, its plain version and the yardstick, beside
-    the bound."""
+    the bound; then the fields ``after()`` measures (a profile, kept
+    apart from the timings)."""
     bound, by = _bound_ms(n_bytes, n_ops, peak)
     row = {"name": kernel, "shape": shape, "max_abs_err": err,
            **_timings(kernel, label, fn, plain, lib, reps),
            "bound_ms": bound, "bound_by": by, **(extra or {})}
+    if after is not None:
+        row.update(after())
     results[kernel][label] = row
     print(json.dumps({"check": label, **row}), flush=True)
 
@@ -2813,10 +2846,11 @@ def run_lm_archs(dev) -> dict:
 
 # ------------------------------------------------------ the training slice --
 # The kernels a reduced config's training step must launch on the card,
-# forward and backward; mamba2 and zamba2 (kernel 9, no backward kernel
-# yet) must refuse (ROADMAP.md A.1g).
+# forward and backward.
 _ATTN_NORM = ("flash_attention", "flash_attention_bwd", "rmsnorm",
               "rmsnorm_bwd")
+_SSM_NORM = ("ssd_scan", "ssd_scan_bwd", "rmsnorm", "rmsnorm_bwd")
+TRAIN_KERNELS = _ATTN_NORM + ("ssd_scan", "ssd_scan_bwd")
 TRAIN_ARCHS = (
     ("qwen3_0_6b", _ATTN_NORM), ("qwen3_32b", _ATTN_NORM),
     ("deepseek_67b", _ATTN_NORM),
@@ -2824,12 +2858,34 @@ TRAIN_ARCHS = (
     ("qwen3_moe_30b_a3b", _ATTN_NORM),
     ("deepseek_v2_236b", ("rmsnorm", "rmsnorm_bwd")),
     ("whisper_tiny", _ATTN_NORM), ("qwen2_vl_7b", _ATTN_NORM),
+    ("mamba2_2_7b", _SSM_NORM), ("zamba2_1_2b", TRAIN_KERNELS),
 )
-TRAIN_REFUSED = ("mamba2_2_7b", "zamba2_1_2b")
 TRAIN_TOL = 1e-4             # (b): card vs CPU, relative to a leaf's max
+TRAIN_SMALL_CHUNKS = 4       # (b): a Mamba2 config's sequence, in chunks
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}    # (a)
-TRAIN_FULL = dict(arch="qwen3_0_6b", batch=8, seq=512, steps=30, lr=3e-3)
+# (c): the full-width bfloat16 runs through launch.train's loop (depth
+# None: full depth; resume: a checkpoint round trip after the run).
+# mamba2-2.7b runs 32 of its 64 layers: at 64 its first step asks for
+# more than the card's 79 GiB (the functional AdamW step holds the old
+# and new float32 moments and the float32 clipped gradients at once).
+# zamba2 trains at lr 1e-3: at launch.train's 3e-3 its loss spikes near
+# step 14 through the kernels and through the plain forward's autograd
+# alike.  ``--train-probe`` shows both (PERF.md).
+TRAIN_FULL = (
+    dict(arch="qwen3_0_6b", depth=None, steps=30, lr=3e-3, resume=True),
+    dict(arch="zamba2_1_2b", depth=None, steps=20, lr=1e-3, resume=False),
+    dict(arch="mamba2_2_7b", depth=32, steps=10, lr=3e-3, resume=False),
+)
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
 WHISPER_TRAIN = dict(batch=4, frames=1500, steps=5)
+# (a): kernel 9's backward, (label, (B, S, H, P, N)) at chunk 128: one
+# Mamba2 layer of Zamba2-1.2B and of mamba2-2.7b (state 128)
+SSD_BWD_CASES = (("main", (4, 512, 64, 64, 64)),
+                 ("state128", (4, 512, 80, 64, 128)))
+# A multi-chunk kernel 9 backward row's gradients must move by at least
+# this many times its tolerance when the state stops carrying past one
+# chunk (ssd_carry_share): else its data could not show a carry fault.
+SSD_CARRY_MARGIN = 10.0
 # (a): kernel 7's backward, (label, (B, S, T, H, KV, D), causal, window)
 FLASH_BWD_CASES = (
     ("main", (4, 512, 512, 16, 8, 128), True, 0),            # qwen3-0.6b
@@ -2876,21 +2932,122 @@ def _band_mask(s, t, window, dev):
     return (j <= i) & (i - j < window)
 
 
+def ssd_bwd_inputs(gen, dev, b, s, h, p, n, dtype, g=1, large_dt=False):
+    """(x, dt, A, B, C, dy) for kernel 9's backward.  At the model's scale
+    (the default) A = -1 .. -H and dt = softplus(0.5 z + bias_h), the
+    biases putting head h's dt at ssm_init's range [0.001, 0.1] spread
+    geometrically in head order: every decay from a state that carries
+    across the whole sequence (head 1) to one that forgets within a few
+    positions.  ``large_dt``: the forward tests' dt = softplus(z) and
+    A = -exp(z / 2), where a 128-chunk's decay underflows."""
+    import torch.nn.functional as F
+
+    def normal(shape, dt=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    x = normal((b, s, h, p), dtype)
+    if large_dt:
+        dt = F.softplus(normal((b, s, h)))
+        A = -torch.exp(normal((h,)) * 0.5)
+    else:
+        d0 = torch.logspace(-3, -1, h, device=dev)
+        dt = F.softplus(0.5 * normal((b, s, h)) + d0
+                        + torch.log(-torch.expm1(-d0)))
+        A = -torch.arange(1, h + 1, dtype=torch.float32, device=dev)
+    B, C = (normal((b, s, g, n), dtype) for _ in range(2))
+    dy = normal((b, s, h, p))
+    return x, dt, A, B, C, dy
+
+
+def _ssd_plain_grads(x, dt, A, B, C, dy, chunk, forward=None):
+    """(dx, ddt, dA, dB, dC): autograd of kernel 9's plain forward (or of
+    ``forward``), B and C repeated to the heads and their gradients summed
+    back over each group."""
+    from repro_torch.kernels import ssd_scan as kss
+
+    forward = forward or kss.ssd_scan_plain
+    hg = x.shape[2] // B.shape[2]
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, dt, A, B, C)]
+        y = forward(*leaves[:3], leaves[3].repeat_interleave(hg, dim=2),
+                    leaves[4].repeat_interleave(hg, dim=2), chunk)
+        return torch.autograd.grad(y, leaves, dy)
+
+
+def _ssd_one_chunk_memory(x, dt, A, B, C, chunk):
+    """Kernel 9's plain forward with the state carried across one chunk
+    boundary and no further: chunk c's entering state is chunk c-1's own
+    contribution (each chunk scanned behind its predecessor, or behind
+    zeros)."""
+    from repro_torch.kernels import ssd_scan as kss
+
+    b, s = x.shape[:2]
+    nc = s // chunk
+
+    def pairs(t):
+        t = t.reshape(b, nc, chunk, *t.shape[2:])
+        t = torch.cat([torch.zeros_like(t[:, :1]), t], 1)
+        return torch.stack([t[:, :-1], t[:, 1:]], 2).reshape(
+            b * nc, 2 * chunk, *t.shape[3:])
+
+    y = kss.ssd_scan_plain(pairs(x), pairs(dt), A, pairs(B), pairs(C), chunk)
+    return y.reshape(b, nc, 2, chunk, *y.shape[2:])[:, :, 1].reshape(
+        b, s, *y.shape[2:])
+
+
+def ssd_carry_share(x, dt, A, B, C, dy, chunk) -> float:
+    """How far the data let the carry between chunks show: the largest,
+    over the five gradients, of max |plain - plain with the state carried
+    one chunk only| over the gradient's largest magnitude.  0 for a
+    single chunk."""
+    full = _ssd_plain_grads(x, dt, A, B, C, dy, chunk)
+    short = _ssd_plain_grads(x, dt, A, B, C, dy, chunk,
+                             _ssd_one_chunk_memory)
+    return max(((f - c).abs().max() / f.abs().max().clamp_min(1e-30)).item()
+               for f, c in zip(full, short))
+
+
+def _kernel_split_ms(fn, reps: int = 3) -> dict:
+    """Device ms a call of each kernel ``fn`` launches, by name
+    (torch.profiler over ``reps`` calls)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name, (t, _) in _device_ops(prof).items():
+        short = re.search(r"(\w+)(?:<[^()]*>)?\(", name)
+        key = short.group(1) if short else name
+        out[key] = out.get(key, 0.0) + t / reps
+    if not out:
+        print("kernels_ms: the profiler recorded no device activity",
+              flush=True)
+    return out or None
+
+
 def check_train_kernels(dev) -> dict:
-    """(a) the backward kernels of 7 and 8 against the plain versions'
+    """(a) the backward kernels of 7, 8 and 9 against the plain versions'
     autograd on the card, in bfloat16 and float32 (suffix "_f32"): the
-    gradients within BWD_TOL of their largest magnitude, a second call equal
-    bit for bit; timed beside the bound (backward ops ~2.5x the forward's
-    pair FLOPs for kernel 7), the plain version and a yardstick: SDPA's
-    backward with enable_gqa (the window as a mask) and F.rms_norm's
-    backward, each from a retained graph."""
+    gradients within BWD_TOL of their largest magnitude (kernel 9: each
+    gradient of its own), a second call equal bit for bit; timed beside
+    the bound (backward ops ~2.5x the forward's pair FLOPs for kernel 7,
+    2x the forward's multiply-adds for kernel 9), the plain version and a
+    yardstick: SDPA's backward with enable_gqa (the window as a mask) and
+    F.rms_norm's backward, each from a retained graph; no single PyTorch
+    call computes kernel 9's."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import rmsnorm as krn
+    from repro_torch.kernels import ssd_scan as kss
 
     gen = torch.Generator(device=dev).manual_seed(23)
-    results = {"flash_attention_bwd": {}, "rmsnorm_bwd": {}}
+    results = {"flash_attention_bwd": {}, "rmsnorm_bwd": {},
+               "ssd_scan_bwd": {}}
 
     def normal(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -2970,6 +3127,50 @@ def check_train_kernels(dev) -> dict:
                        (3 * rows * d + 2 * d) * esize, 10.0 * rows * d,
                        PEAK_F32_OPS_S, 20)
             del x, g, got, want, lx, ls, lo
+        chunk = 128
+        for label, (b, s, h, p, n) in SSD_BWD_CASES:
+            name = f"ssd_scan_bwd {label}{suffix}"
+
+            def check(x, dt, A, B, C, dy, what):
+                got = kss.ssd_scan_bwd(x, dt, A, B, C, dy, chunk)
+                same(what, got, kss.ssd_scan_bwd(x, dt, A, B, C, dy, chunk))
+                if [t.dtype for t in got] != [dtype, torch.float32,
+                                              torch.float32, dtype, dtype]:
+                    raise AssertionError(f"{what}: gradients in the wrong "
+                                         f"dtypes")
+                want = _ssd_plain_grads(x, dt, A, B, C, dy, chunk)
+                return max(_grad_err(f"{what} {i}", g, w, tol)
+                           for i, (g, w) in enumerate(zip(got, want)))
+
+            # the row's data at the model's scale, where the carry between
+            # chunks must show; and the forward tests' large dt, where a
+            # chunk's decay underflows
+            extra = {"max_abs_err_large_dt": check(
+                *ssd_bwd_inputs(gen, dev, b, s, h, p, n, dtype,
+                                large_dt=True), name + " large dt")}
+            x, dt, A, B, C, dy = ssd_bwd_inputs(gen, dev, b, s, h, p, n, dtype)
+            err = check(x, dt, A, B, C, dy, name)
+            extra["carry_share"] = ssd_carry_share(x, dt, A, B, C, dy, chunk)
+            if extra["carry_share"] < SSD_CARRY_MARGIN * tol:
+                raise AssertionError(f"{name}: the carry between chunks "
+                                     f"moves the gradients by "
+                                     f"{extra['carry_share']:.3e} only")
+
+            def kernel():
+                return kss.ssd_scan_bwd(x, dt, A, B, C, dy, chunk)
+
+            def plain():
+                return kss.ssd_scan_bwd_plain(x, dt, A, B, C, dy, chunk)
+
+            bsh = b * s * h
+            _lm_record(results, "ssd_scan_bwd", label + suffix,
+                       [b, s, h, p, n], err, kernel, plain, None,
+                       bsh * p * (2 * esize + 4) + 2 * bsh * 4
+                       + 4 * b * s * n * esize + 2 * h * 4,
+                       2.0 * _ssd_ops(b, s, h, p, n, chunk), peak, 5,
+                       extra=extra,
+                       after=lambda: {"kernels_ms": _kernel_split_ms(kernel)})
+            del x, dt, A, B, C, dy
     torch.cuda.synchronize()
     return results
 
@@ -2979,7 +3180,9 @@ def check_train_small(arch, dev, required) -> dict:
     against the CPU: the loss, nll and aux, every gradient (within
     TRAIN_TOL of its largest magnitude) and the parameters after one
     ``api.sgd_train_step``, the card's run launching each kernel of
-    ``required``.  tests/test_torch_cuda.py runs it too."""
+    ``required``.  The batch is 2 x 32 tokens; a config with Mamba2 layers
+    takes TRAIN_SMALL_CHUNKS of its chunks, so the state crosses chunk
+    boundaries.  tests/test_torch_cuda.py runs it too."""
     from repro_torch import rng
     from repro_torch.kernels import _lib
     from repro_torch.models import api
@@ -2987,7 +3190,9 @@ def check_train_small(arch, dev, required) -> dict:
 
     cfg = _lm_cfg(arch, None).reduced()
     params = api.init_params(rng.PRNGKey(0), cfg)
-    batch = api.make_train_batch(rng.PRNGKey(1), cfg, 2, 32)
+    seq = (TRAIN_SMALL_CHUNKS * cfg.ssm_chunk
+           if cfg.arch_type in ("ssm", "hybrid") else 32)
+    batch = api.make_train_batch(rng.PRNGKey(1), cfg, 2, seq)
     runs = {}
     for d in ("cpu", dev):
         p = tree_map(lambda w: w.to(d), params)
@@ -3011,40 +3216,51 @@ def check_train_small(arch, dev, required) -> dict:
            "params": max(_close_tol(f"{arch} train params", g.cpu(), c,
                                     TRAIN_TOL)
                          for g, c in zip(card[2], cpu[2])),
-           "launches": {k: card[3][k] for k in _ATTN_NORM}}
+           "launches": {k: card[3][k] for k in TRAIN_KERNELS}}
     return out
 
 
-def check_train_refused(arch, dev) -> str:
-    """(b) a reduced SSM config's gradient on the card raises A.1g's
-    NotImplementedError (kernel 9 has no backward kernel yet)."""
-    from repro_torch import rng
-    from repro_torch.models import api
+def train_launches(cfg, steps: int) -> dict:
+    """The exact launches of each training kernel in ``steps`` steps of
+    ``cfg`` (models/lm.py's ``_run_layers``): a layer of the stack
+    launches its forward kernels twice a step under remat (the forward,
+    then the backward's recompute) and its backward kernels once; a
+    hybrid's shared block (after each whole group of
+    ``shared_attn_every`` Mamba2 layers, not checkpointed) and the final
+    norm once each way.  An attention block: kernel 7 once, kernel 8 for
+    norm1 and norm2 (and q_norm, k_norm); a Mamba2 block: kernel 9 once,
+    kernel 8 for its input norm (its gated norm is plain)."""
+    fwd = 2 if cfg.remat else 1
+    attn = {"flash_attention": 1, "rmsnorm": 4 if cfg.qk_norm else 2}
+    if cfg.arch_type in ("ssm", "hybrid"):
+        layer = {"ssd_scan": 1, "rmsnorm": 1}
+    else:
+        layer = attn
+    shared = (cfg.n_layers // cfg.shared_attn_every
+              if cfg.arch_type == "hybrid" else 0)
+    want = dict.fromkeys(TRAIN_KERNELS, 0)
+    for name, k in layer.items():
+        want[name] += fwd * cfg.n_layers * k
+        want[name + "_bwd"] += cfg.n_layers * k
+    for name, k in attn.items():
+        want[name] += shared * k
+        want[name + "_bwd"] += shared * k
+    want["rmsnorm"] += 1                       # the final norm
+    want["rmsnorm_bwd"] += 1
+    return {name: k * steps for name, k in want.items()}
 
-    cfg = _lm_cfg(arch, None).reduced()
-    params = api.init_params(rng.PRNGKey(0, device=dev), cfg)
-    batch = api.make_train_batch(rng.PRNGKey(1, device=dev), cfg, 2, 32)
-    try:
-        api.value_and_grad(params, cfg, batch)
-    except NotImplementedError as err:
-        if "A.1g" not in str(err):
-            raise AssertionError(f"{arch}: refused without naming A.1g: "
-                                 f"{err}") from err
-        return str(err)
-    raise AssertionError(f"{arch}: the card differentiated kernel 9")
 
-
-def run_train_full(dev) -> dict:
-    """(c) qwen3-0.6b at full width and depth in bfloat16 through
-    ``launch.train``'s loop (TRAIN_FULL), launch counts zeroed just before
-    and read just after (remat: each forward kernel twice a layer a step,
-    each backward kernel once); every loss finite and the last below the
+def run_train_full(dev, spec: dict) -> dict:
+    """(c) one TRAIN_FULL run: the config at full width (depth as the spec
+    says) in bfloat16 through ``launch.train``'s loop, launch counts
+    zeroed just before and read just after and held to
+    :func:`train_launches`; every loss finite and the last below the
     first; step ms, tokens/s, peak allocated bytes and the model-FLOP
-    share (6ND over the median step at 989 TFLOP/s); then a checkpoint
-    saved and loaded into a fresh tree bit for bit, and one more step from
-    each: equal losses, parameters within one bfloat16 ulp (the
-    embedding's gradient may add in another order).  Returns the
-    launches."""
+    share (6ND over the median step at 989 TFLOP/s).  With ``resume`` it
+    then saves a checkpoint and loads it into a fresh tree bit for bit,
+    and takes one more step from each: equal losses,
+    parameters within one bfloat16 ulp (the embedding's gradient may add
+    in another order).  Returns the launches."""
     import tempfile
 
     from repro_torch.checkpoint import load_pytree, save_pytree
@@ -3054,31 +3270,62 @@ def run_train_full(dev) -> dict:
     from repro_torch.roofline import report
     from repro_torch.tree import tree_leaves, tree_map
 
-    arch, b, s, steps = (TRAIN_FULL[k] for k in ("arch", "batch", "seq",
-                                                   "steps"))
-    cfg = _lm_cfg(arch, None)
+    arch, steps = spec["arch"], spec["steps"]
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    cfg = _lm_cfg(arch, spec["depth"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = [torch.cuda.memory_allocated(), torch.cuda.memory_reserved()]
+    t0 = time.perf_counter()
     _lib.reset_launches()
-    res = train_mod.train(cfg, steps, b, s, TRAIN_FULL["lr"], dev,
-                          log=lambda line: print(f"train {line}",
-                                                 flush=True))
+    try:
+        res = train_mod.train(cfg, steps, b, s, spec["lr"], dev,
+                              log=lambda line: print(f"train {line}",
+                                                     flush=True))
+    except torch.OutOfMemoryError as err:
+        print(json.dumps({
+            "train_path": f"train_{arch}", "depth": cfg.n_layers,
+            "out_of_memory": True,
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "card_bytes": torch.cuda.get_device_properties(dev).total_memory,
+            "allocated_reserved_bytes_before": held,
+            "error": str(err).splitlines()[0]}), flush=True)
+        raise
     launches = dict(_lib.LAUNCHES)
+    seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     layers = cfg.n_layers
-    want = {"flash_attention": 2 * layers * steps,
-            "flash_attention_bwd": layers * steps,
-            # norm1, q_norm, k_norm, norm2 a layer (twice: remat), the
-            # final norm once
-            "rmsnorm": (8 * layers + 1) * steps,
-            "rmsnorm_bwd": (4 * layers + 1) * steps}
+    want = train_launches(cfg, steps)
     got = {k: launches[k] for k in want}
     losses = res.losses
-    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
-        raise AssertionError(f"train_{arch}: losses {losses}")
     step_s = statistics.median(res.step_s[1:])
+    # 6ND, N scaled to the layers run where the depth is cut (N counts no
+    # embedding; a cut config has no shared block)
     flops = report.model_flops(arch, {"global_batch": b, "seq_len": s},
-                               "train")
+                               "train") * layers / _lm_cfg(arch,
+                                                           None).n_layers
+    row = {"train_path": f"train_{arch}", "depth": layers, "dtype":
+           str(cfg.param_dtype).split(".")[-1], "batch": b, "seq": s,
+           "steps": steps, "loss_first": losses[0], "loss_last": losses[-1],
+           "losses": losses, "step_ms_median": step_s * 1e3,
+           "step_ms": [x * 1e3 for x in res.step_s],
+           "tokens_per_s": b * s / step_s, "peak_allocated_bytes": peak,
+           "model_flops_per_step": flops,
+           "model_flop_share": flops / step_s / PEAK_BF16_OPS_S,
+           "launches": got, "launches_expected": want, "seconds": seconds,
+           "allocated_reserved_bytes_before": held}
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        print(json.dumps(row), flush=True)
+        raise AssertionError(f"train_{arch}: losses {losses}")
+    if got != want:
+        print(json.dumps(row), flush=True)
+        raise AssertionError(f"train_{arch}: launches {got}, expected "
+                             f"{want}")
+    if not spec["resume"]:
+        print(json.dumps(row), flush=True)
+        del res
+        torch.cuda.empty_cache()
+        return launches
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         path = str(Path(tmp) / "params.npz")
@@ -3107,21 +3354,9 @@ def run_train_full(dev) -> dict:
     if ulps > 1.0:
         raise AssertionError(f"train_{arch}: the steps from the loaded and "
                              f"the trained weights differ by {ulps} ulps")
-    row = {"train_path": f"train_{arch}", "depth": layers, "dtype":
-           str(cfg.param_dtype).split(".")[-1], "batch": b, "seq": s,
-           "steps": steps, "loss_first": losses[0], "loss_last": losses[-1],
-           "step_ms_median": step_s * 1e3,
-           "step_ms": [x * 1e3 for x in res.step_s],
-           "tokens_per_s": b * s / step_s, "peak_allocated_bytes": peak,
-           "model_flops_per_step": flops,
-           "model_flop_share": flops / step_s / PEAK_BF16_OPS_S,
-           "launches": got, "launches_expected": want,
-           "checkpoint_s": ckpt_s, "resumed_bit_equal": bit_equal,
-           "resumed_max_ulps": ulps}
+    row.update(checkpoint_s=ckpt_s, resumed_bit_equal=bit_equal,
+               resumed_max_ulps=ulps)
     print(json.dumps(row), flush=True)
-    if got != want:
-        raise AssertionError(f"train_{arch}: launches {got}, expected "
-                             f"{want}")
     del res, fresh, p1, p2
     torch.cuda.empty_cache()
     return launches
@@ -3168,23 +3403,90 @@ def run_whisper_train(dev) -> dict:
     return w_launches
 
 
+def run_train_probe(dev) -> None:
+    """``--train-probe``: the two full-width questions TRAIN_FULL's
+    settings rest on, asked apart from the smoke run.  (1) zamba2-1.2b at
+    ``launch.train``'s default lr 3e-3, 20 steps, through the kernels and
+    again through autograd of kernel 9's plain forward (same weights and
+    batches): the two loss curves, then both backwards' gradients on the
+    first batch at the kernel run's trained weights, at the initial ones
+    and at the initial ones in float32 (the largest, over the leaves, of
+    max |kernel - plain| over the leaf's largest magnitude, and that
+    leaf's path).  (2)
+    mamba2-2.7b at all 64 layers, 3 steps: the run's row, or its memory
+    when the card runs out."""
+    from repro_torch import rng
+    from repro_torch.data import token_batches
+    from repro_torch.kernels import ssd_scan as kss
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import api, ssm
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path
+
+    cfg = _lm_cfg("zamba2_1_2b", None)
+    out = {}
+    for label in ("kernels", "plain"):
+        if label == "plain":
+            ssm.ssd_scan = kss.ssd_scan_plain
+        try:
+            res = train_mod.train(cfg, 20, TRAIN_BATCH, TRAIN_SEQ, 3e-3, dev,
+                                  log=lambda line: None)
+        finally:
+            ssm.ssd_scan = kss.ssd_scan
+        out[f"losses_{label}"] = res.losses
+        if label == "kernels":
+            params = res.params
+        del res
+        torch.cuda.empty_cache()
+    batch = next(token_batches(1, cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, 1,
+                               top=8, device=dev))
+
+    def grad_gap(weights, cfg) -> tuple[float, str]:
+        _, g_kernel = api.value_and_grad(weights, cfg, batch)
+        ssm.ssd_scan = kss.ssd_scan_plain
+        try:
+            _, g_plain = api.value_and_grad(weights, cfg, batch)
+        finally:
+            ssm.ssd_scan = kss.ssd_scan
+        return max((((a.float() - c.float()).abs().max()
+                     / c.float().abs().max().clamp_min(1e-30)).item(),
+                    "/".join(map(str, path)))
+                   for (path, a), c in zip(tree_leaves_with_path(g_kernel),
+                                           tree_leaves(g_plain)))
+
+    out["grad_gap_trained"] = grad_gap(params, cfg)
+    del params
+    for label, c in (("init", cfg),
+                     ("init_f32", _lm_cfg("zamba2_1_2b", None,
+                                          dtype="float32"))):
+        out[f"grad_gap_{label}"] = grad_gap(
+            api.init_params(rng.PRNGKey(0, device=dev), c), c)
+        torch.cuda.empty_cache()
+    print(json.dumps({"train_probe_zamba2_lr3e-3": out}), flush=True)
+    torch.cuda.empty_cache()
+    try:
+        run_train_full(dev, dict(arch="mamba2_2_7b", depth=64, steps=3,
+                                 lr=3e-3, resume=False))
+    except (torch.OutOfMemoryError, AssertionError) as err:
+        print(f"train_probe mamba2_2_7b depth 64: {type(err).__name__}",
+              flush=True)
+
+
 def run_train_phase(dev) -> tuple[dict, dict]:
     """The training slice: (a) the backward kernel rows, (b) the reduced
-    configs card vs CPU and the SSM refusals, (c) the full-width runs.
-    Returns (kernel rows by kernel, launches by path)."""
+    configs card vs CPU, (c) the full-width runs.  Returns (kernel rows by
+    kernel, launches by path)."""
     t_phase = time.perf_counter()
     results = check_train_kernels(dev)
     small = {arch: check_train_small(arch, dev, required)
              for arch, required in TRAIN_ARCHS}
-    refused = {arch: check_train_refused(arch, dev) for arch in TRAIN_REFUSED}
-    print(json.dumps({"train_small": small, "train_refused": refused,
+    print(json.dumps({"train_small": small,
                       "seconds": time.perf_counter() - t_phase}), flush=True)
-    full = run_train_full(dev)
-    whisper = run_whisper_train(dev)
+    launches = {f"train_{spec['arch']}": run_train_full(dev, spec)
+                for spec in TRAIN_FULL}
+    launches["train_whisper_tiny"] = run_whisper_train(dev)
     print(json.dumps({"train_phase_seconds": time.perf_counter() - t_phase}),
           flush=True)
-    return results, {f"train_{TRAIN_FULL['arch']}": full,
-                     "train_whisper_tiny": whisper}
+    return results, launches
 
 
 def _device_ops(prof) -> dict:
@@ -3308,12 +3610,14 @@ def main(argv: list[str]) -> int:
     sweeps_only = argv == ["--sweeps"]
     lm_only = argv == ["--lm"]
     train_only = argv == ["--train"]
+    probe_only = argv == ["--train-probe"]
     shard_rank_dir = (Path(argv[1]) if len(argv) == 2
                       and argv[0] == "--shard-rank" else None)
     if argv and not (kernels_only or sweeps_only or lm_only or train_only
-                     or shard_rank_dir):
+                     or probe_only or shard_rank_dir):
         print(f"chip_smoke: unknown arguments {argv}; takes none, "
-              f"--kernels, --sweeps, --lm or --train", file=sys.stderr)
+              f"--kernels, --sweeps, --lm, --train or --train-probe",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3354,6 +3658,9 @@ def main(argv: list[str]) -> int:
         return 0
     if train_only:
         run_train_phase(dev)
+        return 0
+    if probe_only:
+        run_train_probe(dev)
         return 0
     host_costs(dev)
     results = check_kernels(dev)

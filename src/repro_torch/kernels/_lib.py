@@ -42,7 +42,8 @@ LAUNCHES = {"bandwidth_solve": 0, "masked_bs_argmax": 0,
             "best_bs_argmax": 0, "fedavg_reduce": 0, "fedavg_reduce_int8": 0,
             "fedavg_segment_reduce": 0, "fedavg_segment_reduce_int8": 0,
             "sparsify_quantize": 0, "flash_attention": 0, "rmsnorm": 0,
-            "ssd_scan": 0, "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+            "ssd_scan": 0, "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+            "ssd_scan_bwd": 0}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -56,6 +57,8 @@ _SIGNATURES = {
     **{f"flash_attention_bwd_{t}": (_P,) * 10 + (_I,) * 8 + (_F, _P)
        for t in ("f32", "bf16")},
     **{f"ssd_scan_{t}": (_P,) * 6 + (_I,) * 8 + (_P,)
+       for t in ("f32", "bf16")},
+    **{f"ssd_scan_bwd_{t}": (_P,) * 15 + (_I,) * 8 + (_P,)
        for t in ("f32", "bf16")},
     "bandwidth_solve_warp_f32": (_P, _P, _LL, _I, _P, _P, _P, _P)
     + (_I,) * 5 + (_P,),

@@ -12,9 +12,9 @@ either it raises).  The loop is JAX's: weights from ``PRNGKey(0)``, AdamW
 ``clip_by_global_norm(1.0)``, batches from ``token_batches(1, vocab, B, T,
 steps, top=8)``, a line every 10 steps and the last, and an optional
 checkpoint.  Like JAX's, it feeds tokens only: Whisper and Qwen2-VL get no
-audio or patch inputs.  On the card the forward and backward of kernels 7
-and 8 are hand-written kernels; kernel 9 (Mamba2 and Zamba2) has no
-backward there yet and raises (ROADMAP.md A.1g).
+audio or patch inputs.  On the card the forward and backward of kernels
+7, 8 and 9 (attention, RMSNorm, the Mamba2 SSD scan) are hand-written
+kernels.
 """
 from __future__ import annotations
 

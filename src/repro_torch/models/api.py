@@ -7,8 +7,8 @@ no storage).
 Training differentiates the parameter tree with autograd
 (:func:`value_and_grad`); :func:`sgd_train_step` is JAX's plain SGD step,
 with ``cfg.grad_accum`` microbatches summed in float32.  On the card the
-backward of kernels 7 and 8 is a hand-written kernel too; kernel 9 has none
-yet and refuses to be differentiated there (ROADMAP.md A.1g).
+backward of kernels 7, 8 and 9 is a hand-written kernel too, so every
+config trains there, Mamba2 and Zamba2 included.
 """
 from __future__ import annotations
 

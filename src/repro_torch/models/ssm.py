@@ -1,10 +1,11 @@
 """Mamba2 block via SSD, state-space duality (PyTorch port of
 ``repro.models.ssm``; arXiv:2405.21060).
 
-Prefill uses the chunked SSD algorithm: :func:`ssm_forward` pads the
-sequence to a chunk multiple and runs kernel 9
-(:mod:`repro_torch.kernels.ssd_scan`), whose plain version is
-:func:`ssd_chunked`, the JAX module's jnp path.  Decode is the O(1)
+Prefill and training use the chunked SSD algorithm: :func:`ssm_forward`
+pads the sequence to a chunk multiple and runs kernel 9
+(:mod:`repro_torch.kernels.ssd_scan`; differentiated, its backward
+kernels), whose plain version is :func:`ssd_chunked`, the JAX module's
+jnp path.  Decode is the O(1)
 recurrent update on the [B, H, N, P] state (:func:`ssm_decode`), plain as
 in JAX.
 
@@ -107,7 +108,10 @@ def ssd_chunked(x, dt, A, B, C, chunk: int) -> torch.Tensor:
     rel = seg[:, :, :, None, :] - seg[:, :, None, :, :]     # [b,nc,qi,qj,h]
     causal = torch.tril(torch.ones((q, q), dtype=torch.bool,
                                    device=x.device))[None, None, :, :, None]
-    decay = torch.where(causal, torch.exp(rel), 0.0)
+    # exp(-inf) = 0 above the diagonal: the same values as JAX's
+    # where(causal, exp(rel), 0), whose gradient there is 0 * exp(rel),
+    # NaN once a chunk's log-decay spans past float32's exp range (~88)
+    decay = torch.exp(torch.where(causal, rel, float("-inf")))
     scores = torch.einsum("bcihn,bcjhn->bcijh", Cf, Bf) * decay
     y_diag = torch.einsum("bcijh,bcjh,bcjhp->bcihp", scores, dtf, xf)
 

@@ -1540,10 +1540,17 @@ def test_serving_calls_launch_the_forward_directly(dev):
     with torch.no_grad():
         assert krn.rmsnorm(x, scale).grad_fn is None
     assert kfa.flash_attention(q, q, q).grad_fn is None
+    xs, dt, A, B, C = _ssd_inputs(gen, dev, 1, 128, 2, 64, 16, torch.float32)
+    A.requires_grad_(True)
+    with torch.no_grad():
+        assert kss.ssd_scan(xs, dt, A, B, C, 64).grad_fn is None
+    assert kss.ssd_scan(xs, dt, A.detach(), B, C, 64).grad_fn is None
     after = dict(_lib.LAUNCHES)
     assert after["rmsnorm"] == before["rmsnorm"] + 2
     assert after["flash_attention"] == before["flash_attention"] + 1
-    assert after["rmsnorm_bwd"] == before["rmsnorm_bwd"]
+    assert after["ssd_scan"] == before["ssd_scan"] + 2
+    for name in ("rmsnorm_bwd", "flash_attention_bwd", "ssd_scan_bwd"):
+        assert after[name] == before[name]
 
 
 @pytest.mark.parametrize("arch,required", chip_smoke.TRAIN_ARCHS,
@@ -1555,16 +1562,91 @@ def test_lm_config_train_step_on_card_matches_cpu(dev, arch, required):
     chip_smoke.check_train_small(arch, dev, required)
 
 
-@pytest.mark.parametrize("arch", chip_smoke.TRAIN_REFUSED)
-def test_ssm_training_refused_on_card(dev, arch):
-    """Kernel 9 has no backward kernel yet: differentiating Mamba2 or
-    Zamba2 on the card raises ROADMAP.md A.1g's error."""
-    chip_smoke.check_train_refused(arch, dev)
-    from repro_torch.kernels import ssd_scan as kss_mod
-    gen = torch.Generator(device=dev).manual_seed(5)
-    x, dt, A, B, C = _ssd_inputs(gen, dev, 1, 64, 2, 32, 16, torch.float32)
-    x.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="A.1g"):
-        kss_mod.ssd_scan(x, dt, A, B, C, 32)
-    with torch.no_grad():
-        kss_mod.ssd_scan(x, dt, A, B, C, 32)
+# kernel 9's backward: (label, (B, S, H, P, N), G, chunk, large_dt); the
+# inputs at the model's scale (chip_smoke.ssd_bwd_inputs) unless large_dt
+_SSD_BWD_CASES = [
+    ("zamba2", (4, 512, 64, 64, 64), 1, 128, False),   # Zamba2's layer
+    ("zamba2_large_dt", (4, 512, 64, 64, 64), 1, 128, True),
+    ("mamba2", (2, 512, 80, 64, 128), 1, 128, False),  # mamba2-2.7b's
+    ("chunk16", (2, 128, 4, 64, 32), 1, 16, False),
+    ("chunk48", (2, 192, 4, 64, 64), 1, 48, False),    # not a multiple of 32
+    ("groups2", (2, 256, 8, 32, 16), 2, 64, False),
+    ("one_chunk", (3, 128, 4, 96, 128), 1, 128, False),  # S = Q, 3 P slices
+    ("reduced", (2, 128, 16, 32, 16), 1, 32, False),   # the reduced configs'
+]
+
+
+def _ssd_plain_autograd(x, dt, A, B, C, dy, chunk):
+    """(dx, ddt, dA, dB, dC): autograd of the plain forward, with B and C
+    repeated to the heads and their gradients summed back per group."""
+    return chip_smoke._ssd_plain_grads(x, dt, A, B, C, dy, chunk)
+
+
+def _assert_each_grad(got, want, dtype):
+    """Each gradient within the tolerance of its own largest magnitude."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, i
+        chip_smoke._grad_err(f"grad {i}", g, w, _BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("label,shape,g,chunk,large_dt", _SSD_BWD_CASES,
+                         ids=[c[0] for c in _SSD_BWD_CASES])
+def test_ssd_scan_bwd(dev, dtype, label, shape, g, chunk, large_dt):
+    """The four kernels against the plain backward and the plain forward's
+    autograd, in the inputs' dtypes; a second call equal bit for bit.  At
+    three chunks or more at the model's scale, the data move the
+    gradients by SSD_CARRY_MARGIN times the tolerance once the state
+    carries one chunk only, so a carry fault cannot pass."""
+    b, s, h, p, n = shape
+    gen = torch.Generator(device=dev).manual_seed(b * s + h + n + chunk)
+    x, dt, A, B, C, dy = chip_smoke.ssd_bwd_inputs(
+        gen, dev, b, s, h, p, n, dtype, g=g, large_dt=large_dt)
+    if s >= 3 * chunk and not large_dt:
+        assert (chip_smoke.ssd_carry_share(x, dt, A, B, C, dy, chunk)
+                >= chip_smoke.SSD_CARRY_MARGIN * _BWD_TOL[dtype])
+    before = _lib.LAUNCHES["ssd_scan_bwd"]
+    got = kss.ssd_scan_bwd(x, dt, A, B, C, dy, chunk)
+    assert _lib.LAUNCHES["ssd_scan_bwd"] == before + 1
+    assert [t.dtype for t in got] == [dtype, torch.float32, torch.float32,
+                                      dtype, dtype]
+    _assert_each_grad(got, kss.ssd_scan_bwd_plain(x, dt, A, B, C, dy, chunk),
+                      dtype)
+    _assert_each_grad(got, _ssd_plain_autograd(x, dt, A, B, C, dy, chunk),
+                      dtype)
+    again = kss.ssd_scan_bwd(x, dt, A, B, C, dy, chunk)
+    assert all(torch.equal(a, t) for a, t in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_autograd_through_the_kernels(dev, dtype):
+    """Autograd through the wrapper, with dy non-contiguous and y sliced as
+    ssm_forward slices off its padding: the forward and backward kernels
+    launched once each, the gradients the plain forward's."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x, dt, A, B, C = _ssd_inputs(gen, dev, 2, 256, 8, 64, 32, dtype)
+    leaves = [t.requires_grad_(True) for t in (x, dt, A, B, C)]
+    dy = _normal(gen, (2, 8, 200, 64), dev).transpose(1, 2)
+    assert not dy.is_contiguous()
+    before = (_lib.LAUNCHES["ssd_scan"], _lib.LAUNCHES["ssd_scan_bwd"])
+    y = kss.ssd_scan(*leaves, 64)
+    got = torch.autograd.grad(y[:, :200], leaves, dy)
+    assert (_lib.LAUNCHES["ssd_scan"],
+            _lib.LAUNCHES["ssd_scan_bwd"]) == (before[0] + 1, before[1] + 1)
+    full = torch.zeros((2, 256, 8, 64), device=dev)
+    full[:, :200] = dy
+    _assert_each_grad(got, _ssd_plain_autograd(x, dt, A, B, C, full, 64),
+                      dtype)
+
+
+def test_ssd_scan_bwd_validates(dev):
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x, dt, A, B, C = _ssd_inputs(gen, dev, 1, 128, 2, 64, 16, torch.float32)
+    dy = _normal(gen, (1, 128, 2, 64), dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        kss.ssd_scan_bwd(x, dt, A, B, C, dy.transpose(1, 2).contiguous()
+                         .transpose(1, 2), 64)
+    with pytest.raises(TypeError):
+        kss.ssd_scan_bwd(x, dt, A, B, C, dy.to(torch.bfloat16), 64)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        kss.ssd_scan_bwd(x, dt, A, B, C, dy, 48)
