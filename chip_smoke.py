@@ -176,7 +176,9 @@
       (at 64 AdamW's step passes the card's memory) (falling
       finite loss; exact launch counts (``train_launches``): each forward
       kernel twice a layer a step under remat, the shared block's once;
-      step ms, tokens/s, peak allocated bytes, the model-FLOP share), on
+      step ms, tokens/s, peak allocated bytes, the model-FLOP share;
+      qwen3-0.6b and zamba2-1.2b one more step under torch.profiler,
+      ``profile_train_step``: device ms by port kernel), on
       qwen3-0.6b a checkpoint round trip bit for bit and one more step
       from each tree, then 5 ``sgd_train_step``s of whisper-tiny on 4 x
       1,500-frame batches; a ``{"train_path": ...}`` line a run
@@ -328,12 +330,13 @@ def _host_us(fn, reps: int) -> float:
     return (t1 - t0) / reps / 1e3
 
 
-def _timings(kernel, label, fn, plain, lib, reps) -> dict:
+def _timings(kernel, label, fn, plain, lib, reps, lib_graph=None) -> dict:
     """The timed fields of a kernel row: the wrapper's event time (``ms``),
     its graph-replayed device time and its host time per call, the plain
-    version's event time, and the yardstick call's three times.  ``ms``
-    and ``host_us`` (the yardstick's too) are medians of three rounds,
-    the wrapper and the yardstick in turns."""
+    version's event time, and the yardstick call's three times (its
+    graph time from ``lib_graph(reps)`` where given).  ``ms`` and
+    ``host_us`` (the yardstick's too) are medians of three rounds, the
+    wrapper and the yardstick in turns."""
     what = f"{kernel} {label}"
     ms, host, lib_ms, lib_host = [], [], [], []
     for _ in range(3):
@@ -349,7 +352,9 @@ def _timings(kernel, label, fn, plain, lib, reps) -> dict:
            "library_host_us": None}
     if lib is not None:
         row.update(library_ms=statistics.median(lib_ms),
-                   library_graph_ms=_graph_ms(lib, reps, what + " yardstick"),
+                   library_graph_ms=(
+                       lib_graph(reps) if lib_graph is not None
+                       else _graph_ms(lib, reps, what + " yardstick")),
                    library_host_us=statistics.median(lib_host))
     return row
 
@@ -2187,14 +2192,15 @@ def _ssd_ops(b, s, h, p, n, q) -> float:
 
 
 def _lm_record(results, kernel, label, shape, err, fn, plain, lib, n_bytes,
-               n_ops, peak, reps, extra=None, after=None) -> None:
+               n_ops, peak, reps, extra=None, after=None,
+               lib_graph=None) -> None:
     """Time a checked LM kernel row into ``results[kernel][label]`` (and
     print it): the wrapper, its plain version and the yardstick, beside
     the bound; then the fields ``after()`` measures (a profile, kept
     apart from the timings)."""
     bound, by = _bound_ms(n_bytes, n_ops, peak)
     row = {"name": kernel, "shape": shape, "max_abs_err": err,
-           **_timings(kernel, label, fn, plain, lib, reps),
+           **_timings(kernel, label, fn, plain, lib, reps, lib_graph),
            "bound_ms": bound, "bound_by": by, **(extra or {})}
     if after is not None:
         row.update(after())
@@ -2871,10 +2877,15 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}    # (a)
 # zamba2 trains at lr 1e-3: at launch.train's 3e-3 its loss spikes near
 # step 14 through the kernels and through the plain forward's autograd
 # alike.  ``--train-probe`` shows both (PERF.md).
+# profile: one more step under torch.profiler after the run, its device
+# time by kernel (`profile_train_step`).
 TRAIN_FULL = (
-    dict(arch="qwen3_0_6b", depth=None, steps=30, lr=3e-3, resume=True),
-    dict(arch="zamba2_1_2b", depth=None, steps=20, lr=1e-3, resume=False),
-    dict(arch="mamba2_2_7b", depth=32, steps=10, lr=3e-3, resume=False),
+    dict(arch="qwen3_0_6b", depth=None, steps=30, lr=3e-3, resume=True,
+         profile=True),
+    dict(arch="zamba2_1_2b", depth=None, steps=20, lr=1e-3, resume=False,
+         profile=True),
+    dict(arch="mamba2_2_7b", depth=32, steps=10, lr=3e-3, resume=False,
+         profile=False),
 )
 TRAIN_BATCH, TRAIN_SEQ = 8, 512
 WHISPER_TRAIN = dict(batch=4, frames=1500, steps=5)
@@ -3029,6 +3040,43 @@ def _kernel_split_ms(fn, reps: int = 3) -> dict:
     return out or None
 
 
+def _bwd_graph_ms(call, leaves, grad_out, reps: int, what: str):
+    """Graph-replayed device ms of ``call``'s backward alone: ``call`` on
+    fresh leaves (the tensors of ``leaves``, detached, requiring grad) and
+    torch.autograd.grad of it captured in one graph, less ``call``
+    captured alone (a backward from a graph retained outside the capture
+    does not capture).  A process's first capture of a backward has
+    failed on the card, whichever the call, so a failed one is tried once
+    more on fresh leaves.  None where neither captures."""
+    for attempt in (1, 2):
+        fresh = [t.detach().requires_grad_(True) for t in leaves]
+        label = f"{what}, attempt {attempt},"
+        both = _graph_ms(
+            lambda: torch.autograd.grad(call(*fresh), fresh, grad_out),
+            reps, f"{label} forward + backward")
+        alone = _graph_ms(lambda: call(*fresh), reps, f"{label} forward")
+        if both is not None and alone is not None:
+            return both - alone
+    return None
+
+
+def _host_split_us(name: str, fn, reps: int = 50) -> dict:
+    """Where a wrapper's host time goes: us a call of ``fn`` whole, with
+    the library call (``_lib.launch``: ctypes and the C side's launches)
+    made a no-op, and their difference."""
+    from repro_torch.kernels import _lib
+
+    whole = _host_us(fn, reps)
+    launch = _lib.launch
+    _lib.launch = lambda *args: None
+    try:
+        python = _host_us(fn, reps)
+    finally:
+        _lib.launch = launch
+    return {f"{name}_wrapper": whole, "without_launch": python,
+            "launch": whole - python}
+
+
 def check_train_kernels(dev) -> dict:
     """(a) the backward kernels of 7, 8 and 9 against the plain versions'
     autograd on the card, in bfloat16 and float32 (suffix "_f32"): the
@@ -3037,8 +3085,11 @@ def check_train_kernels(dev) -> dict:
     the bound (backward ops ~2.5x the forward's pair FLOPs for kernel 7,
     2x the forward's multiply-adds for kernel 9), the plain version and a
     yardstick: SDPA's backward with enable_gqa (the window as a mask) and
-    F.rms_norm's backward, each from a retained graph; no single PyTorch
-    call computes kernel 9's."""
+    F.rms_norm's backward, each from a retained graph (their graph time:
+    forward and backward captured together, less the forward,
+    ``_bwd_graph_ms``); no single PyTorch call computes kernel 9's.
+    Kernel 9's rows also give the device ms of each of its kernels and
+    where the wrapper's host time goes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kfa
@@ -3065,10 +3116,11 @@ def check_train_kernels(dev) -> dict:
             q = normal((b, s, h, d), dtype)
             k, v = (normal((b, t, kv, d), dtype) for _ in range(2))
             dout = normal((b, s, h, d), dtype)
-            out = kfa.flash_attention(q, k, v, causal=causal, window=window)
+            out, lse = kfa.flash_attention_with_lse(q, k, v, causal=causal,
+                                                    window=window)
 
             def kernel():
-                return kfa.flash_attention_bwd(q, k, v, out, dout,
+                return kfa.flash_attention_bwd(q, k, v, out, dout, lse,
                                                causal=causal, window=window)
 
             def plain():
@@ -3080,23 +3132,31 @@ def check_train_kernels(dev) -> dict:
             err = _grads_err(name, got, want, tol)
             lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_(True)
                           for x in (q, k, v))
+            mask = _band_mask(s, t, window, dev) if window else None
             lo = F.scaled_dot_product_attention(
                 lq, lk, lv, enable_gqa=True,
-                is_causal=causal and not window,
-                attn_mask=_band_mask(s, t, window, dev) if window else None)
+                is_causal=causal and not window, attn_mask=mask)
             ldout = dout.transpose(1, 2)
 
             def lib():
                 return torch.autograd.grad(lo, (lq, lk, lv), ldout,
                                            retain_graph=True)
 
+            def lib_graph(reps):
+                return _bwd_graph_ms(
+                    lambda a, b_, c: F.scaled_dot_product_attention(
+                        a, b_, c, enable_gqa=True,
+                        is_causal=causal and not window, attn_mask=mask),
+                    (lq, lk, lv), ldout, reps, f"{name} yardstick")
+
             pairs = _attn_pairs(s, t, causal, window)
             _lm_record(results, "flash_attention_bwd", label + suffix,
                        [b, s, t, h, kv, d], err, kernel, plain, lib,
                        (4 * b * s * h + 4 * b * t * kv) * d * esize,
                        2.5 * 4.0 * b * h * pairs * d, peak, 5,
-                       extra={"causal": causal, "window": window})
-            del q, k, v, dout, out, got, want, lq, lk, lv, lo
+                       extra={"causal": causal, "window": window},
+                       lib_graph=lib_graph)
+            del q, k, v, dout, out, lse, got, want, lq, lk, lv, lo
         for label, (rows, d) in RMSNORM_BWD_CASES:
             name = f"rmsnorm_bwd {label}{suffix}"
             x = normal((rows, d), dtype)
@@ -3122,10 +3182,15 @@ def check_train_kernels(dev) -> dict:
                 return torch.autograd.grad(lo, (lx, ls), g,
                                            retain_graph=True)
 
+            def lib_graph(reps):
+                return _bwd_graph_ms(
+                    lambda a, w: F.rms_norm(a, (d,), weight=w, eps=1e-6),
+                    (lx, ls), g, reps, f"{name} yardstick")
+
             _lm_record(results, "rmsnorm_bwd", label + suffix, [rows, d],
                        err, kernel, plain, lib,
                        (3 * rows * d + 2 * d) * esize, 10.0 * rows * d,
-                       PEAK_F32_OPS_S, 20)
+                       PEAK_F32_OPS_S, 20, lib_graph=lib_graph)
             del x, g, got, want, lx, ls, lo
         chunk = 128
         for label, (b, s, h, p, n) in SSD_BWD_CASES:
@@ -3169,7 +3234,9 @@ def check_train_kernels(dev) -> dict:
                        + 4 * b * s * n * esize + 2 * h * 4,
                        2.0 * _ssd_ops(b, s, h, p, n, chunk), peak, 5,
                        extra=extra,
-                       after=lambda: {"kernels_ms": _kernel_split_ms(kernel)})
+                       after=lambda: {"kernels_ms": _kernel_split_ms(kernel),
+                                      "host_split_us": _host_split_us(
+                                          "ssd_scan_bwd", kernel)})
             del x, dt, A, B, C, dy
     torch.cuda.synchronize()
     return results
@@ -3321,6 +3388,11 @@ def run_train_full(dev, spec: dict) -> dict:
         print(json.dumps(row), flush=True)
         raise AssertionError(f"train_{arch}: launches {got}, expected "
                              f"{want}")
+    if spec["profile"]:
+        batch = next(token_batches(3, cfg.vocab, b, s, 1, top=8, device=dev))
+        row["profile_step"] = profile_train_step(
+            train_mod.make_step(cfg, res.opt), res.params, res.opt_state,
+            batch)
     if not spec["resume"]:
         print(json.dumps(row), flush=True)
         del res
@@ -3360,6 +3432,61 @@ def run_train_full(dev, spec: dict) -> dict:
     del res, fresh, p1, p2
     torch.cuda.empty_cache()
     return launches
+
+
+# The port's kernels of a training step by the names the profiler gives
+# their CUDA functions (kernel 9's backward: its five kernels of either
+# route).
+_TRAIN_KERNEL_OF = (
+    ("flash_bwd_", "flash_attention_bwd"), ("flash_fwd_", "flash_attention"),
+    ("rmsnorm_bwd_", "rmsnorm_bwd"), ("rmsnorm_", "rmsnorm"),
+    ("ssd_mma_kernel", "ssd_scan"), ("ssd_simt_kernel", "ssd_scan"),
+    *((k, "ssd_scan_bwd") for k in (
+        "chunk_state_mma", "state_scan", "local_mma", "local_kernel",
+        "state_kernel", "reduce_kernel", "da_kernel")))
+
+
+def profile_train_step(step, params, opt_state, batch) -> dict:
+    """One training step under torch.profiler: its wall ms (to a sync),
+    the device's busy ms and share, the device ms and calls of each port
+    kernel of the step (``_TRAIN_KERNEL_OF``; PyTorch's own kernels, in
+    ``at::``, are not the port's), the matmuls' ms and the top device
+    ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del out
+    ops = _device_ops(prof)
+    if not ops:
+        print("profile_step: the profiler recorded no device activity",
+              flush=True)
+        return {"wall_ms": wall_ms, "device_ops": 0}
+    busy = sum(t for t, _ in ops.values())
+    kernel_ms, kernel_calls = {}, {}
+    for name, (t, c) in ops.items():
+        short = re.search(r"(\w+)(?:<[^()]*>)?\(", name)
+        ident = short.group(1) if short and "at::" not in name else ""
+        kernel = next((k for prefix, k in _TRAIN_KERNEL_OF
+                       if ident.startswith(prefix)), None)
+        if kernel is not None:
+            kernel_ms[kernel] = kernel_ms.get(kernel, 0.0) + t
+            kernel_calls[kernel] = kernel_calls.get(kernel, 0) + c
+    mm = sum(t for name, (t, _) in ops.items()
+             if any(m in name.lower() for m in _MATMUL_MARKS))
+    top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_busy_share": busy / wall_ms,
+            "device_ops": sum(c for _, c in ops.values()),
+            "kernel_ms": kernel_ms, "kernel_calls": kernel_calls,
+            "matmul_ms": mm,
+            "top_device_ops": [{"name": k[:80], "ms": t, "calls": c}
+                               for k, (t, c) in top]}
 
 
 def run_whisper_train(dev) -> dict:
@@ -3465,7 +3592,7 @@ def run_train_probe(dev) -> None:
     torch.cuda.empty_cache()
     try:
         run_train_full(dev, dict(arch="mamba2_2_7b", depth=64, steps=3,
-                                 lr=3e-3, resume=False))
+                                 lr=3e-3, resume=False, profile=False))
     except (torch.OutOfMemoryError, AssertionError) as err:
         print(f"train_probe mamba2_2_7b depth 64: {type(err).__name__}",
               flush=True)

@@ -57,6 +57,11 @@
 // blocks share an SM (41 KB of shared memory each at D = 64) for one
 // block's softmax to overlap another's wgmma.
 //
+// Where the caller passes `lse` (autograd records the call), both routes
+// also write each row's natural log-sum-exp, m scale + log(ell), float32
+// [B, H, S], so the backward (csrc/flash_attention_bwd.cu) needs no walk
+// over the keys to recompute it; the serving path passes none.
+//
 // float32 keeps the SIMT kernel: TF32 or bf16 tensor cores cannot meet the
 // float32 tolerance of tests/test_kernels.py (2e-5).  One block of 256
 // threads per (64-row query tile, head, batch) streams 64-key K/V tiles
@@ -69,6 +74,8 @@
 #include "common.cuh"
 
 namespace {
+
+using repro_torch::allow_smem_once;
 
 // ---------------------------------------------------------- bfloat16 ------
 constexpr int kWgThreads = 128;  // one warpgroup
@@ -274,8 +281,9 @@ __global__ void __launch_bounds__(kWgThreads)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       __nv_bfloat16* __restrict__ out, int S, int Tk, int H,
-                       int KV, int causal, int window, float scale_log2) {
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int S, int Tk, int H, int KV,
+                       int causal, int window, float scale_log2) {
   using L = WgTiles<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
@@ -423,6 +431,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   const float den0 = fmaxf(quad_sum(l0), 1e-30f);
   const float den1 = fmaxf(quad_sum(l1), 1e-30f);
+  if (lse != nullptr && (lane & 3) == 0) {  // natural log-sum-exp of a row
+    const long long stat = ((long long)b * H + h) * S;
+    if (row0 < S)
+      lse[stat + row0] = (m0 * scale_log2 + log2f(den0)) / kLog2e;
+    if (row1 < S)
+      lse[stat + row1] = (m1 * scale_log2 + log2f(den1)) / kLog2e;
+  }
   const long long rstride = (long long)H * D;
   __nv_bfloat16* ob = out + ((long long)b * S * H + h) * D + cq;
 #pragma unroll
@@ -454,22 +469,11 @@ bool encode_map(CUtensorMap* map, const void* ptr, int batch, int rows,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// cudaFuncSetAttribute once per kernel and device, not on every launch.
-template <typename K>
-cudaError_t allow_smem_once(K kernel, size_t bytes, unsigned& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < 32 && (done >> dev) & 1u)) return err;
-  err = repro_torch::allow_smem(kernel, bytes);
-  if (err == cudaSuccess && dev < 32) done |= 1u << dev;
-  return err;
-}
-
 template <int D>
 int launch_bf16_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                  const __nv_bfloat16* v, __nv_bfloat16* out, int B, int S,
-                  int Tk, int H, int KV, int causal, int window, float scale,
-                  cudaStream_t stream) {
+                  const __nv_bfloat16* v, __nv_bfloat16* out, float* lse,
+                  int B, int S, int Tk, int H, int KV, int causal, int window,
+                  float scale, cudaStream_t stream) {
   static unsigned smem_set = 0;
   const size_t smem = WgTiles<D>::kSmem;
   cudaError_t err =
@@ -481,13 +485,13 @@ int launch_bf16_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((S + kRows - 1) / kRows, H, B);
   flash_fwd_wgmma_kernel<D><<<grid, kWgThreads, smem, stream>>>(
-      tq, tk, tv, out, S, Tk, H, KV, causal, window, scale * kLog2e);
+      tq, tk, tv, out, lse, S, Tk, H, KV, causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                const __nv_bfloat16* v, __nv_bfloat16* out, int B, int S,
-                int Tk, int H, int KV, int D, int causal, int window,
+                const __nv_bfloat16* v, __nv_bfloat16* out, float* lse, int B,
+                int S, int Tk, int H, int KV, int D, int causal, int window,
                 float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -498,11 +502,11 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
     return static_cast<int>(cudaMemsetAsync(
         out, 0, sizeof(__nv_bfloat16) * B * S * H * D, st));
   if (D == 64)
-    return launch_bf16_d<64>(q, k, v, out, B, S, Tk, H, KV, causal, window,
-                             scale, st);
+    return launch_bf16_d<64>(q, k, v, out, lse, B, S, Tk, H, KV, causal,
+                             window, scale, st);
   if (D == 128)
-    return launch_bf16_d<128>(q, k, v, out, B, S, Tk, H, KV, causal, window,
-                              scale, st);
+    return launch_bf16_d<128>(q, k, v, out, lse, B, S, Tk, H, KV, causal,
+                              window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -533,8 +537,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ out,
-                      int S, int Tk, int H, int KV, int causal, int window,
-                      float scale) {
+                      float* __restrict__ lse, int S, int Tk, int H, int KV,
+                      int causal, int window, float scale) {
   constexpr int DP = D + 1;      // padded rows: conflict-free column reads
   constexpr int PP = kBc + 1;
   constexpr int NC = D / 16;     // output columns a thread owns
@@ -650,52 +654,58 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < NC; ++c)
       ob[(long long)s * qstride + tx + 16 * c] =
           acc[i][c] / den;
+    if (lse != nullptr && tx == 0)  // natural log-sum-exp of the row
+      lse[((long long)b * H + h) * S + s] = m[i] + logf(den);
   }
 }
 
 template <int D>
 int launch_f32_d(const float* q, const float* k, const float* v, float* out,
-                 int B, int S, int Tk, int H, int KV, int causal, int window,
-                 float scale, cudaStream_t stream) {
+                 float* lse, int B, int S, int Tk, int H, int KV, int causal,
+                 int window, float scale, cudaStream_t stream) {
   static unsigned smem_set = 0;
   const size_t smem = smem_floats<D>() * sizeof(float);
   cudaError_t err = allow_smem_once(flash_fwd_simt_kernel<D>, smem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBr - 1) / kBr, H, B);
   flash_fwd_simt_kernel<D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, out, S, Tk, H, KV, causal, window, scale);
+      q, k, v, out, lse, S, Tk, H, KV, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_f32(const float* q, const float* k, const float* v, float* out,
-               int B, int S, int Tk, int H, int KV, int D, int causal,
-               int window, float scale, void* stream) {
+               float* lse, int B, int S, int Tk, int H, int KV, int D,
+               int causal, int window, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return launch_f32_d<64>(q, k, v, out, B, S, Tk, H, KV, causal, window,
-                            scale, st);
+    return launch_f32_d<64>(q, k, v, out, lse, B, S, Tk, H, KV, causal,
+                            window, scale, st);
   if (D == 128)
-    return launch_f32_d<128>(q, k, v, out, B, S, Tk, H, KV, causal, window,
-                             scale, st);
+    return launch_f32_d<128>(q, k, v, out, lse, B, S, Tk, H, KV, causal,
+                             window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
+// lse: [B, H, S] float32, each row's natural log-sum-exp of its scaled,
+// masked scores (the backward's), or null: nothing more is written.
 extern "C" int flash_attention_f32(const float* q, const float* k,
-                                   const float* v, float* out, int B, int S,
-                                   int Tk, int H, int KV, int D, int causal,
-                                   int window, float scale, void* stream) {
-  return launch_f32(q, k, v, out, B, S, Tk, H, KV, D, causal, window, scale,
-                    stream);
+                                   const float* v, float* out, float* lse,
+                                   int B, int S, int Tk, int H, int KV, int D,
+                                   int causal, int window, float scale,
+                                   void* stream) {
+  return launch_f32(q, k, v, out, lse, B, S, Tk, H, KV, D, causal, window,
+                    scale, stream);
 }
 
 extern "C" int flash_attention_bf16(const __nv_bfloat16* q,
                                     const __nv_bfloat16* k,
                                     const __nv_bfloat16* v,
-                                    __nv_bfloat16* out, int B, int S, int Tk,
-                                    int H, int KV, int D, int causal,
-                                    int window, float scale, void* stream) {
-  return launch_bf16(q, k, v, out, B, S, Tk, H, KV, D, causal, window, scale,
-                     stream);
+                                    __nv_bfloat16* out, float* lse, int B,
+                                    int S, int Tk, int H, int KV, int D,
+                                    int causal, int window, float scale,
+                                    void* stream) {
+  return launch_bf16(q, k, v, out, lse, B, S, Tk, H, KV, D, causal, window,
+                     scale, stream);
 }

@@ -59,9 +59,11 @@
 // before the add, as torch.cumsum (and jnp.cumsum on the CPU) sums it: the
 // prefix sums reach |seg| ~ 1e2 within a chunk and exp(seg_i - seg_j)
 // turns their last-bit rounding into a relative error of the decay.
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
+
+using namespace repro_torch::mma;
 
 constexpr int kMmaThreads = 128;   // 4 warps
 constexpr int kSimtThreads = 256;  // 8 warps
@@ -81,77 +83,6 @@ inline size_t smem_bytes_mma(int Q, int N, int PS) {
 inline size_t smem_bytes_simt(int Q, int N, int PS) {
   const size_t lq = Q + 4, ln = N + 4, lj = (Q < 32 ? Q : 32) + 4;
   return 4 * (PS * lq + 2 * Q * ln + Q * lj + PS * ln + 4 * (size_t)Q);
-}
-
-// ---------------------------------------------------------- PTX helpers --
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-// Four 8x8 b16 matrices; lane l gives the row address of matrix l / 8.
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats rounded to nearest even into one bf16 pair (lo in the low
-// half: the lower column of a fragment).
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-__device__ __forceinline__ float2 unpack_bf16(unsigned u) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
-}
-
-// A float32 pair as two bf16 pairs, hi + lo: hi rounds the pair, lo rounds
-// what hi left out, so hi + lo keeps 16 bits of each mantissa.
-__device__ __forceinline__ void split_bf16(float a, float b, unsigned& hi,
-                                           unsigned& lo) {
-  hi = pack_bf16(a, b);
-  const float2 h = unpack_bf16(hi);
-  lo = pack_bf16(a - h.x, b - h.y);
 }
 
 // seg = cumsum(dt * a) in position order (one thread), then exp(seg_i) and

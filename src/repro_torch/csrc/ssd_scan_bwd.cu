@@ -24,8 +24,30 @@
 // is <= 0.  kernels/ssd_scan.py's `ssd_scan_bwd_plain` writes the same
 // passes in PyTorch, and says how dseg is made of per-position parts.
 //
-// Four kernels, in order on the caller's stream; no atomics, every sum in
-// a fixed order, so two runs agree bit for bit:
+// Kernels in order on the caller's stream; no atomics, every sum in a
+// fixed order, so two runs agree bit for bit.  Both routes share the
+// scratch layout (`carve`) and passes 3-4.
+//
+// bfloat16 (the training path's type), on the tensor cores, mma.sync
+// m16n8k16 with float32 accumulators; every float32 operand (dy, the
+// decayed scores and weights, the states) enters a product as bf16 hi +
+// lo terms, as the forward does (one bf16 rounding of the decayed scores
+// alone reaches the forward's gate at Zamba2's shapes):
+// 1'. `chunk_state_mma`: a block per (batch, head, chunk, 64 or 32 head
+//    columns, direction), chunk-parallel: the chunk's term of the state it
+//    passes on (B^T diag(e dt) x) or back (C^T diag(exp seg) dy); it also
+//    writes seg and exp(seg_last).  `state_scan` then runs both chains
+//    across the chunks, an element a thread.
+// 2'. `local_mma`: a block per (batch, head, chunk) holds the chunk's x, dy,
+//    B and C in shared memory and warp w owns positions 16 w .. 16 w + 15,
+//    as columns j (dx, a head's dB, ddt's direct part, cpart, u) and as
+//    rows i (a head's dC, rpart), so the causal triangle's tiles split
+//    evenly (9 a warp at chunk 128).  The G and S_c terms start the
+//    accumulators; S_c arrives by cp.async while the columns run.  A bf16
+//    head wider than 128 columns, or whose tiles pass a block's shared
+//    memory (N 128 with P 128), takes the SIMT pass 2 instead (the plan in
+//    kernels/ssd_scan.py says which).
+// float32 (the CUDA cores, FFMA; TF32 cannot meet the 1e-4 gate):
 // 1. `state_kernel`: a block per (batch, head, 32 head columns,
 //    direction) walks the chunks, the [N, 32] slice of the state in
 //    registers: forward, writing each chunk's entry state S_c; in reverse,
@@ -40,26 +62,33 @@
 //    B_j and dy_i . x_j) from shared memory in register tiles, so no
 //    Q x Q matrix is ever held: at mamba2-2.7b's chunk 128, N 128 the
 //    chunk's tiles alone would pass a block's 227 KB.
+// Then, both routes:
 // 3. `reduce_kernel`: dB and dC summed over each group's heads in head
 //    order (cast to B's type), and a block a chunk that takes the reverse
 //    cumulative sum of dseg into ddt and a dA part.
 // 4. `da_kernel`: dA over batches and chunks, in order.
 //
-// What bounds it on the H100: the local pass's score tiles and products,
-// about 2x the forward's multiply-adds, run as float32 FFMA on the CUDA
-// cores (67 TFLOP/s) from shared memory, and it takes most of the time:
-// each 16-position tile step loads its tiles, then computes, with no
-// copy in flight, and a block rereads the [N, P] state.  Its float32
-// per-head dB and dC (2 B S H N floats, written and read once) are more
-// bytes than all the inputs at Zamba2's and mamba2's shapes.  mma.sync or
-// wgmma tiles, copies in flight and a head-summed dB are later work
-// (ROADMAP A.2).
-#include "common.cuh"
+// What bounds it on the H100: the products as written (the local pass
+// computes each score tile twice, as a row and as a column tile, and hi
+// + lo doubles or triples a float32 product; ~26 / 48 GFLOP at one Mamba2
+// layer of Zamba2 / mamba2-2.7b, B = 4, S = 512) take 0.03 / 0.05 ms at
+// the bf16 tensor-core peak, the bytes (the inputs once; the float32
+// per-head dB and dC, 2 B S H N floats, are more) 0.02 / 0.03 ms.  In
+// practice `local_mma` takes most of the time: each warp's fragment loads
+// and mma.sync chain leave the tensor cores idle between products, with
+// two 8-warp blocks an SM at N <= 64 (128 registers a thread) and one at
+// N = 128 (234 registers; mamba2's tiles take 163 KB), whose first loads
+// no other block's compute overlaps.  The float32 route is FFMA-bound
+// (67 TFLOP/s).
+// Further speed work is ROADMAP.md A.2's.
+#include "mma.cuh"
 
 namespace {
 
 using repro_torch::from_f32;
 using repro_torch::to_f32;
+using namespace repro_torch::mma;
+using repro_torch::allow_smem_once;
 
 constexpr int kThreads = 256;
 constexpr int kTile = 16;    // chunk positions a block of the local pass
@@ -79,15 +108,22 @@ inline size_t state_smem(int Q, int N) {
   return 4 * ((size_t)Q * N + (size_t)Q * kSlice + 3 * (size_t)Q);
 }
 
-// seg = cumsum(dt * a) over the chunk in position order by one thread,
-// each term rounded before the add, as the forward kernel sums it.
+// seg = cumsum(dt * a) over the chunk in position order by one thread, each
+// term rounded before the add, as the forward kernel sums it (eight terms
+// read ahead, so the adds do not wait on shared memory; Q % 16 == 0).
 __device__ __forceinline__ void chunk_seg(const float* dts, float a,
-                                          float* seg, int Q) {
+                                                float* seg, int Q) {
   if (threadIdx.x == 0) {
     float run = 0.0f;
-    for (int i = 0; i < Q; ++i) {
-      run = __fadd_rn(run, __fmul_rn(dts[i], a));
-      seg[i] = run;
+    for (int i0 = 0; i0 < Q; i0 += 8) {
+      float d[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) d[k] = dts[i0 + k];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        run = __fadd_rn(run, __fmul_rn(d[k], a));
+        seg[i0 + k] = run;
+      }
     }
   }
   __syncthreads();
@@ -523,66 +559,829 @@ __global__ void da_kernel(const float* __restrict__ chunk_f,
   dA[h] = s;
 }
 
+// ------------------------------------ bfloat16: the tensor-core passes --
+// (1') `chunk_state_mma` and `state_scan` take the state kernel's place,
+// (2') `local_mma` the local kernel's where its tiles fit (`local_mma_smem`).
+
+__host__ __device__ inline int round16(int v) { return (v + 15) / 16 * 16; }
+
+// Shared memory of a `chunk_state_mma` block (PS head columns).
+inline size_t chunk_state_smem(int Q, int N, int PS) {
+  return 2 * (2 * (size_t)Q * (PS + 8) + (size_t)Q * (round16(N) + 8)) +
+         4 * 3 * (size_t)Q;
+}
+
+// Shared memory of a `local_mma` block; kept equal to `_bwd_smem_bytes`
+// in repro_torch/kernels/ssd_scan.py.
+inline size_t local_mma_smem(int Q, int N, int P) {
+  const size_t lp = P + 8, ln = round16(N) + 8;
+  return 2 * (3 * Q * lp + 2 * Q * ln) + 4 * (round16(N) * lp + 2 * Q + 64);
+}
+
+// Q rows of a float32 [rows][W] slice (row j at src + j * rstride) as bf16
+// hi and lo terms in two padded tiles.  Four 16-byte loads a thread are in
+// flight before the first store (a load waits on no store before it).
+__device__ __forceinline__ void load_split(__nv_bfloat16* hi,
+                                           __nv_bfloat16* lo, int ld,
+                                           const float* __restrict__ src,
+                                           long long rstride, int Q, int W) {
+  const int w4 = W / 4, n4 = Q * w4, step = blockDim.x;
+  for (int i0 = threadIdx.x; i0 < n4; i0 += 4 * step) {
+    float4 v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = i0 + k * step;
+      if (i < n4)
+        v[k] = __ldg(reinterpret_cast<const float4*>(
+            src + (i / w4) * rstride + 4 * (i % w4)));
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = i0 + k * step;
+      if (i >= n4) break;
+      const int j = i / w4, p = 4 * (i % w4);
+      uint2 h, l;
+      split_bf16(v[k].x, v[k].y, h.x, l.x);
+      split_bf16(v[k].z, v[k].w, h.y, l.y);
+      *reinterpret_cast<uint2*>(hi + j * ld + p) = h;
+      *reinterpret_cast<uint2*>(lo + j * ld + p) = l;
+    }
+  }
+}
+
+// (1') A block per (batch, head, chunk), PS head columns and direction:
+// z = 0 the chunk's contribution to the state it passes on, sum_j B_j
+// e_j dt_j x_j^T, into S's slot c + 1; z = 1 its term of the state
+// gradient it passes back, sum_i exp(seg_i) C_i dy_i^T, into G's slot
+// c - 1.  [N, PS] = V^T diag(w) U on the tensor cores: A = (V w)^T through
+// ldmatrix.trans, its float32 products as bf16 hi + lo (dy too, three
+// MMAs a product).  The block with no slot to fill zeros the chain's
+// first slot instead; the (z = 0, first slice) block also writes the
+// chunk's seg and exp(seg_last).
+template <int PS>
+__global__ void __launch_bounds__(128)
+chunk_state_mma(const __nv_bfloat16* __restrict__ x,
+                const float* __restrict__ dt, const float* __restrict__ A,
+                const __nv_bfloat16* __restrict__ Bm,
+                const __nv_bfloat16* __restrict__ Cm,
+                const float* __restrict__ dy, float* __restrict__ states,
+                float* __restrict__ segs, float* __restrict__ decays,
+                int batch, int S, int H, int G, int N, int P, int Q) {
+  constexpr int LU = PS + 8;
+  const int Np = round16(N), LN = Np + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* uh = reinterpret_cast<__nv_bfloat16*>(smem);  // [Q][LU]
+  __nv_bfloat16* ul = uh + Q * LU;                              // [Q][LU]
+  __nv_bfloat16* vs = ul + Q * LU;                              // [Q][LN]
+  float* dts = reinterpret_cast<float*>(vs + Q * LN);
+  float* seg = dts + Q;
+  float* ws = seg + Q;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nc = S / Q, c = blockIdx.x % nc, bh = blockIdx.x / nc;
+  const int b = bh / H, h = bh % H, grp = h / (H / G);
+  const int p0 = blockIdx.y * PS;
+  const bool back = blockIdx.z == 1;
+  const long long r0 = (long long)b * S + (long long)c * Q;
+  const long long plane = (long long)N * P;
+  float* chain = states + ((long long)blockIdx.z * batch * H + bh) * nc * plane;
+  const int dst = back ? c - 1 : c + 1;  // the slot this chunk's term fills
+  const bool first = !back && blockIdx.y == 0;
+
+  if (dst < 0 || dst >= nc) {  // zero the chain's first slot
+    float* out = chain + (long long)(back ? nc - 1 : 0) * plane + p0;
+    for (int i = tid; i < N * PS; i += blockDim.x)
+      out[(long long)(i / PS) * P + i % PS] = 0.0f;
+    if (!first) return;
+  }
+  const __nv_bfloat16* vsrc = back ? Cm : Bm;
+  for (int i = tid; i < Q * (N / 8); i += blockDim.x) {
+    const int j = i / (N / 8), k = i % (N / 8);
+    cp_async16(vs + j * LN + 8 * k, vsrc + ((r0 + j) * G + grp) * N + 8 * k);
+  }
+  if (!back)
+    for (int i = tid; i < Q * (PS / 8); i += blockDim.x) {
+      const int j = i / (PS / 8), k = i % (PS / 8);
+      cp_async16(uh + j * LU + 8 * k, x + ((r0 + j) * H + h) * P + p0 + 8 * k);
+    }
+  cp_async_commit();
+  for (int i = tid; i < Q * (Np - N); i += blockDim.x)
+    vs[(i / (Np - N)) * LN + N + i % (Np - N)] = __float2bfloat16_rn(0.0f);
+  if (back)
+    load_split(uh, ul, LU, dy + (r0 * H + h) * P + p0, (long long)H * P, Q, PS);
+  for (int i = tid; i < Q; i += blockDim.x) dts[i] = dt[(r0 + i) * H + h];
+  __syncthreads();
+  chunk_seg(dts, A[h], seg, Q);
+  const float last = seg[Q - 1];
+  for (int i = tid; i < Q; i += blockDim.x) {
+    ws[i] = back ? expf(seg[i]) : expf(last - seg[i]) * dts[i];
+    if (first) segs[(long long)bh * S + c * Q + i] = seg[i];
+  }
+  if (first && tid == 0) decays[blockIdx.x] = expf(last);
+  cp_async_wait<0>();
+  __syncthreads();
+  if (dst < 0 || dst >= nc) return;
+
+  float* out = chain + (long long)dst * plane + p0;
+  for (int mt = warp; 16 * mt < Np; mt += 4) {
+    float acc[PS / 8][4];
+#pragma unroll
+    for (int n = 0; n < PS / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+    for (int kk = 0; kk < Q / 16; ++kk) {
+      unsigned vt[4], ah[4], al[4];
+      ldsm_x4_t(vt, frag_cols(vs, LN, 16 * kk, 16 * mt, lane));
+      const int j = 16 * kk + 2 * t;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {  // k columns j, j+1 (r < 2) or j+8, j+9
+        const float2 f = unpack_bf16(vt[r]);
+        const int k = j + (r >= 2 ? 8 : 0);
+        split_bf16(f.x * ws[k], f.y * ws[k + 1], ah[r], al[r]);
+      }
+#pragma unroll
+      for (int np = 0; np < PS / 16; ++np) {
+        unsigned bh_[4];
+        ldsm_x4_t(bh_, frag_rows(uh, LU, 16 * kk, 16 * np, lane));
+        mma_bf16(acc[2 * np], ah, bh_[0], bh_[1]);
+        mma_bf16(acc[2 * np + 1], ah, bh_[2], bh_[3]);
+        mma_bf16(acc[2 * np], al, bh_[0], bh_[1]);
+        mma_bf16(acc[2 * np + 1], al, bh_[2], bh_[3]);
+        if (back) {
+          unsigned bl[4];
+          ldsm_x4_t(bl, frag_rows(ul, LU, 16 * kk, 16 * np, lane));
+          mma_bf16(acc[2 * np], ah, bl[0], bl[1]);
+          mma_bf16(acc[2 * np + 1], ah, bl[2], bl[3]);
+        }
+      }
+    }
+    const int n_lo = 16 * mt + g, n_hi = n_lo + 8;
+#pragma unroll
+    for (int n = 0; n < PS / 8; ++n) {
+      const int p = 8 * n + 2 * t;
+      if (n_lo < N)
+        *reinterpret_cast<float2*>(out + (long long)n_lo * P + p) =
+            make_float2(acc[n][0], acc[n][1]);
+      if (n_hi < N)
+        *reinterpret_cast<float2*>(out + (long long)n_hi * P + p) =
+            make_float2(acc[n][2], acc[n][3]);
+    }
+  }
+}
+
+// The chains across chunks, an element a thread: S_{c+1} = exp(seg_last)
+// S_c + (its slot's term), forward; G_{c-1} = exp(seg_last) G_c + (its
+// slot's term), in reverse.  The same form as `state_kernel`'s.
+__global__ void __launch_bounds__(kThreads)
+state_scan(float* __restrict__ states, const float* __restrict__ decays,
+           int batch, int H, int nc, int NP) {
+  const int bh = blockIdx.x;
+  const int e = blockIdx.y * kThreads + threadIdx.x;
+  if (e >= NP) return;
+  const float* dec = decays + (long long)bh * nc;
+  float* fwd = states + (long long)bh * nc * NP + e;
+  float* rev = fwd + (long long)batch * H * nc * NP;
+  float run = 0.0f;
+  for (int c = 1; c < nc; ++c) {
+    run = fmaf(dec[c - 1], run, fwd[(long long)c * NP]);
+    fwd[(long long)c * NP] = run;
+  }
+  run = 0.0f;
+  for (int c = nc - 2; c >= 0; --c) {
+    run = fmaf(dec[c + 1], run, rev[(long long)c * NP]);
+    rev[(long long)c * NP] = run;
+  }
+}
+
+// The B fragment pair (b0, b1) as hi and lo bf16 terms, from a float32
+// row-major tile whose k runs along the rows: rows n0 + g, columns k0 +
+// 2t .. (b0) and k0 + 2t + 8 .. (b1).
+__device__ __forceinline__ void b_split_rows(const float* st, int ld, int n0,
+                                             int k0, int lane,
+                                             unsigned (&hi)[2],
+                                             unsigned (&lo)[2]) {
+  const float* p = st + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
+  const float2 v0 = *reinterpret_cast<const float2*>(p);
+  const float2 v1 = *reinterpret_cast<const float2*>(p + 8);
+  split_bf16(v0.x, v0.y, hi[0], lo[0]);
+  split_bf16(v1.x, v1.y, hi[1], lo[1]);
+}
+
+// The same, k running down the rows: rows k0 + 2t, k0 + 2t + 1 (b0) and
+// + 8 (b1), column n0 + g.
+__device__ __forceinline__ void b_split_cols(const float* st, int ld, int k0,
+                                             int n0, int lane,
+                                             unsigned (&hi)[2],
+                                             unsigned (&lo)[2]) {
+  const float* p = st + (k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
+  split_bf16(p[0], p[ld], hi[0], lo[0]);
+  split_bf16(p[8 * ld], p[9 * ld], hi[1], lo[1]);
+}
+
+// Sum over the 4 threads of a quad, in a fixed order.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// (2') The chunk-local gradients on the tensor cores: a block per (batch,
+// head, chunk) holds the chunk's x, dy (bf16 hi + lo), B and C in shared
+// memory, and warp w owns positions 16 w .. 16 w + 15 of it, as columns
+// j (dx, a head's dB, ddt's direct part, cpart, u) and as rows i (a
+// head's dC, rpart): the causal triangle's tiles split 9 a warp at chunk
+// 128.  Products (m16n8k16, f32 accumulators):
+//   G terms: e_j B_j G and e_j G x_j (G float32 in shared memory, split in
+//     the B fragments), which start the dx and dB accumulators;
+//   columns, i >= j: (C.B)^T and D^T = x_j dy_i^T, then dx += M^T dy and
+//     dB += (L D)^T C, M = (C.B) L;
+//   S terms: exp(seg_i) S_c dy_i, which starts dC (S_c arrives by cp.async
+//     while the columns run);
+//   rows, j <= i: C.B and D, then dC += (L D dt_j) B.
+// Each score and weight tile is float32 and enters its product as bf16 hi
+// + lo (dy: three MMAs a product, hi hi + hi lo + lo hi).  Sums over a
+// tile's rows reduce over a quad's shuffles in a fixed order.
+template <int PT, int NTM>
+__global__ void __launch_bounds__(kThreads, NTM <= 8 && PT <= 8 ? 2 : 1)
+local_mma(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
+          const __nv_bfloat16* __restrict__ Bm,
+          const __nv_bfloat16* __restrict__ Cm, const float* __restrict__ dy,
+          const float* __restrict__ states, const float* __restrict__ segs,
+          __nv_bfloat16* __restrict__ dx, float* __restrict__ ddt,
+          float* __restrict__ per_head, float* __restrict__ parts,
+          float* __restrict__ chunk_f, int batch, int S, int H, int G, int N,
+          int Q) {
+  constexpr int P = 8 * PT, LP = P + 8;
+  const int Np = round16(N), LN = Np + 8, NT = Np / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);  // [Q][LP]
+  __nv_bfloat16* dyh = xs + Q * LP;                             // [Q][LP]
+  __nv_bfloat16* dyl = dyh + Q * LP;                            // [Q][LP]
+  __nv_bfloat16* bs = dyl + Q * LP;                             // [Q][LN]
+  __nv_bfloat16* cs = bs + Q * LN;                              // [Q][LN]
+  float* st = reinterpret_cast<float*>(cs + Q * LN);  // [Np][LP]: G, S_c
+  float* seg = st + Np * LP;
+  float* dts = seg + Q;
+  float* red = dts + Q;                                         // [64]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int W = Q / 16;
+  const int nc = S / Q, c = blockIdx.x % nc, bh = blockIdx.x / nc;
+  const int b = bh / H, h = bh % H, grp = h / (H / G);
+  const long long r0 = (long long)b * S + (long long)c * Q;
+  const long long plane = (long long)N * P;
+  const long long bsh = (long long)batch * S * H;
+  const float* s_c = states + ((long long)bh * nc + c) * plane;
+  const float* g_c = s_c + (long long)batch * H * nc * plane;
+
+  auto load_state = [&](const float* src) {
+    for (int i = tid; i < N * PT * 2; i += blockDim.x) {
+      const int n = i / (2 * PT), k = i % (2 * PT);
+      cp_async16(st + n * LP + 4 * k, src + (long long)n * P + 4 * k);
+    }
+  };
+  for (int i = tid; i < Q * PT; i += blockDim.x) {
+    const int j = i / PT, k = i % PT;
+    cp_async16(xs + j * LP + 8 * k, x + ((r0 + j) * H + h) * P + 8 * k);
+  }
+  for (int i = tid; i < Q * (N / 8); i += blockDim.x) {
+    const int j = i / (N / 8), k = i % (N / 8);
+    const long long off = ((r0 + j) * G + grp) * N + 8 * k;
+    cp_async16(bs + j * LN + 8 * k, Bm + off);
+    cp_async16(cs + j * LN + 8 * k, Cm + off);
+  }
+  load_state(g_c);
+  cp_async_commit();
+  for (int i = tid; i < Q * (Np - N); i += blockDim.x) {
+    const int j = i / (Np - N), n = N + i % (Np - N);
+    bs[j * LN + n] = cs[j * LN + n] = __float2bfloat16_rn(0.0f);
+  }
+  for (int i = tid; i < (Np - N) * P; i += blockDim.x)
+    st[(N + i / P) * LP + i % P] = 0.0f;
+  load_split(dyh, dyl, LP, dy + (r0 * H + h) * P, (long long)H * P, Q, P);
+  for (int i = tid; i < Q; i += blockDim.x) {
+    dts[i] = dt[(r0 + i) * H + h];
+    seg[i] = segs[(long long)bh * S + c * Q + i];
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const float last = seg[Q - 1];
+  const int o0 = 16 * warp;                 // this warp's 16 positions
+  const int lo = o0 + g, hi = lo + 8;       // its two rows of a fragment
+  const float e_lo = expf(last - seg[lo]), e_hi = expf(last - seg[hi]);
+
+  // ---- G terms: dx and dB start at e_j B_j G and e_j G x_j ------------
+  float adx[PT][4], adb[NTM][4];
+#pragma unroll
+  for (int n = 0; n < PT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adx[n][e] = 0.0f;
+#pragma unroll
+  for (int n = 0; n < NTM; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adb[n][e] = 0.0f;
+  for (int kk = 0; kk < Np / 16; ++kk) {
+    unsigned a[4];
+    ldsm_x4(a, frag_rows(bs, LN, o0, 16 * kk, lane));
+#pragma unroll
+    for (int n = 0; n < PT; ++n) {
+      unsigned bh_[2], bl[2];
+      b_split_cols(st, LP, 16 * kk, 8 * n, lane, bh_, bl);
+      mma_bf16(adx[n], a, bh_[0], bh_[1]);
+      mma_bf16(adx[n], a, bl[0], bl[1]);
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < PT / 2; ++kk) {
+    unsigned a[4];
+    ldsm_x4(a, frag_rows(xs, LP, o0, 16 * kk, lane));
+#pragma unroll
+    for (int n = 0; n < NTM; ++n) {
+      if (n >= NT) break;
+      unsigned bh_[2], bl[2];
+      b_split_rows(st, LP, 8 * n, 16 * kk, lane, bh_, bl);
+      mma_bf16(adb[n], a, bh_[0], bh_[1]);
+      mma_bf16(adb[n], a, bl[0], bl[1]);
+    }
+  }
+  // beta_j = B_j . (G x_j)
+  float beta_lo = 0.0f, beta_hi = 0.0f;
+#pragma unroll
+  for (int n = 0; n < NTM; ++n) {
+    if (n >= NT) break;
+    const int col = 8 * n + 2 * t;
+    const float2 b0 = unpack_bf16(
+        *reinterpret_cast<const unsigned*>(bs + lo * LN + col));
+    const float2 b1 = unpack_bf16(
+        *reinterpret_cast<const unsigned*>(bs + hi * LN + col));
+    beta_lo = fmaf(b0.x, adb[n][0], fmaf(b0.y, adb[n][1], beta_lo));
+    beta_hi = fmaf(b1.x, adb[n][2], fmaf(b1.y, adb[n][3], beta_hi));
+  }
+  beta_lo = quad_sum(beta_lo);
+  beta_hi = quad_sum(beta_hi);
+#pragma unroll
+  for (int n = 0; n < PT; ++n) {
+    adx[n][0] *= e_lo;
+    adx[n][1] *= e_lo;
+    adx[n][2] *= e_hi;
+    adx[n][3] *= e_hi;
+  }
+#pragma unroll
+  for (int n = 0; n < NTM; ++n) {
+    adb[n][0] *= e_lo;
+    adb[n][1] *= e_lo;
+    adb[n][2] *= e_hi;
+    adb[n][3] *= e_hi;
+  }
+
+  // ---- the chunk's exp(seg_last) <G, S_c>, then S_c in flight ----------
+  float gs = 0.0f;  // eight loads of S_c in flight a thread
+  for (int e0 = tid; e0 < N * P; e0 += 8 * blockDim.x) {
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int e = e0 + k * blockDim.x;
+      v[k] = e < N * P ? __ldg(s_c + e) : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int e = e0 + k * blockDim.x;
+      if (e < N * P) gs = fmaf(st[(e / P) * LP + e % P], v[k], gs);
+    }
+  }
+  float unused = 0.0f;
+  repro_torch::block_sum2(gs, unused, red);  // ends with a barrier
+  if (tid == 0) chunk_f[(long long)bh * nc + c] = expf(last) * gs;
+  load_state(s_c);
+  cp_async_commit();
+
+  // ---- columns j of this warp, rows i >= j ------------------------------
+  float md_lo = 0.0f, md_hi = 0.0f;
+  for (int it = warp; it < W; ++it) {
+    const int i0 = 16 * it;
+    float sc[2][4] = {}, dd[2][4] = {};
+    for (int kk = 0; kk < Np / 16; ++kk) {
+      unsigned a[4], bb[4];
+      ldsm_x4(a, frag_rows(bs, LN, o0, 16 * kk, lane));
+      ldsm_x4(bb, frag_cols(cs, LN, i0, 16 * kk, lane));
+      mma_bf16(sc[0], a, bb[0], bb[1]);
+      mma_bf16(sc[1], a, bb[2], bb[3]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < PT / 2; ++kk) {
+      unsigned a[4], bh_[4], bl[4];
+      ldsm_x4(a, frag_rows(xs, LP, o0, 16 * kk, lane));
+      ldsm_x4(bh_, frag_cols(dyh, LP, i0, 16 * kk, lane));
+      ldsm_x4(bl, frag_cols(dyl, LP, i0, 16 * kk, lane));
+      mma_bf16(dd[0], a, bh_[0], bh_[1]);
+      mma_bf16(dd[1], a, bh_[2], bh_[3]);
+      mma_bf16(dd[0], a, bl[0], bl[1]);
+      mma_bf16(dd[1], a, bl[2], bl[3]);
+    }
+    // M^T = (C.B)^T L and (L D)^T, 0 above the diagonal (i < j)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = e >= 2 ? hi : lo, i = i0 + 8 * n + 2 * t + (e & 1);
+        float m = 0.0f, ld = 0.0f;
+        if (i >= j) {
+          const float l = expf(seg[i] - seg[j]);
+          m = sc[n][e] * l;
+          ld = l * dd[n][e];
+          if (e >= 2)
+            md_hi = fmaf(m, dd[n][e], md_hi);
+          else
+            md_lo = fmaf(m, dd[n][e], md_lo);
+        }
+        sc[n][e] = m;
+        dd[n][e] = ld;
+      }
+    unsigned mh[4], ml[4], lh[4], ll[4];
+    acc_to_a_split(mh, ml, sc[0], sc[1]);
+    acc_to_a_split(lh, ll, dd[0], dd[1]);
+#pragma unroll
+    for (int np = 0; np < PT / 2; ++np) {  // dx += M^T dy
+      unsigned bh_[4], bl[4];
+      ldsm_x4_t(bh_, frag_rows(dyh, LP, i0, 16 * np, lane));
+      ldsm_x4_t(bl, frag_rows(dyl, LP, i0, 16 * np, lane));
+      mma_bf16(adx[2 * np], mh, bh_[0], bh_[1]);
+      mma_bf16(adx[2 * np + 1], mh, bh_[2], bh_[3]);
+      mma_bf16(adx[2 * np], mh, bl[0], bl[1]);
+      mma_bf16(adx[2 * np + 1], mh, bl[2], bl[3]);
+      mma_bf16(adx[2 * np], ml, bh_[0], bh_[1]);
+      mma_bf16(adx[2 * np + 1], ml, bh_[2], bh_[3]);
+    }
+#pragma unroll
+    for (int np = 0; np < NTM / 2; ++np) {  // dB += (L D)^T C
+      if (2 * np >= NT) break;
+      unsigned bc[4];
+      ldsm_x4_t(bc, frag_rows(cs, LN, i0, 16 * np, lane));
+      mma_bf16(adb[2 * np], lh, bc[0], bc[1]);
+      mma_bf16(adb[2 * np + 1], lh, bc[2], bc[3]);
+      mma_bf16(adb[2 * np], ll, bc[0], bc[1]);
+      mma_bf16(adb[2 * np + 1], ll, bc[2], bc[3]);
+    }
+  }
+  md_lo = quad_sum(md_lo);
+  md_hi = quad_sum(md_hi);
+
+  // dx_j = dt_j acc, a head's dB_j = dt_j acc; ddt's direct part, cpart, u
+  const float dt_lo = dts[lo], dt_hi = dts[hi];
+  {
+    __nv_bfloat16* out_lo = dx + ((r0 + lo) * H + h) * P + 2 * t;
+    __nv_bfloat16* out_hi = dx + ((r0 + hi) * H + h) * P + 2 * t;
+#pragma unroll
+    for (int n = 0; n < PT; ++n) {
+      *reinterpret_cast<unsigned*>(out_lo + 8 * n) =
+          pack_bf16(dt_lo * adx[n][0], dt_lo * adx[n][1]);
+      *reinterpret_cast<unsigned*>(out_hi + 8 * n) =
+          pack_bf16(dt_hi * adx[n][2], dt_hi * adx[n][3]);
+    }
+    float* db_lo = per_head + ((r0 + lo) * H + h) * N + 2 * t;
+    float* db_hi = per_head + ((r0 + hi) * H + h) * N + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NTM; ++n) {
+      if (n >= NT || 8 * n >= N) break;
+      *reinterpret_cast<float2*>(db_lo + 8 * n) =
+          make_float2(dt_lo * adb[n][0], dt_lo * adb[n][1]);
+      *reinterpret_cast<float2*>(db_hi + 8 * n) =
+          make_float2(dt_hi * adb[n][2], dt_hi * adb[n][3]);
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = r ? hi : lo;
+        const float ej = r ? e_hi : e_lo, dtj = r ? dt_hi : dt_lo;
+        const float beta = r ? beta_hi : beta_lo, md = r ? md_hi : md_lo;
+        const long long off = (r0 + j) * H + h;
+        const float u = ej * dtj * beta;
+        ddt[off] = fmaf(ej, beta, md);
+        parts[bsh + off] = -(dtj * md) - u;
+        parts[2 * bsh + off] = u;
+      }
+    }
+  }
+
+  // ---- S terms: dC starts at exp(seg_i) S_c dy_i ------------------------
+  cp_async_wait<0>();
+  __syncthreads();  // S_c has landed
+  float adc[NTM][4];
+#pragma unroll
+  for (int n = 0; n < NTM; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adc[n][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < PT / 2; ++kk) {
+    unsigned ah[4], al[4];
+    ldsm_x4(ah, frag_rows(dyh, LP, o0, 16 * kk, lane));
+    ldsm_x4(al, frag_rows(dyl, LP, o0, 16 * kk, lane));
+#pragma unroll
+    for (int n = 0; n < NTM; ++n) {
+      if (n >= NT) break;
+      unsigned bh_[2], bl[2];
+      b_split_rows(st, LP, 8 * n, 16 * kk, lane, bh_, bl);
+      mma_bf16(adc[n], ah, bh_[0], bh_[1]);
+      mma_bf16(adc[n], ah, bl[0], bl[1]);
+      mma_bf16(adc[n], al, bh_[0], bh_[1]);
+    }
+  }
+  // cz_i = C_i . (S_c dy_i)
+  float cz_lo = 0.0f, cz_hi = 0.0f;
+#pragma unroll
+  for (int n = 0; n < NTM; ++n) {
+    if (n >= NT) break;
+    const int col = 8 * n + 2 * t;
+    const float2 c0 = unpack_bf16(
+        *reinterpret_cast<const unsigned*>(cs + lo * LN + col));
+    const float2 c1 = unpack_bf16(
+        *reinterpret_cast<const unsigned*>(cs + hi * LN + col));
+    cz_lo = fmaf(c0.x, adc[n][0], fmaf(c0.y, adc[n][1], cz_lo));
+    cz_hi = fmaf(c1.x, adc[n][2], fmaf(c1.y, adc[n][3], cz_hi));
+  }
+  cz_lo = quad_sum(cz_lo);
+  cz_hi = quad_sum(cz_hi);
+  const float es_lo = expf(seg[lo]), es_hi = expf(seg[hi]);
+#pragma unroll
+  for (int n = 0; n < NTM; ++n) {
+    adc[n][0] *= es_lo;
+    adc[n][1] *= es_lo;
+    adc[n][2] *= es_hi;
+    adc[n][3] *= es_hi;
+  }
+
+  // ---- rows i of this warp, columns j <= i ------------------------------
+  float rs_lo = 0.0f, rs_hi = 0.0f;
+  for (int jt = 0; jt <= warp; ++jt) {
+    const int j0 = 16 * jt;
+    float sc[2][4] = {}, dd[2][4] = {};
+    for (int kk = 0; kk < Np / 16; ++kk) {
+      unsigned a[4], bb[4];
+      ldsm_x4(a, frag_rows(cs, LN, o0, 16 * kk, lane));
+      ldsm_x4(bb, frag_cols(bs, LN, j0, 16 * kk, lane));
+      mma_bf16(sc[0], a, bb[0], bb[1]);
+      mma_bf16(sc[1], a, bb[2], bb[3]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < PT / 2; ++kk) {
+      unsigned ah[4], al[4], bx[4];
+      ldsm_x4(ah, frag_rows(dyh, LP, o0, 16 * kk, lane));
+      ldsm_x4(al, frag_rows(dyl, LP, o0, 16 * kk, lane));
+      ldsm_x4(bx, frag_cols(xs, LP, j0, 16 * kk, lane));
+      mma_bf16(dd[0], ah, bx[0], bx[1]);
+      mma_bf16(dd[1], ah, bx[2], bx[3]);
+      mma_bf16(dd[0], al, bx[0], bx[1]);
+      mma_bf16(dd[1], al, bx[2], bx[3]);
+    }
+    // L D dt_j, 0 past the diagonal (j > i); T = (C.B) L D dt_j
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >= 2 ? hi : lo, j = j0 + 8 * n + 2 * t + (e & 1);
+        float w = 0.0f;
+        if (j <= i) {
+          w = expf(seg[i] - seg[j]) * dd[n][e] * dts[j];
+          if (e >= 2)
+            rs_hi = fmaf(sc[n][e], w, rs_hi);
+          else
+            rs_lo = fmaf(sc[n][e], w, rs_lo);
+        }
+        dd[n][e] = w;
+      }
+    unsigned wh[4], wl[4];
+    acc_to_a_split(wh, wl, dd[0], dd[1]);
+#pragma unroll
+    for (int np = 0; np < NTM / 2; ++np) {  // dC += (L D dt_j) B
+      if (2 * np >= NT) break;
+      unsigned bb[4];
+      ldsm_x4_t(bb, frag_rows(bs, LN, j0, 16 * np, lane));
+      mma_bf16(adc[2 * np], wh, bb[0], bb[1]);
+      mma_bf16(adc[2 * np + 1], wh, bb[2], bb[3]);
+      mma_bf16(adc[2 * np], wl, bb[0], bb[1]);
+      mma_bf16(adc[2 * np + 1], wl, bb[2], bb[3]);
+    }
+  }
+  rs_lo = quad_sum(rs_lo);
+  rs_hi = quad_sum(rs_hi);
+
+  // a head's dC_i; rpart_i = row sums of T + exp(seg_i) C_i . (S_c dy_i)
+  float* dc_lo = per_head + bsh * N + ((r0 + lo) * H + h) * N + 2 * t;
+  float* dc_hi = per_head + bsh * N + ((r0 + hi) * H + h) * N + 2 * t;
+#pragma unroll
+  for (int n = 0; n < NTM; ++n) {
+    if (n >= NT || 8 * n >= N) break;
+    *reinterpret_cast<float2*>(dc_lo + 8 * n) =
+        make_float2(adc[n][0], adc[n][1]);
+    *reinterpret_cast<float2*>(dc_hi + 8 * n) =
+        make_float2(adc[n][2], adc[n][3]);
+  }
+  if (t == 0) {
+    parts[(r0 + lo) * H + h] = fmaf(es_lo, cz_lo, rs_lo);
+    parts[(r0 + hi) * H + h] = fmaf(es_hi, cz_hi, rs_hi);
+  }
+}
+
+// ------------------------------------------------------------ launches --
+// Parts of the float32 scratch buffer, each on a 16-byte boundary; kept
+// equal to `_bwd_scratch_floats` in repro_torch/kernels/ssd_scan.py.
+struct Scratch {
+  float *states, *per_head, *parts, *chunk_f, *segs, *decays;
+};
+
+inline long long up4(long long v) { return (v + 3) / 4 * 4; }
+
+inline Scratch carve(float* p, int batch, int S, int H, int N, int P, int Q) {
+  const long long bh = (long long)batch * H, nc = S / Q;
+  const long long bsh = (long long)batch * S * H;
+  Scratch s;
+  s.states = p;                      // [2][B][H][nc][N][P]: S_c, then G
+  s.per_head = s.states + up4(2 * bh * nc * N * P);  // [2][B][S][H][N]
+  s.parts = s.per_head + up4(2 * bsh * N);           // [3][B][S][H]
+  s.chunk_f = s.parts + up4(3 * bsh);                // [2][B][H][nc]
+  s.segs = s.chunk_f + up4(2 * bh * nc);             // [B][H][S] (bf16)
+  s.decays = s.segs + up4(bh * S);                   // [B][H][nc] (bf16)
+  return s;
+}
+
+// Each kernel may take up to the whole 227 KB of dynamic shared memory
+// (set once per kernel and device).
+constexpr size_t kSmemMax = 232448;
+
+#define SSD_TRY(call)                                     \
+  do {                                                    \
+    const cudaError_t e_ = (call);                        \
+    if (e_ != cudaSuccess) return static_cast<int>(e_);   \
+  } while (0)
+
 template <typename T>
-int launch_bwd(const T* x, const float* dt, const float* A, const T* Bm,
-               const T* Cm, const float* dy, T* dx, float* ddt, float* dA,
-               T* dB, T* dC, float* states, float* per_head, float* parts,
-               float* chunk_f, int batch, int S, int H, int G, int N, int P,
-               int Q, int smem, cudaStream_t stream) {
-  const size_t local = local_smem(Q, N, P);
-  if (Q < 16 || Q > 128 || Q % kTile || N < 8 || N > kMaxN || N % 8 ||
-      P < kSlice || P % kSlice || G < 1 || H % G || S % Q ||
-      local != static_cast<size_t>(smem) || local > 232448)
-    return static_cast<int>(cudaErrorInvalidValue);
+int launch_sums(const float* dt, const float* A, const Scratch& sc, float* ddt,
+                float* dA, T* dB, T* dC, int batch, int S, int H, int G, int N,
+                int Q, cudaStream_t stream) {
   const int nc = S / Q;
-  const size_t st_smem = state_smem(Q, N);
-  cudaError_t err = repro_torch::allow_smem(state_kernel<T>, st_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  state_kernel<T><<<dim3(batch * H, P / kSlice, 2), kThreads, st_smem,
-                    stream>>>(x, dt, A, Bm, Cm, dy, states, S, H, G, N, P,
-                              Q);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  if ((err = repro_torch::allow_smem(local_kernel<T>, local)) != cudaSuccess)
-    return static_cast<int>(err);
-  local_kernel<T><<<dim3(batch * H * nc, Q / kTile, 2), kThreads, local,
-                    stream>>>(x, dt, A, Bm, Cm, dy, states, dx, ddt, per_head,
-                              parts, chunk_f, batch, S, H, G, N, P, Q);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const long long n_out = (long long)batch * S * G * N;
   const int n_sum = static_cast<int>((n_out + kThreads - 1) / kThreads);
   reduce_kernel<T><<<n_sum + batch * H * nc, kThreads, 0, stream>>>(
-      dt, A, per_head, parts, chunk_f, ddt, dB, dC, batch, S, H, G, N, Q,
-      n_sum);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  da_kernel<<<(H + 127) / 128, 128, 0, stream>>>(chunk_f, dA, batch, H, nc);
+      dt, A, sc.per_head, sc.parts, sc.chunk_f, ddt, dB, dC, batch, S, H, G,
+      N, Q, n_sum);
+  SSD_TRY(cudaGetLastError());
+  da_kernel<<<(H + 127) / 128, 128, 0, stream>>>(sc.chunk_f, dA, batch, H,
+                                                  nc);
   return static_cast<int>(cudaGetLastError());
+}
+
+bool shape_ok(int batch, int S, int H, int G, int N, int P, int Q) {
+  return batch >= 1 && Q >= 16 && Q <= 128 && Q % kTile == 0 && N >= 8 &&
+         N <= kMaxN && N % 8 == 0 && P >= kSlice && P % kSlice == 0 &&
+         G >= 1 && H % G == 0 && S % Q == 0 && S >= Q;
+}
+
+// float32: the SIMT passes 1-4.
+int launch_f32(const float* x, const float* dt, const float* A,
+               const float* Bm, const float* Cm, const float* dy, float* dx,
+               float* ddt, float* dA, float* dB, float* dC, float* scratch,
+               int batch, int S, int H, int G, int N, int P, int Q, int smem,
+               cudaStream_t stream) {
+  const size_t local = local_smem(Q, N, P);
+  if (!shape_ok(batch, S, H, G, N, P, Q) ||
+      local != static_cast<size_t>(smem) || local > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static unsigned state_set = 0, local_set = 0;
+  SSD_TRY(allow_smem_once(state_kernel<float>, kSmemMax, state_set));
+  SSD_TRY(allow_smem_once(local_kernel<float>, kSmemMax, local_set));
+  const Scratch sc = carve(scratch, batch, S, H, N, P, Q);
+  const int nc = S / Q;
+  state_kernel<float><<<dim3(batch * H, P / kSlice, 2), kThreads,
+                        state_smem(Q, N), stream>>>(
+      x, dt, A, Bm, Cm, dy, sc.states, S, H, G, N, P, Q);
+  SSD_TRY(cudaGetLastError());
+  local_kernel<float><<<dim3(batch * H * nc, Q / kTile, 2), kThreads, local,
+                        stream>>>(x, dt, A, Bm, Cm, dy, sc.states, dx, ddt,
+                                  sc.per_head, sc.parts, sc.chunk_f, batch, S,
+                                  H, G, N, P, Q);
+  SSD_TRY(cudaGetLastError());
+  return launch_sums(dt, A, sc, ddt, dA, dB, dC, batch, S, H, G, N, Q,
+                     stream);
+}
+
+template <int PT>
+cudaError_t launch_local_mma(const __nv_bfloat16* x, const float* dt,
+                             const __nv_bfloat16* Bm,
+                             const __nv_bfloat16* Cm, const float* dy,
+                             const Scratch& sc, __nv_bfloat16* dx, float* ddt,
+                             int batch, int S, int H, int G, int N, int Q,
+                             int smem, cudaStream_t stream) {
+  static unsigned set8 = 0, set16 = 0;
+  const dim3 grid(batch * H * (S / Q));
+  const int threads = 32 * (Q / 16);
+  cudaError_t err;
+  if (round16(N) <= 64) {  // N up to 64: two blocks an SM
+    err = allow_smem_once(local_mma<PT, 8>, kSmemMax, set8);
+    if (err != cudaSuccess) return err;
+    local_mma<PT, 8><<<grid, threads, smem, stream>>>(
+        x, dt, Bm, Cm, dy, sc.states, sc.segs, dx, ddt, sc.per_head,
+        sc.parts, sc.chunk_f, batch, S, H, G, N, Q);
+  } else {
+    err = allow_smem_once(local_mma<PT, 16>, kSmemMax, set16);
+    if (err != cudaSuccess) return err;
+    local_mma<PT, 16><<<grid, threads, smem, stream>>>(
+        x, dt, Bm, Cm, dy, sc.states, sc.segs, dx, ddt, sc.per_head,
+        sc.parts, sc.chunk_f, batch, S, H, G, N, Q);
+  }
+  return cudaGetLastError();
+}
+
+// bfloat16: the chunk states on the tensor cores and their scan, then the
+// local pass on the tensor cores (`mma`) or, where its tiles do not fit,
+// the SIMT one; then passes 3-4.
+int launch_bf16(const __nv_bfloat16* x, const float* dt, const float* A,
+                const __nv_bfloat16* Bm, const __nv_bfloat16* Cm,
+                const float* dy, __nv_bfloat16* dx, float* ddt, float* dA,
+                __nv_bfloat16* dB, __nv_bfloat16* dC, float* scratch,
+                int batch, int S, int H, int G, int N, int P, int Q, int mma,
+                int smem, cudaStream_t stream) {
+  const size_t local = mma ? local_mma_smem(Q, N, P) : local_smem(Q, N, P);
+  if (!shape_ok(batch, S, H, G, N, P, Q) ||
+      local != static_cast<size_t>(smem) || local > 232448 ||
+      (mma && P > 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Scratch sc = carve(scratch, batch, S, H, N, P, Q);
+  const int nc = S / Q, ps = P % 64 ? 32 : 64;
+  const dim3 grid_state(batch * H * nc, P / ps, 2);
+  if (ps == 64) {
+    static unsigned set = 0;
+    SSD_TRY(allow_smem_once(chunk_state_mma<64>, kSmemMax, set));
+    chunk_state_mma<64><<<grid_state, 128, chunk_state_smem(Q, N, 64),
+                          stream>>>(x, dt, A, Bm, Cm, dy, sc.states, sc.segs,
+                                    sc.decays, batch, S, H, G, N, P, Q);
+  } else {
+    static unsigned set = 0;
+    SSD_TRY(allow_smem_once(chunk_state_mma<32>, kSmemMax, set));
+    chunk_state_mma<32><<<grid_state, 128, chunk_state_smem(Q, N, 32),
+                          stream>>>(x, dt, A, Bm, Cm, dy, sc.states, sc.segs,
+                                    sc.decays, batch, S, H, G, N, P, Q);
+  }
+  SSD_TRY(cudaGetLastError());
+  state_scan<<<dim3(batch * H, (N * P + kThreads - 1) / kThreads), kThreads,
+               0, stream>>>(sc.states, sc.decays, batch, H, nc, N * P);
+  SSD_TRY(cudaGetLastError());
+  if (!mma) {
+    static unsigned set = 0;
+    SSD_TRY(allow_smem_once(local_kernel<__nv_bfloat16>, kSmemMax, set));
+    local_kernel<__nv_bfloat16><<<dim3(batch * H * nc, Q / kTile, 2),
+                                  kThreads, local, stream>>>(
+        x, dt, A, Bm, Cm, dy, sc.states, dx, ddt, sc.per_head, sc.parts,
+        sc.chunk_f, batch, S, H, G, N, P, Q);
+    SSD_TRY(cudaGetLastError());
+  } else {
+    switch (P / 8) {
+      case 4:
+        SSD_TRY(launch_local_mma<4>(x, dt, Bm, Cm, dy, sc, dx, ddt, batch, S,
+                                    H, G, N, Q, smem, stream));
+        break;
+      case 8:
+        SSD_TRY(launch_local_mma<8>(x, dt, Bm, Cm, dy, sc, dx, ddt, batch, S,
+                                    H, G, N, Q, smem, stream));
+        break;
+      case 12:
+        SSD_TRY(launch_local_mma<12>(x, dt, Bm, Cm, dy, sc, dx, ddt, batch, S,
+                                     H, G, N, Q, smem, stream));
+        break;
+      default:
+        SSD_TRY(launch_local_mma<16>(x, dt, Bm, Cm, dy, sc, dx, ddt, batch, S,
+                                     H, G, N, Q, smem, stream));
+    }
+  }
+  return launch_sums(dt, A, sc, ddt, dA, dB, dC, batch, S, H, G, N, Q,
+                     stream);
 }
 
 }  // namespace
 
-// Scratch (float32, the wrapper's): states [2][B][H][nc][N][P], per_head
-// [2][B][S][H][N], parts [3][B][S][H], chunk_f [2][B][H][nc]; smem: the
-// local pass's shared bytes (the wrapper's plan).
+// scratch: float32, the parts `carve` lays out (the wrapper's one buffer);
+// mma and smem: the local pass's route and shared bytes (the wrapper's
+// plan; the float32 route has only the SIMT pass).
 extern "C" int ssd_scan_bwd_f32(const float* x, const float* dt,
                                 const float* A, const float* Bm,
                                 const float* Cm, const float* dy, float* dx,
                                 float* ddt, float* dA, float* dB, float* dC,
-                                float* states, float* per_head, float* parts,
-                                float* chunk_f, int batch, int S, int H, int G,
-                                int N, int P, int Q, int smem, void* stream) {
-  return launch_bwd(x, dt, A, Bm, Cm, dy, dx, ddt, dA, dB, dC, states,
-                    per_head, parts, chunk_f, batch, S, H, G, N, P, Q, smem,
-                    static_cast<cudaStream_t>(stream));
+                                float* scratch, int batch, int S, int H, int G,
+                                int N, int P, int Q, int mma, int smem,
+                                void* stream) {
+  if (mma) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_f32(x, dt, A, Bm, Cm, dy, dx, ddt, dA, dB, dC, scratch, batch,
+                    S, H, G, N, P, Q, smem, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ssd_scan_bwd_bf16(
     const __nv_bfloat16* x, const float* dt, const float* A,
     const __nv_bfloat16* Bm, const __nv_bfloat16* Cm, const float* dy,
     __nv_bfloat16* dx, float* ddt, float* dA, __nv_bfloat16* dB,
-    __nv_bfloat16* dC, float* states, float* per_head, float* parts,
-    float* chunk_f, int batch, int S, int H, int G, int N, int P, int Q,
-    int smem, void* stream) {
-  return launch_bwd(x, dt, A, Bm, Cm, dy, dx, ddt, dA, dB, dC, states,
-                    per_head, parts, chunk_f, batch, S, H, G, N, P, Q, smem,
-                    static_cast<cudaStream_t>(stream));
+    __nv_bfloat16* dC, float* scratch, int batch, int S, int H, int G, int N,
+    int P, int Q, int mma, int smem, void* stream) {
+  return launch_bf16(x, dt, A, Bm, Cm, dy, dx, ddt, dA, dB, dC, scratch,
+                     batch, S, H, G, N, P, Q, mma, smem,
+                     static_cast<cudaStream_t>(stream));
 }

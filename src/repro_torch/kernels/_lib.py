@@ -50,7 +50,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 _SIGNATURES = {
     **{f"rmsnorm_{t}": (_P, _P, _P, _LL, _I, _F, _I, _I, _I, _P)
        for t in ("f32", "bf16")},
-    **{f"flash_attention_{t}": (_P, _P, _P, _P) + (_I,) * 8 + (_F, _P)
+    **{f"flash_attention_{t}": (_P,) * 5 + (_I,) * 8 + (_F, _P)
        for t in ("f32", "bf16")},
     **{f"rmsnorm_bwd_{t}": (_P,) * 6 + (_LL, _I, _F, _I, _I, _P)
        for t in ("f32", "bf16")},
@@ -58,7 +58,7 @@ _SIGNATURES = {
        for t in ("f32", "bf16")},
     **{f"ssd_scan_{t}": (_P,) * 6 + (_I,) * 8 + (_P,)
        for t in ("f32", "bf16")},
-    **{f"ssd_scan_bwd_{t}": (_P,) * 15 + (_I,) * 8 + (_P,)
+    **{f"ssd_scan_bwd_{t}": (_P,) * 12 + (_I,) * 9 + (_P,)
        for t in ("f32", "bf16")},
     "bandwidth_solve_warp_f32": (_P, _P, _LL, _I, _P, _P, _P, _P)
     + (_I,) * 5 + (_P,),
@@ -236,6 +236,12 @@ def cuda_index(*tensors: torch.Tensor) -> int | None:
             return index
     on_cuda(*tensors)                   # raises unless all lie on the CPU
     return None
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy on a 16-byte boundary (the kernels' vector loads, TMA
+    and cp.async copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def pow2_ceil(v: int) -> int:

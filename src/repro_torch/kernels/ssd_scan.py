@@ -72,11 +72,6 @@ def ssd_plan(kind: str, q: int, n: int, p: int) -> int:
                      f"chunk={q}, N={n}")
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t, or a copy on a 16-byte boundary (the kernels' vector loads)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 class _SSDScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk, index):
@@ -133,7 +128,7 @@ def _forward(x, dt, A, B, C, chunk: int, index: int) -> torch.Tensor:
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y
-    x, B, C = _aligned(x), _aligned(B), _aligned(C)
+    x, B, C = _lib.aligned(x), _lib.aligned(B), _lib.aligned(C)
     _lib.launch(f"ssd_scan_{kind}", index, x.data_ptr(), dt.data_ptr(),
                 A.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(), b, s,
                 h, g, n, p, chunk, ps)
@@ -142,40 +137,77 @@ def _forward(x, dt, A, B, C, chunk: int, index: int) -> torch.Tensor:
 
 
 # ------------------------------------------------------------- backward --
-BWD_TILE = 16             # chunk rows (or columns) a block of the local pass
-BWD_STATE_SLICE = 32      # head columns a block of the state passes
+BWD_TILE = 16             # chunk positions a warp (or a SIMT block) owns
+BWD_STATE_SLICE = 32      # head columns a block of the SIMT state pass
+BWD_MMA_MAX_P = 128       # head columns the tensor-core local pass holds
 
 
-def _bwd_smem_bytes(q: int, n: int, p: int) -> int:
-    """A block's dynamic shared memory in the local pass (``local_smem``
-    in csrc/ssd_scan_bwd.cu): float32 tiles of the chunk's seg and dt, two
-    [16, N] and two [16, P] tiles (rows padded by 4), the [N, P] state or
-    state gradient (padded), eight [16, 16] partial score tiles, three
-    [16, 16] score tiles (padded), the [16, P] and [16, N] accumulators,
-    a [16, N] buffer and a [16] sum."""
+def _bwd_smem_bytes(q: int, n: int, p: int, route: str) -> int:
+    """A block's dynamic shared memory in the local pass of ``route``.
+
+    "mma" (``local_mma_smem`` in csrc/ssd_scan_bwd.cu): the chunk's x, dy
+    as bf16 hi and lo, and B and C in bf16 tiles (rows padded by 8; N
+    rounded up to 16), the [N, P] state or state gradient in float32
+    (padded), seg and dt, and 64 floats of block sums.  "simt"
+    (``local_smem``): float32 tiles of the chunk's seg and dt, two [16, N]
+    and two [16, P] tiles (rows padded by 4), the [N, P] state (padded),
+    eight [16, 16] partial score tiles, three [16, 16] score tiles
+    (padded), the [16, P] and [16, N] accumulators, a [16, N] buffer and a
+    [16] sum."""
+    if route == "mma":
+        lp, np_ = p + 8, -(-n // 16) * 16
+        return 2 * (3 * q * lp + 2 * q * (np_ + 8)) + 4 * (np_ * lp + 2 * q
+                                                           + 64)
     t = BWD_TILE
     return 4 * (2 * q + 2 * t * (n + 4) + 2 * t * (p + 4) + n * (p + 4)
                 + 8 * t * t + 3 * t * (t + 4) + t * p + 2 * t * n + t)
 
 
 @functools.lru_cache(maxsize=64)      # called once a launch, on the host
-def ssd_bwd_plan(q: int, n: int, p: int) -> int:
-    """The local pass's shared memory in bytes at chunk ``q``, state ``n``
-    and head width ``p``; raises ValueError for a shape the backward
-    kernels do not take (the forward's shapes, while the [N, P] state tile
-    fits a block's shared memory: P up to 256 at N = 128)."""
+def ssd_bwd_plan(kind: str, q: int, n: int, p: int) -> tuple[str, int]:
+    """(route, shared bytes) of the backward's local pass for ``kind``
+    ("f32" or "bf16") at chunk ``q``, state ``n`` and head width ``p``:
+    "mma" (bf16 on the tensor cores, P up to 128 while the chunk's tiles
+    fit a block) or "simt" (float32 FMAs: every float32 shape, and a bf16
+    one past the tensor-core pass).  Raises ValueError for a shape the
+    backward kernels do not take (the forward's shapes, while the SIMT
+    pass's [N, P] state tile fits a block's shared memory: P up to 256 at
+    N = 128)."""
     if not (16 <= q <= 128 and q % 16 == 0):
         raise ValueError(f"ssd_scan_bwd kernels need a chunk that is a "
                          f"multiple of 16 up to 128, got {q}")
     if not (8 <= n <= MAX_STATE and n % 8 == 0):
         raise ValueError(f"ssd_scan_bwd kernels need a state N that is a "
                          f"multiple of 8 up to {MAX_STATE}, got {n}")
-    smem = _bwd_smem_bytes(q, n, p)
-    if p < 32 or p % BWD_STATE_SLICE or smem > SMEM_LIMIT:
-        raise ValueError(f"ssd_scan_bwd kernels need P a multiple of 32 "
-                         f"whose tiles fit {SMEM_LIMIT} bytes of shared "
-                         f"memory, got P={p} at chunk={q}, N={n}")
-    return smem
+    if p >= 32 and p % BWD_STATE_SLICE == 0:
+        if kind == "bf16" and p <= BWD_MMA_MAX_P:
+            smem = _bwd_smem_bytes(q, n, p, "mma")
+            if smem <= SMEM_LIMIT:
+                return "mma", smem
+        smem = _bwd_smem_bytes(q, n, p, "simt")
+        if smem <= SMEM_LIMIT:
+            return "simt", smem
+    raise ValueError(f"ssd_scan_bwd kernels need P a multiple of 32 whose "
+                     f"tiles fit {SMEM_LIMIT} bytes of shared memory, got "
+                     f"P={p} at chunk={q}, N={n}")
+
+
+def _bwd_scratch_floats(b: int, s: int, h: int, n: int, p: int,
+                        q: int) -> int:
+    """Floats of the backward's one scratch buffer (``carve`` in
+    csrc/ssd_scan_bwd.cu, each part rounded up to 4): the chunk-entry
+    states and state gradients [2, B, H, nc, N, P], per-head dB and dC
+    [2, B, S, H, N], seg's gradient parts [3, B, S, H], two floats a
+    (batch, head, chunk), and (bf16 route) seg [B, H, S] and exp(seg_last)
+    [B, H, nc]."""
+    nc = s // q
+
+    def up4(v):
+        return -(-v // 4) * 4
+
+    return (up4(2 * b * h * nc * n * p) + up4(2 * b * s * h * n)
+            + up4(3 * b * s * h) + up4(2 * b * h * nc) + up4(b * h * s)
+            + b * h * nc)
 
 
 def ssd_scan_bwd_plain(x, dt, A, B, C, dy, chunk: int):
@@ -287,15 +319,18 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     C, chunk)`` given dy = dL/dy [B, S, H, P] float32, in the inputs'
     dtypes.
 
-    On CUDA four kernels run in order (csrc/ssd_scan_bwd.cu), each pass of
-    :func:`ssd_scan_bwd_plain`: the chunk-entry states forward and the
-    state gradients in reverse (one launch, a block per (batch, head, 32
-    head columns, direction)); the chunk-local gradients (a block per
-    (batch, head, chunk, 16 rows or 16 columns of the chunk)) into
-    float32 per-head dB and dC and per-position parts of seg's gradient;
-    then the ordered sums (dB and dC over each group's heads, the reverse
-    cumulative sum into ddt and a dA part a chunk), and dA over batches
-    and chunks.  No atomics: two runs agree bit for bit."""
+    On CUDA the kernels of csrc/ssd_scan_bwd.cu run in order, each a pass
+    of :func:`ssd_scan_bwd_plain`: the chunk-entry states forward and the
+    state gradients in reverse (bf16: each chunk's terms on the tensor
+    cores, then one scan along the chunks; float32: a block per (batch,
+    head, 32 head columns, direction) walking the chunks); the
+    chunk-local gradients (bf16: a block per (batch, head, chunk) on the
+    tensor cores; float32, or a bf16 head wider than the tensor-core pass
+    holds: SIMT blocks of 16 rows or 16 columns of a chunk) into float32
+    per-head dB and dC and per-position parts of seg's gradient; then the
+    ordered sums (dB and dC over each group's heads, the reverse cumulative
+    sum into ddt and a dA part a chunk), and dA over batches and chunks.
+    No atomics: two runs agree bit for bit."""
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     if s % chunk:
@@ -306,23 +341,19 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ssd_scan_bwd_plain(x, dt, A, B, C, dy, chunk)
     kind = _check_operands(x, dt, A, B, C)
     _lib.require(dy, "dy", torch.float32, (b, s, h, p))
-    smem = ssd_bwd_plan(chunk, n, p)
+    route, smem = ssd_bwd_plan(kind, chunk, n, p)
     dx, dB, dC = (torch.empty_like(t) for t in (x, B, C))
     ddt = torch.empty_like(dt)
     dA = torch.empty_like(A)
     if dx.numel() == 0 or dB.numel() == 0:
         return dx.zero_(), ddt.zero_(), dA.zero_(), dB.zero_(), dC.zero_()
-    nc = s // chunk
-    f32 = dict(dtype=torch.float32, device=x.device)
-    states = torch.empty((2, b, h, nc, n, p), **f32)    # S_c, then G_c
-    per_head = torch.empty((2, b, s, h, n), **f32)      # dB, dC a head
-    parts = torch.empty((3, b, s, h), **f32)            # rpart, cpart, u
-    chunk_f = torch.empty((2, b, h, nc), **f32)         # const, dA part
+    scratch = torch.empty(_bwd_scratch_floats(b, s, h, n, p, chunk),
+                          dtype=torch.float32, device=x.device)
+    x, B, C, dy = (_lib.aligned(t) for t in (x, B, C, dy))
     _lib.launch(f"ssd_scan_bwd_{kind}", index, x.data_ptr(), dt.data_ptr(),
                 A.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
                 dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
-                dC.data_ptr(), states.data_ptr(), per_head.data_ptr(),
-                parts.data_ptr(), chunk_f.data_ptr(), b, s, h, g, n, p, chunk,
-                smem)
+                dC.data_ptr(), scratch.data_ptr(), b, s, h, g, n, p, chunk,
+                int(route == "mma"), smem)
     _lib.LAUNCHES["ssd_scan_bwd"] += 1
     return dx, ddt, dA, dB, dC

@@ -1446,6 +1446,11 @@ def _assert_grads(got, want, dtype):
     (1, 200, 200, 4, 2, 64, True, 300),      # a window past S
     (4, 1, 80, 6, 6, 64, False, 0),          # one query a sequence
     (2, 75, 300, 6, 6, 64, False, 0),        # whisper's cross attention
+    # S and T off the 64-row tiles, G 1 / 8 at D 128, windows across tiles
+    (2, 190, 190, 8, 1, 128, True, 0),
+    (1, 97, 161, 2, 2, 128, False, 0),
+    (2, 250, 250, 4, 2, 64, True, 70),
+    (1, 130, 130, 16, 2, 128, True, 33),
 ])
 def test_flash_attention_bwd(dev, dtype, b, s, t, h, kv, d, causal, window):
     gen = torch.Generator(device=dev).manual_seed(b * s + t + h + window)
@@ -1453,16 +1458,43 @@ def test_flash_attention_bwd(dev, dtype, b, s, t, h, kv, d, causal, window):
     k = _normal(gen, (b, t, kv, d), dev, dtype)
     v = _normal(gen, (b, t, kv, d), dev, dtype)
     dout = _normal(gen, (b, s, h, d), dev, dtype)
-    out = kfa.flash_attention(q, k, v, causal=causal, window=window)
+    out, lse = kfa.flash_attention_with_lse(q, k, v, causal=causal,
+                                            window=window)
     before = _lib.LAUNCHES["flash_attention_bwd"]
-    got = kfa.flash_attention_bwd(q, k, v, out, dout, causal=causal,
+    got = kfa.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
                                   window=window)
     assert _lib.LAUNCHES["flash_attention_bwd"] == before + 1
     _assert_grads(got, kfa.flash_attention_bwd_plain(
         q, k, v, out, dout, causal=causal, window=window), dtype)
-    again = kfa.flash_attention_bwd(q, k, v, out, dout, causal=causal,
+    again = kfa.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
                                     window=window)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,kv,d,causal,window", [
+    (2, 130, 130, 8, 2, 128, True, 0),
+    (1, 97, 161, 4, 4, 64, False, 0),
+    (1, 200, 200, 16, 2, 128, True, 70),
+])
+def test_flash_attention_saves_the_row_log_sum_exp(dev, dtype, b, s, t, h,
+                                                   kv, d, causal, window):
+    """The forward's log-sum-exp for the backward, against torch.logsumexp
+    of the plain scores of the same (float32) inputs; the output equals the
+    serving call's bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(s + t + window)
+    q = _normal(gen, (b, s, h, d), dev, dtype)
+    k = _normal(gen, (b, t, kv, d), dev, dtype)
+    v = _normal(gen, (b, t, kv, d), dev, dtype)
+    out, lse = kfa.flash_attention_with_lse(q, k, v, causal=causal,
+                                            window=window)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, s)
+    torch.testing.assert_close(
+        lse, kfa.flash_attention_lse_plain(q.float(), k.float(),
+                                           causal=causal, window=window),
+        rtol=1e-5, atol=1e-4)
+    assert torch.equal(out, kfa.flash_attention(q, k, v, causal=causal,
+                                                window=window))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1573,6 +1605,13 @@ _SSD_BWD_CASES = [
     ("groups2", (2, 256, 8, 32, 16), 2, 64, False),
     ("one_chunk", (3, 128, 4, 96, 128), 1, 128, False),  # S = Q, 3 P slices
     ("reduced", (2, 128, 16, 32, 16), 1, 32, False),   # the reduced configs'
+    # the edges of ssd_bwd_plan's tensor-core pass: N 8 and 120 (padded to
+    # 16), P 32 and 128 (its widest), and past it (N 128, P 128: SIMT)
+    ("state8", (2, 256, 4, 32, 8), 1, 64, False),
+    ("state120", (1, 256, 4, 96, 120), 1, 128, False),
+    ("p128", (1, 384, 4, 128, 64), 1, 128, False),
+    ("p128_state128", (1, 256, 2, 128, 128), 1, 128, False),
+    ("groups3", (2, 128, 6, 32, 16), 3, 32, False),    # 3 groups of 2 heads
 ]
 
 

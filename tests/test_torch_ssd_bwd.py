@@ -169,27 +169,44 @@ def test_ssd_scan_bwd_chunk_boundaries_are_invisible():
                   _np(kss.ssd_scan_bwd(*tin, 128)), 1e-4)
 
 
-@pytest.mark.parametrize("q,n,p", [
-    (128, 64, 64),      # Zamba2-1.2B
-    (128, 128, 64),     # mamba2-2.7b
-    (128, 128, 256),    # the widest head at state 128
-    (32, 16, 32),       # the reduced configs
-    (48, 64, 64),
-    (16, 8, 32),
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("q,n,p,bf16_route", [
+    (128, 64, 64, "mma"),       # Zamba2-1.2B
+    (128, 128, 64, "mma"),      # mamba2-2.7b
+    (128, 128, 256, "simt"),    # the widest head at state 128
+    (32, 16, 32, "mma"),        # the reduced configs
+    (48, 64, 64, "mma"),
+    (16, 8, 32, "mma"),
+    (128, 64, 128, "mma"),      # the tensor-core pass's widest head
+    (128, 120, 96, "mma"),      # N off 16, its tiles near the limit
+    (128, 128, 128, "simt"),    # past its shared memory
 ])
-def test_ssd_bwd_plan_takes_the_forward_shapes(q, n, p):
-    smem = kss.ssd_bwd_plan(q, n, p)
-    assert smem == kss._bwd_smem_bytes(q, n, p) <= kss.SMEM_LIMIT
+def test_ssd_bwd_plan_takes_the_forward_shapes(kind, q, n, p, bf16_route):
+    """Float32 runs the SIMT local pass; bfloat16 the tensor-core pass
+    where its tiles fit (P up to 128), else the SIMT one."""
+    route, smem = kss.ssd_bwd_plan(kind, q, n, p)
+    assert route == (bf16_route if kind == "bf16" else "simt")
+    assert smem == kss._bwd_smem_bytes(q, n, p, route) <= kss.SMEM_LIMIT
 
 
+def test_ssd_bwd_scratch_holds_every_part():
+    """The one scratch buffer: each part rounded up to 4 floats."""
+    b, s, h, n, p, q = 2, 384, 3, 24, 32, 128
+    parts = [2 * b * h * 3 * n * p, 2 * b * s * h * n, 3 * b * s * h,
+             2 * b * h * 3, b * h * s]
+    assert kss._bwd_scratch_floats(b, s, h, n, p, q) == sum(
+        -(-v // 4) * 4 for v in parts) + b * h * 3
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
 @pytest.mark.parametrize("q,n,p,match", [
     (144, 64, 64, "chunk"), (40, 64, 64, "chunk"),
     (128, 256, 64, "state N"), (128, 12, 64, "state N"),
     (128, 64, 48, "P a multiple of 32"), (128, 128, 512, "fit"),
 ])
-def test_ssd_bwd_plan_refuses(q, n, p, match):
+def test_ssd_bwd_plan_refuses(kind, q, n, p, match):
     with pytest.raises(ValueError, match=match):
-        kss.ssd_bwd_plan(q, n, p)
+        kss.ssd_bwd_plan(kind, q, n, p)
 
 
 @pytest.mark.parametrize("chunks", [1, 2])
