@@ -159,17 +159,20 @@
       F.rms_norm's backward; none for kernel 9): kernel 7 at
       qwen3-0.6b's [4, 512, 16 / 8 heads, 128] causal and with windows
       of 256 and 16, an MHA [4, 512, 32, 64] and Whisper's cross
-      attention [4, 375 x 1,500, 6, 64]; kernel 8 at [4096, 1024] and
-      qk_norm's [65536, 128]; kernel 9 at one Mamba2 layer of Zamba2
-      ("main", [4, 512, 64 heads of 64, state 64]) and of mamba2-2.7b
-      ("state128", [4, 512, 80, 64, 128]), chunk 128, on data at the
-      model's scale (``ssd_bwd_inputs``) whose gradients move by at
-      least SSD_CARRY_MARGIN times the tolerance when the state carries
-      one chunk only (``ssd_carry_share``), and on the forward tests'
-      large dt; (b) one training step of each of the ten reduced configs
-      on the card against the CPU (loss, gradients and the SGD step
-      within 1e-4, the forward and backward kernels launched: mamba2 and
-      zamba2 through kernel 9's, over four chunks of 32 tokens);
+      attention [4, 375 x 1,500, 6, 64]; kernel 8 at qwen3-0.6b's
+      [4096, 1024], q_norm's [65536, 128] and k_norm's [32768, 128],
+      zamba2-1.2b's [4096, 2048] and mamba2-2.7b's [4096, 2560], each
+      with its route (``rmsnorm_bwd_plan``); kernel 9 at one Mamba2
+      layer of Zamba2 ("main", [4, 512, 64 heads of 64, state 64]) and
+      of mamba2-2.7b ("state128", [4, 512, 80, 64, 128]), chunk 128, on
+      data at the model's scale (``ssd_bwd_inputs``) whose gradients
+      move by at least SSD_CARRY_MARGIN times the tolerance when the
+      state carries one chunk only (``ssd_carry_share``), and on the
+      forward tests' large dt; (b) one training step of each of the
+      ten reduced configs on the card against the CPU (loss, gradients
+      and the SGD step within 1e-4, the forward and backward kernels
+      launched: mamba2 and zamba2 through kernel 9's, over four chunks
+      of 32 tokens);
       (c) through ``launch.train``'s loop in bfloat16, B = 8, T = 512,
       at full width: qwen3-0.6b 30 steps, zamba2-1.2b (38 Mamba2 layers
       and the shared block) 20, mamba2-2.7b 10 at 32 of its 64 layers
@@ -2905,7 +2908,12 @@ FLASH_BWD_CASES = (
     ("mha", (4, 512, 512, 32, 32, 64), True, 0),
     ("whisper_cross", (4, 375, 1500, 6, 6, 64), False, 0),
 )
-RMSNORM_BWD_CASES = (("main", (4096, 1024)), ("qk_norm", (65536, 128)))
+# (a): kernel 8's backward at every shape the training paths give it, 8 x
+# 512 tokens: qwen3-0.6b's norms ("main"), q_norm (16 heads) and k_norm (8
+# heads) of 128; zamba2-1.2b's and mamba2-2.7b's model widths.
+RMSNORM_BWD_CASES = (("main", (4096, 1024)), ("qk_norm", (65536, 128)),
+                     ("k_norm", (32768, 128)), ("zamba2", (4096, 2048)),
+                     ("mamba2", (4096, 2560)))
 
 
 def _grad_err(name, got, want, tol, scale=None) -> float:
@@ -3187,10 +3195,15 @@ def check_train_kernels(dev) -> dict:
                     lambda a, w: F.rms_norm(a, (d,), weight=w, eps=1e-6),
                     (lx, ls), g, reps, f"{name} yardstick")
 
+            route, lanes, vecs = krn.rmsnorm_bwd_plan(dtype, d, True)
             _lm_record(results, "rmsnorm_bwd", label + suffix, [rows, d],
                        err, kernel, plain, lib,
                        (3 * rows * d + 2 * d) * esize, 10.0 * rows * d,
-                       PEAK_F32_OPS_S, 20, lib_graph=lib_graph)
+                       PEAK_F32_OPS_S, 20, lib_graph=lib_graph,
+                       extra={"route": route, "threads_a_row": lanes,
+                              "vectors_a_lane": vecs,
+                              "partial_rows": krn.rmsnorm_bwd_parts(
+                                  route, lanes, rows)})
             del x, g, got, want, lx, ls, lo
         chunk = 128
         for label, (b, s, h, p, n) in SSD_BWD_CASES:

@@ -52,7 +52,7 @@ _SIGNATURES = {
        for t in ("f32", "bf16")},
     **{f"flash_attention_{t}": (_P,) * 5 + (_I,) * 8 + (_F, _P)
        for t in ("f32", "bf16")},
-    **{f"rmsnorm_bwd_{t}": (_P,) * 6 + (_LL, _I, _F, _I, _I, _P)
+    **{f"rmsnorm_bwd_{t}": (_P,) * 6 + (_LL, _I, _F, _I, _I, _I, _I, _P)
        for t in ("f32", "bf16")},
     **{f"flash_attention_bwd_{t}": (_P,) * 10 + (_I,) * 8 + (_F, _P)
        for t in ("f32", "bf16")},

@@ -104,8 +104,18 @@ def _forward(x: torch.Tensor, scale: torch.Tensor, eps: float,
     return out
 
 
-# Rows a block of the backward sums into one partial row of dscale (more
-# where the rows would need more than the grid's 65,535 chunks).
+# The backward's routes (csrc/rmsnorm.cu), by the code its entry points take.
+BWD_ROUTES = {"rows": 0, "scalar": 1}
+BWD_BLOCK = 256         # threads a block of the "rows" route (or a row's)
+BWD_MAX_LANES = 512     # threads a row of the "rows" route
+BWD_MAX_VECS_PER_LANE = 4   # its register budget: x, g, scale, accumulators
+# Blocks of the "rows" route, each one partial row of dscale: enough to
+# cover the 132 SMs several times, few enough that the partial rows stay
+# small beside x and g (at least BWD_BLOCK_ROWS rows a block).
+BWD_MAX_BLOCKS = 256
+BWD_BLOCK_ROWS = 16
+# Rows the "scalar" route sums into one partial row of dscale (more where
+# the rows would need more than the grid's 65,535 chunks).
 BWD_CHUNK_ROWS = 256
 
 
@@ -119,6 +129,43 @@ def rmsnorm_bwd_plain(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
         return torch.autograd.grad(rmsnorm_plain(xs, ss, eps), (xs, ss), g)
 
 
+@functools.lru_cache(maxsize=256)     # called once a launch, on the host
+def rmsnorm_bwd_plan(dtype: torch.dtype, d: int,
+                     aligned: bool) -> tuple[str, int, int]:
+    """(route, threads per row, vectors per lane) of the backward for rows
+    of ``d`` entries of ``dtype``; ``aligned``: x, scale, g and dx start on
+    a 16-byte boundary.
+
+    - "rows": one pass, 16-byte vectors, the row in registers: a group of
+      ``threads`` (a power of two) takes a row, each lane up to
+      ``BWD_MAX_VECS_PER_LANE`` vectors of it, as few lanes as that
+      allows: 32 / threads rows a warp up to a warp, whole warps a row
+      past it, at most ``BWD_MAX_LANES`` (16,384 bfloat16, 8,192
+      float32).  For d a multiple of the vector width.
+    - "scalar": element loads, a warp a row, x and g read twice; for d not
+      a multiple of the vector width, a base off 16-byte alignment, or a
+      row past the "rows" route.
+    """
+    per_vec = VEC_BYTES // dtype.itemsize
+    if aligned and d % per_vec == 0:
+        vecs = d // per_vec
+        lanes = _lib.pow2_ceil(-(-vecs // BWD_MAX_VECS_PER_LANE))
+        if lanes <= BWD_MAX_LANES:
+            return "rows", lanes, -(-vecs // lanes)
+    return "scalar", 32, 1
+
+
+def rmsnorm_bwd_parts(route: str, lanes: int, rows: int) -> int:
+    """The partial rows of dscale a call sums: the "rows" route's blocks
+    (``max(lanes, BWD_BLOCK) / lanes`` rows a block at a time, and at
+    least ``BWD_BLOCK_ROWS`` rows a block, at most ``BWD_MAX_BLOCKS``
+    blocks), or the "scalar" route's chunks of rows."""
+    if route == "rows":
+        per_block = max(max(lanes, BWD_BLOCK) // lanes, BWD_BLOCK_ROWS)
+        return min(-(-rows // per_block), BWD_MAX_BLOCKS)
+    return -(-rows // max(BWD_CHUNK_ROWS, -(-rows // 65535)))
+
+
 def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
                 eps: float = 1e-6):
     """The gradients (dx in x's dtype, dscale in scale's) of ``out =
@@ -126,11 +173,12 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
 
     With r = rsqrt(mean(x^2) + eps) recomputed from x:
     dx = r (g s) - x r^3 mean(g s x) and dscale = sum over rows of g x r.
-    On CUDA (csrc/rmsnorm.cu): a warp a row for dx (16-byte vectors when
-    every base is aligned and D a multiple of the vector width, element
-    loads otherwise), then dscale by a two-pass reduction with no atomics,
-    so two runs agree bit for bit: one partial row a chunk of rows, then
-    a column sum over the chunks in order."""
+    On CUDA (csrc/rmsnorm.cu), the route of :func:`rmsnorm_bwd_plan`:
+    "rows" reads x and g once and writes dx in one pass that also sums
+    each block's partial row of dscale; "scalar" takes a warp a row with
+    element loads, then sums the partial rows from x and g again.  A
+    second launch adds the partial rows in a fixed order (no atomics), so
+    two runs agree bit for bit."""
     index = _lib.cuda_index(x, scale, g)
     if index is None:
         return rmsnorm_bwd_plain(x, scale, g, eps)
@@ -143,13 +191,14 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     rows = x.numel() // d if d else 0
     if rows == 0:
         return dx, dscale.zero_()
-    chunk = max(BWD_CHUNK_ROWS, -(-rows // 65535))
-    work = torch.empty((rows + -(-rows // chunk) * d,), dtype=torch.float32,
-                       device=x.device)
     ptrs = (x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr())
-    vec = d % (VEC_BYTES // x.dtype.itemsize) == 0 and all(
-        p % VEC_BYTES == 0 for p in ptrs)
+    route, lanes, vecs = rmsnorm_bwd_plan(
+        x.dtype, d, (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) % VEC_BYTES == 0)
+    parts = rmsnorm_bwd_parts(route, lanes, rows)
+    work = torch.empty((parts * d + (rows if route == "scalar" else 0),),
+                       dtype=torch.float32, device=x.device)
     _lib.launch(f"rmsnorm_bwd_{kind}", index, *ptrs, dscale.data_ptr(),
-                work.data_ptr(), rows, d, float(eps), int(vec), chunk)
+                work.data_ptr(), rows, d, float(eps), BWD_ROUTES[route],
+                lanes, vecs, parts)
     _lib.LAUNCHES["rmsnorm_bwd"] += 1
     return dx, dscale

@@ -1500,11 +1500,12 @@ def test_flash_attention_saves_the_row_log_sum_exp(dev, dtype, b, s, t, h,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(37, 128), (3, 7, 2048), (9, 8192),
                                    (5, 202), (1, 6), (4096, 1024),
-                                   (20000, 128)])
+                                   (20000, 128), (4096, 2560), (32771, 128)])
 def test_rmsnorm_bwd(dev, dtype, shape):
     """The backward over every shape the forward's paths take: the "rows"
-    widths, a "wide" row of 8,192, "scalar" widths (202, 6), and rows
-    past one chunk of the dscale reduction."""
+    widths, a row of 8,192 (several warps a row), "scalar" widths (202,
+    6), rows past one chunk of the dscale reduction, mamba2-2.7b's width
+    (three vectors a lane) and rows that end in a ragged last block."""
     gen = torch.Generator(device=dev).manual_seed(sum(shape))
     x = _normal(gen, shape, dev, dtype)
     scale = (1.0 + 0.1 * _normal(gen, shape[-1:], dev)).to(dtype)
@@ -1515,6 +1516,35 @@ def test_rmsnorm_bwd(dev, dtype, shape):
     _assert_grads(got, krn.rmsnorm_bwd_plain(x, scale, g), dtype)
     again = krn.rmsnorm_bwd(x, scale, g)
     assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset,route", [
+    ((37, 128), 0, "rows"), ((4096, 2048), 0, "rows"),
+    ((4096, 2560), 0, "rows"), ((9, 8192), 0, "rows"),
+    ((5, 202), 0, "scalar"), ((1, 6), 0, "scalar"),
+    ((40, 128), 1, "scalar"), ((3, 2048), 1, "scalar")])
+def test_rmsnorm_bwd_route(dev, dtype, shape, offset, route, monkeypatch):
+    """The route the wrapper reads from its plan: the one-pass "rows"
+    route wherever every base is 16-byte aligned and d a multiple of the
+    vector width, the "scalar" route at odd widths (202, 6) and off
+    alignment (offset 1); the gradients agree with the plain version's
+    either way."""
+    plans, plan = [], krn.rmsnorm_bwd_plan
+
+    def spy(*args):
+        plans.append(plan(*args))
+        return plans[-1]
+
+    rows, d = shape
+    gen = torch.Generator(device=dev).manual_seed(rows + d + offset)
+    x = _normal(gen, (rows * d + offset,), dev, dtype)[offset:].view(rows, d)
+    scale = (1.0 + 0.1 * _normal(gen, (d,), dev)).to(dtype)
+    g = _normal(gen, shape, dev, dtype)
+    monkeypatch.setattr(krn, "rmsnorm_bwd_plan", spy)
+    got = krn.rmsnorm_bwd(x, scale, g)
+    assert [p[0] for p in plans] == [route]
+    _assert_grads(got, krn.rmsnorm_bwd_plain(x, scale, g), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
