@@ -200,6 +200,7 @@ non-zero when no CUDA device is present or when run outside the checkout.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1113,11 +1114,14 @@ def check_fleet_axis(dev, gen, record, n_fleet: int = 100_000,
                                        "bandwidth_solve fleet_axis")})
 
 
+# hierarchical and compressed runs take a tensor-step scheduler: as in
+# JAX, the host greedy's eager mode refuses them
 SMALL_RUNS = (
     ("sync", {}),
-    ("hier", dict(aggregation="hierarchical", tau_global=2)),
-    ("hier_int8", dict(aggregation="hierarchical", tau_global=2,
-                       compress="topk-int8", topk_frac=0.1)),
+    ("hier", dict(scheduler="dagsa_jit", aggregation="hierarchical",
+                  tau_global=2)),
+    ("hier_int8", dict(scheduler="dagsa_jit", aggregation="hierarchical",
+                       tau_global=2, compress="topk-int8", topk_frac=0.1)),
     ("engine_fedcs", dict(scheduler="fedcs_low")),
     ("engine_faulty", dict(scheduler="dagsa-r", faults="faulty-uplink")),
     ("engine_async", dict(scheduler="dagsa_jit", aggregation_async=True,
@@ -1308,8 +1312,29 @@ def _check_selected_rows(label: str, rows: dict, cap: int, n: int,
         raise AssertionError(f"path {label}: no FedAvg kernel call seen")
 
 
+def path_config(extra: dict):
+    """The FLConfig of a full-width path: the paper configuration (50
+    users, 8 BSs, paper-scale CNN, 10 epochs of batch 16, dagsa_jit)
+    with ``extra``'s fields."""
+    from repro_torch.core.types import WirelessConfig
+    from repro_torch.fl.rounds import FLConfig
+    from repro_torch.models.cnn import CNNConfig
+
+    kw = dict(extra)
+    if "wireless" in kw:
+        kw["wireless"] = WirelessConfig(**kw["wireless"])
+    return FLConfig(**{"dataset": "mnist", "scheduler": "dagsa_jit",
+                       "cnn": CNNConfig.paper_scale(), "local_epochs": 10,
+                       "batch_size": 16, "seed": 0, **kw})
+
+
+# each path's wall seconds a round (host clock to a sync), by label
+PATH_WALLS: dict = {}
+
+
 def run_path(dev, label: str, extra: dict, rounds: int,
-             required: tuple, on_ready=None) -> tuple:
+             required: tuple, on_ready=None, mode: str | None = None
+             ) -> tuple:
     """``rounds`` full-width rounds of one path (the paper configuration,
     50 users, 8 BSs, paper-scale CNN, unless ``extra`` says otherwise);
     returns the simulation, the launch counts of the run and its records.
@@ -1318,19 +1343,15 @@ def run_path(dev, label: str, extra: dict, rounds: int,
     kernel 4; on a ``compute="selected"`` path a spy on local SGD and the
     wrappers of kernels 4-6 checks the client rows they get, and each
     round's ``n_selected`` prints beside the cap.  ``on_ready()`` runs
-    between the set-up and the first round."""
-    from repro_torch.core.types import WirelessConfig
+    between the set-up and the first round.  ``mode``: ``run``'s mode,
+    None for the host loop (``"step"``, or the async tick loop), whose
+    launches the spies see call by call."""
     from repro_torch.fl import rounds as fl_rounds
-    from repro_torch.fl.rounds import FLConfig, FLSimulation
+    from repro_torch.fl.rounds import FLSimulation
     from repro_torch.kernels import _lib
-    from repro_torch.models.cnn import CNNConfig, n_params
+    from repro_torch.models.cnn import n_params
 
-    kw = dict(extra)
-    if "wireless" in kw:
-        kw["wireless"] = WirelessConfig(**kw["wireless"])
-    cfg = FLConfig(**{"dataset": "mnist", "scheduler": "dagsa_jit",
-                      "cnn": CNNConfig.paper_scale(), "local_epochs": 10,
-                      "batch_size": 16, "seed": 0, **kw})
+    cfg = path_config(extra)
     t0 = time.perf_counter()
     sim = FLSimulation(cfg, device=dev)
     torch.cuda.synchronize()
@@ -1340,6 +1361,9 @@ def run_path(dev, label: str, extra: dict, rounds: int,
           f"{sim.data.x_train.shape[0]}, n_test {sim.data.x_test.shape[0]}, "
           f"{json.dumps(extra)}", flush=True)
     faulty, is_async = sim.faults.active, cfg.aggregation_async
+    if mode is None:
+        mode = ("async" if is_async else "step" if sim.fused_capable
+                else "eager")
     selected = sim.compute == "selected"
     if faulty:
         calls, real = _fedavg_spy(fl_rounds)
@@ -1348,14 +1372,15 @@ def run_path(dev, label: str, extra: dict, rounds: int,
     if on_ready is not None:
         on_ready()
     _lib.reset_launches()
-    recs = []
+    recs, walls = [], PATH_WALLS.setdefault(label, [])
     try:
         for _ in range(rounds):
             t0 = time.perf_counter()
-            rec = sim.run(1)[0]
+            rec = sim.run(1, mode=mode)[0]
             torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
             print(f"path {label} round {rec} wall_s="
-                  f"{time.perf_counter() - t0:.4f}", flush=True)
+                  f"{walls[-1]:.4f}", flush=True)
             if selected:
                 print(f"path {label} round {rec.round_idx}: n_selected "
                       f"{rec.n_selected} cap {sim.select_cap}"
@@ -1531,30 +1556,251 @@ def _profile_phases(prof) -> tuple[dict, dict]:
     return phases, ops
 
 
-def profile_round(sim, label: str) -> dict:
+def profile_round(sim, label: str, mode: str | None = None) -> dict:
     """One more round under torch.profiler: the host time of each round
     phase (the engine's named ranges) and the device time of the kernels
     launched inside it, the device ops that took the most time, and the
     device's busy share of the round's wall time (the sum of device op
-    durations over the wall time)."""
+    durations over the wall time).  ``mode``: ``run``'s (None: the host
+    loop, as :func:`run_path` runs it)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.run(1)
+        sim.run(1, mode=mode or ("async" if sim.aggregation_async
+                                 else "step"))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     phases, ops = _profile_phases(prof)
     busy_ms = sum(t for t, _ in ops.values())
     top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:12]
-    out = {"path": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    out = {"path": label, "mode": mode or "step", "wall_ms": wall_ms,
+           "device_busy_ms": busy_ms,
            "device_busy_share": busy_ms / wall_ms, "phases": phases,
            "top_device_ops": [{"name": k[:80], "ms": t, "calls": c}
                               for k, (t, c) in top]}
     print(json.dumps({"profile": out}), flush=True)
     return out
+
+
+# ------------------------------------------------- the fused FL engine ----
+# FLSimulation.run(mode="fused") on the card: one synchronous round
+# captured as a CUDA graph (the greedy's loop a WHILE node), replayed once
+# a round.  Each twin runs its PATHS entry's config and rounds in fused
+# mode and is held to that path's step run of this call: decisions and
+# assignments exact, t_round / wall_clock / min_part_rate within rtol
+# FUSED_RTOL, parameters within FUSED_PARAM_TOL (max abs), the launch
+# counts equal.  FUSED_PROFILED twins get one more round under the
+# profiler (the device's busy share of a replayed round).  A replay
+# launches no wrapper, so a fused run's launch counts are derived (the
+# capture's counts once a replay, a WHILE body's once a pass, from the
+# node's device counter): they appear on the fused_path lines as
+# "launches_derived" and stay out of the kernels line, whose counts are
+# the step runs' launches.
+FUSED_TWINS = ("sync", "sync_selected", "hier_int8", "faulty", "ucb")
+FUSED_PROFILED = ("sync", "sync_selected")
+FUSED_RTOL = 1e-6
+FUSED_PARAM_TOL = 1e-5
+CARD = ""                     # nvidia-smi's name and power limit
+
+
+def assign_spy() -> tuple:
+    """Wrap the two functions that hand a round's assignment to the
+    engine (the greedy's ``dagsa_jit._schedule``, and the best-BS
+    assignment of the baselines and the stateful policies): with
+    ``spy["log"]`` a list, each call appends a copy of its [N, M]
+    assignment (a step run); with ``spy["buf"]`` a tensor, each call
+    copies the assignment into it, so a captured round writes it at each
+    replay.  Returns the spy dict and a function that restores both."""
+    from repro_torch.core import baselines, dagsa_jit
+
+    spy = {"log": None, "buf": None}
+    real_sched, real_best = dagsa_jit._schedule, baselines._best_bs_assign
+
+    def keep(assign):
+        if spy["buf"] is not None:
+            spy["buf"].copy_(assign)
+        elif spy["log"] is not None:
+            spy["log"].append(assign.clone())
+
+    def sched(*args, **kw):
+        out = real_sched(*args, **kw)
+        keep(out[0])
+        return out
+
+    def best(snr, selected):
+        out = real_best(snr, selected)
+        keep(out)
+        return out
+
+    def restore():
+        dagsa_jit._schedule, baselines._best_bs_assign = real_sched, real_best
+
+    dagsa_jit._schedule, baselines._best_bs_assign = sched, best
+    return spy, restore
+
+
+def _params_clone(params) -> dict:
+    return {k: {leaf: p.clone() for leaf, p in sub.items()}
+            for k, sub in params.items()}
+
+
+def run_fused_twin(dev, label: str, extra: dict, rounds: int, step: dict,
+                   spy: dict) -> dict:
+    """``rounds`` fused rounds of path ``label`` (one ``run(1)`` a round,
+    timed to a sync), held to ``step`` (the path's step run: ``recs``,
+    ``params``, ``launches``, ``assigns``, ``walls``).  Prints and returns
+    a ``fused_path`` line."""
+    from repro_torch.fl.rounds import FLSimulation
+    from repro_torch.kernels import _lib
+
+    sim = FLSimulation(path_config(extra), device=dev)
+    w = sim.wireless
+    spy["buf"] = torch.zeros((w.n_users, w.n_bs), dtype=torch.bool,
+                             device=dev)
+    _lib.reset_launches()
+    recs, walls, assigns, steps = [], [], [], []
+    try:
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            rec = sim.run(1, mode="fused")[0]
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            recs.append(rec)
+            assigns.append(spy["buf"].clone())
+            steps.extend(int(s) for s in sim.greedy_steps)
+    finally:
+        spy["buf"] = None
+    launches = dict(_lib.LAUNCHES)
+    for i, (g, want) in enumerate(zip(recs, step["recs"])):
+        for f in ("round_idx", "n_selected", "n_delivered"):
+            if getattr(g, f) != getattr(want, f):
+                raise AssertionError(f"fused {label} round {i + 1}: {f} "
+                                     f"{getattr(g, f)} != step's "
+                                     f"{getattr(want, f)}")
+        for f in ("t_round", "wall_clock", "min_part_rate"):
+            if not math.isclose(getattr(g, f), getattr(want, f),
+                                rel_tol=FUSED_RTOL):
+                raise AssertionError(f"fused {label} round {i + 1}: {f} "
+                                     f"{getattr(g, f)} vs step's "
+                                     f"{getattr(want, f)}")
+    if len(assigns) != len(step["assigns"]) or not all(
+            torch.equal(a, b) for a, b in zip(assigns, step["assigns"])):
+        raise AssertionError(f"fused {label}: assignments differ from the "
+                             f"step run's")
+    if launches != step["launches"]:
+        raise AssertionError(f"fused {label}: launches {launches} != the "
+                             f"step run's {step['launches']}")
+    diff = max(float((p - step["params"][k][leaf]).abs().max())
+               for k, sub in sim.params.items() for leaf, p in sub.items())
+    if not diff <= FUSED_PARAM_TOL:
+        raise AssertionError(f"fused {label}: parameters {diff} from the "
+                             f"step run's")
+
+    def median_after_first(v):
+        return statistics.median(v[1:]) if len(v) > 1 else v[0]
+
+    out = {"fused_path": label, "card": CARD, "rounds": rounds,
+           "wall_s_fused": walls, "wall_s_step": step["walls"],
+           "replay_wall_s_median": median_after_first(walls),
+           "step_wall_s_median": median_after_first(step["walls"]),
+           "capture_s": sim.fused.capture_s, "graphs": sim.fused.n_graphs,
+           "replays": sim.fused.replays, "greedy_steps": steps,
+           "launches_derived": {k: v for k, v in launches.items() if v},
+           "launches_derived_per_replay": {
+               k: v / rounds for k, v in launches.items() if v},
+           "graph_launches_outside_loops": sim.fused.launches_outside_loops(),
+           "max_abs_param_diff": diff}
+    print(json.dumps(out), flush=True)
+    if label in FUSED_PROFILED:
+        out["profile"] = profile_round(sim, f"{label}_fused", mode="fused")
+    return out
+
+
+def check_fused_capture_failure(dev) -> None:
+    """A round that reads the device on the host cannot be captured: the
+    fused run raises and the engine does not fall back to the host loop
+    (12 users, the small runs' config)."""
+    from repro_torch.core.types import WirelessConfig
+    from repro_torch.fl import rounds as fl_rounds
+    from repro_torch.fl.rounds import FLConfig, FLSimulation
+
+    real, calls = fl_rounds.cnn.accuracy, []
+
+    def syncing(params, x, y):
+        acc = real(params, x, y)
+        calls.append(torch.cuda.is_current_stream_capturing())
+        float(acc)                          # a host read a capture refuses
+        return acc
+
+    sim = FLSimulation(FLConfig(wireless=WirelessConfig(n_users=12, n_bs=4),
+                                n_train=120, n_test=40, local_epochs=1,
+                                batch_size=10, seed=7, scheduler="dagsa_jit"),
+                       device=dev)
+    fl_rounds.cnn.accuracy = syncing
+    try:
+        sim.run(2, mode="fused")
+    except RuntimeError as e:
+        err = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    else:
+        raise AssertionError("a capture that reads the device on the host "
+                             "did not raise")
+    finally:
+        fl_rounds.cnn.accuracy = real
+    torch.cuda.synchronize()
+    if calls != [False, True] or sim.round_idx != 0:
+        raise AssertionError(f"a failed capture ran on: accuracy calls "
+                             f"{calls}, round {sim.round_idx}")
+    print(json.dumps({"fused_capture_failure": err, "step_calls": calls}),
+          flush=True)
+
+
+def run_paths(dev, labels, spy: dict) -> tuple:
+    """The PATHS entries named in ``labels``, in the step loop: their
+    simulations and launch counts by label, and for each of FUSED_TWINS
+    what its fused twin is held to (records, assignments through ``spy``,
+    launches, walls, parameters)."""
+    sims, launches, steps = {}, {}, {}
+    for label, extra, rounds, required in PATHS:
+        if label not in labels:
+            continue
+        spy["log"] = [] if label in FUSED_TWINS else None
+        sims[label], launches[label], recs = run_path(dev, label, extra,
+                                                      rounds, required)
+        if label in FUSED_TWINS:
+            steps[label] = {"recs": recs, "assigns": spy["log"],
+                            "launches": launches[label],
+                            "walls": PATH_WALLS[label],
+                            "params": _params_clone(sims[label].params)}
+        spy["log"] = None
+    return sims, launches, steps
+
+
+def run_fused_only(dev) -> None:
+    """``--fused``: the step runs of FUSED_TWINS' paths, their profiled
+    rounds (FUSED_PROFILED) and the fused phase."""
+    spy, restore = assign_spy()
+    try:
+        sims, _, steps = run_paths(dev, FUSED_TWINS, spy)
+        for label in FUSED_PROFILED:
+            profile_round(sims[label], label)
+        del sims
+        run_fused_phase(dev, steps, spy)
+    finally:
+        restore()
+
+
+def run_fused_phase(dev, steps: dict, spy: dict) -> None:
+    """The fused twins of FUSED_TWINS (see above) and the failed-capture
+    check."""
+    by_label = {p[0]: p for p in PATHS}
+    for label in FUSED_TWINS:
+        _, extra, rounds, _ = by_label[label]
+        run_fused_twin(dev, label, extra, rounds, steps[label], spy)
+        torch.cuda.empty_cache()
+    check_fused_capture_failure(dev)
 
 
 # ------------------------------------------------------- the sweeps -------
@@ -1959,7 +2205,7 @@ def shard_paths(dev, mesh=None) -> dict:
     sim = FLSimulation(FLConfig(**SHARD_FL, cnn=CNNConfig.paper_scale(),
                                 shard=mesh is not None), device=dev)
     step("fl_setup")
-    recs = timed("fl", lambda: sim.run(SHARD_FL_ROUNDS))
+    recs = timed("fl", lambda: sim.run(SHARD_FL_ROUNDS, mode="step"))
     out["fl_records"] = [vars(r) for r in recs]
     out["fl_params"] = params_to_numpy(sim.params)
     if mesh is not None:
@@ -2007,7 +2253,7 @@ def _split_control(dev) -> tuple:
     try:
         sim = FLSimulation(FLConfig(**SHARD_FL, cnn=CNNConfig.paper_scale()),
                            device=dev)
-        recs = sim.run(SHARD_FL_ROUNDS)
+        recs = sim.run(SHARD_FL_ROUNDS, mode="step")
     finally:
         fl_client.fleet_local_sgd_per_client = real
     return params_to_numpy(sim.params), [vars(r) for r in recs]
@@ -2587,7 +2833,9 @@ LM_PREFILL = (4, 512)        # (c): the timed prefill
 WHISPER_PREFILL = (1500, 375)      # encoder frames, decoder tokens
 VLM_TEXT = 512               # text tokens after qwen2-vl's 1,024 patches
 QWEN3_LONG = (8, 2048)
-QWEN3_WINDOW = dict(sliding_window=256, prompt_len=512, gen_len=16)
+# a prompt just past the window still crosses it (512 spent 35 s filling
+# the prompt by decode steps)
+QWEN3_WINDOW = dict(sliding_window=256, prompt_len=272, gen_len=16)
 def _lm_cfg(arch: str, depth, **changes):
     import dataclasses
 
@@ -3724,6 +3972,21 @@ def profile_zamba(params, cfg, prompt, dev) -> dict:
     return out
 
 
+PHASE_S: dict = {}
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Time a phase of the run: prints ``{"phase": name, "s": ...}`` when
+    it ends and keeps the seconds in PHASE_S."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_S[name] = time.perf_counter() - t0
+        print(json.dumps({"phase": name, "s": PHASE_S[name]}), flush=True)
+
+
 def kernel_rows(results: dict, launches: dict) -> list:
     """One row per kernel for the ``{"kernels": [...]}`` line: the main
     shape's numbers, the launches of the path named in KERNELS (and of
@@ -3751,13 +4014,14 @@ def main(argv: list[str]) -> int:
     lm_only = argv == ["--lm"]
     train_only = argv == ["--train"]
     probe_only = argv == ["--train-probe"]
+    fused_only = argv == ["--fused"]
     shard_rank_dir = (Path(argv[1]) if len(argv) == 2
                       and argv[0] == "--shard-rank" else None)
     if argv and not (kernels_only or sweeps_only or lm_only or train_only
-                     or probe_only or shard_rank_dir):
+                     or probe_only or fused_only or shard_rank_dir):
         print(f"chip_smoke: unknown arguments {argv}; takes none, "
-              f"--kernels, --sweeps, --lm, --train or --train-probe",
-              file=sys.stderr)
+              f"--kernels, --sweeps, --lm, --train, --train-probe or "
+              f"--fused", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3776,7 +4040,9 @@ def main(argv: list[str]) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     dev = torch.device("cuda", 0)
@@ -3802,48 +4068,71 @@ def main(argv: list[str]) -> int:
     if probe_only:
         run_train_probe(dev)
         return 0
-    host_costs(dev)
-    results = check_kernels(dev)
-    results.update(check_lm_kernels(dev))
-    check_lm_arch_kernels(dev, results)
+    if fused_only:
+        run_fused_only(dev)
+        return 0
+    t_run = time.perf_counter()
+    with phase("host_costs"):
+        host_costs(dev)
+    with phase("kernels"):
+        results = check_kernels(dev)
+    with phase("lm_kernels"):
+        results.update(check_lm_kernels(dev))
+        check_lm_arch_kernels(dev, results)
     if kernels_only:
         return 0
-    check_small_runs(dev)
-    check_zamba_small(dev)
-    sims, launches = {}, {}
-    for label, extra, rounds, required in PATHS:
-        sims[label], launches[label], _ = run_path(dev, label, extra, rounds,
-                                                   required)
-    launches[COVER[0]] = run_cover_pair(dev)
-    profile_round(sims["sync"], "sync")
-    profile_round(sims["sync_selected"], "sync_selected")
-    profile_round(sims["hier_int8"], "hier_int8")
-    profile_round(sims["faulty_async"], "faulty_async")
-    profile_round(sims["ucb"], "ucb")
-    del sims
-    launches[FLEET_SELECTED[0]] = run_fleet_selected(dev)
+    with phase("small_runs"):
+        check_small_runs(dev)
+        check_zamba_small(dev)
+    spy, restore_spy = assign_spy()
+    try:
+        with phase("fl_paths"):
+            sims, launches, steps = run_paths(dev, [p[0] for p in PATHS],
+                                              spy)
+            launches[COVER[0]] = run_cover_pair(dev)
+        with phase("fl_profiles"):
+            profile_round(sims["sync"], "sync")
+            profile_round(sims["sync_selected"], "sync_selected")
+            profile_round(sims["hier_int8"], "hier_int8")
+            profile_round(sims["faulty_async"], "faulty_async")
+            profile_round(sims["ucb"], "ucb")
+        del sims
+        with phase("fl_fused"):
+            run_fused_phase(dev, steps, spy)
+    finally:
+        restore_spy()
+    del steps
+    with phase("fleet_selected"):
+        launches[FLEET_SELECTED[0]] = run_fleet_selected(dev)
 
-    check_small_sweeps(dev)
-    for label, learning, names, extra, required in SWEEP_PATHS:
-        _, launches[label] = run_sweep_path(dev, label, learning, names,
-                                            extra, required)
+    with phase("sweeps"):
+        check_small_sweeps(dev)
+        for label, learning, names, extra, required in SWEEP_PATHS:
+            _, launches[label] = run_sweep_path(dev, label, learning, names,
+                                                extra, required)
+            torch.cuda.empty_cache()
+        profile_sweep_round(dev, learning=True)
+        profile_sweep_round(dev, learning=False)
+        # the largest buckets' batched greedy: every scenario, 2 seeds
+        profile_sweep_round(dev, learning=False, names=_ALL, n_seeds=2)
+    with phase("shard"):
+        launches.update(run_shard_phase(dev))
+
+    with phase("zamba2"):
+        check_zamba_full_f32(dev)
         torch.cuda.empty_cache()
-    profile_sweep_round(dev, learning=True)
-    profile_sweep_round(dev, learning=False)
-    # the largest buckets' batched greedy: every scenario, 2 seeds
-    profile_sweep_round(dev, learning=False, names=_ALL, n_seeds=2)
-    launches.update(run_shard_phase(dev))
-
-    check_zamba_full_f32(dev)
-    torch.cuda.empty_cache()
-    params, cfg, prompt, launches["zamba2_serve"] = run_zamba_serve(dev)
-    profile_zamba(params, cfg, prompt, dev)
-    del params
-    torch.cuda.empty_cache()
-    launches.update(run_lm_archs(dev))
-    train_results, train_launches = run_train_phase(dev)
+        params, cfg, prompt, launches["zamba2_serve"] = run_zamba_serve(dev)
+        profile_zamba(params, cfg, prompt, dev)
+        del params
+        torch.cuda.empty_cache()
+    with phase("lm_archs"):
+        launches.update(run_lm_archs(dev))
+    with phase("train"):
+        train_results, train_launches = run_train_phase(dev)
     results.update(train_results)
     launches.update(train_launches)
+    print(json.dumps({"phases_s": PHASE_S,
+                      "total_s": time.perf_counter() - t_run}), flush=True)
 
     print(json.dumps({"kernels": kernel_rows(results, launches)}))
     print(json.dumps({"ok": True, "device": {

@@ -20,3 +20,16 @@ def resolve_device(device=None) -> torch.device:
                            "device is available; pass device='cpu' to run "
                            "on the CPU")
     return torch.device("cuda")
+
+
+def const(value, dtype=torch.float32, device=None) -> torch.Tensor:
+    """``torch.as_tensor(value, dtype=dtype, device=device)``.  A Python or
+    numpy number is made by a fill on its device rather than a copy from
+    the host, so a CUDA graph can hold it (the same value, rounded to
+    ``dtype`` once); a tensor, a list or an array goes through
+    ``torch.as_tensor``."""
+    if (isinstance(value, (torch.Tensor, list, tuple))
+            or getattr(value, "ndim", 0)):
+        return torch.as_tensor(value, dtype=dtype, device=device)
+    return torch.full((), value.item() if hasattr(value, "item") else value,
+                      dtype=dtype, device=device)

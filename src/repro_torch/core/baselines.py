@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch import rng
+from repro_torch import const, rng
 from repro_torch.core import bandwidth
 from repro_torch.core.types import ScheduleResult, SchedulingProblem
 from repro_torch.kernels.select_topk import best_bs_argmax
@@ -27,8 +27,8 @@ def _best_bs_assign(snr: torch.Tensor,
     """[..., N, M] one-hot of argmax_k snr, zeroed for unselected users
     (a leading fleet axis: one kernel launch for the fleet)."""
     best = best_bs_argmax(snr.float().contiguous()).long()
-    onehot = torch.nn.functional.one_hot(best, snr.shape[-1]).bool()
-    return onehot & selected[..., None]
+    bs = torch.arange(snr.shape[-1], device=snr.device)
+    return (best[..., None] == bs) & selected[..., None]
 
 
 def _optimal_result(problem: SchedulingProblem,
@@ -105,7 +105,7 @@ def fedcs_schedule(problem: SchedulingProblem,
     tc_s = torch.gather(tcomp[..., None].expand_as(order), -2, order)
     is_cand = torch.gather(cand, -2, order)
     pos = torch.arange(n, device=dev)
-    thr = torch.tensor(threshold_s, dtype=torch.float32, device=dev)
+    thr = const(threshold_s, torch.float32, dev)
     t_for_j = []
     for j0 in range(0, n, FEDCS_CHUNK):
         js = pos[j0:j0 + FEDCS_CHUNK]                         # [C]

@@ -17,7 +17,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch import rng
+from repro_torch import const, rng
 from repro_torch.core.types import (MobilityState, SchedulingProblem,
                                     WirelessConfig)
 
@@ -220,7 +220,7 @@ def sample_tcomp(key: torch.Tensor, cfg: WirelessConfig,
 
 
 def make_problem(key: torch.Tensor, state: MobilityState, cfg: WirelessConfig,
-                 part_counts: torch.Tensor, round_idx: int,
+                 part_counts: torch.Tensor, round_idx,
                  bs_bw: torch.Tensor | None = None,
                  shadow_db: torch.Tensor | None = None,
                  tcomp_scale: torch.Tensor | None = None,
@@ -232,7 +232,8 @@ def make_problem(key: torch.Tensor, state: MobilityState, cfg: WirelessConfig,
     ``necessary`` is Eq. (8g) against the post-round floor: user i must
     participate if sitting out would leave its count below
     ``rho1 * (round_idx + 1)`` (computed in float32, as the JAX engine
-    does).  Hooks, each None for the paper's homogeneous world:
+    does; ``round_idx`` an int or a 0-dim float32 device tensor, which a
+    captured round reads at replay).  Hooks, each None for the paper's homogeneous world:
     ``shadow_db`` [N, M] a shadowing field (dB), ``tcomp_scale`` [N] a
     compute-time stretch, ``power_scale`` [N] a factor on each user's
     linear SNR (a transmit-power deficit), ``payload_mbit`` [N] each
@@ -246,8 +247,8 @@ def make_problem(key: torch.Tensor, state: MobilityState, cfg: WirelessConfig,
     dev = part_counts.device
     if bs_bw is None:
         bs_bw = torch.full((cfg.n_bs,), cfg.bs_bandwidth_mhz, device=dev)
-    floor = (torch.tensor(cfg.rho1, dtype=torch.float32, device=dev)
-             * torch.tensor(float(round_idx + 1), device=dev))
+    floor = (const(cfg.rho1, torch.float32, dev)
+             * const(round_idx + 1, torch.float32, dev))
     necessary = part_counts < floor
     return SchedulingProblem(
         snr=snr, tcomp=tcomp, bs_bw=bs_bw, coeff=coeff, necessary=necessary,

@@ -2,9 +2,11 @@
 ``repro.core.dagsa_jit``), over one problem or a fleet of them.
 
 The JAX package vmaps a ``lax.while_loop`` over a fleet of problems; the
-port runs one host loop for the whole fleet, with one host sync a greedy
-step (``active.any()``, the loop condition), for as many steps as the
-fleet's longest greedy.  Each step calls the selection kernel
+port runs one loop for the whole fleet, for as many steps as the fleet's
+longest greedy, through :func:`repro_torch.kernels.graph_while.
+device_while`: a host loop with one host sync a greedy step (``live.any()``,
+the loop condition), or, in a round captured into a CUDA graph, a WHILE
+node whose test the device makes.  Each step calls the selection kernel
 ``masked_bs_argmax`` once on the fleet's [F, N, M] planes and the
 ``bandwidth_solve`` kernel once on its F x M trial rows (each BS with its
 candidate added); step 1 calls ``best_bs_argmax`` once.  A single problem
@@ -38,7 +40,7 @@ import torch
 from repro_torch import rng
 from repro_torch.core import bandwidth
 from repro_torch.core.types import ScheduleResult, SchedulingProblem
-from repro_torch.kernels import select_topk
+from repro_torch.kernels import graph_while, select_topk
 from repro_torch.kernels.bandwidth_solve import bandwidth_solve
 
 
@@ -50,8 +52,9 @@ def _bs_times_with_candidate(coeff_t, tcomp, assign_t, bs_bw, cand, t_bs,
     f, m = bs_bw.shape
     dev = assign_t.device
     trial = assign_t.clone()
-    trial[torch.arange(f, device=dev)[:, None],
-          torch.arange(m, device=dev)[None, :], cand.long()] = True
+    trial.index_put_((torch.arange(f, device=dev)[:, None],
+                      torch.arange(m, device=dev)[None, :], cand.long()),
+                     torch.ones((), dtype=torch.bool, device=dev))
     return bandwidth_solve(coeff_t, tcomp, trial, bs_bw, lo=t_bs,
                            method=method, iters=iters)
 
@@ -93,6 +96,7 @@ def _schedule_batch(snr, coeff, tcomp, bs_bw, necessary,
     loop_t = (coeff_t if loop_coeff is None
               else loop_coeff.transpose(1, 2).contiguous())
     snr = snr.contiguous()
+    keys = keys.clone()                     # the loop advances it in place
     best_bs_of, cands_of = _selection(snr, snr_scale, selection_block)
 
     # -- step 1: necessary users to their best-channel BS ------------------
@@ -114,23 +118,32 @@ def _schedule_batch(snr, coeff, tcomp, bs_bw, necessary,
 
     cand, cand_val, t_with = candidates(coeff_t)
     live = torch.ones((f,), dtype=torch.bool, device=dev)
-    while True:
+
+    # the loop state the condition hands the step, in place: a captured
+    # pass replays on the same addresses
+    feasible = torch.zeros((f, m), dtype=torch.bool, device=dev)
+    any_feasible = torch.zeros((f,), dtype=torch.bool, device=dev)
+
+    def cond():
+        """The loop condition each problem evaluates (into ``feasible``,
+        ``any_feasible`` and ``live``): a finished problem stays finished
+        (its state is frozen, as vmap over while_loop freezes it)."""
         has_cand = remaining.any(dim=-1)
-        feasible = (t_with <= t_star[:, None]) & has_cand[:, None]
-        any_feasible = feasible.any(dim=-1)
+        feasible.copy_((t_with <= t_star[:, None]) & has_cand[:, None])
+        any_feasible.copy_(feasible.any(dim=-1))
         need_more = assign_t.any(dim=1).sum(dim=-1) < min_participants
-        # a finished problem stays finished: its state is frozen, as vmap
-        # over while_loop freezes it
-        live = live & has_cand & (any_feasible | need_more)
-        if not bool(live.any()):                                # host sync
-            break
+        live.logical_and_(has_cand & (any_feasible | need_more))
+        return live.any()
+
+    def step():
+        """One greedy step of every live problem, in place."""
         # pick the feasible BS whose candidate has the best channel;
         # otherwise force-add to a random BS and raise the threshold (8h)
         score = torch.where(feasible, cand_val, -torch.inf)
         k_greedy = torch.argmax(score, dim=-1)
         if m > 1:
             new_keys, krand = rng.split(keys).unbind(dim=-2)
-            keys = torch.where(live[:, None], new_keys, keys)
+            keys.copy_(torch.where(live[:, None], new_keys, keys))
             k_forced = rng.randint(krand, (), 0, m).long()
         else:
             k_forced = torch.zeros((f,), dtype=torch.long, device=dev)
@@ -143,9 +156,14 @@ def _schedule_batch(snr, coeff, tcomp, bs_bw, necessary,
         t_new = t_with.gather(1, k_star[:, None])[:, 0]
         # the accepted candidate evaluation IS the BS's new optimal time
         t_bs[fi, k_star] = torch.where(live, t_new, t_bs[fi, k_star])
-        t_star = torch.where(live & ~any_feasible,
-                             torch.maximum(t_star, t_new), t_star)
-        cand, cand_val, t_with = candidates(loop_t)
+        t_star.copy_(torch.where(live & ~any_feasible,
+                                 torch.maximum(t_star, t_new), t_star))
+        for buf, new in zip((cand, cand_val, t_with), candidates(loop_t)):
+            buf.copy_(new)
+
+    # a host read of the test a pass, or, on a stream that is capturing a
+    # round, a WHILE node whose test the device makes
+    graph_while.device_while(cond, step)
 
     assign = assign_t.transpose(1, 2).contiguous()              # [F, N, M]
     t_k, user_bw = bandwidth.solve_all(coeff, tcomp, assign, bs_bw,

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import const
 from repro_torch.core.types import ScheduleResult, SchedulingProblem
 
 
@@ -22,8 +23,7 @@ def uplink_bits(delivered: torch.Tensor, payload_mbit) -> torch.Tensor:
     """Total uplink traffic (bits) of one round's delivered updates:
     ``delivered`` [N] bool, ``payload_mbit`` a scalar or [N] s_k (decimal
     Mbit)."""
-    p = torch.as_tensor(payload_mbit, dtype=torch.float32,
-                        device=delivered.device)
+    p = const(payload_mbit, torch.float32, delivered.device)
     return (delivered.float() * p.expand(delivered.shape)).sum() * 1e6
 
 

@@ -29,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch import rng
+from repro_torch import const, rng
 from repro_torch.core.types import MobilityState, WirelessConfig
 
 
@@ -106,7 +106,7 @@ def _step_gauss_markov(key, pos, aux, area, dt, speed, pause_s, gm_memory):
     u = _rd_velocity(key, pos.shape[0], speed)
     a = gm_memory
     vel = a * aux["vel"] + torch.sqrt(torch.clamp(
-        torch.as_tensor(1.0 - a * a, dtype=torch.float32, device=pos.device),
+        const(1.0 - a * a, torch.float32, pos.device),
         min=0.0)) * u
     unfolded = pos + vel * dt
     # momentum survives the bounce: flip by the fold slope at the endpoint
@@ -121,8 +121,7 @@ def _step_waypoint(key, pos, aux, area, dt, speed, pause_s, gm_memory):
     paused = pause > 0.0
     # a host speed multiplies in double (as a Python float in jax), a
     # tensor knob in float32 (as the sweep's traced knob)
-    reach = torch.as_tensor(speed * dt, dtype=torch.float32,
-                            device=pos.device)
+    reach = const(speed * dt, torch.float32, pos.device)
     arrive = ~paused & (dist <= reach)
     step_len = torch.where(paused, 0.0, torch.minimum(reach, dist))
     direction = to_t / torch.clamp(dist, min=1e-9)[:, None]
@@ -131,7 +130,7 @@ def _step_waypoint(key, pos, aux, area, dt, speed, pause_s, gm_memory):
                              rng.uniform(key, tuple(pos.shape), 0.0, area),
                              target)
     new_pause = torch.where(
-        arrive, torch.as_tensor(pause_s, dtype=pos.dtype, device=pos.device),
+        arrive, const(pause_s, pos.dtype, pos.device),
         torch.clamp(pause - dt, min=0.0))
     return new_pos, {**aux, "target": new_target, "pause_s": new_pause}
 

@@ -61,6 +61,20 @@ scenario adds ``fold_in(k_bw, 7)`` for the shadowing field and
 :class:`FLSimulation` runs on ``device="cuda"`` unless told otherwise and
 raises when CUDA is absent and no device was given; it never falls back
 to the CPU on its own.  Records stay on the device until ``run`` ends.
+
+Execution modes, as the JAX package's (``run(n, mode=...)``; all take the
+same round step, so they take the same decisions):
+
+* ``fused``: the default for the schedulers of :data:`FUSED_SCHEDULERS`.
+  On the card each round replays a CUDA graph that holds the whole
+  synchronous round, the greedy's loop included (:mod:`repro_torch.fl.
+  fused`): no per-round dispatch of its ops and no host sync inside a
+  round.  On the CPU the same step runs without a graph.
+* ``step`` and ``eager``: the host loop, one call of the round step a
+  round (``eager`` is the host greedies' only mode; JAX's refusals hold
+  for both).
+* ``async``: the buffered-async tick loop, the only mode of an
+  ``aggregation_async`` run.
 """
 from __future__ import annotations
 
@@ -71,7 +85,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device, rng
+from repro_torch import const, resolve_device, rng
 from repro_torch.core import channel, dagsa_jit, latency, mobility
 from repro_torch.core import scheduler as sched
 from repro_torch.core.scenario import (AGGREGATIONS, BS_LAYOUTS,
@@ -85,6 +99,7 @@ from repro_torch.core.types import (ClientState, MobilityState, RoundState,
 from repro_torch.data.synthetic import make_dataset
 from repro_torch.fl import client as fl_client
 from repro_torch.fl import faults as fl_faults
+from repro_torch.fl import fused as fused_engine
 from repro_torch.fl import server as fl_server
 from repro_torch.fl.partition import dirichlet_partition, shard_partition
 from repro_torch.kernels import compress_topk as ct
@@ -102,6 +117,18 @@ COMPUTE_MODES = ("full", "selected")
 # policies enter it: their estimates ride RoundState.sched).
 ASYNC_SCHEDULERS = tuple(s for s in sched.SCHEDULERS
                          if s not in sched.HOST_SCHEDULERS)
+
+# The schedulers whose round runs fused (JAX's: the ones its round step
+# traces, every one but the host greedies; the stateful policies' estimates
+# ride RoundState.sched).
+FUSED_SCHEDULERS = ("dagsa_jit", "dagsa-r", "rs", "ub", "fedcs_low",
+                    "fedcs_high", "sa") + sched.STATEFUL_SCHEDULERS
+
+# run()'s execution modes, as JAX's: "fused" (on the card a captured round
+# replayed once a round, :mod:`repro_torch.fl.fused`), "step" and "eager"
+# (the host loop, one call of the step a round), "async" (the buffered-
+# async tick loop).
+MODES = ("fused", "step", "eager", "async")
 
 # A named range per round phase, read by torch.profiler (chip_smoke.py's
 # breakdown); with no profiler running each costs a few microseconds.
@@ -548,7 +575,7 @@ def async_round_tick(params, queue: tuple, x_clients, y_clients, keys,
 
 def hierarchical_round(global_params, edge_params, edge_weight, prev_bs,
                        x_clients, y_clients, keys, assign, selected, serving,
-                       data_sizes, r: int, *, tau_global: int, epochs: int,
+                       data_sizes, sync: bool, *, epochs: int,
                        batch_size: int, lr: float, compute: str = "full",
                        select_cap: int | None = None, delivered=None,
                        corrupt=None, corrupt_mode_id: int = 0,
@@ -559,7 +586,8 @@ def hierarchical_round(global_params, edge_params, edge_weight, prev_bs,
 
     Each client trains from the edge model of its serving (camped) cell and
     its update edge-aggregates into the BS the scheduler assigned it
-    (per-BS Eq. (2)); every ``tau_global`` rounds the edge models sync into
+    (per-BS Eq. (2)); on a ``sync`` round (every ``tau_global``-th) the edge
+    models sync into
     the global model, weighted by the data each aggregated since the last
     sync, and every edge restarts from the new global model.  With faults,
     an undelivered client's upload reaches no BS (``delivered`` masks
@@ -612,7 +640,7 @@ def hierarchical_round(global_params, edge_params, edge_weight, prev_bs,
     # uncompressed segmented reduction applies inside
     _, bs_totals = fl_server.segment_weights(assign, data_sizes)
     edge_weight = edge_weight + bs_totals
-    if (r + 1) % tau_global == 0:
+    if sync:
         with span("round.sync"):
             global_params = fl_server.edge_global_sync(
                 global_params, edge_params, edge_weight)
@@ -659,9 +687,16 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
                     staleness_alpha: float = 0.0, buffer_size: int = 1,
                     user_chunk: int | None = None, compute: str = "full",
                     select_cap: int | None = None, mesh=None):
-    """Build the round step: ``(init_state, step_fn)`` with
-    ``step_fn(state, r) -> (state', out)`` and ``out`` a dict of 0-dim
-    device tensors.
+    """Build the round step: ``(init_state, step_fn, pattern)`` with
+    ``step_fn(state, r, r_dev=None) -> (state', out)`` and ``out`` a dict
+    of 0-dim device tensors.  ``pattern(r)`` holds every branch the step
+    takes on the host from the round index ``r`` (an evaluation round, a
+    hierarchical global sync); the step reads its branches there, so a
+    captured round (:mod:`repro_torch.fl.fused`) keys its graphs by it.
+    The other uses of ``r`` (a host scheduler's seed, the async tick's
+    clock) belong to runs that never run captured.  ``r_dev``, the same index as a
+    0-dim float32 device tensor, is what the device reads (None: filled
+    from ``r``): a captured round fills it before each replay.
 
     ``world`` picks how a round draws its world, as in the JAX package:
 
@@ -731,7 +766,7 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
         sched=sched.scheduler_state_init(cfg.scheduler, n, device=dev),
         key=key0)
 
-    def engine_world(k_mob, k_prob, pos, aux, counts, r):
+    def engine_world(k_mob, k_prob, pos, aux, counts, r_dev):
         pos, aux = mobility.step_named(p["mob_model"], k_mob, pos, aux, w,
                                        pause_s=p["pause_s"],
                                        gm_memory=p["gm_memory"])
@@ -740,7 +775,7 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
         if shadow_sigma > 0.0:
             shadow_db = shadow_sigma * channel.sample_shadowing(
                 k_shadow, pos, bs_pos, w, sigma_db=1.0)
-        prob = channel.make_problem(k_prob, mstate, w, counts, r,
+        prob = channel.make_problem(k_prob, mstate, w, counts, r_dev,
                                     bs_bw=bs_bw, shadow_db=shadow_db,
                                     tcomp_scale=het_tcomp,
                                     power_scale=het_power,
@@ -748,7 +783,7 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
         dist = mstate.distances() if need_prev else None
         return pos, aux, prob, (prob.snr, None, prob.coeff), dist
 
-    def sweep_world(k_mob, k_snr, k_tc, pos, aux, counts, r):
+    def sweep_world(k_mob, k_snr, k_tc, pos, aux, counts, r_dev):
         pos, aux = mobility.step_switch(
             p["model_id"], k_mob, pos, aux, w.area_m, w.round_duration_s,
             p["speed"], p["pause_s"], p["gm_memory"])
@@ -766,8 +801,7 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
         tcomp = rng.fma(rng.uniform(k_tc, (n,)), tc_span, tc_lo)
         if het_tcomp is not None:
             tcomp = tcomp * het_tcomp
-        floor = (torch.tensor(w.rho1, dtype=torch.float32, device=dev)
-                 * torch.tensor(float(r + 1), device=dev))
+        floor = const(w.rho1, torch.float32, dev) * (r_dev + 1.0)
         prob = SchedulingProblem(snr=snr_lin, tcomp=tcomp, bs_bw=bs_bw,
                                  coeff=coeff if loop_coeff is None
                                  else loop_coeff,
@@ -804,7 +838,18 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
         return ScheduleResult(assign=assign, selected=selected, bw=user_bw,
                               bs_time=t_k, t_round=t_star), sched_state
 
-    def step_fn(state: RoundState, r: int):
+    def pattern(r: int) -> tuple:
+        """(an evaluation round, a hierarchical global sync) for round
+        ``r``: the step's host branches."""
+        return (bool(cfg.eval_every and (r + 1) % cfg.eval_every == 0),
+                hier and (r + 1) % tau_global == 0)
+
+    def step_fn(state: RoundState, r: int, r_dev=None):
+        # the host branches on r come from pattern(r); the device reads
+        # r_dev, which a captured round fills before each replay
+        evaluate, sync = pattern(r)
+        if r_dev is None:
+            r_dev = const(float(r), torch.float32, dev)
         params, queue = state.server.params, state.server.queue
         edge, edge_w = state.server.edge_params, state.server.edge_weight
         counts, prev_bs = state.clients.counts, state.clients.prev_bs
@@ -818,12 +863,12 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
                 k_snr, k_tc, k_sched, k_fleet = keys_r[2:6]
                 pos, aux, prob, plane, dist = sweep_world(
                     k_mob, k_snr, k_tc, state.world.pos,
-                    state.world.mob_aux, counts, r)
+                    state.world.mob_aux, counts, r_dev)
             else:
                 k_prob, k_sched, k_fleet = keys_r[2:5]
                 pos, aux, prob, plane, dist = engine_world(
                     k_mob, k_prob, state.world.pos, state.world.mob_aux,
-                    counts, r)
+                    counts, r_dev)
             if need_prev:
                 serving = camped_bs(dist)
             p_est = None
@@ -880,8 +925,7 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
                     hierarchical_round(params, edge, edge_w, prev_bs,
                                        x_clients, y_clients, keys,
                                        res.assign, res.selected, serving,
-                                       data_sizes, r,
-                                       tau_global=tau_global, **deliv_kw,
+                                       data_sizes, sync, **deliv_kw,
                                        **data_kw)
             else:
                 params = train_and_aggregate(params, x_clients, y_clients,
@@ -891,17 +935,17 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
         # participation follows delivery: a lost update stays "necessary"
         counts = counts + delivered.to(counts.dtype)
         with span("round.eval"):
-            if cfg.eval_every and (r + 1) % cfg.eval_every == 0:
+            if evaluate:
                 # hierarchical: the virtual global model, the edges mixed
                 # by their accumulated weight (the global right after a sync)
                 model = (fl_server.edge_global_sync(params, edge, edge_w)
                          if hier else params)
                 acc = cnn.accuracy(model, x_test, y_test)
             else:
-                acc = torch.tensor(float("nan"), device=counts.device)
+                acc = torch.full((), float("nan"), device=counts.device)
         n_sel = eligible.sum() if async_on else res.selected.sum()
         out = {"t_round": t_round, "test_acc": acc,
-               "min_part_rate": counts.min() / (r + 1.0),
+               "min_part_rate": counts.min() / (r_dev + 1.0),
                "n_selected": n_sel.to(torch.int32)}
         if async_on:
             n_del = diag["n_delivered"]
@@ -930,11 +974,12 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
             sched=sched_state, key=key)
         return new_state, out
 
-    return init_state, step_fn
+    return init_state, step_fn, pattern
 
 
 class FLSimulation:
-    """Owns all state of one FL run; ``run(n_rounds)`` yields RoundRecords."""
+    """Owns all state of one FL run; ``run(n_rounds, mode=None)`` yields
+    RoundRecords."""
 
     def __init__(self, cfg: FLConfig, device=None):
         self.cfg = cfg
@@ -975,8 +1020,8 @@ class FLSimulation:
         # JAX package, only a tensor-step scheduler takes it
         compute_spread = spec.compute_spread if spec else 1.0
         power_spread_db = spec.power_spread_db if spec else 0.0
-        if ((compute_spread != 1.0 or power_spread_db != 0.0)
-                and cfg.scheduler in sched.HOST_SCHEDULERS):
+        self._hetero = compute_spread != 1.0 or power_spread_db != 0.0
+        if self._hetero and cfg.scheduler in sched.HOST_SCHEDULERS:
             raise ValueError(
                 f"device heterogeneity lives in the JAX package's traced "
                 f"round step; scheduler {cfg.scheduler!r} is host-side — "
@@ -1065,7 +1110,9 @@ class FLSimulation:
 
         self.wall_clock = 0.0
         self.round_idx = 0
-        self._state, self._step_fn = make_round_step(
+        self.fused = None       # the fused engine (the card), made on first use
+        self.greedy_steps: list[int] = []   # the last fused run's, a round
+        self._state, self._step_fn, self._pattern = make_round_step(
             cfg, w, scenario=world, x_clients=self.x_clients,
             y_clients=self.y_clients, data_sizes=self.data_sizes,
             x_test=self.data.x_test, y_test=self.data.y_test,
@@ -1097,16 +1144,101 @@ class FLSimulation:
     def min_participants(self) -> int:
         return int(math.ceil(self.wireless.rho2 * self.wireless.n_users))
 
-    def run(self, n_rounds: int) -> list[RoundRecord]:
-        """Run ``n_rounds``; the records cross to the host once, at the end."""
+    @property
+    def fused_capable(self) -> bool:
+        return self.cfg.scheduler in FUSED_SCHEDULERS
+
+    def _resolve_mode(self, mode: str | None) -> str:
+        """``mode`` or its default, refused as the JAX package refuses it
+        (``repro.fl.rounds.FLSimulation.run``)."""
+        if mode is not None and mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}; choose from {MODES}")
+        sharded = self.mesh is not None and self.mesh.world_size > 1
+        if mode is None:
+            # a sharded round's all-gather runs on the host (gloo), which a
+            # captured graph cannot hold: its default is the host loop
+            mode = ("async" if self.aggregation_async
+                    else "step" if self.fused_capable and sharded
+                    and self.device.type == "cuda"
+                    else "fused" if self.fused_capable else "eager")
+        if mode == "async" and not self.aggregation_async:
+            raise ValueError(
+                "mode='async' needs FLConfig(aggregation_async=True, "
+                "tick_s=...) — the event-queue carry is sized at init")
+        if self.aggregation_async and mode != "async":
+            raise ValueError(
+                f"aggregation_async=True runs mode='async' only (the event "
+                f"queue rides the scan carry); got mode={mode!r}")
+        if mode in ("fused", "step") and not self.fused_capable:
+            raise ValueError(
+                f"scheduler {self.cfg.scheduler!r} does not trace; "
+                f"mode={mode!r} needs one of {FUSED_SCHEDULERS} "
+                f"(use mode='eager')")
+        if mode == "eager" and self.aggregation == "hierarchical":
+            raise ValueError(
+                "aggregation='hierarchical' lives in the traced round step; "
+                "use mode='fused' or mode='step'")
+        if mode == "eager" and (self.compress is not None or self._hetero):
+            raise ValueError(
+                "compressed uplink / device heterogeneity live in the "
+                "traced round step; use mode='fused' or mode='step'")
+        if mode == "eager" and self.cfg.scheduler in \
+                sched.STATEFUL_SCHEDULERS:
+            raise ValueError(
+                f"stateful scheduler {self.cfg.scheduler!r} carries per-user "
+                f"estimates in the fused RoundState; mode='eager' would "
+                f"restart them every round — use mode='fused' or 'step'")
+        if mode == "fused" and sharded and self.device.type == "cuda":
+            raise ValueError(
+                "shard=True over several ranks all-gathers each round's "
+                "clients through gloo on the host, which a CUDA graph "
+                "cannot hold; use mode='step'")
+        return mode
+
+    def run(self, n_rounds: int, mode: str | None = None
+            ) -> list[RoundRecord]:
+        """Run ``n_rounds``; the records cross to the host once, at the end.
+
+        ``mode``, as the JAX package takes it: ``"fused"`` (the default
+        when the scheduler is in :data:`FUSED_SCHEDULERS`: on the card a
+        round captured as CUDA graphs and replayed, no host sync inside a
+        round; on the CPU the same step without a graph), ``"step"`` and
+        ``"eager"`` (the host loop, one call of the round step a round;
+        ``"eager"`` is the only mode of the host greedies), or ``"async"``
+        (the buffered-async tick loop, the default and only mode when
+        ``aggregation_async``).  The modes take the same steps, so their
+        decisions agree exactly."""
+        mode = self._resolve_mode(mode)
         if n_rounds <= 0:
             return []
-        outs = []
-        for r in range(self.round_idx, self.round_idx + n_rounds):
-            self._state, out = self._step_fn(self._state, r)
-            outs.append(out)
-        stacked = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
-                   for k in outs[0]}                     # the one host copy
+        if mode == "fused" and self.device.type == "cuda":
+            if self.fused is None:
+                self.fused = fused_engine.FusedRounds(
+                    self._step_fn, self._pattern, self.device)
+            self._state, stacked = self.fused.run(self._state, self.round_idx,
+                                                  n_rounds)
+            self.greedy_steps = list(stacked.pop("greedy_steps", []))
+        else:
+            # the host loop (a fused run on the CPU is the same step)
+            outs = []
+            for r in range(self.round_idx, self.round_idx + n_rounds):
+                self._state, out = self._step_fn(self._state, r)
+                outs.append(out)
+            stacked = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
+                       for k in outs[0]}                 # the one host copy
+        return self._records(stacked, n_rounds)
+
+    def run_round(self) -> RoundRecord:
+        """One round as a host :class:`RoundRecord` (JAX's per-round API:
+        the step, or the host path of a host greedy, or one async tick)."""
+        if self.aggregation_async:
+            return self.run(1, mode="async")[0]
+        return self.run(1, mode="step" if self.fused_capable
+                        else "eager")[0]
+
+    def _records(self, stacked: dict, n_rounds: int) -> list[RoundRecord]:
+        """The host columns of ``n_rounds`` rounds -> RoundRecords; the
+        round index and the simulated clock advance."""
         first = self.round_idx + 1
         self.round_idx += n_rounds
         wall = self.wall_clock + np.cumsum(stacked["t_round"],

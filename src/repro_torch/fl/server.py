@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import const
 from repro_torch.tree import Params, tree_leaves, tree_map
 
 
@@ -45,9 +46,7 @@ def staleness_weights(staleness: torch.Tensor, alpha) -> torch.Tensor:
     disables the discount (``pow(x, -0.0) == 1``).
     """
     s = torch.as_tensor(staleness).float()
-    return torch.pow(1.0 + s, -torch.tensor(float(alpha),
-                                            dtype=torch.float32,
-                                            device=s.device))
+    return torch.pow(1.0 + s, -const(float(alpha), torch.float32, s.device))
 
 def finite_update_mask(client_params: Params) -> torch.Tensor:
     """[N] bool: client i's update is finite in every leaf entry."""

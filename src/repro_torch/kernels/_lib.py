@@ -11,7 +11,11 @@ CPU-only tests import every module freely.
 
 Each kernel wrapper adds one to its entry of :data:`LAUNCHES` where it
 launches its kernel, so a run can show that its main path went through the
-kernels; :func:`reset_launches` zeroes the counts.
+kernels; :func:`reset_launches` zeroes the counts.  A call captured into a
+CUDA graph launches nothing then: :func:`captured_launches` takes what a
+capture added back out of :data:`LAUNCHES`, and the graph's owner adds it
+once a replay (:func:`add_launches`), so the counts stay true for replayed
+rounds.
 
 The launch path is kept short, since the wrappers run once per layer on
 the serving path: :func:`launch` calls an entry point resolved once (no
@@ -74,6 +78,9 @@ _SIGNATURES = {
     "fedavg_segment_reduce_f32": (_P, _P, _LL, _I, _LL, _P, _P),
     "fedavg_segment_reduce_i8": (_P, _P, _LL, _I, _LL, _P, _P),
     "sparsify_quantize_f32": (_P, _P, _P, _P, _LL, _LL, _I, _P, _P),
+    # a graph's device-side while loop (csrc/graph_while.cu)
+    "graph_while_begin": (_P, _P, _P, _P),
+    "graph_while_end": (_P, ctypes.c_ulonglong, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -86,6 +93,30 @@ _kept: list[torch.Tensor] = []  # retired and graph-owned workspaces
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+class captured_launches:
+    """``with captured_launches() as got:`` around a graph capture (or a
+    part of one): on exit ``got`` holds the launches the wrappers counted
+    inside, and :data:`LAUNCHES` is as it was on entry, since a capture
+    launches nothing."""
+
+    def __enter__(self) -> dict:
+        self._before = dict(LAUNCHES)
+        self.counts: dict = {}
+        return self.counts
+
+    def __exit__(self, *exc) -> None:
+        for name, was in self._before.items():
+            self.counts[name] = LAUNCHES[name] - was
+            LAUNCHES[name] = was
+
+
+def add_launches(counts: dict, times: int = 1) -> None:
+    """Add ``counts`` (from :class:`captured_launches`) ``times`` over: the
+    launches of a captured graph's ``times`` replays."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n * times
 
 
 def build_dir() -> Path:

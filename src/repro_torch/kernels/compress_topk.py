@@ -33,7 +33,7 @@ import math
 
 import torch
 
-from repro_torch import rng
+from repro_torch import const, rng
 from repro_torch.fl.server import fedavg_weights, segment_weights
 from repro_torch.kernels import _lib
 from repro_torch.kernels.fedavg_reduce import reduce_leaf, segment_reduce_leaf
@@ -224,8 +224,7 @@ def compressed_clip_scales(codes: Params, scales: Params,
         sq = sq + torch.square(s) * torch.square(qf).reshape(
             q.shape[0], -1).sum(dim=1)
     norm = torch.sqrt(sq)
-    cv = torch.tensor(float(clip_norm), dtype=torch.float32,
-                      device=norm.device)
+    cv = const(float(clip_norm), torch.float32, norm.device)
     return torch.clamp(cv / torch.clamp(norm, min=1e-12), max=1.0)
 
 
@@ -282,7 +281,8 @@ def fedavg_decompress_segment_reduce(edge_params: Params, codes: Params,
     w, totals = segment_weights(assign, data_sizes)           # [N, M], [M]
     if clip_norm is not None:
         w = w * compressed_clip_scales(codes, scales, clip_norm)[:, None]
-    serve_1h = torch.nn.functional.one_hot(serving.long(), m).float()
+    serve_1h = (serving.long()[:, None]
+                == torch.arange(m, device=serving.device)).float()
     cross = w.t() @ serve_1h                                  # [M, M]
     safe = torch.clamp(totals, min=1e-9)
 

@@ -16,7 +16,10 @@
         --device cpu --scheduler dagsa_jit
 
 Runs on CUDA by default (``--device cpu`` to run on the CPU) and prints one
-line per round once the run ends.  ``--compute selected`` trains only a
+line per round once the run ends.  ``--mode`` picks the engine as in the
+JAX package: ``fused`` (the default for a tensor-step scheduler; on the
+card each round replays a captured CUDA graph), ``step`` or ``eager``
+(the host loop; the host greedies' only mode).  ``--compute selected`` trains only a
 static-size gather of the scheduled clients; like the JAX package, the
 host schedulers (``dagsa``, ``dagsa-r-host``) train the whole fleet.
 ``--shard [--mesh D]`` splits each round's local SGD over the
@@ -61,6 +64,12 @@ def main(argv=None) -> None:
     ap.add_argument("--paper-cnn", action="store_true",
                     help="the 16/32/64 CNN (CNNConfig.paper_scale) instead "
                          "of the small default")
+    ap.add_argument("--mode", default=None,
+                    choices=("fused", "step", "eager"),
+                    help="fused (default for the tensor-step schedulers: "
+                         "on the card a round captured as a CUDA graph and "
+                         "replayed), the per-round step, or the host path "
+                         "(the host greedies' only mode)")
     ap.add_argument("--compute", default="full", choices=COMPUTE_MODES,
                     help="selected: train only a static-size padded top-K "
                          "subset of scheduled clients")
@@ -150,7 +159,7 @@ def main(argv=None) -> None:
                    mesh_devices=args.mesh)
     sim = FLSimulation(cfg, device=args.device)
     try:
-        recs = sim.run(args.rounds)
+        recs = sim.run(args.rounds, mode=args.mode)
     finally:
         if sim.mesh is not None:
             sim.mesh.close()

@@ -357,7 +357,7 @@ def _one_learning_cell(p: dict, key: torch.Tensor, x_c, y_c, params0,
     dev = pos0.device
     plan = FLConfig(scheduler=scheduler, local_epochs=epochs,
                     batch_size=batch_size, lr=lr, eval_every=eval_every)
-    state, step = make_round_step(
+    state, step, _ = make_round_step(
         plan, cfg, scenario=p, x_clients=x_c, y_clients=y_c,
         data_sizes=torch.full((cfg.n_users,), x_c.shape[1],
                               dtype=torch.int32, device=dev),

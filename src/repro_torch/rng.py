@@ -28,6 +28,8 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import const
+
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -124,7 +126,7 @@ def random_bits(key: torch.Tensor, shape: tuple) -> torch.Tensor:
 
 
 def _f32(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    return const(x, torch.float32, device)
 
 
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,7 @@ The LM kernels (7-9) are held to the float32 / bfloat16 tolerances that
 tests/test_kernels.py grants their Pallas counterparts: rmsnorm 1e-6 /
 2e-2, flash attention 2e-5 / 2e-2, the SSD scan 2e-4 / 5e-2.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -24,7 +25,7 @@ from repro_torch.core.types import SchedulingProblem  # noqa: E402
 from repro_torch.core.types import WirelessConfig  # noqa: E402
 from repro_torch.fl.rounds import FLConfig, FLSimulation  # noqa: E402
 from repro_torch.fl.server import segment_weights  # noqa: E402
-from repro_torch.kernels import _lib  # noqa: E402
+from repro_torch.kernels import _lib, graph_while  # noqa: E402
 from repro_torch.kernels import bandwidth_solve as kb  # noqa: E402
 from repro_torch.kernels import compress_topk as ct  # noqa: E402
 from repro_torch.kernels import fedavg_reduce as kf  # noqa: E402
@@ -590,8 +591,11 @@ def test_small_run_on_card_matches_cpu(dev):
 
 
 def test_small_hierarchical_compressed_run_on_card_matches_cpu(dev):
+    # a tensor-step scheduler: as in JAX, the host greedy's eager mode
+    # has no hierarchical aggregation or compressed uplink
     cfg = FLConfig(wireless=WirelessConfig(n_users=12, n_bs=4), n_train=120,
                    n_test=40, local_epochs=1, batch_size=10, seed=7,
+                   scheduler="dagsa_jit",
                    aggregation="hierarchical", tau_global=2,
                    compress="topk-int8", topk_frac=0.1)
     _lib.reset_launches()
@@ -723,6 +727,177 @@ def test_small_fault_and_async_runs_on_card_match_cpu(dev, extra):
             a, b = getattr(g, f), getattr(c, f)
             assert math.isclose(a, b, rel_tol=1e-5) or (a != a and b != b), f
         assert abs(g.test_acc - c.test_acc) <= 1.0 / 40 + 1e-9
+
+# ------------------------------------------------ the fused round engine --
+def _small_cfg(**extra) -> FLConfig:
+    return FLConfig(wireless=WirelessConfig(n_users=12, n_bs=4), n_train=120,
+                    n_test=40, local_epochs=1, batch_size=10, seed=7,
+                    **{"scheduler": "dagsa_jit", **extra})
+
+
+def _same_record(a, b) -> bool:
+    da, db = dataclasses.asdict(a), dataclasses.asdict(b)
+    return all(da[k] == db[k] or (da[k] != da[k] and db[k] != db[k])
+               for k in da)
+
+
+def test_device_while_node(dev):
+    """A WHILE node's body runs as many passes as the device flag asks,
+    with no host sync, at each replay of the graph that holds it."""
+    x = torch.zeros((), dtype=torch.int32, device=dev)
+    lim = torch.full((), 5, dtype=torch.int32, device=dev)
+    y = torch.zeros((3,), device=dev)
+    g = torch.cuda.CUDAGraph()
+    with graph_while.recording() as nodes, torch.cuda.graph(g):
+        x.zero_()
+        y.zero_()
+
+        def body():
+            x.add_(1)
+            y.add_(x.float())
+        graph_while.device_while(lambda: x < lim, body)
+    for n in (5, 0, 7, 5):
+        lim.fill_(n)
+        g.replay()
+        assert int(x) == n and int(nodes[0][0]) == n
+        assert y.tolist() == [n * (n + 1) / 2] * 3
+
+
+@pytest.mark.parametrize("extra", [
+    dict(), dict(compute="selected"),
+    dict(aggregation="hierarchical", tau_global=2, compress="topk-int8",
+         topk_frac=0.1),
+    dict(scheduler="dagsa-r", faults="faulty-uplink"), dict(scheduler="ucb"),
+], ids=["sync", "selected", "hier_int8", "faulty", "ucb"])
+def test_fused_run_equals_step_bit_for_bit(dev, extra):
+    """Captured rounds replay the step's kernels: records and parameters
+    equal bit for bit, launch counts equal, also across a fused run that
+    continues a step run and a step run that continues it."""
+    cfg = _small_cfg(**extra)
+    step = FLSimulation(cfg, device=dev)
+    _lib.reset_launches()
+    want = step.run(5, mode="step")
+    step_launches = dict(_lib.LAUNCHES)
+    fused = FLSimulation(cfg, device=dev)
+    _lib.reset_launches()
+    got = fused.run(5, mode="fused")
+    assert dict(_lib.LAUNCHES) == step_launches
+    mixed = FLSimulation(cfg, device=dev)
+    got_mixed = (mixed.run(2, mode="step") + mixed.run(2, mode="fused")
+                 + mixed.run(1, mode="step"))
+    for a, b, c in zip(want, got, got_mixed):
+        assert _same_record(a, b) and _same_record(a, c), (a, b, c)
+    for sim in (fused, mixed):
+        for k in step.params:
+            for leaf in step.params[k]:
+                assert torch.equal(step.params[k][leaf],
+                                   sim.params[k][leaf]), (k, leaf)
+
+
+def test_fused_capture_failure_raises(dev, monkeypatch):
+    """A round that reads the device on the host cannot be captured: the
+    run raises, after the warm-up and the capture attempt alone, and does
+    not fall back to the host loop."""
+    from repro_torch.fl import rounds as fl_rounds
+    real = fl_rounds.cnn.accuracy
+    calls = []
+
+    def syncing(params, x, y):
+        acc = real(params, x, y)
+        calls.append(torch.cuda.is_current_stream_capturing())
+        float(acc)                      # a host read a capture refuses
+        return acc
+
+    monkeypatch.setattr(fl_rounds.cnn, "accuracy", syncing)
+    sim = FLSimulation(_small_cfg(), device=dev)
+    with pytest.raises(RuntimeError):
+        sim.run(2, mode="fused")
+    assert calls == [False, True]
+    assert sim.round_idx == 0 and sim.fused.n_graphs == 0
+    torch.cuda.synchronize()
+
+
+def _greedy_problem(seed, n, m):
+    """test_torch_dagsa's paper-like round (that module imports jax):
+    path-loss-spread Rayleigh SNR, S = 0.5 Mbit."""
+    rs = np.random.default_rng(seed)
+    mean = 10.0 ** rs.uniform(0.0, 4.0, (n, m))
+    snr = (mean * rs.exponential(size=(n, m))).astype(np.float32)
+    coeff = (np.float32(0.5) / np.maximum(np.log2(1.0 + snr), 1e-9)
+             ).astype(np.float32)
+    tcomp = rs.uniform(0.10, 0.11, n).astype(np.float32)
+    bs_bw = (np.ones(m) if seed % 2 else rs.uniform(0.5, 1.5, m)
+             ).astype(np.float32)
+    necessary = rs.random(n) < (0.0 if seed % 5 == 0 else 0.2)
+    return snr, coeff, tcomp, bs_bw, necessary, int(math.ceil(0.5 * n))
+
+
+@pytest.mark.parametrize("n,m", [(12, 4), (50, 8), (30, 1), (40, 5)])
+def test_captured_greedy_equals_host_loop(dev, n, m):
+    """The greedy captured into a CUDA graph (its loop a WHILE node) takes
+    the host loop's steps: on test_torch_dagsa's 80 problems, one at a
+    time and as a fleet of 20, assignments, selections, bandwidths and
+    times bit-equal, the node's passes one a step of the longest greedy."""
+    probs = [_greedy_problem(seed, n, m) for seed in range(20)]
+    cols = list(zip(*probs))
+    keys = torch.stack([torch.tensor([0, seed], dtype=torch.int64)
+                        for seed in range(20)]).to(dev)
+    for i in list(range(20)) + [None]:
+        pick = ((lambda c: torch.from_numpy(np.stack(c)).to(dev))
+                if i is None else
+                (lambda c, i=i: torch.from_numpy(np.asarray(c[i]))[None]
+                 .to(dev)))
+        args = tuple(pick(c) for c in cols[:5]) + (
+            probs[0][5], keys if i is None else keys[i][None])
+        host = dagsa_jit._schedule_batch(*args)
+        graph = torch.cuda.CUDAGraph()
+        with graph_while.recording() as nodes, torch.cuda.graph(graph):
+            loop = dagsa_jit._schedule_batch(*args)
+        for o in loop:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for h, g in zip(host, loop):
+            assert torch.equal(h, g), f"problem {i} (N={n}, M={m})"
+        steps = host[1].sum(dim=-1) - args[4].sum(dim=-1)
+        assert len(nodes) == 1 and int(nodes[0][0]) == int(steps.max()), i
+
+
+def test_fused_params_kept_across_runs_are_unchanged(dev):
+    """Parameters a caller keeps from one fused run stay as they were
+    while the next run replays (each run hands back its own copy)."""
+    sim = FLSimulation(_small_cfg(aggregation="hierarchical", tau_global=2),
+                       device=dev)
+    sim.run(2, mode="fused")
+    kept = sim.params, sim.edge_params
+    frozen = [{k: {leaf: p.clone() for leaf, p in sub.items()}
+               for k, sub in tree.items()} for tree in kept]
+    sim.run(2, mode="fused")
+    torch.cuda.synchronize()
+    for tree, want in zip(kept, frozen):
+        for k in want:
+            for leaf in want[k]:
+                assert torch.equal(tree[k][leaf], want[k][leaf]), (k, leaf)
+    assert any(not torch.equal(sim.params[k][leaf], frozen[0][k][leaf])
+               for k in frozen[0] for leaf in frozen[0][k])
+
+
+def test_second_fused_run_replays(dev):
+    """A second run() replays the graph captured by the first: no new
+    capture, no call of the round step."""
+    sim = FLSimulation(_small_cfg(), device=dev)
+    sim.run(2, mode="fused")
+    assert sim.fused.n_graphs == 1 and sim.fused.replays == 2
+    capture_s = sim.fused.capture_s
+    calls = []
+    step_fn = sim.fused._step_fn
+    sim.fused._step_fn = lambda *a: calls.append(1) or step_fn(*a)
+    recs = sim.run(3, mode="fused")
+    assert [r.round_idx for r in recs] == [3, 4, 5]
+    assert calls == [] and sim.fused.n_graphs == 1
+    assert sim.fused.replays == 5 and sim.fused.capture_s == capture_s
+    assert len(sim.greedy_steps) == 3 and min(sim.greedy_steps) > 0
+
 
 # ------------------------------------------------ the LM kernels (7-9) --
 _TOL = {"rmsnorm": (1e-6, 2e-2), "flash": (2e-5, 2e-2), "ssd": (2e-4, 5e-2)}

@@ -272,10 +272,13 @@ def test_default_tau_global_is_five():
 
 
 def test_cli_runs_hierarchical_compressed_on_cpu(capsys):
-    fl_sim.main(["--device", "cpu", "--rounds", "2", "--n-train", "200",
-                 "--n-test", "40", "--batch-size", "4", "--local-epochs",
-                 "1", "--aggregation", "hierarchical", "--tau-global", "2",
-                 "--compress", "topk-int8", "--topk-frac", "0.1"])
+    # a tensor-step scheduler: as in JAX, the host greedy's eager path has
+    # no hierarchical aggregation or compressed uplink
+    fl_sim.main(["--device", "cpu", "--scheduler", "dagsa_jit", "--rounds",
+                 "2", "--n-train", "200", "--n-test", "40", "--batch-size",
+                 "4", "--local-epochs", "1", "--aggregation", "hierarchical",
+                 "--tau-global", "2", "--compress", "topk-int8",
+                 "--topk-frac", "0.1"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0].split() == ["round", "t_round", "clock", "users", "acc",
                                 "min_fair", "handover"]

@@ -96,7 +96,7 @@ def check_run_against_live_jax(extra: dict, mode=None, rounds: int = 3,
                                layers=None, params_check=None,
                                jax_extra: dict | None = None,
                                edges: bool = False, prefix: int | None = None,
-                               port=None):
+                               port=None, port_mode=None):
     """The port's run of the ``engine_sync`` world with the FLConfig
     fields ``extra`` against a live JAX run of the same config (``mode``
     as JAX's ``run`` takes it).  Exact: ``n_selected``, ``n_delivered``,
@@ -111,8 +111,8 @@ def check_run_against_live_jax(extra: dict, mode=None, rounds: int = 3,
     holds every parameter, rtol=1e-4, atol=1e-5, after the first
     ``prefix`` rounds: both runs stop there and resume (a run resumes
     exactly where it stopped).  ``port``: the port's (sim, records) of
-    this config, run already.  Returns the port's simulation and
-    records."""
+    this config, run already; ``port_mode`` the mode of the port's run
+    (None: its default).  Returns the port's simulation and records."""
     segments = [rounds] if prefix is None else [prefix, rounds - prefix]
     with jax.threefry_partitionable(True):
         jsim = JSimulation(JConfig(wireless=JWireless(n_users=12, n_bs=4),
@@ -136,7 +136,7 @@ def check_run_against_live_jax(extra: dict, mode=None, rounds: int = 3,
         for n in segments:
             if got:
                 t_prefix = params_to_numpy(tsim.params)
-            got += tsim.run(n)
+            got += tsim.run(n, mode=port_mode)
     assert [r.round_idx for r in got] == list(range(1, rounds + 1))
     if prefix is not None:
         for k in j_prefix:
