@@ -7,6 +7,7 @@
     python3 chip_smoke.py --lm         # step 1, the build, steps 7f-7g
     python3 chip_smoke.py --train      # step 1, the build, step 7h
     python3 chip_smoke.py --train-probe  # step 1, the build, run_train_probe
+    python3 chip_smoke.py --fused      # step 1, the build, step 6a
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
 2. builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` with
@@ -49,8 +50,9 @@
    top-k + int8 compressed uplink, and the four golden configs of the
    baselines / fault / async slice (``fedcs_low``; ``dagsa-r`` under
    ``faulty-uplink``; ``dagsa_jit`` async; ``dagsa-r`` faulty async, ticks
-   of 0.5 s, alpha 0.5), delivery and queue counts exact, and the four
-   stateful policies (``ucb``, ``biased-adaptive``, ``rr``, ``pf``);
+   of 0.5 s, alpha 0.5; on the card the async ones run captured ticks),
+   delivery and queue counts exact, and the four stateful policies
+   (``ucb``, ``biased-adaptive``, ``rr``, ``pf``);
 5. drives the port's full-width paths on the card, each with the kernels'
    launch counts zeroed just before it and read just after: the
    synchronous single-tier round (3 rounds, ``dagsa_jit``), hierarchical
@@ -78,6 +80,15 @@
    at 20,000 users x 100 BSs with ``compute="selected"`` (cap 100), its
    peak allocated bytes beside the dense fleet's 2 N P float32
    parameters and gradients, which it must stay below;
+6a. the fused phase: ``sync``, ``sync_selected``, ``hier_int8``,
+   ``faulty``, ``ucb``, ``faulty_async`` and ``faulty_async_selected``
+   again as captured rounds (``run(mode="fused")``; the async paths
+   ``run(mode="async")``, captured ticks), each held to its step or tick
+   loop run of step 5: decisions, assignments, delivery, in-flight and
+   dropped counts exact, times within rtol 1e-6, parameters within 1e-5,
+   derived launches equal; a ``{"fused_path": ...}`` line each, two of
+   them profiled, and a capture that reads the device on the host must
+   raise;
 6b. the scenario sweeps (``repro_torch.launch.sweep``): the four golden
    sweep configurations small on the card against the CPU, then, each
    with the launch counts zeroed just before it and read just after, the
@@ -92,11 +103,21 @@
    the wireless sweep in user chunks of 16 (``wireless_chunk``,
    paper-default and shadowed, 2 x 5; its records equal the unchunked
    run's), a ``compute="selected"`` learning sweep (``sweep_selected``,
-   paper-default and high-mobility, cap 16, 2 x 3); wall seconds a round and launches for each (a wireless
-   bucket runs its cells in lockstep, one batched greedy a round: the
-   batched calls and greedy steps too), and the profiled busy share of
-   one learning round, one wireless round and a round of every scenario
-   x 2 seeds;
+   paper-default and high-mobility, cap 16, 2 x 3); wall seconds a
+   round, peak allocated bytes and launches for each (a wireless bucket
+   runs its cells in lockstep, one batched greedy a round: the batched
+   calls and greedy steps too; the learning sweeps through the sweep's
+   uncaptured route, a host loop of the bucket step), and the profiled
+   busy share of one learning round, one wireless round and a round of
+   every scenario x 2 seeds; ``sweep_sync``, ``sweep_hier`` and
+   ``sweep_faulty_async`` again through the public
+   ``run_learning_sweep``, each bucket one captured CUDA graph a pattern
+   replayed once a round, records JSON-equal to the uncaptured run's and
+   derived launches equal (a ``{"fused_sweep": ...}`` line each: replay
+   and step-loop wall a cell round, capture seconds, graphs, replays,
+   peak allocated bytes, the card's reserved bytes after ``empty_cache``
+   before and after the sweep, ``sweep_sync``'s also after a second
+   captured run);
 6c. the ``shard`` phase: the same four paths unsharded here and on two
    gloo ranks sharing the card (``torchrun``, this script with
    ``--shard-rank DIR``): (a) the wireless sweep over every scenario x 2
@@ -110,8 +131,9 @@
    verdicts, (d)'s largest parameter difference and its entries past
    rtol 1e-4 / atol 1e-5 beside a one-process control (half the clients
    trained alone against the same clients in the whole fleet), and each
-   rank's launches a path (``shard_<path>_rank<r>`` in the kernels
-   line);
+   rank's launches a path (``shard_<path>_rank<r>`` in the kernels line;
+   (b)'s buckets are captured by each rank, so its derived counts print
+   on ``shard_learning_launches_derived`` lines instead);
 7. the LM serving slice (Zamba2-1.2B, 38 Mamba2 layers + one shared
    attention block every 6, at full width and full depth):
    a. holds kernels 7-9 (flash_attention, rmsnorm, ssd_scan) against their
@@ -201,6 +223,7 @@ non-zero when no CUDA device is present or when run outside the checkout.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -1344,8 +1367,9 @@ def run_path(dev, label: str, extra: dict, rounds: int,
     wrappers of kernels 4-6 checks the client rows they get, and each
     round's ``n_selected`` prints beside the cap.  ``on_ready()`` runs
     between the set-up and the first round.  ``mode``: ``run``'s mode,
-    None for the host loop (``"step"``, or the async tick loop), whose
-    launches the spies see call by call."""
+    None for the host loop (``FLSimulation._run_host``: the step loop,
+    or the async tick loop), whose launches the spies see call by
+    call."""
     from repro_torch.fl import rounds as fl_rounds
     from repro_torch.fl.rounds import FLSimulation
     from repro_torch.kernels import _lib
@@ -1361,9 +1385,6 @@ def run_path(dev, label: str, extra: dict, rounds: int,
           f"{sim.data.x_train.shape[0]}, n_test {sim.data.x_test.shape[0]}, "
           f"{json.dumps(extra)}", flush=True)
     faulty, is_async = sim.faults.active, cfg.aggregation_async
-    if mode is None:
-        mode = ("async" if is_async else "step" if sim.fused_capable
-                else "eager")
     selected = sim.compute == "selected"
     if faulty:
         calls, real = _fedavg_spy(fl_rounds)
@@ -1376,7 +1397,8 @@ def run_path(dev, label: str, extra: dict, rounds: int,
     try:
         for _ in range(rounds):
             t0 = time.perf_counter()
-            rec = sim.run(1, mode=mode)[0]
+            rec = (sim._run_host(1) if mode is None
+                   else sim.run(1, mode=mode))[0]
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             print(f"path {label} round {rec} wall_s="
@@ -1569,14 +1591,16 @@ def profile_round(sim, label: str, mode: str | None = None) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.run(1, mode=mode or ("async" if sim.aggregation_async
-                                 else "step"))
+        if mode is None:
+            sim._run_host(1)
+        else:
+            sim.run(1, mode=mode)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     phases, ops = _profile_phases(prof)
     busy_ms = sum(t for t, _ in ops.values())
     top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:12]
-    out = {"path": label, "mode": mode or "step", "wall_ms": wall_ms,
+    out = {"path": label, "mode": mode or "host loop", "wall_ms": wall_ms,
            "device_busy_ms": busy_ms,
            "device_busy_share": busy_ms / wall_ms, "phases": phases,
            "top_device_ops": [{"name": k[:80], "ms": t, "calls": c}
@@ -1598,8 +1622,11 @@ def profile_round(sim, label: str, mode: str | None = None) -> dict:
 # capture's counts once a replay, a WHILE body's once a pass, from the
 # node's device counter): they appear on the fused_path lines as
 # "launches_derived" and stay out of the kernels line, whose counts are
-# the step runs' launches.
-FUSED_TWINS = ("sync", "sync_selected", "hier_int8", "faulty", "ucb")
+# the step runs' launches.  The async twins run run(mode="async"), a tick
+# captured as a fused round is, and are held to their path's host tick
+# loop, delivery, in-flight and dropped counts exact.
+FUSED_TWINS = ("sync", "sync_selected", "hier_int8", "faulty", "ucb",
+               "faulty_async", "faulty_async_selected")
 FUSED_PROFILED = ("sync", "sync_selected")
 FUSED_RTOL = 1e-6
 FUSED_PARAM_TOL = 1e-5
@@ -1650,13 +1677,15 @@ def _params_clone(params) -> dict:
 def run_fused_twin(dev, label: str, extra: dict, rounds: int, step: dict,
                    spy: dict) -> dict:
     """``rounds`` fused rounds of path ``label`` (one ``run(1)`` a round,
-    timed to a sync), held to ``step`` (the path's step run: ``recs``,
-    ``params``, ``launches``, ``assigns``, ``walls``).  Prints and returns
-    a ``fused_path`` line."""
+    timed to a sync; ``mode="async"`` for an async path: captured ticks),
+    held to ``step`` (the path's step or tick loop: ``recs``, ``params``,
+    ``launches``, ``assigns``, ``walls``).  Prints and returns a
+    ``fused_path`` line."""
     from repro_torch.fl.rounds import FLSimulation
     from repro_torch.kernels import _lib
 
     sim = FLSimulation(path_config(extra), device=dev)
+    mode = "async" if sim.aggregation_async else "fused"
     w = sim.wireless
     spy["buf"] = torch.zeros((w.n_users, w.n_bs), dtype=torch.bool,
                              device=dev)
@@ -1665,7 +1694,7 @@ def run_fused_twin(dev, label: str, extra: dict, rounds: int, step: dict,
     try:
         for _ in range(rounds):
             t0 = time.perf_counter()
-            rec = sim.run(1, mode="fused")[0]
+            rec = sim.run(1, mode=mode)[0]
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             recs.append(rec)
@@ -1675,7 +1704,8 @@ def run_fused_twin(dev, label: str, extra: dict, rounds: int, step: dict,
         spy["buf"] = None
     launches = dict(_lib.LAUNCHES)
     for i, (g, want) in enumerate(zip(recs, step["recs"])):
-        for f in ("round_idx", "n_selected", "n_delivered"):
+        for f in ("round_idx", "n_selected", "n_delivered", "n_inflight",
+                  "n_dropped"):
             if getattr(g, f) != getattr(want, f):
                 raise AssertionError(f"fused {label} round {i + 1}: {f} "
                                      f"{getattr(g, f)} != step's "
@@ -1702,7 +1732,8 @@ def run_fused_twin(dev, label: str, extra: dict, rounds: int, step: dict,
     def median_after_first(v):
         return statistics.median(v[1:]) if len(v) > 1 else v[0]
 
-    out = {"fused_path": label, "card": CARD, "rounds": rounds,
+    out = {"fused_path": label, "mode": mode, "card": CARD,
+           "rounds": rounds,
            "wall_s_fused": walls, "wall_s_step": step["walls"],
            "replay_wall_s_median": median_after_first(walls),
            "step_wall_s_median": median_after_first(step["walls"]),
@@ -1780,7 +1811,8 @@ def run_paths(dev, labels, spy: dict) -> tuple:
 
 def run_fused_only(dev) -> None:
     """``--fused``: the step runs of FUSED_TWINS' paths, their profiled
-    rounds (FUSED_PROFILED) and the fused phase."""
+    rounds (FUSED_PROFILED) and the fused phase, then FUSED_SWEEPS' paths
+    uncaptured and captured."""
     spy, restore = assign_spy()
     try:
         sims, _, steps = run_paths(dev, FUSED_TWINS, spy)
@@ -1790,6 +1822,11 @@ def run_fused_only(dev) -> None:
         run_fused_phase(dev, steps, spy)
     finally:
         restore()
+    for label, learning, names, extra, required in SWEEP_PATHS:
+        if label in FUSED_SWEEPS:
+            out, launches, recs = run_sweep_path(dev, label, learning, names,
+                                                 extra, required)
+            run_fused_sweep(dev, label, names, extra, out, launches, recs)
 
 
 def run_fused_phase(dev, steps: dict, spy: dict) -> None:
@@ -1930,6 +1967,52 @@ LEARNING = dict(dataset="mnist", n_train=4000, n_test=1000, local_epochs=10,
                 batch_size=16, eval_every=1, seed=0)
 
 
+@contextlib.contextmanager
+def uncaptured_sweep():
+    """Route the learning sweep's buckets through its uncaptured route
+    (``sweep._run_bucket_host``: the host loop of the bucket step, each
+    kernel launched by its wrapper) inside, timing the round loops: yields
+    a list that fills with each bucket's loop seconds (to a sync)."""
+    from repro_torch.launch import sweep
+
+    loops, real = [], sweep._run_bucket
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sweep._run_bucket_host(*args)
+        torch.cuda.synchronize()
+        loops.append(time.perf_counter() - t0)
+        return out
+
+    sweep._run_bucket = timed
+    try:
+        yield loops
+    finally:
+        sweep._run_bucket = real
+
+
+@contextlib.contextmanager
+def captured_sweep_engines():
+    """Record each captured bucket's engine as it is released: yields a
+    list that fills with ``{"capture_s", "run_s", "graphs", "replays"}``
+    a bucket."""
+    from repro_torch.fl import fused
+
+    engines, real = [], fused.FusedRounds.release
+
+    def release(self):
+        engines.append({"capture_s": self.capture_s, "run_s": self.run_s,
+                        "graphs": self.n_graphs, "replays": self.replays})
+        real(self)
+
+    fused.FusedRounds.release = release
+    try:
+        yield engines
+    finally:
+        fused.FusedRounds.release = real
+
+
 def run_sweep_path(dev, label: str, learning: bool, names, extra: dict,
                    required: tuple) -> tuple:
     """One sweep through the port's entry point
@@ -1942,7 +2025,10 @@ def run_sweep_path(dev, label: str, learning: bool, names, extra: dict,
     prints the batched calls (kernel 3's launches), the greedy steps
     (kernel 2's launches less one a call) and kernel 1's launches.  A
     sweep with ``user_chunk`` is run again without it, and the two
-    records must be equal."""
+    records must be equal.  A learning sweep runs its buckets through the
+    uncaptured route (:func:`uncaptured_sweep`), whose launches are made
+    call by call; its captured twins are :func:`run_fused_sweep`'s.
+    Returns the ``sweep_path`` line, the launches and the records."""
     from repro_torch.core.scenario import SCENARIOS
     from repro_torch.core.types import WirelessConfig
     from repro_torch.kernels import _lib
@@ -1955,16 +2041,19 @@ def run_sweep_path(dev, label: str, learning: bool, names, extra: dict,
     names = list(SCENARIOS) if names == _ALL else names
     n_seeds, n_rounds = kw["n_seeds"], kw["n_rounds"]
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _lib.reset_launches()
     t0 = time.perf_counter()
     if learning:
-        recs = sweep.run_learning_sweep(names, cfg=cfg, device=dev,
-                                        cnn_cfg=CNNConfig.paper_scale(),
-                                        **LEARNING, **kw)
+        with uncaptured_sweep() as loops:
+            recs = sweep.run_learning_sweep(names, cfg=cfg, device=dev,
+                                            cnn_cfg=CNNConfig.paper_scale(),
+                                            **LEARNING, **kw)
     else:
         recs = sweep.run_sweep(names, cfg=cfg, device=dev, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     launches = dict(_lib.LAUNCHES)
     cells = len(names) * n_seeds
     calls = launches["best_bs_argmax"]
@@ -1978,6 +2067,9 @@ def run_sweep_path(dev, label: str, learning: bool, names, extra: dict,
     out = {"sweep_path": label, "scenarios": len(names), "seeds": n_seeds,
            "rounds": n_rounds, "n_users": cfg.n_users, "wall_s": wall,
            "wall_s_per_round": wall / (cells * n_rounds),
+           "peak_allocated_bytes": peak,
+           **({"loop_wall_s_per_cell_round": sum(loops)
+               / (cells * n_rounds)} if learning else {}),
            "launches": {k: v for k, v in launches.items() if v}, **greedy,
            **({"final_acc_mean": {r["scenario"]: r["final_acc_mean"]
                                   for r in recs}} if learning else
@@ -2014,14 +2106,104 @@ def run_sweep_path(dev, label: str, learning: bool, names, extra: dict,
         elif min(r["curves"]["n_selected"]) < minp:
             raise AssertionError(f"sweep {label} {r['scenario']}: fewer "
                                  f"users than the Eq. (8h) floor")
-    return out, launches
+    return out, launches, recs
+
+
+# The learning sweeps run again through the public run_learning_sweep, on
+# the card each bucket captured (one CUDA graph a pattern, replayed once a
+# round), and held to the path's uncaptured run of this call: records
+# JSON-equal and derived launches equal to its counted ones (kept off the
+# kernels line, as the fused twins' are).
+FUSED_SWEEPS = ("sweep_sync", "sweep_hier", "sweep_faulty_async")
+
+
+def _reserved() -> int:
+    """The card's reserved bytes once every freed block went back to it
+    (``torch.cuda.memory_reserved`` after ``empty_cache``)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def run_fused_sweep(dev, label: str, names, extra: dict, step: dict,
+                    step_launches: dict, step_recs: list) -> dict:
+    """The captured twin of learning path ``label`` (see FUSED_SWEEPS),
+    held to its uncaptured run (``step``: the ``sweep_path`` line,
+    ``step_launches``, ``step_recs``).  Prints and returns a
+    ``fused_sweep`` line: the whole call's wall, the replay and the step
+    loop's wall seconds a cell round, capture seconds, graphs, replays,
+    derived launches and peak allocated bytes beside the step run's, and
+    the bytes the card keeps reserved before and after the sweep (each
+    bucket's graphs and pools released at its end), the first path's also
+    after the same sweep captured once more."""
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import sweep
+    from repro_torch.models.cnn import CNNConfig
+
+    kw = dict(extra)
+    cells = len(names) * kw["n_seeds"]
+    cell_rounds = cells * kw["n_rounds"]
+    reserved_before = _reserved()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    with captured_sweep_engines() as engines:
+        recs = sweep.run_learning_sweep(names, device=dev,
+                                        cnn_cfg=CNNConfig.paper_scale(),
+                                        **LEARNING, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(_lib.LAUNCHES)
+    reserved_after = _reserved()
+    if not _same_json(recs, step_recs):
+        raise AssertionError(f"fused sweep {label}: records differ from "
+                             f"the uncaptured run's")
+    if launches != step_launches:
+        raise AssertionError(f"fused sweep {label}: derived launches "
+                             f"{launches} != the uncaptured run's "
+                             f"{step_launches}")
+    if not engines or any(e["replays"] != kw["n_rounds"] for e in engines):
+        raise AssertionError(f"fused sweep {label}: buckets {engines}, not "
+                             f"one replay a round")
+    capture = sum(e["capture_s"] for e in engines)
+    out = {"fused_sweep": label, "card": CARD, "cells": cells,
+           "rounds": kw["n_rounds"], "buckets": len(engines),
+           "wall_s": wall, "wall_s_step": step["wall_s"],
+           "replay_wall_s_per_cell_round": sum(
+               e["run_s"] - e["capture_s"] for e in engines) / cell_rounds,
+           "step_wall_s_per_cell_round": step["loop_wall_s_per_cell_round"],
+           "capture_s": capture,
+           "graphs": sum(e["graphs"] for e in engines),
+           "replays": sum(e["replays"] for e in engines),
+           "launches_derived": {k: v for k, v in launches.items() if v},
+           "peak_allocated_bytes": peak,
+           "peak_allocated_bytes_step": step["peak_allocated_bytes"],
+           "reserved_bytes_before": reserved_before,
+           "reserved_bytes_after": reserved_after,
+           "records_equal": True}
+    if label == FUSED_SWEEPS[0]:
+        # the same sweep captured again: a first capture leaves torch's
+        # per-stream library workspaces once; a later bucket's graphs,
+        # pools and kept buffers must leave nothing
+        again = sweep.run_learning_sweep(names, device=dev,
+                                         cnn_cfg=CNNConfig.paper_scale(),
+                                         **LEARNING, **kw)
+        if not _same_json(again, step_recs):
+            raise AssertionError(f"fused sweep {label}: a second captured "
+                                 f"run's records differ")
+        out["reserved_bytes_after_repeat"] = _reserved()
+    print(json.dumps(out), flush=True)
+    return out
 
 
 def profile_sweep_round(dev, learning: bool, rounds: int = 3,
                         names=("paper-default",), n_seeds: int = 1) -> dict:
     """A sweep of ``names`` (default paper-default), ``n_seeds`` seeds and
     ``rounds`` rounds through its entry point (``run_learning_sweep`` at
-    the paper's width, or ``run_sweep``; the first round schedules every
+    the paper's width through its uncaptured route, whose round phases
+    the profiler sees, or ``run_sweep``; the first round schedules every
     user, as Eq. (8g) makes them all necessary, the later ones run the
     greedy) under torch.profiler after a warm-up call: its wall ms
     (set-up included) and that a round, the device's busy share, each
@@ -2041,8 +2223,10 @@ def profile_sweep_round(dev, learning: bool, rounds: int = 3,
 
     def call():
         if learning:
-            return sweep.run_learning_sweep(
-                names, cnn_cfg=CNNConfig.paper_scale(), **LEARNING, **kw)
+            with uncaptured_sweep():
+                return sweep.run_learning_sweep(
+                    names, cnn_cfg=CNNConfig.paper_scale(), **LEARNING,
+                    **kw)
         return sweep.run_sweep(names, **kw)
 
     call()
@@ -2396,6 +2580,8 @@ def run_shard_phase(dev) -> dict:
     failed = [k for k, ok in verdicts.items() if not ok]
     if failed:
         raise AssertionError(f"shard: {failed} failed")
+    # the learning sweep's buckets are captured on the card: its counts
+    # are derived, so they print here and stay off the kernels line
     launches = {}
     for r, res in enumerate(ranks):
         for path, required in (("wireless", _SCHED),
@@ -2407,7 +2593,13 @@ def run_shard_phase(dev) -> dict:
                 if counts[name] <= 0:
                     raise AssertionError(f"shard {path} rank {r} never "
                                          f"launched {name}")
-            launches[f"shard_{path}_rank{r}"] = counts
+            if path == "learning":
+                print(json.dumps({"shard_learning_launches_derived": {
+                    "rank": r, "card": CARD,
+                    "launches": {k: v for k, v in counts.items() if v}}}),
+                    flush=True)
+            else:
+                launches[f"shard_{path}_rank{r}"] = counts
     return launches
 
 
@@ -4108,8 +4300,12 @@ def main(argv: list[str]) -> int:
     with phase("sweeps"):
         check_small_sweeps(dev)
         for label, learning, names, extra, required in SWEEP_PATHS:
-            _, launches[label] = run_sweep_path(dev, label, learning, names,
-                                                extra, required)
+            out, launches[label], recs = run_sweep_path(
+                dev, label, learning, names, extra, required)
+            if label in FUSED_SWEEPS:
+                run_fused_sweep(dev, label, names, extra, out,
+                                launches[label], recs)
+            del recs
             torch.cuda.empty_cache()
         profile_sweep_round(dev, learning=True)
         profile_sweep_round(dev, learning=False)

@@ -1,4 +1,5 @@
-"""The fused round engine: ``FLSimulation.run(mode="fused")``.
+"""The fused round engine: ``FLSimulation.run(mode="fused")`` and
+``run(mode="async")`` on the card, and a learning sweep's buckets.
 
 The JAX package runs a whole FL run as one ``lax.scan`` in one jitted
 program: no per-round dispatch or host sync, the records crossing to the
@@ -17,15 +18,21 @@ and replayed once a round:
   (:func:`repro_torch.kernels.graph_while.device_while`).
 * The state is static: the step is functional, and the graph copies its
   new state into the buffers it read, so each replay continues the run.
-  Each round's record is packed into one static float64 row, copied into
-  a ``[n_rounds, K]`` device buffer after the replay; the buffer crosses
-  to the host once, at the end of :meth:`FusedRounds.run`.
+  Each round's record is packed into one static float64 row (every output
+  flattened, its shape kept: 0-dim for an FL round, ``[G]`` for a sweep
+  bucket's G cells), copied into a ``[n_rounds, K]`` device buffer after
+  the replay; the buffer crosses to the host once, at the end of
+  :meth:`FusedRounds.run`.
 * Before a pattern's capture the step runs once, eagerly, on a side
   stream over a clone of the state (lazy initialisation stays out of the
   graph); the clone is dropped, so the run does not advance.
 
 * A run hands back a clone of the static state, so parameters a caller
   keeps from one run do not change under the next run's replays.
+* :meth:`FusedRounds.release` drops the graphs, the memory pools of the
+  graphs and of their device loops' bodies, the buffers the captures kept
+  for their replays, and the static state (a sweep releases each
+  bucket's before the next).
 
 A failed capture or replay raises; nothing falls back to the host loop.
 (On the CPU, asked for explicitly as the tests do, ``FLSimulation`` runs
@@ -38,6 +45,7 @@ WHILE nodes once (added at each replay) and a node's launches once a pass
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Callable
 
@@ -45,6 +53,21 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _lib, graph_while
+
+
+_warm_streams: dict[int, torch.cuda.Stream] = {}
+
+
+def _warm_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream of every warm-up on ``device``: one for the
+    process, so the buffers that libraries keep a stream (cuBLAS's
+    workspace, the kernels' eager workspaces) do not pile up a bucket."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    s = _warm_streams.get(index)
+    if s is None:
+        s = _warm_streams[index] = torch.cuda.Stream(device=index)
+    return s
 
 
 def _flatten(tree) -> list:
@@ -94,10 +117,11 @@ class _Graph:
 class FusedRounds:
     """Runs a round step as captured CUDA graphs (see the module doc).
 
-    ``step_fn(state, r, r_dev)`` is the round step of
-    :func:`repro_torch.fl.rounds.make_round_step`; ``pattern(r)`` the
-    host's branch decisions for round ``r`` (one graph a value), from the
-    same :func:`~repro_torch.fl.rounds.make_round_step`."""
+    ``step_fn(state, r, r_dev) -> (state', out)`` is the round step of
+    :func:`repro_torch.fl.rounds.make_round_step` (or a sweep bucket's
+    step over its cells, ``out``'s tensors then ``[G]``); ``pattern(r)``
+    the host's branch decisions for round ``r`` (one graph a value), from
+    the same :func:`~repro_torch.fl.rounds.make_round_step`."""
 
     def __init__(self, step_fn: Callable, pattern: Callable[[int], tuple],
                  device: torch.device):
@@ -109,10 +133,14 @@ class FusedRounds:
         self._static_leaves: list = []
         self._names: list[str] | None = None
         self._dtypes: list = []
+        self._shapes: list = []
         self._pool = None
+        self._held = _lib.Held()            # what the captures keep
         self._r_dev = None
         self.capture_s = 0.0                # seconds spent in warm-up and
                                             # capture, all patterns
+        self.run_s = 0.0                    # seconds spent in run(), the
+                                            # captures included
         self.replays = 0
 
     @property
@@ -124,12 +152,29 @@ class FusedRounds:
         these, plus a node's pass launches for each of its passes)."""
         return {str(k): dict(g.launches) for k, g in self._graphs.items()}
 
+    def release(self) -> None:
+        """Drop the graphs, their pools (the graphs' and their device
+        loops' bodies'), the buffers the captures kept and the static
+        state; a later :meth:`run` captures afresh.  The pools' memory
+        goes back to the card at the next ``torch.cuda.empty_cache``."""
+        if self._graphs:
+            torch.cuda.synchronize(self.device)
+        for g in self._graphs.values():
+            g.graph.reset()
+        self._graphs.clear()
+        self._held.release()
+        self._static, self._static_leaves = None, []
+        self._names, self._dtypes, self._shapes = None, [], []
+        self._pool = self._r_dev = None
+
     # ------------------------------------------------------------ run --
     def run(self, state, r0: int, n_rounds: int):
         """``n_rounds`` rounds from ``state`` at round index ``r0``:
         ``(state', records)``, ``state'`` a clone of the static state and
-        records a dict of [n_rounds] numpy columns, copied to the host
-        once."""
+        records a dict of ``[n_rounds, *shape]`` numpy arrays, an output's
+        shape in the step (``greedy_steps``: the WHILE nodes' passes a
+        round, summed), copied to the host once."""
+        t0 = time.perf_counter()
         self._adopt(state)
         rec = None
         for i, r in enumerate(range(r0, r0 + n_rounds)):
@@ -143,15 +188,18 @@ class FusedRounds:
                                   dtype=torch.float64, device=self.device)
             rec[i].copy_(g.packed)
         host = rec.cpu().numpy()                    # the one host copy
-        k = len(self._names)
+        cols, k = {}, 0
+        for name, dt, shape in zip(self._names, self._dtypes, self._shapes):
+            size = math.prod(shape)
+            cols[name] = host[:, k:k + size].reshape(
+                (n_rounds,) + shape).astype(dt)
+            k += size
         passes = host[:, k:]
         for (_, per_pass), col in zip(self._node_layout(), passes.T):
             _lib.add_launches(per_pass, int(col.sum()))
-        cols = {name: host[:, j].astype(dt)
-                for j, (name, dt) in enumerate(zip(self._names,
-                                                   self._dtypes))}
         if passes.shape[1]:
             cols["greedy_steps"] = passes.sum(axis=1).astype(np.int64)
+        self.run_s += time.perf_counter() - t0
         return _rebuild(self._static,
                         [t.clone() for t in self._static_leaves]), cols
 
@@ -192,7 +240,7 @@ class FusedRounds:
     def _warm_up(self, r: int) -> None:
         """One eager step over a clone of the state, on a side stream; its
         launches are not counted and its state is dropped."""
-        side = torch.cuda.Stream(device=self.device)
+        side = _warm_stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side), _lib.captured_launches():
             clone = _rebuild(self._static,
@@ -206,7 +254,8 @@ class FusedRounds:
         graph = torch.cuda.CUDAGraph()
         own = {t.untyped_storage().data_ptr(): i
                for i, t in enumerate(self._static_leaves)}
-        with _lib.captured_launches() as launches, \
+        with _lib.holding(self._held), \
+                _lib.captured_launches() as launches, \
                 graph_while.recording() as nodes:
             with torch.cuda.graph(graph, pool=self._pool):
                 new_state, out = self._step_fn(self._static, r, self._r_dev)
@@ -219,14 +268,15 @@ class FusedRounds:
                 for dst, src in zip(self._static_leaves, new):
                     dst.copy_(src)
                 names = sorted(out)
-                packed = torch.stack(
-                    [out[k].to(torch.float64) for k in names]
-                    + [p.to(torch.float64) for p, _ in nodes])
+                packed = torch.cat(
+                    [out[k].reshape(-1).to(torch.float64) for k in names]
+                    + [p.reshape(-1).to(torch.float64) for p, _ in nodes])
+        shapes = [tuple(out[k].shape) for k in names]
         if self._names is None:
-            self._names = names
+            self._names, self._shapes = names, shapes
             self._dtypes = [np.dtype(str(out[k].dtype).split(".")[-1])
                             for k in names]
-        elif names != self._names:
+        elif names != self._names or shapes != self._shapes:
             raise RuntimeError("the round's graphs record different fields")
         return _Graph(graph=graph, launches=launches, nodes=list(nodes),
                       packed=packed)

@@ -74,7 +74,10 @@ same round step, so they take the same decisions):
   round (``eager`` is the host greedies' only mode; JAX's refusals hold
   for both).
 * ``async``: the buffered-async tick loop, the only mode of an
-  ``aggregation_async`` run.
+  ``aggregation_async`` run.  On the card each tick replays a CUDA graph
+  as a fused round does (the tick index read from the device); a
+  ``shard=True`` run over several ranks keeps the host loop there, its
+  gloo all-gather being a host call.
 """
 from __future__ import annotations
 
@@ -127,7 +130,7 @@ FUSED_SCHEDULERS = ("dagsa_jit", "dagsa-r", "rs", "ub", "fedcs_low",
 # run()'s execution modes, as JAX's: "fused" (on the card a captured round
 # replayed once a round, :mod:`repro_torch.fl.fused`), "step" and "eager"
 # (the host loop, one call of the step a round), "async" (the buffered-
-# async tick loop).
+# async tick loop, on the card a captured tick replayed once a tick).
 MODES = ("fused", "step", "eager", "async")
 
 # A named range per round phase, read by torch.profiler (chip_smoke.py's
@@ -435,6 +438,15 @@ def async_busy(queue: tuple, n_users: int) -> torch.Tensor:
                                  device=idx.device))
 
 
+def _tick_index(r, dev) -> torch.Tensor:
+    """The tick index as a 0-dim int32 device tensor.  ``r`` is an int or
+    the round's device index (a 0-dim float32 tensor, exact for every tick
+    below 2^24), which a captured tick reads in place of a host scalar."""
+    if isinstance(r, torch.Tensor):
+        return r.to(torch.int32)
+    return const(int(r), torch.int32, dev)
+
+
 def async_queue_step(queue: tuple, client_params, dispatch: torch.Tensor,
                      comp_time: torch.Tensor, data_sizes: torch.Tensor, r,
                      tick_end, staleness_alpha, admit_idx=None) -> tuple:
@@ -442,9 +454,11 @@ def async_queue_step(queue: tuple, client_params, dispatch: torch.Tensor,
 
     The queue's rows come first, then this tick's dispatch rows in client
     order (``dispatch`` [N] bool, ``comp_time`` [N] absolute completion
-    times).  Every live entry completing by ``tick_end`` is delivered; the
-    rest are sorted by completion time (stable, so equal times keep row
-    order) and cut to capacity (the latest completions are evicted).
+    times), stamped with tick ``r`` (an int, or the round's 0-dim float32
+    device index).  Every live entry completing by ``tick_end`` is
+    delivered; the rest are sorted by completion time (stable, so equal
+    times keep row order) and cut to capacity (the latest completions are
+    evicted).
 
     ``admit_idx`` [cap] admits ``compute="selected"`` rows:
     ``client_params`` leaves are [cap, ...], row j owned by client
@@ -468,9 +482,9 @@ def async_queue_step(queue: tuple, client_params, dispatch: torch.Tensor,
         rows = admit_idx.to(torch.int32)
         dispatch, comp_time = dispatch[admit_idx], comp_time[admit_idx]
         data_sizes = data_sizes[admit_idx]
+    r_i32 = _tick_index(r, dev)
     comp = torch.cat([comp_q, torch.where(dispatch, comp_time, torch.inf)])
-    tick = torch.cat([tick_q, torch.full((rows.shape[0],), int(r),
-                                         dtype=torch.int32, device=dev)])
+    tick = torch.cat([tick_q, r_i32.expand(rows.shape[0])])
     idx = torch.cat([idx_q, torch.where(dispatch, rows, n)])
     size = torch.cat([size_q, torch.where(dispatch, data_sizes.float(),
                                           0.0)])
@@ -478,7 +492,7 @@ def async_queue_step(queue: tuple, client_params, dispatch: torch.Tensor,
                    client_params)
 
     deliver = torch.isfinite(comp) & (comp <= tick_end)       # [B+rows]
-    wst = fl_server.staleness_weights(int(r) - tick, staleness_alpha)
+    wst = fl_server.staleness_weights(r_i32 - tick, staleness_alpha)
     # delivered entries land in their client's row (busy-masking makes
     # those indices unique); the others go to the sentinel and drop
     scat = torch.where(deliver, idx, n)
@@ -528,9 +542,10 @@ def async_round_tick(params, queue: tuple, x_clients, y_clients, keys,
     (``compute="full"``) or on the ``select_cap`` rows of the dispatch
     set (``compute="selected"``: training and the queue admit are [cap]
     rows), each dispatched client's completion time ``now + t_user`` with
-    ``now = r * tick_s``, one step of the event queue, and the
-    staleness-weighted Eq. (2) over what landed by ``now + tick_s`` (the
-    deliveries scattered to [N] client rows).
+    ``now = r * tick_s`` (``r`` the round's 0-dim float32 device index,
+    which a captured tick reads in place), one step of the event queue,
+    and the staleness-weighted Eq. (2) over what landed by
+    ``now + tick_s`` (the deliveries scattered to [N] client rows).
 
     A compressed uplink's lossy round trip happens at dispatch (the queue
     parks what the server will decode), and a client whose raw update
@@ -561,8 +576,8 @@ def async_round_tick(params, queue: tuple, x_clients, y_clients, keys,
                 base=torch.ones_like(dispatch))
         dispatch = dispatch & finite
     dev = dispatch.device
-    tick = torch.tensor(tick_s, dtype=torch.float32, device=dev)
-    now = torch.tensor(float(r), dtype=torch.float32, device=dev) * tick
+    tick = const(tick_s, torch.float32, dev)
+    now = r * tick
     with span("round.queue"):
         queue, delivered, wstale, delivered_upd, diag = async_queue_step(
             queue, client_params, dispatch, now + t_user, data_sizes, r,
@@ -693,10 +708,11 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
     takes on the host from the round index ``r`` (an evaluation round, a
     hierarchical global sync); the step reads its branches there, so a
     captured round (:mod:`repro_torch.fl.fused`) keys its graphs by it.
-    The other uses of ``r`` (a host scheduler's seed, the async tick's
-    clock) belong to runs that never run captured.  ``r_dev``, the same index as a
-    0-dim float32 device tensor, is what the device reads (None: filled
-    from ``r``): a captured round fills it before each replay.
+    The other use of ``r``, a host scheduler's seed, belongs to runs that
+    never run captured.  ``r_dev``, the same index as a 0-dim float32
+    device tensor, is what the device reads (None: filled from ``r``), the
+    async tick's clock and staleness among it: a captured round fills it
+    before each replay.
 
     ``world`` picks how a round draws its world, as in the JAX package:
 
@@ -745,7 +761,8 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
     het_tcomp, het_power = _heterogeneity(
         k_shadow, n, float(p["compute_spread"]), float(p["power_spread_db"]),
         folded=not sweep)
-    shadow_sigma = p["shadow_sigma"]
+    # read on the host once, outside any round (the float32 value, exact)
+    shadow_sigma = float(p["shadow_sigma"])
     if sweep:
         tc_lo = p["tcomp_min"]
         tc_span = p["tcomp_max"] - p["tcomp_min"]
@@ -909,7 +926,7 @@ def make_round_step(cfg: FLConfig, w: WirelessConfig, *, scenario: dict,
             eligible = res.selected & ~async_busy(queue, n)
             params, queue, delivered, diag = async_round_tick(
                 params, queue, x_clients, y_clients, keys, eligible & gate,
-                t_user, data_sizes, r, tick_s=tick_s,
+                t_user, data_sizes, r_dev, tick_s=tick_s,
                 staleness_alpha=staleness_alpha, **data_kw)
             t_round = torch.full((), tick_s, dtype=torch.float32, device=dev)
         else:
@@ -1206,26 +1223,39 @@ class FLSimulation:
         ``"eager"`` (the host loop, one call of the round step a round;
         ``"eager"`` is the only mode of the host greedies), or ``"async"``
         (the buffered-async tick loop, the default and only mode when
-        ``aggregation_async``).  The modes take the same steps, so their
-        decisions agree exactly."""
+        ``aggregation_async``: on the card a tick captured as CUDA graphs
+        and replayed, as ``"fused"`` runs a round; on the CPU, and on a
+        ``shard=True`` run over several ranks, whose gloo all-gather a
+        graph cannot hold, the host loop of the tick step).  The modes
+        take the same steps, so their decisions agree exactly."""
         mode = self._resolve_mode(mode)
         if n_rounds <= 0:
             return []
-        if mode == "fused" and self.device.type == "cuda":
-            if self.fused is None:
-                self.fused = fused_engine.FusedRounds(
-                    self._step_fn, self._pattern, self.device)
-            self._state, stacked = self.fused.run(self._state, self.round_idx,
-                                                  n_rounds)
-            self.greedy_steps = list(stacked.pop("greedy_steps", []))
-        else:
-            # the host loop (a fused run on the CPU is the same step)
-            outs = []
-            for r in range(self.round_idx, self.round_idx + n_rounds):
-                self._state, out = self._step_fn(self._state, r)
-                outs.append(out)
-            stacked = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
-                       for k in outs[0]}                 # the one host copy
+        sharded = self.mesh is not None and self.mesh.world_size > 1
+        if self.device.type != "cuda" or mode in ("step", "eager") or (
+                mode == "async" and sharded):
+            # the host loop: a fused run or async tick on the CPU is the
+            # same step, and a sharded tick's gloo all-gather cannot sit in
+            # a graph
+            return self._run_host(n_rounds)
+        if self.fused is None:
+            self.fused = fused_engine.FusedRounds(self._step_fn,
+                                                  self._pattern, self.device)
+        self._state, stacked = self.fused.run(self._state, self.round_idx,
+                                              n_rounds)
+        self.greedy_steps = list(stacked.pop("greedy_steps", []))
+        return self._records(stacked, n_rounds)
+
+    def _run_host(self, n_rounds: int) -> list[RoundRecord]:
+        """``n_rounds`` rounds in the host loop, one call of the round step
+        a round, whatever the device (the ``step`` and ``eager`` modes;
+        the card's checks hold a captured run to it)."""
+        outs = []
+        for r in range(self.round_idx, self.round_idx + n_rounds):
+            self._state, out = self._step_fn(self._state, r)
+            outs.append(out)
+        stacked = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
+                   for k in outs[0]}                     # the one host copy
         return self._records(stacked, n_rounds)
 
     def run_round(self) -> RoundRecord:

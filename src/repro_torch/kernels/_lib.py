@@ -88,6 +88,60 @@ _lock = threading.Lock()
 _entries: dict[str, ctypes._CFuncPtr] = {}  # name -> resolved entry point
 _workspaces: dict[tuple, torch.Tensor] = {}  # (name, device, stream) -> buf
 _kept: list[torch.Tensor] = []  # retired and graph-owned workspaces
+_holders: list["Held"] = []
+
+
+class Held:
+    """What captures keep alive for their graphs: buffers they allocated
+    and read at every replay, and the memory pools they opened (a device
+    loop's body).  The graphs' owner collects them (:func:`holding`) and
+    drops them with its graphs (:meth:`release`)."""
+
+    def __init__(self) -> None:
+        self.tensors: list[torch.Tensor] = []
+        self.pools: list[tuple] = []            # (device index, pool id)
+
+    def release(self) -> None:
+        """Drop the buffers and each pool's reference; call once the graphs
+        that use them are reset.  A pool's memory goes back to the card at
+        the next ``torch.cuda.empty_cache`` once no tensor holds it."""
+        self.tensors.clear()
+        for index, pool in self.pools:
+            torch._C._cuda_releasePool(index, pool)
+        self.pools.clear()
+
+
+class holding:
+    """``with holding(held):`` around a graph capture: what the capture
+    keeps (:func:`keep`, :func:`keep_pool`) goes into ``held`` instead of
+    living as long as the process."""
+
+    def __init__(self, held: Held) -> None:
+        self.held = held
+
+    def __enter__(self) -> Held:
+        _holders.append(self.held)
+        return self.held
+
+    def __exit__(self, *exc) -> None:
+        _holders.pop()
+
+
+def keep(*tensors: torch.Tensor) -> None:
+    """Keep ``tensors`` alive as long as the graph being captured may
+    replay: in the innermost :func:`holding`, else for the process."""
+    if _holders:
+        _holders[-1].tensors.extend(tensors)
+    else:
+        _kept.extend(tensors)
+
+
+def keep_pool(index: int, pool) -> None:
+    """A memory pool a capture opened: the innermost :func:`holding`
+    releases it with its graphs; outside one it lives as long as the
+    process."""
+    if _holders:
+        _holders[-1].pools.append((index, pool))
 
 
 def reset_launches() -> None:
@@ -222,12 +276,13 @@ def workspace(name: str, index: int, nbytes: int) -> torch.Tensor:
     share one; calls on one stream run in order).  A grown buffer retires
     the old one but keeps it alive: a CUDA graph captured earlier may still
     replay into it.  A call being captured into a graph gets a buffer of
-    its own, zeroed by a node of that graph and kept for the life of the
-    process, so graphs replayed on different streams never share one."""
+    its own, zeroed by a node of that graph and kept as long as the graph
+    (:func:`keep`), so graphs replayed on different streams never share
+    one."""
     device = torch.device("cuda", index)
     if torch.cuda.is_current_stream_capturing():
         buf = torch.zeros((nbytes,), dtype=torch.uint8, device=device)
-        _kept.append(buf)
+        keep(buf)
         return buf
     key = (name, index, torch._C._cuda_getCurrentRawStream(index))
     buf = _workspaces.get(key)

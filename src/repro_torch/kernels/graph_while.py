@@ -11,8 +11,10 @@ host loop with one sync a pass (the flag's read).
 
 A body must keep its loop state in tensors it updates in place: the
 captured pass replays on the same addresses.  Its allocations go to a
-memory pool of their own, kept for the life of the process (a graph that
-holds the node may replay at any time).
+memory pool of their own, kept with the node's flag and pass counter as
+long as the graph may replay: by the graph's owner, which collects them
+(:class:`repro_torch.kernels._lib.holding`) and releases them with its
+graph, else for the life of the process.
 
 Launch accounting: the kernels a body launches are captured once but run
 once a pass.  Each node keeps a device counter of its passes in the
@@ -98,7 +100,8 @@ def device_while(cond: Callable[[], torch.Tensor],
             _lib.launch("graph_while_end", index, flag.data_ptr(), handle)
         finally:
             _end_pool(index, pool)
-    # the node's buffers live as long as the graph may replay
-    _lib._kept.extend((flag, passes))
+    # the node's buffers and pool live as long as the graph may replay
+    _lib.keep(flag, passes)
+    _lib.keep_pool(index, pool)
     if _recorders:
         _recorders[-1].append((passes, per_pass))

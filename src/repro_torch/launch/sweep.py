@@ -14,9 +14,13 @@ the cells of a shape bucket into one compiled call.  The port runs a
 wireless bucket's cells in lockstep: each round every cell draws its
 world (mobility dispatches on the host by model id, cell by cell), then
 one batched greedy (``dagsa_jit._schedule_batch``) schedules the whole
-bucket, with one host sync a greedy step for the bucket.  Learning cells
-run one after another (their round step schedules inside the FL data
-plane).
+bucket, with one host sync a greedy step for the bucket.  A learning
+bucket's cells advance in lockstep as one step (each cell's round step in
+cell order, the outputs stacked to [G]); on the card that step runs as
+one captured CUDA graph a host-decided pattern (an evaluation round, a
+hierarchical global sync), replayed once a round, as JAX runs a bucket as
+one compiled call (:mod:`repro_torch.fl.fused`; on the CPU the same step
+in a host loop).
 
     PYTHONPATH=src python -m repro_torch.launch.sweep \\
         --scenarios paper-default,high-mobility --seeds 2 --rounds 3
@@ -62,6 +66,7 @@ from repro_torch.core.scenario import (BS_LAYOUTS, COMPRESS_MODES, PARTITIONS,
 from repro_torch.core.types import WirelessConfig
 # registers the faulty-* scenarios
 from repro_torch.fl import faults as fl_faults
+from repro_torch.fl import fused as fused_engine
 from repro_torch.fl.rounds import COMPUTE_MODES, check_compute, span
 
 # The JAX package's sweep schedulers.
@@ -330,34 +335,31 @@ def run_sweep(scenarios: Sequence[str | ScenarioSpec], n_seeds: int = 4,
 
 
 # ---------------------------------------------------- learning-curve sweep --
-def _one_learning_cell(p: dict, key: torch.Tensor, x_c, y_c, params0,
-                       x_test, y_test, *, cfg: WirelessConfig, n_rounds: int,
-                       minp: int, epochs: int, batch_size: int, lr: float,
-                       eval_every: int, aggregation: str = "single",
-                       tau_global: int = 1, scheduler: str = "dagsa_jit",
-                       faults: fl_faults.FaultSpec = fl_faults.NO_FAULTS,
-                       async_on: bool = False, tick_s: float = 1.0,
-                       staleness_alpha: float = 0.0, buffer_size: int = 1,
-                       channel_dtype: str = "f32",
-                       compress: str | None = None,
-                       topk_frac: float = 1.0,
-                       user_chunk: int | None = None,
-                       compute: str = "full",
-                       select_cap: int | None = None) -> dict:
-    """One (scenario, seed) FL cell: draw the world, then run the
+def _learning_cell_step(p: dict, key: torch.Tensor, x_c, y_c, params0,
+                        x_test, y_test, *, cfg: WirelessConfig, minp: int,
+                        epochs: int, batch_size: int, lr: float,
+                        eval_every: int, aggregation: str = "single",
+                        tau_global: int = 1, scheduler: str = "dagsa_jit",
+                        faults: fl_faults.FaultSpec = fl_faults.NO_FAULTS,
+                        async_on: bool = False, tick_s: float = 1.0,
+                        staleness_alpha: float = 0.0, buffer_size: int = 1,
+                        channel_dtype: str = "f32",
+                        compress: str | None = None, topk_frac: float = 1.0,
+                        user_chunk: int | None = None, compute: str = "full",
+                        select_cap: int | None = None) -> tuple:
+    """One (scenario, seed) FL cell: its world drawn from its key, and the
     canonical round step (:func:`repro_torch.fl.rounds.make_round_step`,
-    ``world="sweep"``) for ``n_rounds`` rounds (ticks of ``tick_s`` when
-    ``async_on``).  ``faults`` is the scenario's resolved fault model;
-    ``select_cap`` None trains the whole fleet under
-    ``compute="selected"``.  Returns the step's records, [R] tensors
-    each."""
+    ``world="sweep"``; ticks of ``tick_s`` when ``async_on``).
+    ``faults`` is the scenario's resolved fault model; ``select_cap`` None
+    trains the whole fleet under ``compute="selected"``.  Returns the
+    step's ``(init_state, step_fn, pattern)``."""
     from repro_torch.fl.rounds import FLConfig, make_round_step
 
     k_shadow, k_run, pos0, bs_pos, bs_bw, aux0 = _cell_world(p, key, cfg)
     dev = pos0.device
     plan = FLConfig(scheduler=scheduler, local_epochs=epochs,
                     batch_size=batch_size, lr=lr, eval_every=eval_every)
-    state, step, _ = make_round_step(
+    return make_round_step(
         plan, cfg, scenario=p, x_clients=x_c, y_clients=y_c,
         data_sizes=torch.full((cfg.n_users,), x_c.shape[1],
                               dtype=torch.int32, device=dev),
@@ -370,11 +372,56 @@ def _one_learning_cell(p: dict, key: torch.Tensor, x_c, y_c, params0,
         tick_s=tick_s, staleness_alpha=staleness_alpha,
         buffer_size=buffer_size, user_chunk=user_chunk, compute=compute,
         select_cap=select_cap)
+
+
+def _bucket_step(cells: list[tuple]) -> tuple:
+    """One step over a bucket's G cells, each ``(init_state, step_fn,
+    pattern)``: ``(states, step_fn, pattern)`` with the state the tuple of
+    the cells' states, each cell's step run in cell order and every output
+    stacked to ``[G]``.  A bucket's cells share ``eval_every`` and
+    ``tau_global``, so their patterns agree: the first cell's."""
+    steps = [step for _, step, _ in cells]
+
+    def step_fn(states: tuple, r: int, r_dev=None):
+        new, outs = [], []
+        for state, step in zip(states, steps):
+            state, out = step(state, r, r_dev)
+            new.append(state)
+            outs.append(out)
+        return tuple(new), {k: torch.stack([o[k] for o in outs])
+                            for k in outs[0]}
+    return tuple(state for state, _, _ in cells), step_fn, cells[0][2]
+
+
+def _run_bucket_host(states: tuple, step_fn, pattern, n_rounds: int,
+                     dev: torch.device) -> dict:
+    """``n_rounds`` of a bucket step in the host loop, one call a round
+    (the CPU's route; on the card the uncaptured twin of
+    :func:`_run_bucket`): ``{name: [G, R] tensor}``."""
     outs = []
     for r in range(n_rounds):
-        state, out = step(state, r)
+        states, out = step_fn(states, r)
         outs.append(out)
-    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    return {k: torch.stack([o[k] for o in outs], dim=-1) for k in outs[0]}
+
+
+def _run_bucket(states: tuple, step_fn, pattern, n_rounds: int,
+                dev: torch.device) -> dict:
+    """``n_rounds`` of a bucket step, as JAX runs a bucket in one compiled
+    call: on the card one captured CUDA graph a pattern
+    (:class:`repro_torch.fl.fused.FusedRounds`), replayed once a round and
+    released when the bucket ends; elsewhere :func:`_run_bucket_host`.
+    Returns ``{name: [G, R] tensor}``."""
+    if dev.type != "cuda":
+        return _run_bucket_host(states, step_fn, pattern, n_rounds, dev)
+    engine = fused_engine.FusedRounds(step_fn, pattern, dev)
+    try:
+        _, cols = engine.run(states, 0, n_rounds)
+    finally:
+        engine.release()
+    cols.pop("greedy_steps", None)
+    return {k: torch.from_numpy(np.ascontiguousarray(v.T))
+            for k, v in cols.items()}
 
 
 def _finite_or_none(xs) -> list:
@@ -588,9 +635,11 @@ def run_learning_sweep(scenarios: Sequence[str | ScenarioSpec],
     ``compute="selected"`` trains a static ``select_cap``-row gather of
     each round's scheduled (async: dispatched) clients in the sync and
     async engines; unlike :class:`~repro_torch.fl.rounds.FLSimulation`, a
-    None cap is the whole fleet, as in the JAX package's sweep.  ``mesh``
-    runs this rank's block of each bucket's cells, one after another, and
-    gathers the rest, as :func:`run_sweep` does."""
+    None cap is the whole fleet, as in the JAX package's sweep.  A
+    bucket's cells advance in lockstep, on the card as captured rounds
+    (the module doc).  ``mesh`` runs this rank's block of each bucket's
+    cells the same way, and gathers the rest, as :func:`run_sweep`
+    does."""
     from repro_torch.data.synthetic import make_dataset
     from repro_torch.kernels import compress_topk as ct
     from repro_torch.models import cnn
@@ -640,8 +689,9 @@ def run_learning_sweep(scenarios: Sequence[str | ScenarioSpec],
             data, cnn_cfg, k_part, k_init, n_seeds, n_users, shards_per_user,
             partition=part, dirichlet_alpha=alpha)
         params = _scenario_params([s for _, s in group], bcfg, device=dev)
+        rows = [_row(params, i) for i in range(len(group))]
         cell_kw = dict(
-            cfg=bcfg, n_rounds=n_rounds, minp=minp, epochs=local_epochs,
+            cfg=bcfg, minp=minp, epochs=local_epochs,
             batch_size=batch_size, lr=float(lr), eval_every=eval_every,
             aggregation=agg, tau_global=tau, scheduler=scheduler,
             async_on=aggregation_async,
@@ -652,13 +702,15 @@ def run_learning_sweep(scenarios: Sequence[str | ScenarioSpec],
             user_chunk=user_chunk, compute=compute, select_cap=select_cap)
 
         def run(cells):
-            outs = [_one_learning_cell(
-                _row(params, i), seed_keys[j], x_c[j], y_c[j], w0[j],
+            # the graphs read the rows, the seeds' data and inits and the
+            # test set in place: all outlive the bucket's graphs
+            states, step, pattern = _bucket_step([_learning_cell_step(
+                rows[i], seed_keys[j], x_c[j], y_c[j], w0[j],
                 data.x_test, data.y_test,
                 faults=(group[i][1].faults if faults_on
                         else fl_faults.NO_FAULTS), **cell_kw)
-                for i, j in cells]
-            return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+                for i, j in cells])
+            return _run_bucket(states, step, pattern, n_rounds, dev)
         async_info = ({"aggregation_async": True, "tick_s": float(tick_s),
                        "staleness_alpha": float(staleness_alpha),
                        "buffer_size": buf}

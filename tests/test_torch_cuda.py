@@ -12,6 +12,7 @@ tests/test_kernels.py grants their Pallas counterparts: rmsnorm 1e-6 /
 2e-2, flash attention 2e-5 / 2e-2, the SSD scan 2e-4 / 5e-2.
 """
 import dataclasses
+import gc
 import math
 
 import numpy as np
@@ -897,6 +898,141 @@ def test_second_fused_run_replays(dev):
     assert calls == [] and sim.fused.n_graphs == 1
     assert sim.fused.replays == 5 and sim.fused.capture_s == capture_s
     assert len(sim.greedy_steps) == 3 and min(sim.greedy_steps) > 0
+
+
+_ASYNC = dict(aggregation_async=True, tick_s=0.5, staleness_alpha=0.5)
+
+
+@pytest.mark.parametrize("extra", [
+    dict(_ASYNC), dict(_ASYNC, scheduler="dagsa-r", faults="faulty-uplink"),
+    dict(_ASYNC, scheduler="dagsa-r", faults="faulty-uplink",
+         compute="selected", select_cap=4),
+], ids=["async", "faulty_async", "faulty_async_selected"])
+def test_captured_async_run_equals_host_tick_loop(dev, extra):
+    """run(5, mode="async") replays captured ticks: counts and records
+    equal the host tick loop's over the same state (``_run_host``),
+    parameters bit-equal, launch counts equal, one graph and 5 replays."""
+    cfg = _small_cfg(**extra)
+    host = FLSimulation(cfg, device=dev)
+    _lib.reset_launches()
+    want = host._run_host(5)
+    host_launches = dict(_lib.LAUNCHES)
+    sim = FLSimulation(cfg, device=dev)
+    _lib.reset_launches()
+    got = sim.run(5, mode="async")
+    assert dict(_lib.LAUNCHES) == host_launches
+    assert sim.fused.n_graphs == 1 and sim.fused.replays == 5
+    assert any(r.n_delivered > 0 for r in got)
+    for a, b in zip(want, got):
+        assert _same_record(a, b), (a, b)
+    for k in host.params:
+        for leaf in host.params[k]:
+            assert torch.equal(host.params[k][leaf], sim.params[k][leaf]), \
+                (k, leaf)
+
+
+def test_async_capture_failure_raises(dev, monkeypatch):
+    """A tick that reads the device on the host cannot be captured: the
+    async run raises after the warm-up and the capture attempt, and the
+    run does not advance."""
+    from repro_torch.fl import rounds as fl_rounds
+    real = fl_rounds.async_queue_step
+    calls = []
+
+    def syncing(*args, **kw):
+        out = real(*args, **kw)
+        calls.append(torch.cuda.is_current_stream_capturing())
+        int(out[4]["n_delivered"])          # a host read a capture refuses
+        return out
+
+    monkeypatch.setattr(fl_rounds, "async_queue_step", syncing)
+    sim = FLSimulation(_small_cfg(**_ASYNC), device=dev)
+    with pytest.raises(RuntimeError):
+        sim.run(2, mode="async")
+    assert calls == [False, True]
+    assert sim.round_idx == 0 and sim.fused.n_graphs == 0
+    torch.cuda.synchronize()
+
+
+_BUCKETS = [
+    ("sync", ["paper-default"], dict(), 1, 1),
+    ("hier", ["paper-default"], dict(aggregation="hierarchical",
+                                     tau_global=2), 1, 2),
+    ("faulty_async", ["faulty-uplink"], dict(scheduler="dagsa-r", **_ASYNC),
+     1, 1),
+    ("ucb", ["paper-default"], dict(scheduler="ucb"), 1, 1),
+    ("selected", ["paper-default"], dict(compute="selected", select_cap=4),
+     1, 1),
+    ("topk_int8", ["paper-default"], dict(compress="topk-int8",
+                                          topk_frac=0.1), 1, 1),
+    ("int8_plane", ["paper-default"], dict(channel_dtype="int8"), 1, 1),
+    ("bf16_plane", ["high-mobility"], dict(channel_dtype="bf16"), 1, 1),
+    ("worlds", ["hetero-compute", "non-iid-pathological", "shadowed"],
+     dict(user_chunk=5), 2, 1),
+]
+
+
+@pytest.mark.parametrize("names,extra,buckets,graphs",
+                         [c[1:] for c in _BUCKETS],
+                         ids=[c[0] for c in _BUCKETS])
+def test_captured_learning_bucket_equals_host_route(dev, names, extra,
+                                                    buckets, graphs,
+                                                    monkeypatch):
+    """Learning buckets of two seeds a scenario captured and replayed once
+    a round: records equal to the sweep's uncaptured route on the card,
+    one graph a pattern, each bucket released at its end."""
+    from repro_torch.fl import fused
+    from repro_torch.launch import sweep
+
+    kw = dict(cfg=WirelessConfig(n_users=12, n_bs=4), n_seeds=2,
+              n_rounds=3, n_train=120, n_test=40, local_epochs=1,
+              batch_size=10, seed=7, device=dev, **extra)
+    engines = []
+    real_release = fused.FusedRounds.release
+
+    def release(self):
+        engines.append((self.n_graphs, self.replays))
+        real_release(self)
+
+    monkeypatch.setattr(fused.FusedRounds, "release", release)
+    got = sweep.run_learning_sweep(names, **kw)
+    assert engines == [(graphs, 3)] * buckets
+    monkeypatch.setattr(sweep, "_run_bucket", sweep._run_bucket_host)
+    want = sweep.run_learning_sweep(names, **kw)
+    assert chip_smoke._same_json(got, want)
+
+
+def test_released_buckets_give_their_memory_back(dev, monkeypatch):
+    """A released bucket's graphs, the pools of their device loops' bodies
+    and the buffers the captures kept go back to the card: over learning
+    sweeps of two buckets each, the memory reserved after ``empty_cache``
+    stays flat.  With the holder's release disabled the body pools stay,
+    and the same reading grows (the check sees a leak)."""
+    from repro_torch.launch import sweep
+
+    names = ["hetero-compute", "non-iid-pathological", "shadowed"]
+    kw = dict(cfg=WirelessConfig(n_users=12, n_bs=4), n_seeds=2,
+              n_rounds=2, n_train=120, n_test=40, local_epochs=1,
+              batch_size=10, seed=7, device=dev)
+
+    def reserved():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    sweep.run_learning_sweep(names, **kw)        # lazy state, workspaces
+    base = reserved()
+    for _ in range(2):
+        sweep.run_learning_sweep(names, **kw)
+    grown = reserved() - base
+    monkeypatch.setattr(_lib.Held, "release", lambda self: None)
+    for _ in range(2):
+        sweep.run_learning_sweep(names, **kw)
+    leaked = reserved() - base - grown
+    mib = 1 << 20
+    assert grown <= 4 * mib, (grown, leaked)
+    assert leaked >= 8 * mib, (grown, leaked)
 
 
 # ------------------------------------------------ the LM kernels (7-9) --

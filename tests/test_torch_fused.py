@@ -12,8 +12,11 @@ At the ``engine_sync`` size (12 users, 4 BSs, seed 7, 3 rounds):
   and a fused run resumed across two calls;
 * every mode refusal of JAX's ``run``, on JAX's own message;
 * the fused step makes no host sync and no host-to-device copy (what a
-  CUDA graph capture refuses), for every fused scheduler and the
-  synchronous variants;
+  CUDA graph capture refuses), for every fused scheduler, the
+  synchronous variants and the async tick (the tick index read from the
+  device), and neither does a learning sweep bucket's step over two
+  cells (sync, hierarchical, faulty async);
+* ``run(n, mode="async")`` equals n ``run_round()`` ticks;
 * the greedy alone makes no host sync but its loop test (a WHILE node's
   test on the card) on the 80 problems of ``test_torch_dagsa.py``.
 
@@ -266,6 +269,9 @@ def _loop_test(go):
         return bool(go)
 
 
+_ASYNC = dict(aggregation_async=True, tick_s=0.5, staleness_alpha=0.5)
+
+
 @pytest.mark.parametrize("extra", [
     dict(), dict(compute="selected"), dict(scheduler="dagsa-r",
                                            faults="faulty-uplink"),
@@ -276,18 +282,75 @@ def _loop_test(go):
          topk_frac=0.1, compute="selected"),
     dict(compress="topk", topk_frac=0.2),
     dict(scenario="hetero-compute"), dict(scenario="waypoint"),
+    dict(_ASYNC),
+    dict(_ASYNC, scheduler="dagsa-r", faults="faulty-uplink"),
+    dict(_ASYNC, compute="selected"),
+    dict(_ASYNC, compress="topk", topk_frac=0.2),
 ], ids=["sync", "selected", "faulty", "rs", "ub", "sa", "fedcs", "ucb",
         "pf", "rr", "biased", "hier_int8_selected", "topk", "hetero",
-        "waypoint"])
+        "waypoint", "async", "faulty_async", "async_selected",
+        "async_topk"])
 def test_fused_step_keeps_off_the_host(extra, monkeypatch):
-    """Two fused rounds (the second a global sync on hierarchical runs)
-    with no host sync and no host-to-device copy."""
+    """Two fused rounds (the second a global sync on hierarchical runs) or
+    two async ticks (the tick index read from the device) with no host
+    sync and no host-to-device copy."""
     sim = _sim(**{"scheduler": "dagsa_jit", **extra})
     monkeypatch.setattr(graph_while, "_host_test", _loop_test)
     state = sim._state
     with _NoHostTraffic():
         for r in (0, 1):
             state, _ = sim._step_fn(state, r, torch.full((), float(r)))
+
+
+_SWEEP_KW = dict(cfg=WirelessConfig(**W), n_seeds=2, n_rounds=2,
+                 n_train=120, n_test=40, local_epochs=1, batch_size=10,
+                 seed=7, device="cpu")
+
+
+@pytest.mark.parametrize("extra", [
+    dict(), dict(aggregation="hierarchical", tau_global=2),
+    dict(scheduler="dagsa-r", faults="faulty-uplink", **_ASYNC),
+], ids=["sync", "hier", "faulty_async"])
+def test_sweep_bucket_step_keeps_off_the_host(extra, monkeypatch):
+    """A learning bucket's step over its two cells (one scenario, two
+    seeds), what the card captures, makes no host sync and no host copy
+    in two rounds (hierarchical: both patterns, the second a global
+    sync).  tests/test_torch_cuda.py holds the captured bucket's records
+    to the host route's."""
+    from repro_torch.launch import sweep
+
+    monkeypatch.setattr(graph_while, "_host_test", _loop_test)
+    seen = []
+
+    def checked(states, step_fn, pattern, n_rounds, dev):
+        def step(states, r, r_dev=None):
+            seen.append((len(states), pattern(r)))
+            with _NoHostTraffic():
+                return step_fn(states, r, torch.full((), float(r)))
+        return sweep._run_bucket_host(states, step, pattern, n_rounds, dev)
+
+    monkeypatch.setattr(sweep, "_run_bucket", checked)
+    sweep.run_learning_sweep(["paper-default"], **_SWEEP_KW, **extra)
+    hier = "aggregation" in extra
+    assert seen == [(2, (True, False)), (2, (True, hier))]
+
+
+def test_async_run_equals_run_round_ticks():
+    """run(n, mode="async") takes the ticks of n run_round() calls: the
+    records equal, the parameters bit-equal."""
+    extra = dict(_ASYNC, scheduler="dagsa-r", faults="faulty-uplink")
+    whole = _sim(**extra)
+    recs = whole.run(3, mode="async")
+    ticks = _sim(**extra)
+    got = [ticks.run_round() for _ in range(3)]
+    np.testing.assert_equal([dataclasses.asdict(r) for r in got],
+                            [dataclasses.asdict(r) for r in recs])
+    assert [r.round_idx for r in got] == [1, 2, 3] and ticks.round_idx == 3
+    assert any(r.n_delivered > 0 for r in got)
+    for k in whole.params:
+        for leaf in whole.params[k]:
+            assert torch.equal(whole.params[k][leaf],
+                               ticks.params[k][leaf]), (k, leaf)
 
 
 # ------------------------------------------- the greedy's device loop --
