@@ -103,21 +103,26 @@
    the wireless sweep in user chunks of 16 (``wireless_chunk``,
    paper-default and shadowed, 2 x 5; its records equal the unchunked
    run's), a ``compute="selected"`` learning sweep (``sweep_selected``,
-   paper-default and high-mobility, cap 16, 2 x 3); wall seconds a
+   paper-default and high-mobility, cap 16, 2 x 3); each through the
+   sweep's uncaptured route (a host loop of the bucket step, each kernel
+   counted at its launch); wall seconds a round and the loop's a cell
    round, peak allocated bytes and launches for each (a wireless bucket
    runs its cells in lockstep, one batched greedy a round: the batched
-   calls and greedy steps too; the learning sweeps through the sweep's
-   uncaptured route, a host loop of the bucket step), and the profiled
-   busy share of one learning round, one wireless round and a round of
-   every scenario x 2 seeds; ``sweep_sync``, ``sweep_hier`` and
-   ``sweep_faulty_async`` again through the public
-   ``run_learning_sweep``, each bucket one captured CUDA graph a pattern
-   replayed once a round, records JSON-equal to the uncaptured run's and
-   derived launches equal (a ``{"fused_sweep": ...}`` line each: replay
-   and step-loop wall a cell round, capture seconds, graphs, replays,
-   peak allocated bytes, the card's reserved bytes after ``empty_cache``
-   before and after the sweep, ``sweep_sync``'s also after a second
-   captured run);
+   calls and greedy steps too), and the profiled busy share of one
+   learning round, one wireless round and a round of every scenario x 2
+   seeds, that last also replayed (``profile_sweep_replays``: each
+   bucket captured, its later replays profiled); ``sweep_sync``,
+   ``sweep_hier``, ``sweep_faulty_async``, ``wireless_all`` (its largest
+   bucket 28 cells), ``wireless_int8``, ``fleet_bf16`` and
+   ``wireless_chunk`` again through the public ``run_learning_sweep`` /
+   ``run_sweep``, each bucket one captured CUDA graph a pattern (a
+   wireless bucket's one graph) replayed once a round, records
+   JSON-equal to the uncaptured run's, derived launches equal and peak
+   allocated bytes at most twice the uncaptured run's (a
+   ``{"fused_sweep": ...}`` line each: replay and step-loop wall a cell
+   round, capture seconds, graphs, replays, peak allocated bytes, the
+   card's reserved bytes after ``empty_cache`` before and after the
+   sweep, ``sweep_sync``'s also after a second captured run);
 6c. the ``shard`` phase: the same four paths unsharded here and on two
    gloo ranks sharing the card (``torchrun``, this script with
    ``--shard-rank DIR``): (a) the wireless sweep over every scenario x 2
@@ -132,8 +137,9 @@
    rtol 1e-4 / atol 1e-5 beside a one-process control (half the clients
    trained alone against the same clients in the whole fleet), and each
    rank's launches a path (``shard_<path>_rank<r>`` in the kernels line;
-   (b)'s buckets are captured by each rank, so its derived counts print
-   on ``shard_learning_launches_derived`` lines instead);
+   (a)'s and (b)'s buckets are captured by each rank, so their derived
+   counts print on ``shard_wireless_launches_derived`` and
+   ``shard_learning_launches_derived`` lines instead);
 7. the LM serving slice (Zamba2-1.2B, 38 Mamba2 layers + one shared
    attention block every 6, at full width and full depth):
    a. holds kernels 7-9 (flash_attention, rmsnorm, ssd_scan) against their
@@ -1826,7 +1832,8 @@ def run_fused_only(dev) -> None:
         if label in FUSED_SWEEPS:
             out, launches, recs = run_sweep_path(dev, label, learning, names,
                                                  extra, required)
-            run_fused_sweep(dev, label, names, extra, out, launches, recs)
+            run_fused_sweep(dev, label, learning, names, extra, out,
+                            launches, recs)
 
 
 def run_fused_phase(dev, steps: dict, spy: dict) -> None:
@@ -1969,10 +1976,11 @@ LEARNING = dict(dataset="mnist", n_train=4000, n_test=1000, local_epochs=10,
 
 @contextlib.contextmanager
 def uncaptured_sweep():
-    """Route the learning sweep's buckets through its uncaptured route
-    (``sweep._run_bucket_host``: the host loop of the bucket step, each
-    kernel launched by its wrapper) inside, timing the round loops: yields
-    a list that fills with each bucket's loop seconds (to a sync)."""
+    """Route the sweeps' buckets (learning and wireless) through their
+    uncaptured route (``sweep._run_bucket_host``: the host loop of the
+    bucket step, each kernel launched by its wrapper) inside, timing the
+    round loops: yields a list that fills with each bucket's loop seconds
+    (to a sync)."""
     from repro_torch.launch import sweep
 
     loops, real = [], sweep._run_bucket
@@ -2013,44 +2021,59 @@ def captured_sweep_engines():
         fused.FusedRounds.release = real
 
 
+def _sweep_args(names, extra: dict) -> tuple:
+    """A sweep path's ``(scenario names, WirelessConfig, run_*sweep
+    keywords)``: ``_ALL`` is every registered scenario, ``fleet=True`` the
+    mega-fleet config (200,000 users, rho1 0, rho2 5e-5)."""
+    from repro_torch.core.scenario import SCENARIOS
+    from repro_torch.core.types import WirelessConfig
+
+    kw = dict(extra)
+    cfg = (WirelessConfig(n_users=200_000, rho1=0.0, rho2=5e-5)
+           if kw.pop("fleet", False) else WirelessConfig())
+    return (list(SCENARIOS) if names == _ALL else list(names)), cfg, kw
+
+
+def _run_sweep(dev, learning: bool, names: list, cfg, kw: dict) -> list:
+    """The public entry point: ``run_learning_sweep`` at the paper's width
+    (LEARNING, the paper-scale CNN) or ``run_sweep``."""
+    from repro_torch.launch import sweep
+    from repro_torch.models.cnn import CNNConfig
+
+    if learning:
+        return sweep.run_learning_sweep(names, cfg=cfg, device=dev,
+                                        cnn_cfg=CNNConfig.paper_scale(),
+                                        **LEARNING, **kw)
+    return sweep.run_sweep(names, cfg=cfg, device=dev, **kw)
+
+
 def run_sweep_path(dev, label: str, learning: bool, names, extra: dict,
                    required: tuple) -> tuple:
     """One sweep through the port's entry point
-    (``repro_torch.launch.sweep.run_sweep`` / ``run_learning_sweep``),
-    the kernels' launch counts zeroed just before it and read just after;
-    prints its wall seconds a round (set-up included) and checks its
+    (``repro_torch.launch.sweep.run_sweep`` / ``run_learning_sweep``)
+    and its uncaptured route (:func:`uncaptured_sweep`, whose launches
+    are made call by call; the captured twins are
+    :func:`run_fused_sweep`'s), the kernels' launch counts zeroed just
+    before it and read just after; prints its wall seconds a round
+    (set-up included) and the loops' a cell round, and checks its
     records: finite positive latencies, the Eq. (8h) floor met (wireless,
     single-tier synchronous), accuracies in [0, 1].  A wireless sweep
     runs a bucket's cells in lockstep, one batched greedy a round: it
     prints the batched calls (kernel 3's launches), the greedy steps
     (kernel 2's launches less one a call) and kernel 1's launches.  A
     sweep with ``user_chunk`` is run again without it, and the two
-    records must be equal.  A learning sweep runs its buckets through the
-    uncaptured route (:func:`uncaptured_sweep`), whose launches are made
-    call by call; its captured twins are :func:`run_fused_sweep`'s.
-    Returns the ``sweep_path`` line, the launches and the records."""
-    from repro_torch.core.scenario import SCENARIOS
-    from repro_torch.core.types import WirelessConfig
+    records must be equal.  Returns the ``sweep_path`` line, the launches
+    and the records."""
     from repro_torch.kernels import _lib
-    from repro_torch.launch import sweep
-    from repro_torch.models.cnn import CNNConfig
 
-    kw = dict(extra)
-    cfg = (WirelessConfig(n_users=200_000, rho1=0.0, rho2=5e-5)
-           if kw.pop("fleet", False) else WirelessConfig())
-    names = list(SCENARIOS) if names == _ALL else names
+    names, cfg, kw = _sweep_args(names, extra)
     n_seeds, n_rounds = kw["n_seeds"], kw["n_rounds"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _lib.reset_launches()
     t0 = time.perf_counter()
-    if learning:
-        with uncaptured_sweep() as loops:
-            recs = sweep.run_learning_sweep(names, cfg=cfg, device=dev,
-                                            cnn_cfg=CNNConfig.paper_scale(),
-                                            **LEARNING, **kw)
-    else:
-        recs = sweep.run_sweep(names, cfg=cfg, device=dev, **kw)
+    with uncaptured_sweep() as loops:
+        recs = _run_sweep(dev, learning, names, cfg, kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -2068,8 +2091,7 @@ def run_sweep_path(dev, label: str, learning: bool, names, extra: dict,
            "rounds": n_rounds, "n_users": cfg.n_users, "wall_s": wall,
            "wall_s_per_round": wall / (cells * n_rounds),
            "peak_allocated_bytes": peak,
-           **({"loop_wall_s_per_cell_round": sum(loops)
-               / (cells * n_rounds)} if learning else {}),
+           "loop_wall_s_per_cell_round": sum(loops) / (cells * n_rounds),
            "launches": {k: v for k, v in launches.items() if v}, **greedy,
            **({"final_acc_mean": {r["scenario"]: r["final_acc_mean"]
                                   for r in recs}} if learning else
@@ -2082,8 +2104,9 @@ def run_sweep_path(dev, label: str, learning: bool, names, extra: dict,
         if launches[name] <= 0:
             raise AssertionError(f"sweep {label} never launched {name}")
     if "user_chunk" in kw:
-        kw.pop("user_chunk")
-        whole = sweep.run_sweep(names, cfg=cfg, device=dev, **kw)
+        whole_kw = {k: v for k, v in kw.items() if k != "user_chunk"}
+        with uncaptured_sweep():
+            whole = _run_sweep(dev, learning, names, cfg, whole_kw)
         if whole != recs:
             raise AssertionError(f"sweep {label}: the records in user chunks "
                                  f"differ from the unchunked run's")
@@ -2109,12 +2132,16 @@ def run_sweep_path(dev, label: str, learning: bool, names, extra: dict,
     return out, launches, recs
 
 
-# The learning sweeps run again through the public run_learning_sweep, on
-# the card each bucket captured (one CUDA graph a pattern, replayed once a
-# round), and held to the path's uncaptured run of this call: records
-# JSON-equal and derived launches equal to its counted ones (kept off the
-# kernels line, as the fused twins' are).
-FUSED_SWEEPS = ("sweep_sync", "sweep_hier", "sweep_faulty_async")
+# Sweep paths run again through the public run_learning_sweep / run_sweep,
+# on the card each bucket captured (one CUDA graph a pattern, a wireless
+# bucket's one graph, replayed once a round), and held to the path's
+# uncaptured run of this call: records JSON-equal and derived launches
+# equal to its counted ones (kept off the kernels line, as the fused twins'
+# are).  wireless_all holds the 28-cell bucket, fleet_bf16 the mega-fleet.
+FUSED_SWEEPS = ("sweep_sync", "sweep_hier", "sweep_faulty_async",
+                "wireless_all", "wireless_int8", "fleet_bf16",
+                "wireless_chunk")
+FUSED_PEAK_RATIO = 2.0      # captured peak allocated bytes at most 2x
 
 
 def _reserved() -> int:
@@ -2126,22 +2153,24 @@ def _reserved() -> int:
     return torch.cuda.memory_reserved()
 
 
-def run_fused_sweep(dev, label: str, names, extra: dict, step: dict,
-                    step_launches: dict, step_recs: list) -> dict:
-    """The captured twin of learning path ``label`` (see FUSED_SWEEPS),
-    held to its uncaptured run (``step``: the ``sweep_path`` line,
-    ``step_launches``, ``step_recs``).  Prints and returns a
-    ``fused_sweep`` line: the whole call's wall, the replay and the step
-    loop's wall seconds a cell round, capture seconds, graphs, replays,
-    derived launches and peak allocated bytes beside the step run's, and
-    the bytes the card keeps reserved before and after the sweep (each
-    bucket's graphs and pools released at its end), the first path's also
-    after the same sweep captured once more."""
+def run_fused_sweep(dev, label: str, learning: bool, names, extra: dict,
+                    step: dict, step_launches: dict,
+                    step_recs: list) -> dict:
+    """The captured twin of sweep path ``label`` (see FUSED_SWEEPS), held
+    to its uncaptured run (``step``: the ``sweep_path`` line,
+    ``step_launches``, ``step_recs``): records JSON-equal, derived
+    launches equal, one replay a round in every bucket (a wireless bucket:
+    one graph), peak allocated bytes at most FUSED_PEAK_RATIO times the
+    uncaptured run's.  Prints and returns a ``fused_sweep`` line: the
+    whole call's wall, the replay and the step loop's wall seconds a cell
+    round, capture seconds, graphs, replays, derived launches and peak
+    allocated bytes beside the step run's, and the bytes the card keeps
+    reserved before and after the sweep (each bucket's graphs and pools
+    released at its end), the first path's also after the same sweep
+    captured once more."""
     from repro_torch.kernels import _lib
-    from repro_torch.launch import sweep
-    from repro_torch.models.cnn import CNNConfig
 
-    kw = dict(extra)
+    names, cfg, kw = _sweep_args(names, extra)
     cells = len(names) * kw["n_seeds"]
     cell_rounds = cells * kw["n_rounds"]
     reserved_before = _reserved()
@@ -2149,9 +2178,7 @@ def run_fused_sweep(dev, label: str, names, extra: dict, step: dict,
     _lib.reset_launches()
     t0 = time.perf_counter()
     with captured_sweep_engines() as engines:
-        recs = sweep.run_learning_sweep(names, device=dev,
-                                        cnn_cfg=CNNConfig.paper_scale(),
-                                        **LEARNING, **kw)
+        recs = _run_sweep(dev, learning, names, cfg, kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -2164,9 +2191,12 @@ def run_fused_sweep(dev, label: str, names, extra: dict, step: dict,
         raise AssertionError(f"fused sweep {label}: derived launches "
                              f"{launches} != the uncaptured run's "
                              f"{step_launches}")
-    if not engines or any(e["replays"] != kw["n_rounds"] for e in engines):
+    if not engines or any(e["replays"] != kw["n_rounds"]
+                          or (not learning and e["graphs"] != 1)
+                          for e in engines):
         raise AssertionError(f"fused sweep {label}: buckets {engines}, not "
                              f"one replay a round")
+    peak_ratio = peak / step["peak_allocated_bytes"]
     capture = sum(e["capture_s"] for e in engines)
     out = {"fused_sweep": label, "card": CARD, "cells": cells,
            "rounds": kw["n_rounds"], "buckets": len(engines),
@@ -2180,6 +2210,7 @@ def run_fused_sweep(dev, label: str, names, extra: dict, step: dict,
            "launches_derived": {k: v for k, v in launches.items() if v},
            "peak_allocated_bytes": peak,
            "peak_allocated_bytes_step": step["peak_allocated_bytes"],
+           "peak_ratio": peak_ratio,
            "reserved_bytes_before": reserved_before,
            "reserved_bytes_after": reserved_after,
            "records_equal": True}
@@ -2187,14 +2218,15 @@ def run_fused_sweep(dev, label: str, names, extra: dict, step: dict,
         # the same sweep captured again: a first capture leaves torch's
         # per-stream library workspaces once; a later bucket's graphs,
         # pools and kept buffers must leave nothing
-        again = sweep.run_learning_sweep(names, device=dev,
-                                         cnn_cfg=CNNConfig.paper_scale(),
-                                         **LEARNING, **kw)
+        again = _run_sweep(dev, learning, names, cfg, kw)
         if not _same_json(again, step_recs):
             raise AssertionError(f"fused sweep {label}: a second captured "
                                  f"run's records differ")
         out["reserved_bytes_after_repeat"] = _reserved()
     print(json.dumps(out), flush=True)
+    if peak_ratio > FUSED_PEAK_RATIO:
+        raise AssertionError(f"fused sweep {label}: peak allocated bytes "
+                             f"{peak_ratio:.2f}x the uncaptured run's")
     return out
 
 
@@ -2202,10 +2234,10 @@ def profile_sweep_round(dev, learning: bool, rounds: int = 3,
                         names=("paper-default",), n_seeds: int = 1) -> dict:
     """A sweep of ``names`` (default paper-default), ``n_seeds`` seeds and
     ``rounds`` rounds through its entry point (``run_learning_sweep`` at
-    the paper's width through its uncaptured route, whose round phases
-    the profiler sees, or ``run_sweep``; the first round schedules every
-    user, as Eq. (8g) makes them all necessary, the later ones run the
-    greedy) under torch.profiler after a warm-up call: its wall ms
+    the paper's width or ``run_sweep``) and its uncaptured route, whose
+    round phases the profiler sees (the first round schedules every user,
+    as Eq. (8g) makes them all necessary, the later ones run the greedy),
+    under torch.profiler after a warm-up call: its wall ms
     (set-up included) and that a round, the device's busy share, each
     round phase's host ms and the device ms of the kernels launched
     inside it (``round.schedule``: the greedy), the greedy steps a round
@@ -2222,12 +2254,12 @@ def profile_sweep_round(dev, learning: bool, rounds: int = 3,
     kw = dict(n_seeds=n_seeds, n_rounds=rounds, device=dev)
 
     def call():
-        if learning:
-            with uncaptured_sweep():
+        with uncaptured_sweep():
+            if learning:
                 return sweep.run_learning_sweep(
                     names, cnn_cfg=CNNConfig.paper_scale(), **LEARNING,
                     **kw)
-        return sweep.run_sweep(names, **kw)
+            return sweep.run_sweep(names, **kw)
 
     call()
     torch.cuda.synchronize()
@@ -2256,6 +2288,58 @@ def profile_sweep_round(dev, learning: bool, rounds: int = 3,
            "top_device_ops": [{"name": k[:80], "ms": t, "calls": c}
                               for k, (t, c) in top]}
     print(json.dumps({"profile_sweep": out}), flush=True)
+    return out
+
+
+def profile_sweep_replays(dev, names=_ALL, n_seeds: int = 2,
+                          rounds: int = 3) -> dict:
+    """A wireless sweep of ``names`` (default every scenario) x
+    ``n_seeds`` x ``rounds`` through ``run_sweep``, each bucket captured
+    and replayed once, then its other rounds' replays under torch.profiler
+    (device activity): the replays' wall ms (host clock to a sync) and
+    device busy ms summed over the buckets, and the busy share.  Prints a
+    ``profile_sweep_replays`` line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.scenario import SCENARIOS
+    from repro_torch.fl import fused
+    from repro_torch.launch import sweep
+
+    names = list(SCENARIOS) if names == _ALL else list(names)
+    acc = {"wall_ms": 0.0, "device_busy_ms": 0.0, "buckets": 0}
+
+    def profiled(states, step_fn, pattern, n_rounds, dev):
+        engine = fused.FusedRounds(step_fn, pattern, dev)
+        try:
+            states, first = engine.run(states, 0, 1)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                _, rest = engine.run(states, 1, n_rounds - 1)
+                torch.cuda.synchronize()
+                acc["wall_ms"] += (time.perf_counter() - t0) * 1e3
+        finally:
+            engine.release()
+        _, ops = _profile_phases(prof)
+        acc["device_busy_ms"] += sum(t for t, _ in ops.values())
+        acc["buckets"] += 1
+        return {k: torch.cat([torch.from_numpy(first[k]),
+                              torch.from_numpy(rest[k])]).T.contiguous()
+                for k in first if k != "greedy_steps"}
+
+    real = sweep._run_bucket
+    sweep._run_bucket = profiled
+    try:
+        sweep.run_sweep(names, n_seeds=n_seeds, n_rounds=rounds, device=dev)
+    finally:
+        sweep._run_bucket = real
+    replayed = rounds - 1
+    out = {"card": CARD, "scenarios": len(names), "seeds": n_seeds,
+           "rounds": rounds, "replays_profiled": replayed, **acc,
+           "wall_ms_per_round": acc["wall_ms"] / replayed,
+           "device_busy_ms_per_round": acc["device_busy_ms"] / replayed,
+           "device_busy_share": acc["device_busy_ms"] / acc["wall_ms"]}
+    print(json.dumps({"profile_sweep_replays": out}), flush=True)
     return out
 
 
@@ -2580,8 +2664,8 @@ def run_shard_phase(dev) -> dict:
     failed = [k for k, ok in verdicts.items() if not ok]
     if failed:
         raise AssertionError(f"shard: {failed} failed")
-    # the learning sweep's buckets are captured on the card: its counts
-    # are derived, so they print here and stay off the kernels line
+    # the sweeps' buckets are captured on the card: their counts are
+    # derived, so they print here and stay off the kernels line
     launches = {}
     for r, res in enumerate(ranks):
         for path, required in (("wireless", _SCHED),
@@ -2593,8 +2677,8 @@ def run_shard_phase(dev) -> dict:
                 if counts[name] <= 0:
                     raise AssertionError(f"shard {path} rank {r} never "
                                          f"launched {name}")
-            if path == "learning":
-                print(json.dumps({"shard_learning_launches_derived": {
+            if path in ("wireless", "learning"):
+                print(json.dumps({f"shard_{path}_launches_derived": {
                     "rank": r, "card": CARD,
                     "launches": {k: v for k, v in counts.items() if v}}}),
                     flush=True)
@@ -4303,14 +4387,16 @@ def main(argv: list[str]) -> int:
             out, launches[label], recs = run_sweep_path(
                 dev, label, learning, names, extra, required)
             if label in FUSED_SWEEPS:
-                run_fused_sweep(dev, label, names, extra, out,
+                run_fused_sweep(dev, label, learning, names, extra, out,
                                 launches[label], recs)
             del recs
             torch.cuda.empty_cache()
         profile_sweep_round(dev, learning=True)
         profile_sweep_round(dev, learning=False)
-        # the largest buckets' batched greedy: every scenario, 2 seeds
+        # the largest buckets' batched greedy: every scenario, 2 seeds,
+        # in the host loop and replayed
         profile_sweep_round(dev, learning=False, names=_ALL, n_seeds=2)
+        profile_sweep_replays(dev)
     with phase("shard"):
         launches.update(run_shard_phase(dev))
 

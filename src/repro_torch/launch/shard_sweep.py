@@ -7,11 +7,11 @@ cells, cell ``g`` being (scenario ``g // n_seeds``, seed ``g % n_seeds``):
 pad to ``padded_count(G, D)`` over a mesh of D ranks
 (:func:`repro_torch.launch.mesh.make_data_mesh`), and rank ``r`` takes the
 contiguous block ``shard_map`` puts on device ``r`` of the JAX package's
-mesh.  Each rank runs its block as the unsharded sweep runs a bucket (a
-wireless block in lockstep, one batched greedy a round; a learning block
-in lockstep too, on the card captured by the rank as its own CUDA
-graphs), moves its outputs to the host, and one ``all_gather_object`` a
-bucket hands every rank all G cells: no collective sits inside a round.  Every rank
+mesh.  Each rank runs its block as the unsharded sweep runs a bucket (in
+lockstep, a wireless block with one batched greedy a round; on the card
+captured by the rank as its own CUDA graphs), moves its outputs to the
+host, and one ``all_gather_object`` a bucket hands every rank all G
+cells: no collective sits inside a round.  Every rank
 then builds the same records as :func:`repro_torch.launch.sweep.run_sweep`
 and :func:`~repro_torch.launch.sweep.run_learning_sweep`: cells never
 communicate, so the JSON is byte-identical at any world size.

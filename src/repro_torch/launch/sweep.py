@@ -10,17 +10,18 @@ the paper's accuracy against simulated wall clock (Figs. 2-4).  Each
 scenario's knobs are lowered to parameter rows (``_scenario_params``),
 and every (scenario, seed) cell draws its world from the JAX package's
 keys, so both packages simulate the same worlds.  The JAX package vmaps
-the cells of a shape bucket into one compiled call.  The port runs a
-wireless bucket's cells in lockstep: each round every cell draws its
-world (mobility dispatches on the host by model id, cell by cell), then
-one batched greedy (``dagsa_jit._schedule_batch``) schedules the whole
-bucket, with one host sync a greedy step for the bucket.  A learning
-bucket's cells advance in lockstep as one step (each cell's round step in
-cell order, the outputs stacked to [G]); on the card that step runs as
-one captured CUDA graph a host-decided pattern (an evaluation round, a
-hierarchical global sync), replayed once a round, as JAX runs a bucket as
-one compiled call (:mod:`repro_torch.fl.fused`; on the CPU the same step
-in a host loop).
+the cells of a shape bucket into one compiled call.  The port advances a
+bucket's cells in lockstep as one functional step (a wireless bucket:
+each cell draws its world in cell order, mobility dispatched on the host
+by model id, then one batched greedy, ``dagsa_jit._schedule_batch``,
+schedules the whole bucket; a learning bucket: each cell's round step in
+cell order), its outputs stacked to [G].  On the card that step runs as
+one captured CUDA graph a host-decided pattern (a learning bucket's
+evaluation round or hierarchical global sync; a wireless bucket has one),
+replayed once a round and released at the bucket's end, the greedy's
+loop a WHILE node (:mod:`repro_torch.fl.fused`); on the CPU the same step
+runs in a host loop (``_run_bucket_host``, also the card's uncaptured
+route).
 
     PYTHONPATH=src python -m repro_torch.launch.sweep \\
         --scenarios paper-default,high-mobility --seeds 2 --rounds 3
@@ -57,7 +58,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch import resolve_device, rng
+from repro_torch import const, resolve_device, rng
 from repro_torch.core import channel, dagsa_jit, mobility
 from repro_torch.core.scenario import (BS_LAYOUTS, COMPRESS_MODES, PARTITIONS,
                                        SCENARIOS, ScenarioSpec, get_scenario,
@@ -147,30 +148,27 @@ def _cell_world(p: dict, key: torch.Tensor, cfg: WirelessConfig):
     return k_shadow, k_run, pos0, bs_pos, bs_bw, aux0
 
 
-class _Cell:
-    """One (scenario, seed) wireless cell's world, drawn from its key as
-    the JAX sweep's ``_one_cell`` draws it, and its carry across rounds."""
+def _wireless_cell(p: dict, key: torch.Tensor, cfg: WirelessConfig,
+                   channel_dtype: str, user_chunk: int | None) -> tuple:
+    """One (scenario, seed) wireless cell, drawn from its key as the JAX
+    sweep's ``_one_cell`` draws it: ``(state, bs_bw, draw)``, the state
+    ``(key, pos, aux)`` and ``draw(state) -> (state', (k_sched, snr_store,
+    snr_scale, coeff, loop_coeff, tcomp))`` the round's world: the channel
+    plane stored as ``channel_dtype``, its Eq. (11) coefficients
+    :func:`channel.plane_coefficients`'.  What stays fixed (``bs_pos``,
+    ``k_shadow``, the scenario row) is the closure's; ``shadow_sigma`` is
+    read on the host once, here."""
+    k_shadow, k_run, pos0, bs_pos, bs_bw, aux0 = _cell_world(p, key, cfg)
+    shadow_sigma = float(p["shadow_sigma"])     # the float32 value, exact
 
-    def __init__(self, p: dict, key: torch.Tensor, cfg: WirelessConfig):
-        self.p = p
-        (self.k_shadow, self.key, self.pos, self.bs_pos, self.bs_bw,
-         self.aux) = _cell_world(p, key, cfg)
-
-    def draw(self, cfg: WirelessConfig, channel_dtype: str,
-             user_chunk: int | None):
-        """Advance the world a round: ``(k_sched, snr_store, snr_scale,
-        coeff, loop_coeff, tcomp)``.  The channel plane is stored as
-        ``channel_dtype`` and its Eq. (11) coefficients are
-        :func:`channel.plane_coefficients`'."""
-        p = self.p
-        self.key, k_mob, k_snr, k_tc, k_sched = rng.split(self.key,
-                                                          5).unbind(0)
-        self.pos, self.aux = mobility.step_switch(
-            p["model_id"], k_mob, self.pos, self.aux, cfg.area_m,
+    def draw(state: tuple) -> tuple:
+        key, pos, aux = state
+        key, k_mob, k_snr, k_tc, k_sched = rng.split(key, 5).unbind(0)
+        pos, aux = mobility.step_switch(
+            p["model_id"], k_mob, pos, aux, cfg.area_m,
             cfg.round_duration_s, p["speed"], p["pause_s"], p["gm_memory"])
         dist, shadow_db = channel.dist_and_shadow(
-            self.pos, self.bs_pos, p["shadow_sigma"], self.k_shadow, cfg,
-            user_chunk)
+            pos, bs_pos, shadow_sigma, k_shadow, cfg, user_chunk)
         snr_store, snr_scale, snr_lin = channel.encode_channel(
             channel.sample_snr(k_snr, dist, cfg, shadow_db=shadow_db),
             channel_dtype)
@@ -178,47 +176,61 @@ class _Cell:
             snr_store, snr_lin, channel_dtype, cfg)
         tcomp = rng.fma(rng.uniform(k_tc, (cfg.n_users,)),
                         p["tcomp_max"] - p["tcomp_min"], p["tcomp_min"])
-        return k_sched, snr_store, snr_scale, coeff, loop_coeff, tcomp
+        return (key, pos, aux), (k_sched, snr_store, snr_scale, coeff,
+                                 loop_coeff, tcomp)
+    return (k_run, pos0, aux0), bs_bw, draw
 
 
 def _stack_or_none(xs: list) -> torch.Tensor | None:
     return None if xs[0] is None else torch.stack(xs)
 
 
-def _bucket_cells(cells: list[tuple[dict, torch.Tensor]],
-                  cfg: WirelessConfig, n_rounds: int, min_participants: int,
-                  channel_dtype: str = "f32",
-                  user_chunk: int | None = None) -> dict:
-    """The G (scenario row, seed key) cells of a bucket in lockstep: each
-    round each cell draws its world, then one batched greedy schedules
-    all G cells.  A cell's results do not depend on which cells share
-    its batch.  Returns ``t_round``, ``n_selected`` and
-    ``min_part_rate``, [G, R] float32 each."""
+def _wireless_bucket_step(cells: list[tuple[dict, torch.Tensor]],
+                          cfg: WirelessConfig, min_participants: int,
+                          channel_dtype: str = "f32",
+                          user_chunk: int | None = None) -> tuple:
+    """The G (scenario row, seed key) cells of a bucket as one step, of
+    :func:`_bucket_step`'s form: ``(states, step_fn, pattern)``.  The state
+    is each cell's ``(key, pos, aux)`` and the bucket's participation
+    counts [G, N]; each cell's ``bs_pos``, ``k_shadow`` and row and the
+    stacked ``bs_bw`` [G, M] stay fixed.  ``step_fn(states, r, r_dev)``
+    draws the G worlds in cell order, then one batched greedy schedules
+    all G cells; it reads the round only from ``r_dev`` (None: made from
+    ``r``), so one graph serves every round (the pattern is constant).
+    Outputs ``t_round``, ``n_selected`` and ``min_part_rate``, [G] float32
+    each.  A cell's results do not depend on which cells share its
+    batch."""
     dev = cells[0][1].device
-    cells = [_Cell(p, k, cfg) for p, k in cells]
-    bs_bw = torch.stack([c.bs_bw for c in cells])
-    counts = torch.zeros((len(cells), cfg.n_users), device=dev)
-    t_rounds, n_sel, min_pr = [], [], []
-    for r in range(n_rounds):
+    worlds = [_wireless_cell(p, k, cfg, channel_dtype, user_chunk)
+              for p, k in cells]
+    draws = [draw for _, _, draw in worlds]
+    bs_bw = torch.stack([bw for _, bw, _ in worlds])
+    states = (tuple(state for state, _, _ in worlds),
+              torch.zeros((len(cells), cfg.n_users), device=dev))
+
+    def step_fn(states: tuple, r: int, r_dev=None):
+        if r_dev is None:
+            r_dev = const(float(r), torch.float32, dev)
+        cell_states, counts = states
         with span("round.world"):
-            draws = [c.draw(cfg, channel_dtype, user_chunk) for c in cells]
+            new, planes = zip(*(draw(state) for draw, state
+                                in zip(draws, cell_states)))
             keys, snr, scale, coeff, loop_coeff, tcomp = (
-                _stack_or_none(list(x)) for x in zip(*draws))
+                _stack_or_none(list(x)) for x in zip(*planes))
             # Eq. (8g), the post-round requirement, as make_problem's
-            necessary = counts < (torch.tensor(cfg.rho1, device=dev)
-                                  * torch.tensor(r + 1.0, device=dev))
+            necessary = counts < (const(cfg.rho1, torch.float32, dev)
+                                  * (r_dev + 1.0))
         with span("round.schedule"):
             _, selected, _, _, t_round = dagsa_jit._schedule_batch(
                 snr, coeff, tcomp, bs_bw, necessary, min_participants, keys,
                 selection_block=user_chunk, snr_scale=scale,
                 loop_coeff=loop_coeff)
         counts = counts + selected.to(counts.dtype)
-        t_rounds.append(t_round)
-        n_sel.append(selected.sum(dim=-1).float())
-        min_pr.append(counts.amin(dim=-1) / (r + 1.0))
-    return {"t_round": torch.stack(t_rounds, dim=-1),
-            "n_selected": torch.stack(n_sel, dim=-1),
-            "min_part_rate": torch.stack(min_pr, dim=-1)}
+        return (tuple(new), counts), {
+            "t_round": t_round,
+            "n_selected": selected.sum(dim=-1).float(),
+            "min_part_rate": counts.amin(dim=-1) / (r_dev + 1.0)}
+    return states, step_fn, lambda r: ()
 
 
 # ------------------------------------------------------------------- API ---
@@ -302,7 +314,8 @@ def run_sweep(scenarios: Sequence[str | ScenarioSpec], n_seeds: int = 4,
     """The wireless sweep: one record dict per scenario, in the caller's
     order.  Every cell of a shape bucket (n_users, n_bs) uses the bucket's
     seed keys ``split(PRNGKey(seed), n_seeds)``, and the bucket's cells
-    run in lockstep, one batched greedy a round.  ``channel_dtype``
+    run in lockstep, one batched greedy a round (on the card one captured
+    graph a bucket, replayed once a round: the module doc).  ``channel_dtype``
     stores the [N, M] channel plane as ``"f32"``, ``"bf16"`` or ``"int8"``
     dB codes with a per-BS scale.  ``user_chunk`` (any size >= 1) bounds
     the channel's per-round intermediates to that many users and, on the
@@ -326,9 +339,10 @@ def run_sweep(scenarios: Sequence[str | ScenarioSpec], n_seeds: int = 4,
         seed_keys = rng.split(rng.PRNGKey(seed, device=dev), n_seeds)
 
         def run(cells):
-            return _bucket_cells([(rows[i], seed_keys[j]) for i, j in cells],
-                                 bcfg, n_rounds, minp, channel_dtype,
-                                 user_chunk)
+            states, step, pattern = _wireless_bucket_step(
+                [(rows[i], seed_keys[j]) for i, j in cells], bcfg, minp,
+                channel_dtype, user_chunk)
+            return _run_bucket(states, step, pattern, n_rounds, dev)
         outs = _run_grid(mesh, len(group), n_seeds, run)
         records.update(_wireless_records(group, outs, n_seeds, n_rounds))
     return [records[i] for i in range(len(specs))]

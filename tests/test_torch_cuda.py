@@ -1002,18 +1002,87 @@ def test_captured_learning_bucket_equals_host_route(dev, names, extra,
     assert chip_smoke._same_json(got, want)
 
 
+_WIRELESS_BUCKETS = [
+    ("f32", ["paper-default", "dense-bs", "sparse-bs"], dict(), 3),
+    ("bf16", ["paper-default", "high-mobility"], dict(channel_dtype="bf16"),
+     1),
+    ("int8", ["paper-default", "high-mobility"], dict(channel_dtype="int8"),
+     1),
+    ("chunk_shadowed", ["paper-default", "shadowed"], dict(user_chunk=16),
+     1),
+]
+
+
+@pytest.mark.parametrize("names,extra,buckets",
+                         [c[1:] for c in _WIRELESS_BUCKETS],
+                         ids=[c[0] for c in _WIRELESS_BUCKETS])
+def test_captured_wireless_bucket_equals_host_route(dev, names, extra,
+                                                    buckets, monkeypatch):
+    """Wireless buckets at the paper's width (50 users, 2 seeds a
+    scenario, 4 rounds) captured and replayed once a round: one graph and
+    4 replays a bucket, records JSON-equal to the sweep's uncaptured route
+    on the card, derived launches equal to its counted ones, and each
+    bucket's WHILE passes equal to its host greedy steps (kernel 2's
+    launches less kernel 3's)."""
+    from repro_torch.fl import fused
+    from repro_torch.launch import sweep
+
+    kw = dict(n_seeds=2, n_rounds=4, seed=7, device=dev, **extra)
+    engines, passes, steps = [], [], []
+    real_run, real_release = fused.FusedRounds.run, fused.FusedRounds.release
+
+    def run(self, *args):
+        state, cols = real_run(self, *args)
+        passes.append(int(cols["greedy_steps"].sum()))
+        return state, cols
+
+    def release(self):
+        engines.append((self.n_graphs, self.replays))
+        real_release(self)
+
+    def host_route(*args):
+        before = dict(_lib.LAUNCHES)
+        out = sweep._run_bucket_host(*args)
+        steps.append(sum(sign * (_lib.LAUNCHES[k] - before[k])
+                         for sign, k in ((1, "masked_bs_argmax"),
+                                         (-1, "best_bs_argmax"))))
+        return out
+
+    monkeypatch.setattr(fused.FusedRounds, "run", run)
+    monkeypatch.setattr(fused.FusedRounds, "release", release)
+    _lib.reset_launches()
+    got = sweep.run_sweep(names, **kw)
+    captured = dict(_lib.LAUNCHES)
+    assert engines == [(1, 4)] * buckets
+    monkeypatch.setattr(sweep, "_run_bucket", host_route)
+    _lib.reset_launches()
+    want = sweep.run_sweep(names, **kw)
+    assert chip_smoke._same_json(got, want)
+    assert captured == dict(_lib.LAUNCHES)
+    assert passes == steps and min(steps) > 0, (passes, steps)
+
+
 def test_released_buckets_give_their_memory_back(dev, monkeypatch):
     """A released bucket's graphs, the pools of their device loops' bodies
     and the buffers the captures kept go back to the card: over learning
-    sweeps of two buckets each, the memory reserved after ``empty_cache``
-    stays flat.  With the holder's release disabled the body pools stay,
-    and the same reading grows (the check sees a leak)."""
+    and wireless sweeps of two buckets each, the memory reserved after
+    ``empty_cache`` stays flat.  With the holder's release disabled the
+    body pools stay, and the same reading grows (the check sees a
+    leak)."""
     from repro_torch.launch import sweep
 
     names = ["hetero-compute", "non-iid-pathological", "shadowed"]
     kw = dict(cfg=WirelessConfig(n_users=12, n_bs=4), n_seeds=2,
               n_rounds=2, n_train=120, n_test=40, local_epochs=1,
               batch_size=10, seed=7, device=dev)
+    # a wireless sweep of two buckets too (4 and 16 BSs)
+    wireless = dict(cfg=WirelessConfig(n_users=12, n_bs=4), n_seeds=2,
+                    n_rounds=2, seed=7, device=dev)
+
+    def sweeps():
+        sweep.run_learning_sweep(names, **kw)
+        sweep.run_sweep(["paper-default", "dense-bs", "shadowed"],
+                        **wireless)
 
     def reserved():
         gc.collect()
@@ -1021,14 +1090,14 @@ def test_released_buckets_give_their_memory_back(dev, monkeypatch):
         torch.cuda.empty_cache()
         return torch.cuda.memory_reserved()
 
-    sweep.run_learning_sweep(names, **kw)        # lazy state, workspaces
+    sweeps()                                     # lazy state, workspaces
     base = reserved()
     for _ in range(2):
-        sweep.run_learning_sweep(names, **kw)
+        sweeps()
     grown = reserved() - base
     monkeypatch.setattr(_lib.Held, "release", lambda self: None)
     for _ in range(2):
-        sweep.run_learning_sweep(names, **kw)
+        sweeps()
     leaked = reserved() - base - grown
     mib = 1 << 20
     assert grown <= 4 * mib, (grown, leaked)

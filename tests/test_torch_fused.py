@@ -15,7 +15,11 @@ At the ``engine_sync`` size (12 users, 4 BSs, seed 7, 3 rounds):
   CUDA graph capture refuses), for every fused scheduler, the
   synchronous variants and the async tick (the tick index read from the
   device), and neither does a learning sweep bucket's step over two
-  cells (sync, hierarchical, faulty async);
+  cells (sync, hierarchical, faulty async) nor a wireless bucket's step
+  over five worlds x 2 seeds (f32, bf16, int8; user chunks);
+* the wireless bucket step run with the Python round index frozen at 0
+  and only the device index set, as a captured round replays, gives
+  ``run_sweep``'s records;
 * ``run(n, mode="async")`` equals n ``run_round()`` ticks;
 * the greedy alone makes no host sync but its loop test (a WHILE node's
   test on the card) on the 80 problems of ``test_torch_dagsa.py``.
@@ -333,6 +337,68 @@ def test_sweep_bucket_step_keeps_off_the_host(extra, monkeypatch):
     sweep.run_learning_sweep(["paper-default"], **_SWEEP_KW, **extra)
     hier = "aggregation" in extra
     assert seen == [(2, (True, False)), (2, (True, hier))]
+
+
+# one bucket at 12 users x 4 BSs: the three mobility models, both BS
+# layouts, a shadowed world and spread bandwidths
+_WIRELESS = ["paper-default", "static", "shadowed", "waypoint", "hetero-bw"]
+_WIRELESS_KW = dict(cfg=WirelessConfig(**W), n_seeds=2, n_rounds=2, seed=7,
+                    device="cpu")
+
+
+@pytest.mark.parametrize("names,extra", [
+    (_WIRELESS, dict()), (_WIRELESS, dict(channel_dtype="bf16")),
+    (_WIRELESS, dict(channel_dtype="int8")),
+    (["shadowed", "waypoint"], dict(user_chunk=5)),
+], ids=["f32", "bf16", "int8", "chunk5"])
+def test_wireless_bucket_step_keeps_off_the_host(names, extra, monkeypatch):
+    """A wireless bucket's step over its cells (every scenario x 2 seeds),
+    what the card captures, makes no host sync and no host copy in two
+    rounds but the greedy's loop test; one pattern.  tests/
+    test_torch_cuda.py holds the captured bucket's records to the host
+    route's."""
+    from repro_torch.launch import sweep
+
+    monkeypatch.setattr(graph_while, "_host_test", _loop_test)
+    seen = []
+
+    def checked(states, step_fn, pattern, n_rounds, dev):
+        def step(states, r, r_dev=None):
+            seen.append((len(states[0]), pattern(r)))
+            with _NoHostTraffic():
+                return step_fn(states, r, torch.full((), float(r)))
+        return sweep._run_bucket_host(states, step, pattern, n_rounds, dev)
+
+    monkeypatch.setattr(sweep, "_run_bucket", checked)
+    sweep.run_sweep(names, **_WIRELESS_KW, **extra)
+    assert seen == [(2 * len(names), ())] * 2
+
+
+@pytest.mark.parametrize("names,extra", [
+    (_WIRELESS, dict()), (["shadowed", "waypoint"], dict(user_chunk=5)),
+], ids=["f32", "chunk5"])
+def test_wireless_bucket_step_reads_the_round_from_the_device(names, extra,
+                                                              monkeypatch):
+    """A captured round replays with the Python round index of its capture
+    (0) and only the device index filled: the wireless bucket step run so,
+    five rounds, gives ``run_sweep``'s records (the Eq. (8g) floor and the
+    fairness monitor read the round from the device)."""
+    from repro_torch.launch import sweep
+
+    kw = dict(_WIRELESS_KW, n_rounds=5, **extra)
+    want = sweep.run_sweep(names, **kw)
+
+    def frozen(states, step_fn, pattern, n_rounds, dev):
+        outs = []
+        for r in range(n_rounds):
+            states, out = step_fn(states, 0, torch.full((), float(r)))
+            outs.append(out)
+        return {k: torch.stack([o[k] for o in outs], dim=-1)
+                for k in outs[0]}
+
+    monkeypatch.setattr(sweep, "_run_bucket", frozen)
+    got = sweep.run_sweep(names, **kw)
+    assert got == want
 
 
 def test_async_run_equals_run_round_ticks():
