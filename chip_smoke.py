@@ -8,6 +8,9 @@
     python3 chip_smoke.py --train      # step 1, the build, step 7h
     python3 chip_smoke.py --train-probe  # step 1, the build, run_train_probe
     python3 chip_smoke.py --fused      # step 1, the build, step 6a
+    python3 chip_smoke.py --tp         # step 1, the build, step 7i
+    python3 chip_smoke.py --sweep-profile  # step 1, the build, the
+                                       # all-worlds host-loop profile
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
 2. builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` with
@@ -109,9 +112,10 @@
    round, peak allocated bytes and launches for each (a wireless bucket
    runs its cells in lockstep, one batched greedy a round: the batched
    calls and greedy steps too), and the profiled busy share of one
-   learning round, one wireless round and a round of every scenario x 2
-   seeds, that last also replayed (``profile_sweep_replays``: each
-   bucket captured, its later replays profiled); ``sweep_sync``,
+   learning round, one wireless round and, replayed, a round of every
+   scenario x 2 seeds (``profile_sweep_replays``: each bucket captured,
+   its later replays profiled; the same round through the host loop,
+   profiled, runs under ``--sweep-profile`` alone); ``sweep_sync``,
    ``sweep_hier``, ``sweep_faulty_async``, ``wireless_all`` (its largest
    bucket 28 cells), ``wireless_int8``, ``fleet_bf16`` and
    ``wireless_chunk`` again through the public ``run_learning_sweep`` /
@@ -216,6 +220,24 @@
       (``--train-probe`` instead runs ``run_train_probe``: zamba2-1.2b
       at lr 3e-3 through the kernels and through the plain forward's
       autograd, and mamba2-2.7b at 64 layers);
+   i. (run between g and h) the tensor-parallel slice (``run_tp_phase``):
+      the unsharded reference in this process, freed, then gloo ranks of
+      this script sharing the card (``torchrun``, ``--tp-rank DIR``, a
+      ``(1, model)`` mesh of ``launch.mesh.smoke_mesh``): (a) reduced
+      qwen3-0.6b in float32 at mesh (1, 2) on the card against the same
+      two ranks on the CPU, prefill logits within 1e-4 of the largest and
+      8 greedy tokens of ``serve(mesh=)`` exact; (b) qwen3-32b (8 of 64
+      layers, mesh (1, 2)) and (c) deepseek-67b (8 of 95, mesh (1, 4)) at
+      full width in bfloat16, B = 4: a one-shot prefill of 512 tokens,
+      its first 64 stepped through the cache, 16 decode steps fed the
+      unsharded run's greedy tokens, every logits set within 2e-2 of the
+      unsharded port's largest |logit| on the same weights, the argmax
+      agreements counted, kernels 7 and 8 launched on every rank as
+      ``tp_expected_launches`` says (counts zeroed on each rank just
+      before the path); each rank's peak allocated bytes, init, prefill
+      and decode times beside the unsharded run's (``{"tp_small": ...}``,
+      ``{"tp_path": ...}`` lines, the card's name and power limit in
+      each; ``tp_<config>_rank<r>`` in the kernels line);
 8. prints one JSON line with every kernel's numbers (the backward rows
    ``flash_attention_bwd`` and ``rmsnorm_bwd`` with the launches of
    ``train_qwen3_0_6b``, ``ssd_scan_bwd`` with those of
@@ -2858,9 +2880,12 @@ def check_lm_arch_kernels(dev, results: dict, main=(4, 512)) -> None:
     decoder over 375 tokens (causal), its cross attention (375 x 1,500,
     non-causal) and a decode step's cross attention, one query a sequence
     over the serve path's memory of prompt + generated positions
-    ("whisper_cross_decode") and over 1,500 encoder frames; kernel 8 bf16 at each new row width over the 4 x 512
-    prefill rows ("d384" ... "d8192"; the per-head qk_norm width 128 is
-    check_lm_kernels' "qk_norm")."""
+    ("whisper_cross_decode") and over 1,500 encoder frames, and one tp
+    rank's heads (qwen3-32b at model 2, 32/4; deepseek-67b at model 4,
+    16/2); kernel 8 bf16 at each new row width over the 4 x 512 prefill
+    rows ("d384" ... "d8192"; the per-head qk_norm width 128 is
+    check_lm_kernels' "qk_norm") and at qwen3-32b's q / k norm rows of
+    one tp rank ("tp_q_norm_m2", "tp_k_norm_m2")."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kfa
@@ -2894,6 +2919,12 @@ def check_lm_arch_kernels(dev, results: dict, main=(4, 512)) -> None:
             ("vlm_gqa28_4", (b0, 1536, 1536), 28, 4, 128, True, 0,
              torch.bfloat16, 5),
             ("olmo_mha16", (b0, s0, s0), 16, 16, 128, True, 0,
+             torch.bfloat16, 10),
+            # one rank's heads in the tp phase: qwen3-32b at model 2,
+            # deepseek-67b at model 4
+            ("tp_qwen3_32b_m2", (b0, s0, s0), 32, 4, 128, True, 0,
+             torch.bfloat16, 10),
+            ("tp_deepseek_67b_m4", (b0, s0, s0), 16, 2, 128, True, 0,
              torch.bfloat16, 10),
             ("whisper_enc", (b0, 1500, 1500), 6, 6, 64, False, 0,
              torch.bfloat16, 10),
@@ -2935,16 +2966,20 @@ def check_lm_arch_kernels(dev, results: dict, main=(4, 512)) -> None:
         del q, k, v
 
     rows = b0 * s0
-    for d in (384, 512, 1024, 1536, 2048, 2560, 3584, 5120, 8192):
-        x = normal((rows, d), torch.bfloat16)
+    # the d-wide norms of the configs, then qwen3-32b's q / k norms over
+    # one rank's 32 / 4 heads of 128 in the tp phase (model 2)
+    for label, n, d in [(f"d{d}", rows, d) for d in (
+            384, 512, 1024, 1536, 2048, 2560, 3584, 5120, 8192)] + [
+            ("tp_q_norm_m2", rows * 32, 128), ("tp_k_norm_m2", rows * 4, 128)]:
+        x = normal((n, d), torch.bfloat16)
         scale = (1.0 + 0.1 * normal((d,), torch.float32)).to(torch.bfloat16)
-        err = _close_tol(f"rmsnorm d{d}", krn.rmsnorm(x, scale),
+        err = _close_tol(f"rmsnorm {label}", krn.rmsnorm(x, scale),
                          krn.rmsnorm_plain(x, scale), LM_TOL["rmsnorm"][1])
-        record("rmsnorm", f"d{d}", [rows, d], err,
+        record("rmsnorm", label, [n, d], err,
                lambda: krn.rmsnorm(x, scale),
                lambda: krn.rmsnorm_plain(x, scale),
                lambda: F.rms_norm(x, (d,), weight=scale, eps=1e-6),
-               4 * rows * d + 2 * d, 4.0 * rows * d, PEAK_F32_OPS_S, 20)
+               4 * n * d + 2 * d, 4.0 * n * d, PEAK_F32_OPS_S, 20)
         del x
     torch.cuda.synchronize()
 
@@ -3374,6 +3409,363 @@ def run_lm_archs(dev) -> dict:
         torch.cuda.empty_cache()
     seconds = time.perf_counter() - t_phase
     print(json.dumps({"lm_phase_seconds": seconds}), flush=True)
+    return launches
+
+
+# ------------------------------------------------- the tensor-parallel slice --
+# (a) reduced qwen3-0.6b in float32, tensor-parallel on the card against the
+# same ranks on the CPU; (b), (c) dense configs at full width in bfloat16,
+# depth cut, against the unsharded port on the same weights: (config,
+# layers, (data, model)).  deepseek-67b (~134 GB in bfloat16) needs the
+# mesh; its full depth waits for a machine with four cards (ROADMAP).
+TP_SMALL = ("qwen3_0_6b", (1, 2))
+TP_SMALL_SERVE = dict(batch=4, prompt_len=16, gen_len=8)
+TP_SMALL_TOL = 1e-4          # card vs CPU, of the largest |logit|
+TP_FULL = (("qwen3_32b", 8, (1, 2)), ("deepseek_67b", 8, (1, 4)))
+TP_BATCH, TP_PROMPT, TP_STEPS = 4, 512, 16
+# the decode check's context: the prompt's first TP_FILL tokens stepped
+# through the cache (all 512 took 97 s a run on four ranks sharing the
+# card, ~190 ms a step: PERF.md)
+TP_FILL = 64
+TP_TOL = 2e-2                # of the largest |logit|: PERF.md §2's bf16 bound
+TP_PREFILL_REPS = 2          # timed one-shot prefills after a warm-up
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _reset_peak(dev) -> None:
+    """Zero ``dev``'s peak allocated bytes (a first allocation starts the
+    caching allocator, which refuses the reset before it)."""
+    torch.empty(1, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def tp_expected_launches(cfg, n_prefills: int, n_steps: int) -> dict:
+    """Kernel 7 and 8 launches of :func:`tp_drive` on each rank (and in one
+    process): kernel 7 once a layer a prefill (decode attends with the
+    plain ``_sdpa``, as in JAX); kernel 8 in both block norms, qwen3's
+    q / k norms over the rank's heads and the final norm, a prefill and
+    a decode step alike."""
+    per_call = ((2 * cfg.n_layers + 1) * (cfg.norm == "rmsnorm")
+                + 2 * cfg.n_layers * bool(cfg.qk_norm))
+    return {"flash_attention": cfg.n_layers * n_prefills,
+            "rmsnorm": per_call * (n_prefills + n_steps)}
+
+
+def tp_drive(params, cfg, prompt, dev, teacher=None) -> dict:
+    """The tp path on one rank of ``cfg``'s mesh (or in one process):
+    one-shot ``prefill_fn`` of ``prompt`` [B, S], a warm-up and
+    TP_PREFILL_REPS timed; the prompt's first TP_FILL tokens stepped
+    through the cache (the serving path's fill, timed: decode ms a step);
+    then TP_STEPS decode steps fed ``teacher``'s tokens [B, TP_STEPS]
+    (without one, their own greedy picks).  Returns the prefill's and the fill's last and every
+    step's whole-vocab logits (host float32), the greedy picks, the
+    times, and the kernels' launches over the path."""
+    from repro_torch.kernels import _lib
+    from repro_torch.models import api, parallel
+
+    b, s = prompt.shape[0], TP_FILL
+    mesh = getattr(cfg, "mesh", None)
+
+    def whole(logits):         # the real vocab's (pad ids hold -1e9)
+        return parallel.gather_logits(cfg, logits)[..., :cfg.vocab] \
+            .float().cpu()
+
+    def barrier():
+        if mesh is not None:
+            mesh.barrier()
+
+    _lib.reset_launches()
+    api.prefill_fn(params, cfg, {"tokens": prompt})
+    _sync(dev)
+    barrier()
+    t0 = time.perf_counter()
+    for _ in range(TP_PREFILL_REPS):
+        pre = api.prefill_fn(params, cfg, {"tokens": prompt})
+    _sync(dev)
+    prefill_ms = (time.perf_counter() - t0) / TP_PREFILL_REPS * 1e3
+    prefill = whole(pre)
+    cache = api.init_cache(cfg, b, s + TP_STEPS, device=dev)
+    barrier()
+    t0 = time.perf_counter()
+    for t in range(s):
+        logits, cache = api.decode_step(params, cfg, cache,
+                                        prompt[:, t:t + 1], t)
+    _sync(dev)
+    fill_s = time.perf_counter() - t0
+    steps, picks = [whole(logits)], []
+    for i in range(TP_STEPS):
+        nxt = parallel.greedy(cfg, logits)
+        picks.append(nxt)
+        feed = nxt if teacher is None else teacher[:, i:i + 1].to(dev)
+        logits, cache = api.decode_step(params, cfg, cache,
+                                        feed.to(torch.int32), s + i)
+        steps.append(whole(logits))
+    _sync(dev)
+    return {"prefill_logits": prefill, "step_logits": torch.stack(steps),
+            "picks": torch.cat(picks, dim=1).cpu(),
+            "prefill_ms": prefill_ms, "fill_s": fill_s,
+            "decode_ms_per_step": fill_s / s * 1e3,
+            "launches": dict(_lib.LAUNCHES)}
+
+
+def _tp_prompt(cfg, dev, b: int = TP_BATCH, s: int = TP_PROMPT):
+    from repro_torch import rng
+    return rng.randint(rng.PRNGKey(2, device=dev), (b, s), 0, cfg.vocab)
+
+
+def _tp_small_run(mesh, dev) -> dict:
+    """(a) on one rank: reduced qwen3-0.6b in float32 on ``dev``, its
+    weights this rank's blocks; the prefill's whole-vocab logits and the
+    greedy tokens of ``serve(mesh=)``, with the kernels' launches."""
+    from repro_torch import rng
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import serve_decode
+    from repro_torch.models import api, parallel
+
+    cfg = get_config(TP_SMALL[0]).reduced()
+    lcfg = parallel.local_config(cfg, mesh)
+    _lib.reset_launches()
+    params = api.init_params(rng.PRNGKey(0, device=dev), lcfg)
+    prompt = _tp_prompt(cfg, dev, 4, 16)
+    pre = api.prefill_fn(params, lcfg, {"tokens": prompt})
+    res = serve_decode.serve(cfg, "tp_small", device=dev, params=params,
+                             mesh=mesh, **TP_SMALL_SERVE)
+    return {"prefill_logits": parallel.gather_logits(
+                lcfg, pre)[..., :cfg.vocab].cpu(),
+            "tokens": res.tokens.cpu(),
+            "launches": dict(_lib.LAUNCHES)}
+
+
+def tp_rank(out_dir: Path) -> int:
+    """One rank of the ``tp`` phase (``--tp-rank DIR`` under torchrun):
+    the runs ``DIR/job.json`` names on the (1, world) mesh of every rank,
+    the results pickled to ``DIR/rank{r}.pkl`` (the logits by model rank
+    0 alone: every rank gathers the same)."""
+    import pickle
+
+    from repro_torch import rng
+    from repro_torch.launch.mesh import smoke_mesh
+    from repro_torch.models import api, parallel
+
+    job = json.loads((out_dir / "job.json").read_text())
+    world = int(os.environ["WORLD_SIZE"])
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    mesh = smoke_mesh(1, world)
+    torch.cuda.set_device(mesh.device)
+    dev = mesh.device
+    res = {"rank": mesh.rank, "data_rank": mesh.data_rank,
+           "model_rank": mesh.model_rank}
+    try:
+        if job["small"]:
+            res["small_cuda"] = _tp_small_run(mesh, dev)
+            res["small_cpu"] = _tp_small_run(mesh, torch.device("cpu"))
+        for arch, depth in job["full"]:
+            cfg = _lm_cfg(arch, depth)
+            lcfg = parallel.local_config(cfg, mesh)
+            torch.cuda.empty_cache()
+            _reset_peak(dev)
+            # one rank draws at a time: a draw holds a whole layer and the
+            # hash's int64 lanes beside the rank's blocks
+            t0 = time.perf_counter()
+            for r in range(world):
+                if r == mesh.rank:
+                    params = api.init_params(rng.PRNGKey(0, device=dev),
+                                             lcfg)
+                    _sync(dev)
+                    init_s = time.perf_counter() - t0
+                    init_peak = torch.cuda.max_memory_allocated(dev)
+                mesh.barrier()
+            teacher = torch.load(out_dir / f"teacher_{arch}.pt")
+            out = tp_drive(params, lcfg, _tp_prompt(cfg, dev), dev, teacher)
+            out.update(init_s=init_s, init_peak_bytes=init_peak,
+                       peak_bytes=torch.cuda.max_memory_allocated(dev),
+                       param_bytes=_param_bytes(params))
+            if mesh.model_rank != 0:
+                for k in ("prefill_logits", "step_logits"):
+                    out.pop(k)
+            res[arch] = out
+            del params
+    finally:
+        mesh.close()
+    with open(out_dir / f"rank{res['rank']}.pkl", "wb") as f:
+        pickle.dump(res, f)
+    return 0
+
+
+def _param_bytes(params) -> int:
+    from repro_torch.tree import tree_leaves
+    return sum(w.numel() * w.element_size() for w in tree_leaves(params))
+
+
+def _tp_job(world: int, out_dir: Path, small: bool, full: list) -> list:
+    """``world`` gloo ranks of this script (``--tp-rank``) sharing the
+    card through torchrun; their pickled results in rank order."""
+    import pickle
+
+    (out_dir / "job.json").write_text(json.dumps({"small": small,
+                                                  "full": full}))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(world), str(ROOT / "chip_smoke.py"),
+         "--tp-rank", str(out_dir)], env=env, cwd=ROOT, timeout=900,
+        capture_output=True, text=True)
+    print(proc.stdout[-2000:], end="", flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:], file=sys.stderr, flush=True)
+        raise AssertionError(f"tp: the {world}-rank job exited with "
+                             f"{proc.returncode}")
+    ranks = []
+    for r in range(world):
+        with open(out_dir / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    return ranks
+
+
+def _tp_reference(arch: str, depth: int, dev) -> dict:
+    """(b) / (c)'s reference: the unsharded port on the same weights, in
+    this process, then freed (the ranks share the card after it)."""
+    from repro_torch import rng
+    from repro_torch.models import api
+
+    cfg = _lm_cfg(arch, depth)
+    torch.cuda.empty_cache()
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    params = api.init_params(rng.PRNGKey(0, device=dev), cfg)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    out = tp_drive(params, cfg, _tp_prompt(cfg, dev), dev)
+    out.update(init_s=init_s,
+               peak_bytes=torch.cuda.max_memory_allocated(dev),
+               param_bytes=_param_bytes(params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_compare(label, cfg, ref: dict, ranks: list) -> dict:
+    """(b) / (c)'s verdicts: every logits set (the prefill, the fill's
+    last, each teacher-forced step) within TP_TOL of the reference's
+    largest |logit|, exact launch counts on every rank; the argmax
+    agreements and each rank's numbers."""
+    want_launch = tp_expected_launches(cfg, 1 + TP_PREFILL_REPS,
+                                       TP_FILL + TP_STEPS)
+    got = ranks[0][label]
+    sets = [("prefill", got["prefill_logits"], ref["prefill_logits"])] + [
+        (f"step{i}", g, w) for i, (g, w) in enumerate(
+            zip(got["step_logits"], ref["step_logits"]))]
+    rel = {}
+    for name, g, w in sets:
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label}: {name} logits not finite")
+        rel[name] = float((g - w).abs().max() / w.abs().max())
+    agree = int((got["step_logits"][:-1].argmax(-1)
+                 == ref["step_logits"][:-1].argmax(-1)).sum())
+    rows = []
+    for res in ranks:
+        rows.append({"rank": res["rank"], "model_rank": res["model_rank"],
+                     **{k: res[label][k] for k in (
+                         "init_s", "init_peak_bytes", "peak_bytes",
+                         "param_bytes", "prefill_ms", "fill_s",
+                         "decode_ms_per_step")},
+                     "launches": {k: res[label]["launches"][k]
+                                  for k in want_launch}})
+    verdicts = {
+        "logits_within_tol": max(rel.values()) <= TP_TOL,
+        "launches_exact": all(r["launches"] == want_launch for r in rows),
+        "picks_same_on_every_rank": all(
+            torch.equal(r[label]["picks"], ranks[0][label]["picks"])
+            for r in ranks)}
+    return {"rel_err": rel, "max_rel_err": max(rel.values()),
+            "argmax_agree": [agree, TP_STEPS * TP_BATCH],
+            "expected_launches": want_launch, "ranks": rows,
+            "verdicts": verdicts}
+
+
+def run_tp_phase(dev) -> dict:
+    """The ``tp`` phase: (a) reduced qwen3-0.6b float32 at mesh (1, 2) on
+    the card against the same two ranks on the CPU (prefill logits within
+    TP_SMALL_TOL of the largest, greedy tokens exact); (b) qwen3-32b and
+    (c) deepseek-67b at full width in bfloat16 (TP_FULL: 8 layers, mesh
+    (1, 2) and (1, 4)): a one-shot prefill of TP_BATCH x TP_PROMPT tokens,
+    its first TP_FILL stepped through the cache and TP_STEPS
+    teacher-forced decode steps, every logits set (the real vocab's)
+    within TP_TOL of the unsharded port's largest |logit| on the same
+    weights, kernels 7 and 8 launched as
+    :func:`tp_expected_launches` says on every rank.  Prints a
+    ``{"tp_small": ...}`` and a ``{"tp_path": ...}`` line a config (the
+    card's name and power limit beside every number) and returns each
+    rank's launches by path (``tp_<config>_rank<r>``)."""
+    import tempfile
+
+    launches = {}
+    failed = []
+    for i, (arch, depth, (data, model)) in enumerate(TP_FULL):
+        t0 = time.perf_counter()
+        ref = _tp_reference(arch, depth, dev)
+        ref_s = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.save(ref["picks"], Path(tmp) / f"teacher_{arch}.pt")
+            t1 = time.perf_counter()
+            ranks = _tp_job(data * model, Path(tmp), small=i == 0,
+                            full=[[arch, depth]])
+            job_s = time.perf_counter() - t1
+        if i == 0:
+            small = {}
+            cuda, cpu = ranks[0]["small_cuda"], ranks[0]["small_cpu"]
+            scale = float(cpu["prefill_logits"].abs().max())
+            small["prefill_rel_err"] = float(
+                (cuda["prefill_logits"] - cpu["prefill_logits"]).abs().max()
+            ) / scale
+            small["verdicts"] = {
+                "prefill_within_tol": small["prefill_rel_err"]
+                <= TP_SMALL_TOL,
+                "tokens_exact": all(
+                    torch.equal(r["small_cuda"]["tokens"],
+                                r["small_cpu"]["tokens"])
+                    and torch.equal(r["small_cuda"]["tokens"],
+                                    cuda["tokens"]) for r in ranks),
+                "kernels_launched": all(
+                    r["small_cuda"]["launches"][k] > 0 for r in ranks
+                    for k in ("flash_attention", "rmsnorm"))}
+            small["launches"] = [{k: r["small_cuda"]["launches"][k]
+                                  for k in ("flash_attention", "rmsnorm")}
+                                 for r in ranks]
+            small["tokens"] = cuda["tokens"][0].tolist()
+            print(json.dumps({"tp_small": {
+                "config": TP_SMALL[0] + "-reduced", "mesh": TP_SMALL[1],
+                "card": CARD, **small}}), flush=True)
+            failed += [f"tp_small {k}" for k, ok in small["verdicts"].items()
+                       if not ok]
+        cfg = _lm_cfg(arch, depth)
+        out = _tp_compare(arch, cfg, ref, ranks)
+        ref_launch = {k: ref["launches"][k] for k in out["expected_launches"]}
+        out["verdicts"]["reference_launches_exact"] = \
+            ref_launch == out["expected_launches"]
+        print(json.dumps({"tp_path": {
+            "config": arch, "layers": depth, "mesh": [data, model],
+            "batch": TP_BATCH, "prompt": TP_PROMPT, "fill": TP_FILL,
+            "steps": TP_STEPS,
+            "card": CARD,
+            "unsharded": {k: ref[k] for k in (
+                "init_s", "peak_bytes", "param_bytes", "prefill_ms",
+                "fill_s", "decode_ms_per_step")},
+            **out, "reference_s": ref_s, "job_s": job_s}}), flush=True)
+        failed += [f"{arch} {k}" for k, ok in out["verdicts"].items()
+                   if not ok]
+        for r in ranks:
+            launches[f"tp_{arch}_rank{r['rank']}"] = r[arch]["launches"]
+    if failed:
+        raise AssertionError(f"tp: {failed} failed")
     return launches
 
 
@@ -4291,13 +4683,18 @@ def main(argv: list[str]) -> int:
     train_only = argv == ["--train"]
     probe_only = argv == ["--train-probe"]
     fused_only = argv == ["--fused"]
+    tp_only = argv == ["--tp"]
+    profile_only = argv == ["--sweep-profile"]
     shard_rank_dir = (Path(argv[1]) if len(argv) == 2
                       and argv[0] == "--shard-rank" else None)
+    tp_rank_dir = (Path(argv[1]) if len(argv) == 2
+                   and argv[0] == "--tp-rank" else None)
     if argv and not (kernels_only or sweeps_only or lm_only or train_only
-                     or probe_only or fused_only or shard_rank_dir):
+                     or probe_only or fused_only or tp_only or profile_only
+                     or shard_rank_dir or tp_rank_dir):
         print(f"chip_smoke: unknown arguments {argv}; takes none, "
-              f"--kernels, --sweeps, --lm, --train, --train-probe or "
-              f"--fused", file=sys.stderr)
+              f"--kernels, --sweeps, --lm, --train, --train-probe, "
+              f"--fused, --tp or --sweep-profile", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4312,6 +4709,8 @@ def main(argv: list[str]) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if shard_rank_dir is not None:
         return shard_rank(shard_rank_dir)
+    if tp_rank_dir is not None:
+        return tp_rank(tp_rank_dir)
     print("tf32: off for matmul and cudnn (float32 means float32)")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4346,6 +4745,14 @@ def main(argv: list[str]) -> int:
         return 0
     if fused_only:
         run_fused_only(dev)
+        return 0
+    if tp_only:
+        run_tp_phase(dev)
+        return 0
+    if profile_only:
+        # every scenario x 2 seeds through the host loop, profiled: the
+        # largest buckets' batched greedy (PERF.md §5)
+        profile_sweep_round(dev, learning=False, names=_ALL, n_seeds=2)
         return 0
     t_run = time.perf_counter()
     with phase("host_costs"):
@@ -4393,9 +4800,8 @@ def main(argv: list[str]) -> int:
             torch.cuda.empty_cache()
         profile_sweep_round(dev, learning=True)
         profile_sweep_round(dev, learning=False)
-        # the largest buckets' batched greedy: every scenario, 2 seeds,
-        # in the host loop and replayed
-        profile_sweep_round(dev, learning=False, names=_ALL, n_seeds=2)
+        # the largest buckets' batched greedy, every scenario x 2 seeds,
+        # replayed (its host loop profiled: --sweep-profile)
         profile_sweep_replays(dev)
     with phase("shard"):
         launches.update(run_shard_phase(dev))
@@ -4409,6 +4815,8 @@ def main(argv: list[str]) -> int:
         torch.cuda.empty_cache()
     with phase("lm_archs"):
         launches.update(run_lm_archs(dev))
+    with phase("tp"):
+        launches.update(run_tp_phase(dev))
     with phase("train"):
         train_results, train_launches = run_train_phase(dev)
     results.update(train_results)

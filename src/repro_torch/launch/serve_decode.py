@@ -10,12 +10,23 @@ W-token attention window, as the JAX example's windowed run does.
         --config qwen3_0_6b --device cpu --reduced --sliding-window 16
     PYTHONPATH=src python -m repro_torch.launch.serve_decode \
         --config zamba2_1_2b --batch 4 --prompt-len 512 --gen-len 32
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m \
+        repro_torch.launch.serve_decode --config qwen3_0_6b --reduced \
+        --device cpu --mesh 2,2
 
 Runs on CUDA by default (``--device cpu`` to run on the CPU) and raises
 without it.  The weights and the prompt both come from ``PRNGKey(0)``, as
 in the JAX example, so the port serves the same model the same tokens.
 An encoder-decoder (Whisper) decodes against the cache's zero encoder
 memory, as the JAX example does (ROADMAP.md C.15).
+
+``--mesh DATA,MODEL`` serves a dense attention config tensor-parallel
+over ``DATA x MODEL`` ranks (``torchrun``, gloo;
+:func:`repro_torch.launch.mesh.smoke_mesh`): a rank draws the whole
+model's numbers and keeps its blocks, takes its data rank's batch rows,
+and every rank ends with the whole batch's tokens, those of a model group
+being one greedy pick.  A mesh above one rank refuses to run without
+torchrun.  Rank 0 alone prints.
 """
 from __future__ import annotations
 
@@ -27,7 +38,8 @@ import torch
 
 from repro_torch import resolve_device, rng
 from repro_torch.configs import get_config
-from repro_torch.models import api
+from repro_torch.launch.mesh import smoke_mesh
+from repro_torch.models import api, parallel
 from repro_torch.models.config import ModelConfig
 
 
@@ -47,16 +59,25 @@ def _sync(dev: torch.device) -> None:
 
 
 def serve(cfg: ModelConfig, label: str, batch: int = 4, prompt_len: int = 32,
-          gen_len: int = 16, device=None, params=None) -> ServeResult:
+          gen_len: int = 16, device=None, params=None,
+          mesh=None) -> ServeResult:
     """Serve one batch; ``params`` defaults to ``api.init_params`` of
-    ``PRNGKey(0)`` (pass the same weights to skip drawing them again)."""
-    dev = resolve_device(device)
+    ``PRNGKey(0)`` (pass the same weights to skip drawing them again).
+
+    With a ``mesh`` (:class:`repro_torch.launch.mesh.Mesh`) this rank runs
+    ``parallel.local_config(cfg, mesh)`` on its batch rows (``params``
+    then its blocks), on ``device`` or else the mesh's; the result holds
+    the whole batch."""
+    dev = resolve_device(device if device is not None or mesh is None
+                         else mesh.device)
+    run_cfg = cfg if mesh is None else parallel.local_config(cfg, mesh)
     key = rng.PRNGKey(0, device=dev)
     if params is None:
-        params = api.init_params(key, cfg)
+        params = api.init_params(key, run_cfg)
     max_len = prompt_len + gen_len
-    cache = api.init_cache(cfg, batch, max_len, device=dev)
     prompt = rng.randint(key, (batch, prompt_len), 0, cfg.vocab)
+    rows = parallel.batch_rows(cfg, prompt, mesh)
+    cache = api.init_cache(run_cfg, rows.shape[0], max_len, device=dev)
 
     # prefill by stepping the prompt through the cache, as the JAX example
     # does (api.prefill_fn is the one-shot prompt forward)
@@ -64,25 +85,35 @@ def serve(cfg: ModelConfig, label: str, batch: int = 4, prompt_len: int = 32,
     t0 = time.perf_counter()
     logits = None
     for t in range(prompt_len):
-        logits, cache = api.decode_step(params, cfg, cache,
-                                        prompt[:, t:t + 1], t)
+        logits, cache = api.decode_step(params, run_cfg, cache,
+                                        rows[:, t:t + 1], t)
     prompt_logits = logits
     _sync(dev)
     t1 = time.perf_counter()
     toks = []
     for t in range(prompt_len, max_len):
-        nxt = torch.argmax(logits[:, :cfg.vocab], dim=-1)[:, None]
+        nxt = parallel.greedy(run_cfg, logits)
         toks.append(nxt)
-        logits, cache = api.decode_step(params, cfg, cache,
+        logits, cache = api.decode_step(params, run_cfg, cache,
                                         nxt.to(torch.int32), t)
     _sync(dev)
     t2 = time.perf_counter()
-    out = torch.cat(toks, dim=1)
+    out = parallel.gather_rows(cfg, torch.cat(toks, dim=1), batch, mesh)
+    prompt_logits = parallel.gather_rows(
+        cfg, parallel.gather_logits(run_cfg, prompt_logits), batch, mesh)
     tok_per_s = batch * max_len / (t2 - t0)
-    print(f"{label:28s} {tok_per_s:8.1f} tok/s   "
-          f"sample: {out[0, :8].tolist()}")
+    if mesh is None or mesh.rank == 0:
+        print(f"{label:28s} {tok_per_s:8.1f} tok/s   "
+              f"sample: {out[0, :8].tolist()}")
     return ServeResult(tokens=out, prompt=prompt, prompt_logits=prompt_logits,
                        fill_s=t1 - t0, decode_s=t2 - t1, tok_per_s=tok_per_s)
+
+
+def _mesh_shape(text: str) -> tuple[int, int]:
+    parts = text.split(",")
+    if len(parts) != 2 or not all(p.strip().isdigit() for p in parts):
+        raise argparse.ArgumentTypeError(f"takes DATA,MODEL, got {text!r}")
+    return int(parts[0]), int(parts[1])
 
 
 def main(argv=None) -> ServeResult:
@@ -101,6 +132,9 @@ def main(argv=None) -> ServeResult:
                          "config's, none)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without it)")
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    type=_mesh_shape, help="serve over a (data, model) mesh of DATA x MODEL "
+                         "ranks (torchrun; default: one process, no mesh)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     cfg = get_config(args.config)
@@ -110,8 +144,15 @@ def main(argv=None) -> ServeResult:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
     if args.sliding_window:
         cfg = dataclasses.replace(cfg, sliding_window=args.sliding_window)
-    return serve(cfg, cfg.name, batch=args.batch, prompt_len=args.prompt_len,
-                 gen_len=args.gen_len, device=dev)
+    mesh = (None if args.mesh is None
+            else smoke_mesh(*args.mesh, device=args.device))
+    try:
+        return serve(cfg, cfg.name, batch=args.batch,
+                     prompt_len=args.prompt_len, gen_len=args.gen_len,
+                     device=dev if mesh is None else mesh.device, mesh=mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
 
 
 if __name__ == "__main__":

@@ -9,6 +9,12 @@ Training differentiates the parameter tree with autograd
 with ``cfg.grad_accum`` microbatches summed in float32.  On the card the
 backward of kernels 7, 8 and 9 is a hand-written kernel too, so every
 config trains there, Mamba2 and Zamba2 included.
+
+Serving runs tensor-parallel with a rank's config,
+``repro_torch.models.parallel.local_config(cfg, mesh)``: ``init_params``
+then draws the rank's blocks, ``init_cache`` holds its KV heads, and
+``prefill_fn`` / ``decode_step`` return its vocab shard of the logits
+(``parallel.gather_logits`` joins them, ``parallel.greedy`` picks).
 """
 from __future__ import annotations
 

@@ -7,7 +7,9 @@ kernel 7 (:mod:`repro_torch.kernels.flash_attention`), where the JAX
 module's docstring says the TPU path belongs; the JAX code itself computes
 :func:`_sdpa` in jnp, and so does the one-token :func:`decode_attention`
 here, as in JAX.  Layouts are the JAX package's: q [B, S, H, D], k/v
-[B, S, KV, D].
+[B, S, KV, D].  Under a model mesh a rank holds its heads' columns of
+wq / wk / wv and rows of wo; the ``@ wo`` of self and decode attention
+sums over the model group (:func:`repro_torch.models.parallel.row_matmul`).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 
 from repro_torch import rng
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models import layers
+from repro_torch.models import layers, parallel
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
                                        rope_freqs)
@@ -84,7 +86,7 @@ def self_attention(params, cfg: ModelConfig, x, positions,
     q, k, v = _project_qkv(params, cfg, x, positions)
     window = (cfg.sliding_window or 0) if causal else 0
     out = flash_attention(q, k, v, causal=causal, window=window)
-    return out.reshape(b, s, -1) @ params["wo"]
+    return parallel.row_matmul(cfg, out.reshape(b, s, -1), params["wo"])
 
 
 def window_slice(cfg: ModelConfig, s_cache: int, pos: int) -> tuple[int, int]:
@@ -118,7 +120,8 @@ def decode_attention(params, cfg: ModelConfig, x, cache_k, cache_v,
     valid = start + torch.arange(w, device=x.device) <= pos
     out = _sdpa(q, cache_k[:, start:start + w], cache_v[:, start:start + w],
                 valid[None, None, None, None, :], cfg.head_dim)
-    return out.reshape(b, 1, -1) @ params["wo"], cache_k, cache_v
+    return (parallel.row_matmul(cfg, out.reshape(b, 1, -1), params["wo"]),
+            cache_k, cache_v)
 
 
 # ------------------------------------------------------- cross-attention --

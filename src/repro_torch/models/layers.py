@@ -9,6 +9,9 @@ layouts ([in, out] dense weights).  Initialisers draw through
 any device.  The RMSNorm of :func:`norm_apply` and :func:`rms_norm` is
 kernel 8 (:mod:`repro_torch.kernels.rmsnorm`); OLMo's nonparametric
 LayerNorm is plain torch, as JAX computes it outside any Pallas kernel.
+Under a model mesh (``cfg`` a :class:`repro_torch.models.parallel.
+LocalConfig`) the embedding, the unembedding and the MLP's ``down`` go
+through :mod:`repro_torch.models.parallel`'s collectives.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 
 from repro_torch import rng
 from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.models import parallel
 from repro_torch.models.config import ModelConfig
 
 
@@ -72,7 +76,7 @@ def mlp_apply(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
         h = torch.nn.functional.silu(x @ params["gate"]) * (x @ params["up"])
     else:
         h = torch.nn.functional.gelu(x @ params["up"], approximate="tanh")
-    return h @ params["down"]
+    return parallel.row_matmul(cfg, h, params["down"])
 
 
 # -------------------------------------------------------------- embeddings --
@@ -82,15 +86,21 @@ def embed_init(key: torch.Tensor, cfg: ModelConfig):
     return {"table": tbl.to(cfg.param_dtype)}
 
 
-def embed_apply(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens.long()]
+def embed_apply(params, tokens: torch.Tensor,
+                cfg: ModelConfig | None = None) -> torch.Tensor:
+    return parallel.embed(cfg, params["table"], tokens)
 
 
 def unembed_logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Tied unembedding on the PADDED vocab; pad ids masked to -1e9."""
-    logits = x @ params["table"].T                       # [..., padded_vocab]
+    """Tied unembedding on the PADDED vocab; pad ids masked to -1e9.  Under
+    a model mesh: the rank's vocab shard, its pad ids found by their
+    global index."""
+    table = params["table"]
+    logits = x @ table.T                       # [..., padded_vocab (shard)]
     if cfg.padded_vocab != cfg.vocab:
-        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
+        lo = parallel.vocab_offset(cfg, table.shape[0])
+        pad = torch.arange(lo, lo + table.shape[0], device=x.device) \
+            >= cfg.vocab
         logits = logits.masked_fill(pad, -1e9)
     return logits
 

@@ -14,7 +14,11 @@ position streams (:func:`build_positions`).
 Serving: :func:`prefill` is the one-shot prompt forward (kernels 7, 8 and
 9); :func:`init_cache` and :func:`decode_step` are the cached decode
 (kernel 8; attention and the SSM recurrence plain, as in JAX).
-:func:`decode_step` updates the cache in place and returns it.
+:func:`decode_step` updates the cache in place and returns it.  With a
+:func:`repro_torch.models.parallel.local_config` the same functions run
+one rank of a tensor-parallel mesh: the init draws the whole model's
+numbers a layer at a time and keeps the rank's blocks, the cache holds
+the rank's KV heads, and the logits are the rank's vocab shard.
 
 Training: :func:`loss_fn` is the next-token NLL plus the MoE aux loss.
 With ``cfg.remat`` set, a differentiated forward checkpoints each layer of
@@ -30,7 +34,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device, rng
-from repro_torch.models import blocks, layers
+from repro_torch.launch.sharding import map_with_path
+from repro_torch.models import blocks, layers, parallel
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -43,16 +48,28 @@ def _layer(stack: PyTree, i: int) -> PyTree:
 
 
 # ------------------------------------------------------------------- init --
-def _stacked_init(key: torch.Tensor, n: int, init_fn) -> PyTree:
+def _keep(shard, prefix: tuple, tree: PyTree) -> PyTree:
+    """``tree`` whole without a ``shard``, else each leaf's block (a copy:
+    the whole leaf is freed)."""
+    if shard is None:
+        return tree
+    return map_with_path(lambda p, w: shard(prefix + p, w).contiguous(),
+                         tree)
+
+
+def _stacked_init(key: torch.Tensor, n: int, init_fn,
+                  keep=lambda layer: layer) -> PyTree:
     """``vmap(init_fn)(split(key, n))`` of the JAX package, built layer by
-    layer into preallocated stacks, so no draw is ever n layers wide."""
+    layer into preallocated stacks, so no draw is ever n layers wide;
+    ``keep`` takes what a stack holds of each drawn layer (a rank's
+    blocks)."""
     keys = rng.split(key, n)
     if n == 0:      # vmap over no keys: empty stacks of the layer's shapes
         return tree_map(lambda w: w.new_empty((0,) + tuple(w.shape)),
-                        init_fn(rng.split(key, 1)[0]))
+                        keep(init_fn(rng.split(key, 1)[0])))
     stack = None
     for i in range(n):
-        layer = init_fn(keys[i])
+        layer = keep(init_fn(keys[i]))
         if stack is None:
             stack = tree_map(lambda w: w.new_empty((n,) + tuple(w.shape)),
                              layer)
@@ -63,15 +80,19 @@ def _stacked_init(key: torch.Tensor, n: int, init_fn) -> PyTree:
 
 def init_params(key: torch.Tensor, cfg: ModelConfig) -> PyTree:
     """Weights on ``key.device``, the same numbers as JAX's from the same
-    key."""
+    key; for a local config (the dense family: an embedding and a stack),
+    the rank's blocks of the whole model's weights (its peak: its shard
+    and one whole layer)."""
+    cfg, shard = parallel.draw_plan(cfg)
     ks = rng.split(key, 6).unbind(0)
-    params: dict = {"embed": layers.embed_init(ks[0], cfg),
-                    "final_norm": layers.norm_init(cfg, cfg.d_model,
-                                                   key.device)}
+    params: dict = {
+        "embed": _keep(shard, ("embed",), layers.embed_init(ks[0], cfg)),
+        "final_norm": layers.norm_init(cfg, cfg.d_model, key.device)}
     main_kind = cfg.layer_kinds()[-1]
     params["layers"] = _stacked_init(
         ks[1], cfg.n_layers - cfg.first_k_dense,
-        lambda k: blocks.BLOCK_INIT[main_kind](k, cfg))
+        lambda k: blocks.BLOCK_INIT[main_kind](k, cfg),
+        lambda layer: _keep(shard, ("layers",), layer))
     if cfg.first_k_dense:
         params["first_dense"] = [
             blocks.dense_block_init(rng.fold_in(ks[2], i), cfg,
@@ -128,7 +149,7 @@ def _hybrid_groups(cfg: ModelConfig) -> tuple[int, int]:
 def _embed_sequence(params, cfg: ModelConfig, tokens,
                     patch_embeds=None) -> torch.Tensor:
     """Token (+ projected patch prefix) embedding -> [B, S, d]."""
-    x = layers.embed_apply(params["embed"], tokens)
+    x = layers.embed_apply(params["embed"], tokens, cfg)
     if cfg.frontend == "vision":
         patches = patch_embeds.to(cfg.param_dtype) @ params["patch_proj"]
         x = torch.cat([patches, x], dim=1)
@@ -263,7 +284,7 @@ def decode_step(params, cfg: ModelConfig, cache: PyTree,
     Returns (logits [B, V], cache), the cache updated in place.
     """
     pos = int(pos)
-    x = layers.embed_apply(params["embed"], token)
+    x = layers.embed_apply(params["embed"], token, cfg)
     for p_dense, c in zip(params.get("first_dense", []),
                           cache.get("first_dense", [])):
         x, _ = blocks.dense_block_decode(p_dense, cfg, x, c, pos)
