@@ -221,18 +221,28 @@
       at lr 3e-3 through the kernels and through the plain forward's
       autograd, and mamba2-2.7b at 64 layers);
    i. (run between g and h) the tensor-parallel slice (``run_tp_phase``):
-      the unsharded reference in this process, freed, then gloo ranks of
-      this script sharing the card (``torchrun``, ``--tp-rank DIR``, a
-      ``(1, model)`` mesh of ``launch.mesh.smoke_mesh``): (a) reduced
-      qwen3-0.6b in float32 at mesh (1, 2) on the card against the same
-      two ranks on the CPU, prefill logits within 1e-4 of the largest and
-      8 greedy tokens of ``serve(mesh=)`` exact; (b) qwen3-32b (8 of 64
-      layers, mesh (1, 2)) and (c) deepseek-67b (8 of 95, mesh (1, 4)) at
-      full width in bfloat16, B = 4: a one-shot prefill of 512 tokens,
-      its first 64 stepped through the cache, 16 decode steps fed the
-      unsharded run's greedy tokens, every logits set within 2e-2 of the
-      unsharded port's largest |logit| on the same weights, the argmax
-      agreements counted, kernels 7 and 8 launched on every rank as
+      the unsharded references in this process, each freed, then gloo
+      ranks of this script sharing the card (``torchrun``, ``--tp-rank
+      DIR``, a ``(1, model)`` mesh of ``launch.mesh.smoke_mesh``, one job
+      a mesh shape): (a) reduced qwen3-0.6b in float32 at mesh (1, 2) on
+      the card against the same two ranks on the CPU, prefill logits
+      within 1e-4 of the largest and 8 greedy tokens of ``serve(mesh=)``
+      exact; (b) qwen3-32b (8 of 64 layers, mesh (1, 2)), (c)
+      deepseek-67b (8 of 95, (1, 4)), (d) qwen3-moe-30b-a3b (8 of 48, (1,
+      4)), (e) qwen2-vl-7b (8 of 28, (1, 2), 1,024 patches ahead of the
+      prompt) and (f) deepseek-v2-236b (3 of 60, (1, 4)) at full width in
+      bfloat16, B = 4, each rank drawing its blocks alone: a one-shot
+      prefill of 512 tokens (a free warm-up, then two timed), its first 64
+      ((b), (c)) or 16 tokens stepped through the cache (timed), 16
+      decode steps fed the unsharded run's greedy tokens; a MoE config
+      drives its prefill, fill and steps again, untimed, with the routing
+      forced to the unsharded run's (``route_spy``: every flip of the
+      ranks' own routing counted, with its router margin), its free
+      prefill held to a looser bound and its set flips counted against
+      the float32-row witness's (``f32_rows``); every judged logits set
+      within 2e-2 of the unsharded port's largest |logit| on the same
+      weights, the argmax agreements counted, kernels 7 and 8 launched on
+      every rank as
       ``tp_expected_launches`` says (counts zeroed on each rank just
       before the path); each rank's peak allocated bytes, init, prefill
       and decode times beside the unsharded run's (``{"tp_small": ...}``,
@@ -2882,10 +2892,13 @@ def check_lm_arch_kernels(dev, results: dict, main=(4, 512)) -> None:
     over the serve path's memory of prompt + generated positions
     ("whisper_cross_decode") and over 1,500 encoder frames, and one tp
     rank's heads (qwen3-32b at model 2, 32/4; deepseek-67b at model 4,
-    16/2); kernel 8 bf16 at each new row width over the 4 x 512 prefill
-    rows ("d384" ... "d8192"; the per-head qk_norm width 128 is
-    check_lm_kernels' "qk_norm") and at qwen3-32b's q / k norm rows of
-    one tp rank ("tp_q_norm_m2", "tp_k_norm_m2")."""
+    16/2; qwen3-moe at model 4, 8/1; qwen2-vl at model 2, 14/2 over its
+    1,536 positions); kernel 8 bf16 at each new row width over the 4 x
+    512 prefill rows ("d384" ... "d8192", deepseek-v2's q / kv latents
+    among them; the per-head qk_norm width 128 is check_lm_kernels'
+    "qk_norm") and at the q / k norm rows of one tp rank: qwen3-32b's
+    ("tp_q_norm_m2", "tp_k_norm_m2") and qwen3-moe's
+    ("tp_moe_q_norm_m4", "tp_moe_k_norm_m4")."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kfa
@@ -2921,11 +2934,16 @@ def check_lm_arch_kernels(dev, results: dict, main=(4, 512)) -> None:
             ("olmo_mha16", (b0, s0, s0), 16, 16, 128, True, 0,
              torch.bfloat16, 10),
             # one rank's heads in the tp phase: qwen3-32b at model 2,
-            # deepseek-67b at model 4
+            # deepseek-67b and qwen3-moe at model 4, qwen2-vl at model 2
+            # over its 1,024 patches and 512 tokens
             ("tp_qwen3_32b_m2", (b0, s0, s0), 32, 4, 128, True, 0,
              torch.bfloat16, 10),
             ("tp_deepseek_67b_m4", (b0, s0, s0), 16, 2, 128, True, 0,
              torch.bfloat16, 10),
+            ("tp_qwen3_moe_m4", (b0, s0, s0), 8, 1, 128, True, 0,
+             torch.bfloat16, 10),
+            ("tp_qwen2_vl_m2", (b0, 1536, 1536), 14, 2, 128, True, 0,
+             torch.bfloat16, 5),
             ("whisper_enc", (b0, 1500, 1500), 6, 6, 64, False, 0,
              torch.bfloat16, 10),
             ("whisper_dec", (b0, 375, 375), 6, 6, 64, True, 0,
@@ -2966,11 +2984,14 @@ def check_lm_arch_kernels(dev, results: dict, main=(4, 512)) -> None:
         del q, k, v
 
     rows = b0 * s0
-    # the d-wide norms of the configs, then qwen3-32b's q / k norms over
-    # one rank's 32 / 4 heads of 128 in the tp phase (model 2)
+    # the d-wide norms of the configs (deepseek-v2's q / kv latents: d1536,
+    # d512), then the q / k norms over one rank's heads of 128 in the tp
+    # phase: qwen3-32b's 32 / 4 at model 2, qwen3-moe's 8 / 1 at model 4
     for label, n, d in [(f"d{d}", rows, d) for d in (
             384, 512, 1024, 1536, 2048, 2560, 3584, 5120, 8192)] + [
-            ("tp_q_norm_m2", rows * 32, 128), ("tp_k_norm_m2", rows * 4, 128)]:
+            ("tp_q_norm_m2", rows * 32, 128), ("tp_k_norm_m2", rows * 4, 128),
+            ("tp_moe_q_norm_m4", rows * 8, 128),
+            ("tp_moe_k_norm_m4", rows, 128)]:
         x = normal((n, d), torch.bfloat16)
         scale = (1.0 + 0.1 * normal((d,), torch.float32)).to(torch.bfloat16)
         err = _close_tol(f"rmsnorm {label}", krn.rmsnorm(x, scale),
@@ -3414,21 +3435,36 @@ def run_lm_archs(dev) -> dict:
 
 # ------------------------------------------------- the tensor-parallel slice --
 # (a) reduced qwen3-0.6b in float32, tensor-parallel on the card against the
-# same ranks on the CPU; (b), (c) dense configs at full width in bfloat16,
-# depth cut, against the unsharded port on the same weights: (config,
-# layers, (data, model)).  deepseek-67b (~134 GB in bfloat16) needs the
-# mesh; its full depth waits for a machine with four cards (ROADMAP).
+# same ranks on the CPU; (b)-(f) attention configs at full width in
+# bfloat16, depth cut, against the unsharded port on the same weights:
+# (config, layers, (data, model), prompt tokens stepped through the cache).
+# deepseek-67b (~134 GB in bfloat16) needs the mesh; its full depth waits
+# for a machine with four cards (ROADMAP).  qwen3-32b and deepseek-67b keep
+# the depth and fill they were first verified at (8 layers, 64 tokens);
+# qwen3-moe (a rank its 32 experts) and qwen2-vl run 8 layers and step 16
+# tokens, deepseek-v2 its dense first layer and 2 MoE layers (each 7.5 GB
+# of experts; the reference's init draws an expert leaf whole in float32,
+# 5 GB) and 16 tokens: the run's time is taken from the new paths' fill.
 TP_SMALL = ("qwen3_0_6b", (1, 2))
 TP_SMALL_SERVE = dict(batch=4, prompt_len=16, gen_len=8)
 TP_SMALL_TOL = 1e-4          # card vs CPU, of the largest |logit|
-TP_FULL = (("qwen3_32b", 8, (1, 2)), ("deepseek_67b", 8, (1, 4)))
+TP_FULL = (("qwen3_32b", 8, (1, 2), 64), ("deepseek_67b", 8, (1, 4), 64),
+           ("qwen3_moe_30b_a3b", 8, (1, 4), 16),
+           ("qwen2_vl_7b", 8, (1, 2), 16),
+           ("deepseek_v2_236b", 3, (1, 4), 16))
 TP_BATCH, TP_PROMPT, TP_STEPS = 4, 512, 16
-# the decode check's context: the prompt's first TP_FILL tokens stepped
-# through the cache (all 512 took 97 s a run on four ranks sharing the
-# card, ~190 ms a step: PERF.md)
-TP_FILL = 64
 TP_TOL = 2e-2                # of the largest |logit|: PERF.md §2's bf16 bound
 TP_PREFILL_REPS = 2          # timed one-shot prefills after a warm-up
+TP_FLIPS_SHOWN = 20          # routing flips listed a path (all counted)
+# The ranks' own MoE routing (the free prefill, not forced): its logits
+# against the reference's and its share of token-layers routed to another
+# set of experts, each bound about twice the first full-width readings
+# (7.46e-2 and 8.5%: PERF.md §6).  A flip there changes the experts a token
+# meets, so its error is not the bf16 bound's: random routers leave the
+# k-th and next probabilities ~1e-3 apart, and one process with its row
+# products in float32 (the witness) flips as many.
+TP_FREE_TOL = 0.15
+TP_FREE_SET_SHARE = 0.15
 
 
 def _sync(dev) -> None:
@@ -3443,78 +3479,185 @@ def _reset_peak(dev) -> None:
     torch.cuda.reset_peak_memory_stats(dev)
 
 
-def tp_expected_launches(cfg, n_prefills: int, n_steps: int) -> dict:
+def tp_expected_launches(cfg, fill: int) -> dict:
     """Kernel 7 and 8 launches of :func:`tp_drive` on each rank (and in one
-    process): kernel 7 once a layer a prefill (decode attends with the
-    plain ``_sdpa``, as in JAX); kernel 8 in both block norms, qwen3's
-    q / k norms over the rank's heads and the final norm, a prefill and
-    a decode step alike."""
+    process): kernel 7 once a GQA layer a prefill (decode attends with the
+    plain ``_sdpa``, and MLA's attention is plain, as in JAX); kernel 8 in
+    both block norms, qwen3's q / k norms over the rank's heads, MLA's
+    ``q_norm`` / ``kv_norm`` and the final norm, a prefill and a decode
+    step alike.  A MoE config drives one prefill and one fill more (the
+    forced routing's run)."""
+    n_prefills = 1 + TP_PREFILL_REPS + cfg.is_moe
+    n_steps = fill + TP_STEPS + fill * cfg.is_moe
     per_call = ((2 * cfg.n_layers + 1) * (cfg.norm == "rmsnorm")
-                + 2 * cfg.n_layers * bool(cfg.qk_norm))
-    return {"flash_attention": cfg.n_layers * n_prefills,
+                + 2 * cfg.n_layers * (bool(cfg.qk_norm)
+                                      or cfg.attention == "mla"))
+    return {"flash_attention":
+            cfg.n_layers * n_prefills * (cfg.attention == "gqa"),
             "rmsnorm": per_call * (n_prefills + n_steps)}
 
 
-def tp_drive(params, cfg, prompt, dev, teacher=None) -> dict:
+@contextlib.contextmanager
+def route_spy(cfg, forced=None):
+    """Records each ``moe.router`` call of ``cfg``'s model, in call order,
+    on the device: the top-k experts (``top_i``), ``keep`` (``moe.assign``
+    of that choice: the capacity's cut) and each token's router margin
+    (the k-th largest probability less the next).  With ``forced`` (a
+    reference run's ``top_i`` a call, on the device), each call returns
+    the reference's choice in place of its own, which ``moe.route`` then
+    assigns as it assigns its own (the same weights, slots and keep as the
+    reference's): the routing's counterpart of the teacher-forced tokens,
+    so a near-tie that routes a token elsewhere is counted
+    (:func:`_routing_flips`) and not carried into the logits."""
+    from repro_torch.models import moe
+
+    inner = moe.router
+    log = []
+    k = cfg.moe_top_k
+
+    def spy(params, xg):
+        probs, ranked = inner(params, xg)
+        top_i = ranked[..., :k]
+        keep = moe.assign(cfg, probs, top_i)[3]
+        p = probs.gather(-1, ranked[..., k - 1:k + 1])
+        margin = p[..., 0] - p[..., 1] if p.shape[-1] > 1 else p[..., 0]
+        log.append((top_i.to(torch.int16), keep, margin))
+        if forced is None:
+            return probs, ranked
+        return probs, forced[len(log) - 1]
+
+    moe.router = spy
+    try:
+        yield log
+    finally:
+        moe.router = inner
+
+
+@contextlib.contextmanager
+def f32_rows():
+    """The unsharded port with its row-parallel products
+    (``parallel.row_matmul``, the MoE combine's ``row_einsum``) in float32,
+    rounded once to the activation dtype, as the ranks sum their partials:
+    the witness of the ranks' own routing (ROADMAP C.18)."""
+    from repro_torch.models import parallel
+
+    saved = parallel.row_matmul, parallel.row_einsum
+    parallel.row_matmul = \
+        lambda cfg, x, w: (x.float() @ w.float()).to(x.dtype)
+    parallel.row_einsum = lambda cfg, eq, a, b: torch.einsum(
+        eq, a.float(), b.float()).to(a.dtype)
+    try:
+        yield
+    finally:
+        parallel.row_matmul, parallel.row_einsum = saved
+
+
+def _route_record(log: list) -> list:
+    """A :func:`route_spy` log on the host: (top_i, keep, margin) a
+    call."""
+    return [tuple(t.cpu() for t in call) for call in log]
+
+
+def _whole(cfg, logits) -> torch.Tensor:
+    """The real vocab's logits (pad ids hold -1e9), every rank's shard
+    gathered, on the host in their own dtype."""
+    from repro_torch.models import parallel
+    return parallel.gather_columns(cfg, logits)[..., :cfg.vocab].cpu()
+
+
+def tp_drive(params, cfg, batch, dev, fill: int, teacher=None,
+             routes=None) -> dict:
     """The tp path on one rank of ``cfg``'s mesh (or in one process):
-    one-shot ``prefill_fn`` of ``prompt`` [B, S], a warm-up and
-    TP_PREFILL_REPS timed; the prompt's first TP_FILL tokens stepped
-    through the cache (the serving path's fill, timed: decode ms a step);
-    then TP_STEPS decode steps fed ``teacher``'s tokens [B, TP_STEPS]
-    (without one, their own greedy picks).  Returns the prefill's and the fill's last and every
-    step's whole-vocab logits (host float32), the greedy picks, the
-    times, and the kernels' launches over the path."""
+    a warm-up one-shot ``prefill_fn`` of ``batch`` (tokens [B, S],
+    qwen2-vl's patch embeddings too), free (a MoE config's routing its
+    own, recorded: :func:`route_spy`); TP_PREFILL_REPS timed prefills;
+    the prompt's first ``fill`` tokens stepped through the cache (the
+    serving path's fill, text only, timed: decode ms a step).  A dense
+    config then takes TP_STEPS decode steps fed ``teacher``'s tokens
+    [B, TP_STEPS] (without one, its own greedy picks).  A MoE config
+    drives the prefill, the fill and the steps again, untimed, with its
+    routing recorded and, given ``routes`` (the reference's ``top_i`` a
+    call), forced to the reference's after the free prefill's calls.  The
+    timed calls run without the spy.  Returns the free prefill's, the
+    judged prefill's and the fill's last and every step's whole-vocab
+    logits (host), the greedy picks, the routing record, the times, and
+    the kernels' launches over the path."""
     from repro_torch.kernels import _lib
     from repro_torch.models import api, parallel
 
-    b, s = prompt.shape[0], TP_FILL
+    prompt = batch["tokens"]
+    b = prompt.shape[0]
     mesh = getattr(cfg, "mesh", None)
-
-    def whole(logits):         # the real vocab's (pad ids hold -1e9)
-        return parallel.gather_logits(cfg, logits)[..., :cfg.vocab] \
-            .float().cpu()
+    n_moe = (cfg.n_layers - cfg.first_k_dense) * cfg.is_moe
+    if routes is not None:           # on the card before any timing
+        routes = [t.to(dev, torch.int64) for t in routes[n_moe:]]
 
     def barrier():
         if mesh is not None:
             mesh.barrier()
 
+    def filled():
+        cache = api.init_cache(cfg, b, fill + TP_STEPS, device=dev)
+        for t in range(fill):
+            logits, cache = api.decode_step(params, cfg, cache,
+                                            prompt[:, t:t + 1], t)
+        return logits, cache
+
     _lib.reset_launches()
-    api.prefill_fn(params, cfg, {"tokens": prompt})
+    with route_spy(cfg) as free_log:
+        free = api.prefill_fn(params, cfg, batch)
     _sync(dev)
     barrier()
     t0 = time.perf_counter()
     for _ in range(TP_PREFILL_REPS):
-        pre = api.prefill_fn(params, cfg, {"tokens": prompt})
+        pre = api.prefill_fn(params, cfg, batch)
     _sync(dev)
     prefill_ms = (time.perf_counter() - t0) / TP_PREFILL_REPS * 1e3
-    prefill = whole(pre)
-    cache = api.init_cache(cfg, b, s + TP_STEPS, device=dev)
     barrier()
     t0 = time.perf_counter()
-    for t in range(s):
-        logits, cache = api.decode_step(params, cfg, cache,
-                                        prompt[:, t:t + 1], t)
+    logits, cache = filled()
     _sync(dev)
     fill_s = time.perf_counter() - t0
-    steps, picks = [whole(logits)], []
-    for i in range(TP_STEPS):
-        nxt = parallel.greedy(cfg, logits)
-        picks.append(nxt)
-        feed = nxt if teacher is None else teacher[:, i:i + 1].to(dev)
-        logits, cache = api.decode_step(params, cfg, cache,
-                                        feed.to(torch.int32), s + i)
-        steps.append(whole(logits))
-    _sync(dev)
-    return {"prefill_logits": prefill, "step_logits": torch.stack(steps),
+    with contextlib.ExitStack() as stack:
+        log = []
+        if cfg.is_moe:
+            log = stack.enter_context(route_spy(cfg, routes))
+            pre = api.prefill_fn(params, cfg, batch)
+            logits, cache = filled()
+        steps, picks = [_whole(cfg, logits)], []
+        for i in range(TP_STEPS):
+            nxt = parallel.greedy(cfg, logits)
+            picks.append(nxt)
+            feed = nxt if teacher is None else teacher[:, i:i + 1].to(dev)
+            logits, cache = api.decode_step(params, cfg, cache,
+                                            feed.to(torch.int32), fill + i)
+            steps.append(_whole(cfg, logits))
+        _sync(dev)
+    launches = dict(_lib.LAUNCHES)
+    return {"free_prefill_logits": _whole(cfg, free),
+            "prefill_logits": _whole(cfg, pre),
+            "step_logits": torch.stack(steps),
             "picks": torch.cat(picks, dim=1).cpu(),
+            "routing": _route_record(free_log + log),
             "prefill_ms": prefill_ms, "fill_s": fill_s,
-            "decode_ms_per_step": fill_s / s * 1e3,
-            "launches": dict(_lib.LAUNCHES)}
+            "decode_ms_per_step": fill_s / fill * 1e3, "launches": launches}
 
 
 def _tp_prompt(cfg, dev, b: int = TP_BATCH, s: int = TP_PROMPT):
     from repro_torch import rng
     return rng.randint(rng.PRNGKey(2, device=dev), (b, s), 0, cfg.vocab)
+
+
+def _tp_batch(cfg, dev) -> dict:
+    """The tp path's prefill batch: TP_BATCH x TP_PROMPT tokens, and
+    qwen2-vl's 1,024 patch embeddings ahead of them."""
+    from repro_torch import rng
+    batch = {"tokens": _tp_prompt(cfg, dev)}
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = rng.normal(
+            rng.PRNGKey(3, device=dev),
+            (TP_BATCH, cfg.n_patches, cfg.frontend_dim)).to(cfg.param_dtype)
+    return batch
 
 
 def _tp_small_run(mesh, dev) -> dict:
@@ -3535,7 +3678,7 @@ def _tp_small_run(mesh, dev) -> dict:
     pre = api.prefill_fn(params, lcfg, {"tokens": prompt})
     res = serve_decode.serve(cfg, "tp_small", device=dev, params=params,
                              mesh=mesh, **TP_SMALL_SERVE)
-    return {"prefill_logits": parallel.gather_logits(
+    return {"prefill_logits": parallel.gather_columns(
                 lcfg, pre)[..., :cfg.vocab].cpu(),
             "tokens": res.tokens.cpu(),
             "launches": dict(_lib.LAUNCHES)}
@@ -3564,29 +3707,40 @@ def tp_rank(out_dir: Path) -> int:
         if job["small"]:
             res["small_cuda"] = _tp_small_run(mesh, dev)
             res["small_cpu"] = _tp_small_run(mesh, torch.device("cpu"))
-        for arch, depth in job["full"]:
+        for arch, depth, fill in job["full"]:
             cfg = _lm_cfg(arch, depth)
             lcfg = parallel.local_config(cfg, mesh)
             torch.cuda.empty_cache()
             _reset_peak(dev)
-            # one rank draws at a time: a draw holds a whole layer and the
-            # hash's int64 lanes beside the rank's blocks
-            t0 = time.perf_counter()
+            # one rank draws at a time, so each draw's time and peak are
+            # its own (the hash is bound by the card's memory rate)
+            t_turns = time.perf_counter()
             for r in range(world):
                 if r == mesh.rank:
+                    t0 = time.perf_counter()
                     params = api.init_params(rng.PRNGKey(0, device=dev),
                                              lcfg)
                     _sync(dev)
                     init_s = time.perf_counter() - t0
                     init_peak = torch.cuda.max_memory_allocated(dev)
+                    # the draw's freed temporaries back to the card for
+                    # the next rank's draw
+                    torch.cuda.empty_cache()
                 mesh.barrier()
+            turns_s = time.perf_counter() - t_turns
             teacher = torch.load(out_dir / f"teacher_{arch}.pt")
-            out = tp_drive(params, lcfg, _tp_prompt(cfg, dev), dev, teacher)
-            out.update(init_s=init_s, init_peak_bytes=init_peak,
+            routes = torch.load(out_dir / f"routes_{arch}.pt")
+            t0 = time.perf_counter()
+            out = tp_drive(params, lcfg, _tp_batch(cfg, dev), dev, fill,
+                           teacher, routes)
+            out.update(init_s=init_s, init_turns_s=turns_s,
+                       drive_s=time.perf_counter() - t0,
+                       init_peak_bytes=init_peak,
                        peak_bytes=torch.cuda.max_memory_allocated(dev),
                        param_bytes=_param_bytes(params))
             if mesh.model_rank != 0:
-                for k in ("prefill_logits", "step_logits"):
+                for k in ("free_prefill_logits", "prefill_logits",
+                          "step_logits"):
                     out.pop(k)
             res[arch] = out
             del params
@@ -3629,9 +3783,11 @@ def _tp_job(world: int, out_dir: Path, small: bool, full: list) -> list:
     return ranks
 
 
-def _tp_reference(arch: str, depth: int, dev) -> dict:
-    """(b) / (c)'s reference: the unsharded port on the same weights, in
-    this process, then freed (the ranks share the card after it)."""
+def _tp_reference(arch: str, depth: int, fill: int, dev) -> dict:
+    """(b)-(f)'s reference: the unsharded port on the same weights, in
+    this process, then freed (the ranks share the card after it).  A MoE
+    config's witness too: one free prefill with the row products in
+    float32 (:func:`f32_rows`), its logits and routing."""
     from repro_torch import rng
     from repro_torch.models import api
 
@@ -3642,23 +3798,132 @@ def _tp_reference(arch: str, depth: int, dev) -> dict:
     params = api.init_params(rng.PRNGKey(0, device=dev), cfg)
     _sync(dev)
     init_s = time.perf_counter() - t0
-    out = tp_drive(params, cfg, _tp_prompt(cfg, dev), dev)
+    batch = _tp_batch(cfg, dev)
+    out = tp_drive(params, cfg, batch, dev, fill)
     out.update(init_s=init_s,
                peak_bytes=torch.cuda.max_memory_allocated(dev),
                param_bytes=_param_bytes(params))
+    if cfg.is_moe:
+        with f32_rows(), route_spy(cfg) as log:
+            out["witness_logits"] = _whole(
+                cfg, api.prefill_fn(params, cfg, batch))
+        out["witness_routing"] = _route_record(log)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def _tp_compare(label, cfg, ref: dict, ranks: list) -> dict:
-    """(b) / (c)'s verdicts: every logits set (the prefill, the fill's
-    last, each teacher-forced step) within TP_TOL of the reference's
-    largest |logit|, exact launch counts on every rank; the argmax
-    agreements and each rank's numbers."""
-    want_launch = tp_expected_launches(cfg, 1 + TP_PREFILL_REPS,
-                                       TP_FILL + TP_STEPS)
+def _flips(cfg, ref: list, got: list, phase, shown: list) -> dict:
+    """Routing ``got`` against ``ref`` (:func:`route_spy` records, call by
+    call): by ``phase(call)``, the token-layers whose top-k experts or
+    ``keep`` differ (``order``: the ranked choices; ``set``: the experts
+    that take the token) and the largest and median reference margin of
+    each kind of flip beside all tokens' median; the first flips appended
+    to ``shown`` (up to TP_FLIPS_SHOWN) with their margins."""
+    e = cfg.n_experts
+
+    def experts(top_i, keep):      # [T, E]: the experts that take a token
+        idx = torch.where(keep, top_i, e)
+        return torch.zeros(idx.shape[0], e + 1, dtype=torch.bool).scatter_(
+            1, idx, True)[:, :e]
+
+    counts, margins = {}, {}
+    for c, (r, g) in enumerate(zip(ref, got)):
+        ri, gi = (t[0].long().flatten(0, 1) for t in (r, g))     # [T, k]
+        rk, gk = (t[1].flatten(0, 1) for t in (r, g))
+        rm = r[2].flatten()
+        order = (ri != gi).any(-1) | (rk != gk).any(-1)
+        sets = (experts(ri, rk) != experts(gi, gk)).any(-1)
+        ph = phase(c)
+        n = counts.setdefault(ph, {"tokens": 0, "order": 0, "set": 0})
+        n["tokens"] += ri.shape[0]
+        n["order"] += int(order.sum())
+        n["set"] += int(sets.sum())
+        m = margins.setdefault(ph, {"all": [], "order": [], "set": []})
+        m["all"].append(rm)
+        m["order"].append(rm[order])
+        m["set"].append(rm[sets])
+        seq = TP_PROMPT if ph.startswith("prefill") else 1
+        for t in order.nonzero()[:, 0].tolist()[:TP_FLIPS_SHOWN - len(shown)]:
+            shown.append({
+                "call": c, "phase": ph,
+                "layer": cfg.first_k_dense + c % (cfg.n_layers
+                                                  - cfg.first_k_dense),
+                "row": t // seq, "position": t % seq,
+                "ref_top_i": ri[t].tolist(), "top_i": gi[t].tolist(),
+                "ref_keep": rk[t].tolist(), "keep": gk[t].tolist(),
+                "ref_margin": float(rm[t]), "margin": float(g[2].flatten()[t]),
+                "set_changed": bool(sets[t])})
+    for ph, m in margins.items():
+        stats = {}
+        for kind, parts in m.items():
+            v = torch.cat(parts).float()
+            if v.numel():
+                stats[kind] = {"max": float(v.max()),
+                               "median": float(v.median())}
+        counts[ph]["ref_margin"] = stats
+    return counts
+
+
+def _routing_flips(cfg, fill: int, ref: dict, ranks: list) -> dict:
+    """The routing decisions of every rank against the reference's, call
+    by call: flips by phase (:func:`_flips`: the free prefill's, then the
+    forced run's prefill, fill and steps, each rank's own choice there
+    given the reference's earlier ones), the first TP_FLIPS_SHOWN listed;
+    the free prefill's against the witness's (:func:`f32_rows`) and the
+    reference's against the witness's; whether every rank routed alike."""
+    if not cfg.is_moe:
+        return {}
+    n_moe = cfg.n_layers - cfg.first_k_dense
+
+    def phase(call):
+        i = call // n_moe
+        if i <= 1:
+            return "prefill_free" if i == 0 else "prefill"
+        return "fill" if i - 2 < fill else "step"
+
+    got = ranks[0]
+    calls = n_moe * (2 + fill + TP_STEPS)
+    shown = []
+    flips = _flips(cfg, ref["routing"], got, phase, shown)
+    witness = ref["witness_routing"]
+
+    def free(call):
+        return "prefill_free"
+
+    same = all(len(res) == len(got) and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        for a, b in zip(res, got)) for res in ranks)
+    return {"calls": [len(got), calls], "flips": flips,
+            "witness_flips": {
+                "ranks": _flips(cfg, witness, got[:n_moe], free, [])[
+                    "prefill_free"],
+                "reference": _flips(cfg, witness, ref["routing"][:n_moe],
+                                    free, [])["prefill_free"]},
+            "first_flips": shown, "same_on_every_rank": same,
+            "recorded": len(got) == calls == len(ref["routing"])
+            and len(witness) == n_moe}
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over the largest |want|, in float32."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _tp_compare(label, cfg, fill: int, ref: dict, ranks: list) -> dict:
+    """(b)-(f)'s verdicts: every judged logits set (the prefill, the
+    fill's last, each teacher-forced step; a MoE config's under the
+    forced routing) within TP_TOL of the reference's largest |logit|, the
+    free prefill within TP_TOL (TP_FREE_TOL under a MoE config's own
+    routing), a MoE config's set flips there at most TP_FREE_SET_SHARE of
+    its token-layers and, against the float32-row witness, no more than
+    the reference's (the ranks' own routing inside the spread of two
+    one-process roundings), its routing recorded in full and alike on
+    every rank, exact launch counts on every rank; the argmax agreements,
+    the routing flips, the witness's errors and each rank's numbers."""
+    want_launch = tp_expected_launches(cfg, fill)
     got = ranks[0][label]
     sets = [("prefill", got["prefill_logits"], ref["prefill_logits"])] + [
         (f"step{i}", g, w) for i, (g, w) in enumerate(
@@ -3667,26 +3932,48 @@ def _tp_compare(label, cfg, ref: dict, ranks: list) -> dict:
     for name, g, w in sets:
         if not bool(torch.isfinite(g).all()):
             raise AssertionError(f"{label}: {name} logits not finite")
-        rel[name] = float((g - w).abs().max() / w.abs().max())
+        rel[name] = _rel(g, w)
+    free_rel = _rel(got["free_prefill_logits"], ref["free_prefill_logits"])
     agree = int((got["step_logits"][:-1].argmax(-1)
                  == ref["step_logits"][:-1].argmax(-1)).sum())
     rows = []
     for res in ranks:
         rows.append({"rank": res["rank"], "model_rank": res["model_rank"],
                      **{k: res[label][k] for k in (
-                         "init_s", "init_peak_bytes", "peak_bytes",
-                         "param_bytes", "prefill_ms", "fill_s",
-                         "decode_ms_per_step")},
+                         "init_s", "init_turns_s", "drive_s",
+                         "init_peak_bytes", "peak_bytes", "param_bytes",
+                         "prefill_ms", "fill_s", "decode_ms_per_step")},
                      "launches": {k: res[label]["launches"][k]
                                   for k in want_launch}})
+    routing = _routing_flips(cfg, fill, ref,
+                             [res[label]["routing"] for res in ranks])
     verdicts = {
         "logits_within_tol": max(rel.values()) <= TP_TOL,
+        "free_prefill_within_bound":
+            free_rel <= (TP_FREE_TOL if cfg.is_moe else TP_TOL),
         "launches_exact": all(r["launches"] == want_launch for r in rows),
         "picks_same_on_every_rank": all(
             torch.equal(r[label]["picks"], ranks[0][label]["picks"])
             for r in ranks)}
+    witness = {}
+    if routing:
+        free = routing["flips"]["prefill_free"]
+        verdicts["free_set_flips_within_bound"] = \
+            free["set"] <= TP_FREE_SET_SHARE * free["tokens"]
+        spread = routing["witness_flips"]
+        verdicts["free_set_flips_within_witness_spread"] = \
+            spread["ranks"]["set"] <= spread["reference"]["set"]
+        verdicts["routing_recorded"] = routing["recorded"]
+        verdicts["routing_same_on_every_rank"] = \
+            routing["same_on_every_rank"]
+        witness = {"free_prefill_rel_err": _rel(got["free_prefill_logits"],
+                                                ref["witness_logits"]),
+                   "reference_rel_err": _rel(ref["free_prefill_logits"],
+                                             ref["witness_logits"])}
     return {"rel_err": rel, "max_rel_err": max(rel.values()),
+            "free_prefill_rel_err": free_rel,
             "argmax_agree": [agree, TP_STEPS * TP_BATCH],
+            "routing": routing, "witness": witness,
             "expected_launches": want_launch, "ranks": rows,
             "verdicts": verdicts}
 
@@ -3694,30 +3981,45 @@ def _tp_compare(label, cfg, ref: dict, ranks: list) -> dict:
 def run_tp_phase(dev) -> dict:
     """The ``tp`` phase: (a) reduced qwen3-0.6b float32 at mesh (1, 2) on
     the card against the same two ranks on the CPU (prefill logits within
-    TP_SMALL_TOL of the largest, greedy tokens exact); (b) qwen3-32b and
-    (c) deepseek-67b at full width in bfloat16 (TP_FULL: 8 layers, mesh
-    (1, 2) and (1, 4)): a one-shot prefill of TP_BATCH x TP_PROMPT tokens,
-    its first TP_FILL stepped through the cache and TP_STEPS
-    teacher-forced decode steps, every logits set (the real vocab's)
-    within TP_TOL of the unsharded port's largest |logit| on the same
-    weights, kernels 7 and 8 launched as
-    :func:`tp_expected_launches` says on every rank.  Prints a
-    ``{"tp_small": ...}`` and a ``{"tp_path": ...}`` line a config (the
-    card's name and power limit beside every number) and returns each
-    rank's launches by path (``tp_<config>_rank<r>``)."""
+    TP_SMALL_TOL of the largest, greedy tokens exact); (b) qwen3-32b, (c)
+    deepseek-67b, (d) qwen3-moe-30b-a3b, (e) qwen2-vl-7b and (f)
+    deepseek-v2-236b at full width in bfloat16 (TP_FULL: depth cut, mesh
+    (1, 2) or (1, 4)): a one-shot prefill of TP_BATCH x TP_PROMPT tokens
+    (qwen2-vl's behind its 1,024 patches), the prompt's first tokens
+    stepped through the cache and TP_STEPS teacher-forced decode steps,
+    every judged logits set (the real vocab's) within TP_TOL of the
+    unsharded port's largest |logit| on the same weights, a MoE config's
+    routing forced to the reference's in the judged run and its own free
+    run held to TP_FREE_TOL and TP_FREE_SET_SHARE, every flip counted
+    (:func:`route_spy`) and set beside the float32-row witness's
+    (:func:`f32_rows`), kernels 7 and 8 launched as
+    :func:`tp_expected_launches` says on every rank.  The references of a
+    mesh shape run first, one after another (each freed), then one
+    torchrun job serves its configs.  Prints a ``{"tp_small": ...}`` and a
+    ``{"tp_path": ...}`` line a config (the card's name and power limit
+    beside every number) and returns each rank's launches by path
+    (``tp_<config>_rank<r>``)."""
     import tempfile
 
     launches = {}
     failed = []
-    for i, (arch, depth, (data, model)) in enumerate(TP_FULL):
-        t0 = time.perf_counter()
-        ref = _tp_reference(arch, depth, dev)
-        ref_s = time.perf_counter() - t0
+    by_mesh: dict = {}            # one torchrun job a mesh shape
+    for arch, depth, shape, fill in TP_FULL:
+        by_mesh.setdefault(shape, []).append((arch, depth, fill))
+    for i, ((data, model), runs) in enumerate(by_mesh.items()):
+        refs, ref_s = {}, {}
         with tempfile.TemporaryDirectory() as tmp:
-            torch.save(ref["picks"], Path(tmp) / f"teacher_{arch}.pt")
+            for arch, depth, fill in runs:
+                t0 = time.perf_counter()
+                refs[arch] = _tp_reference(arch, depth, fill, dev)
+                ref_s[arch] = time.perf_counter() - t0
+                torch.save(refs[arch]["picks"],
+                           Path(tmp) / f"teacher_{arch}.pt")
+                torch.save([call[0] for call in refs[arch]["routing"]],
+                           Path(tmp) / f"routes_{arch}.pt")
             t1 = time.perf_counter()
             ranks = _tp_job(data * model, Path(tmp), small=i == 0,
-                            full=[[arch, depth]])
+                            full=[list(run) for run in runs])
             job_s = time.perf_counter() - t1
         if i == 0:
             small = {}
@@ -3746,24 +4048,31 @@ def run_tp_phase(dev) -> dict:
                 "card": CARD, **small}}), flush=True)
             failed += [f"tp_small {k}" for k, ok in small["verdicts"].items()
                        if not ok]
-        cfg = _lm_cfg(arch, depth)
-        out = _tp_compare(arch, cfg, ref, ranks)
-        ref_launch = {k: ref["launches"][k] for k in out["expected_launches"]}
-        out["verdicts"]["reference_launches_exact"] = \
-            ref_launch == out["expected_launches"]
-        print(json.dumps({"tp_path": {
-            "config": arch, "layers": depth, "mesh": [data, model],
-            "batch": TP_BATCH, "prompt": TP_PROMPT, "fill": TP_FILL,
-            "steps": TP_STEPS,
-            "card": CARD,
-            "unsharded": {k: ref[k] for k in (
-                "init_s", "peak_bytes", "param_bytes", "prefill_ms",
-                "fill_s", "decode_ms_per_step")},
-            **out, "reference_s": ref_s, "job_s": job_s}}), flush=True)
-        failed += [f"{arch} {k}" for k, ok in out["verdicts"].items()
-                   if not ok]
-        for r in ranks:
-            launches[f"tp_{arch}_rank{r['rank']}"] = r[arch]["launches"]
+        for arch, depth, fill in runs:
+            ref = refs.pop(arch)
+            cfg = _lm_cfg(arch, depth)
+            out = _tp_compare(arch, cfg, fill, ref, ranks)
+            ref_launch = {k: ref["launches"][k]
+                          for k in out["expected_launches"]}
+            out["verdicts"]["reference_launches_exact"] = \
+                ref_launch == out["expected_launches"]
+            print(json.dumps({"tp_path": {
+                "config": arch, "layers": depth, "mesh": [data, model],
+                "moe_dispatch": cfg.moe_dispatch if cfg.is_moe else None,
+                "patches": cfg.n_patches if cfg.frontend == "vision" else 0,
+                "batch": TP_BATCH, "prompt": TP_PROMPT, "fill": fill,
+                "steps": TP_STEPS,
+                "card": CARD,
+                "unsharded": {k: ref[k] for k in (
+                    "init_s", "peak_bytes", "param_bytes", "prefill_ms",
+                    "fill_s", "decode_ms_per_step")},
+                **out, "reference_s": ref_s[arch],
+                "job_s": job_s, "job_configs": [a for a, _, _ in runs]}}),
+                flush=True)
+            failed += [f"{arch} {k}" for k, ok in out["verdicts"].items()
+                       if not ok]
+            for r in ranks:
+                launches[f"tp_{arch}_rank{r['rank']}"] = r[arch]["launches"]
     if failed:
         raise AssertionError(f"tp: {failed} failed")
     return launches

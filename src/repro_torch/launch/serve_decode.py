@@ -13,6 +13,9 @@ W-token attention window, as the JAX example's windowed run does.
     PYTHONPATH=src torchrun --nproc-per-node 4 -m \
         repro_torch.launch.serve_decode --config qwen3_0_6b --reduced \
         --device cpu --mesh 2,2
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m \
+        repro_torch.launch.serve_decode --config deepseek_v2_236b \
+        --reduced --device cpu --mesh 2,2
 
 Runs on CUDA by default (``--device cpu`` to run on the CPU) and raises
 without it.  The weights and the prompt both come from ``PRNGKey(0)``, as
@@ -20,13 +23,17 @@ in the JAX example, so the port serves the same model the same tokens.
 An encoder-decoder (Whisper) decodes against the cache's zero encoder
 memory, as the JAX example does (ROADMAP.md C.15).
 
-``--mesh DATA,MODEL`` serves a dense attention config tensor-parallel
-over ``DATA x MODEL`` ranks (``torchrun``, gloo;
-:func:`repro_torch.launch.mesh.smoke_mesh`): a rank draws the whole
-model's numbers and keeps its blocks, takes its data rank's batch rows,
-and every rank ends with the whole batch's tokens, those of a model group
-being one greedy pick.  A mesh above one rank refuses to run without
-torchrun.  Rank 0 alone prints.
+``--mesh DATA,MODEL`` serves an attention config tensor-parallel over
+``DATA x MODEL`` ranks (``torchrun``, gloo;
+:func:`repro_torch.launch.mesh.smoke_mesh`): the dense family (qwen3,
+deepseek-67b, olmo), qwen2-vl, qwen3-moe-30b-a3b (a rank its block of
+the experts) and deepseek-v2-236b (MLA's heads and the experts split);
+mamba2, zamba2 and whisper are refused.  A rank draws the whole model's
+numbers (a MoE rank its experts alone) and keeps its blocks, takes its
+data rank's batch rows (a MoE batch must divide over them), and every
+rank ends with the whole batch's tokens, those of a model group being one
+greedy pick.  A mesh above one rank refuses to run without torchrun.
+Rank 0 alone prints.
 """
 from __future__ import annotations
 
@@ -100,7 +107,7 @@ def serve(cfg: ModelConfig, label: str, batch: int = 4, prompt_len: int = 32,
     t2 = time.perf_counter()
     out = parallel.gather_rows(cfg, torch.cat(toks, dim=1), batch, mesh)
     prompt_logits = parallel.gather_rows(
-        cfg, parallel.gather_logits(run_cfg, prompt_logits), batch, mesh)
+        cfg, parallel.gather_columns(run_cfg, prompt_logits), batch, mesh)
     tok_per_s = batch * max_len / (t2 - t0)
     if mesh is None or mesh.rank == 0:
         print(f"{label:28s} {tok_per_s:8.1f} tok/s   "

@@ -14,7 +14,7 @@ Serving runs tensor-parallel with a rank's config,
 ``repro_torch.models.parallel.local_config(cfg, mesh)``: ``init_params``
 then draws the rank's blocks, ``init_cache`` holds its KV heads, and
 ``prefill_fn`` / ``decode_step`` return its vocab shard of the logits
-(``parallel.gather_logits`` joins them, ``parallel.greedy`` picks).
+(``parallel.gather_columns`` joins them, ``parallel.greedy`` picks).
 """
 from __future__ import annotations
 

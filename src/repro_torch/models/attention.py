@@ -27,14 +27,18 @@ from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
 
 
 def attn_init(key: torch.Tensor, cfg: ModelConfig,
-              d_model: Optional[int] = None):
+              d_model: Optional[int] = None, place=None):
+    """``place``: the blocks a rank draws (``parallel.draw_plan``)."""
     d = d_model or cfg.d_model
     dh, h, kv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     k1, k2, k3, k4 = rng.split(key, 4).unbind(0)
-    p = {"wq": dense_init(k1, d, h * dh, cfg.param_dtype),
-         "wk": dense_init(k2, d, kv * dh, cfg.param_dtype),
-         "wv": dense_init(k3, d, kv * dh, cfg.param_dtype),
-         "wo": dense_init(k4, h * dh, d, cfg.param_dtype)}
+
+    def draw(k, name, d_in, d_out):
+        return dense_init(k, d_in, d_out, cfg.param_dtype,
+                          parallel.block(place, name, (d_in, d_out)))
+
+    p = {"wq": draw(k1, "wq", d, h * dh), "wk": draw(k2, "wk", d, kv * dh),
+         "wv": draw(k3, "wv", d, kv * dh), "wo": draw(k4, "wo", h * dh, d)}
     if cfg.qk_norm:
         p["q_norm"] = torch.ones((dh,), dtype=cfg.param_dtype,
                                  device=key.device)

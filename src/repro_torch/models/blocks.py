@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import rng
-from repro_torch.models import attention, layers, mla, moe, ssm
+from repro_torch.models import attention, layers, mla, moe, parallel, ssm
 from repro_torch.models.config import ModelConfig
 
 
@@ -18,9 +18,10 @@ def _no_aux(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _attn_init(key: torch.Tensor, cfg: ModelConfig):
-    return (mla.mla_init(key, cfg) if cfg.attention == "mla"
-            else attention.attn_init(key, cfg))
+def _attn_init(key: torch.Tensor, cfg: ModelConfig, place=None):
+    place = parallel.scope(place, "attn")
+    return (mla.mla_init(key, cfg, place) if cfg.attention == "mla"
+            else attention.attn_init(key, cfg, place=place))
 
 
 def _attn_apply(params, cfg: ModelConfig, h, positions):
@@ -42,12 +43,14 @@ def _attn_decode(params, cfg: ModelConfig, h, cache, pos: int):
 
 # ------------------------------------------------------------------ dense --
 def dense_block_init(key: torch.Tensor, cfg: ModelConfig,
-                     d_ff: int | None = None):
+                     d_ff: int | None = None, place=None):
+    """``place``: the blocks a rank draws (``parallel.draw_plan``)."""
     k1, k2 = rng.split(key).unbind(0)
     return {"norm1": layers.norm_init(cfg, cfg.d_model, key.device),
-            "attn": _attn_init(k1, cfg),
+            "attn": _attn_init(k1, cfg, place),
             "norm2": layers.norm_init(cfg, cfg.d_model, key.device),
-            "mlp": layers.mlp_init(k2, cfg, cfg.d_model, d_ff or cfg.d_ff)}
+            "mlp": layers.mlp_init(k2, cfg, cfg.d_model, d_ff or cfg.d_ff,
+                                   parallel.scope(place, "mlp"))}
 
 
 def dense_block_apply(params, cfg: ModelConfig, x, positions):
@@ -68,12 +71,13 @@ def dense_block_decode(params, cfg: ModelConfig, x, cache, pos: int):
 
 
 # -------------------------------------------------------------------- moe --
-def moe_block_init(key: torch.Tensor, cfg: ModelConfig):
+def moe_block_init(key: torch.Tensor, cfg: ModelConfig, place=None):
+    """``place``: the blocks a rank draws (``parallel.draw_plan``)."""
     k1, k2 = rng.split(key).unbind(0)
     return {"norm1": layers.norm_init(cfg, cfg.d_model, key.device),
-            "attn": _attn_init(k1, cfg),
+            "attn": _attn_init(k1, cfg, place),
             "norm2": layers.norm_init(cfg, cfg.d_model, key.device),
-            "moe": moe.moe_init(k2, cfg)}
+            "moe": moe.moe_init(k2, cfg, parallel.scope(place, "moe"))}
 
 
 def moe_block_apply(params, cfg: ModelConfig, x, positions):

@@ -10,8 +10,9 @@ any device.  The RMSNorm of :func:`norm_apply` and :func:`rms_norm` is
 kernel 8 (:mod:`repro_torch.kernels.rmsnorm`); OLMo's nonparametric
 LayerNorm is plain torch, as JAX computes it outside any Pallas kernel.
 Under a model mesh (``cfg`` a :class:`repro_torch.models.parallel.
-LocalConfig`) the embedding, the unembedding and the MLP's ``down`` go
-through :mod:`repro_torch.models.parallel`'s collectives.
+LocalConfig`) the embedding, the unembedding and the MLP's ``down`` (but
+a MoE shared expert's, whole on every rank) go through
+:mod:`repro_torch.models.parallel`'s collectives.
 """
 from __future__ import annotations
 
@@ -25,9 +26,10 @@ from repro_torch.models.config import ModelConfig
 
 
 def dense_init(key: torch.Tensor, d_in: int, d_out: int,
-               dtype: torch.dtype) -> torch.Tensor:
+               dtype: torch.dtype, block=None) -> torch.Tensor:
+    """The [d_in, d_out] weight, or its ``block`` (``rng.normal``'s)."""
     scale = (2.0 / (d_in + d_out)) ** 0.5
-    return (rng.normal(key, (d_in, d_out)) * scale).to(dtype)
+    return (rng.normal(key, (d_in, d_out), block=block) * scale).to(dtype)
 
 
 # -------------------------------------------------------------------- norm --
@@ -58,31 +60,43 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 # --------------------------------------------------------------------- MLP --
-def mlp_init(key: torch.Tensor, cfg: ModelConfig, d: int, d_ff: int):
+def mlp_init(key: torch.Tensor, cfg: ModelConfig, d: int, d_ff: int,
+             place=None):
+    """``place``: the blocks a rank draws (``parallel.draw_plan``)."""
+    def draw(k, name, d_in, d_out):
+        return dense_init(k, d_in, d_out, cfg.param_dtype,
+                          parallel.block(place, name, (d_in, d_out)))
+
     if cfg.mlp == "swiglu":
         k1, k2, k3 = rng.split(key, 3).unbind(0)
-        return {"gate": dense_init(k1, d, d_ff, cfg.param_dtype),
-                "up": dense_init(k2, d, d_ff, cfg.param_dtype),
-                "down": dense_init(k3, d_ff, d, cfg.param_dtype)}
+        return {"gate": draw(k1, "gate", d, d_ff),
+                "up": draw(k2, "up", d, d_ff),
+                "down": draw(k3, "down", d_ff, d)}
     k1, k2 = rng.split(key).unbind(0)
-    return {"up": dense_init(k1, d, d_ff, cfg.param_dtype),
-            "down": dense_init(k2, d_ff, d, cfg.param_dtype)}
+    return {"up": draw(k1, "up", d, d_ff), "down": draw(k2, "down", d_ff, d)}
 
 
-def mlp_apply(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(cfg: ModelConfig, params, x: torch.Tensor,
+              row_parallel: bool = True) -> torch.Tensor:
     """SwiGLU, or GELU in ``jax.nn.gelu``'s default tanh form (torch's
-    default is the erf form)."""
+    default is the erf form).  ``row_parallel=False``: the weights are
+    whole on every rank (MoE's shared expert), so ``down``'s product is
+    not summed over the model group."""
     if cfg.mlp == "swiglu":
         h = torch.nn.functional.silu(x @ params["gate"]) * (x @ params["up"])
     else:
         h = torch.nn.functional.gelu(x @ params["up"], approximate="tanh")
+    if not row_parallel:
+        return h @ params["down"]
     return parallel.row_matmul(cfg, h, params["down"])
 
 
 # -------------------------------------------------------------- embeddings --
-def embed_init(key: torch.Tensor, cfg: ModelConfig):
+def embed_init(key: torch.Tensor, cfg: ModelConfig, place=None):
     scale = cfg.d_model ** -0.5
-    tbl = rng.normal(key, (cfg.padded_vocab, cfg.d_model)) * scale
+    shape = (cfg.padded_vocab, cfg.d_model)
+    tbl = rng.normal(key, shape,
+                     block=parallel.block(place, "table", shape)) * scale
     return {"table": tbl.to(cfg.param_dtype)}
 
 

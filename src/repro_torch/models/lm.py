@@ -16,9 +16,9 @@ Serving: :func:`prefill` is the one-shot prompt forward (kernels 7, 8 and
 (kernel 8; attention and the SSM recurrence plain, as in JAX).
 :func:`decode_step` updates the cache in place and returns it.  With a
 :func:`repro_torch.models.parallel.local_config` the same functions run
-one rank of a tensor-parallel mesh: the init draws the whole model's
-numbers a layer at a time and keeps the rank's blocks, the cache holds
-the rank's KV heads, and the logits are the rank's vocab shard.
+one rank of a tensor-parallel mesh: the init draws the rank's blocks of
+the whole model's numbers alone, the cache holds the rank's KV heads,
+and the logits are the rank's vocab shard.
 
 Training: :func:`loss_fn` is the next-token NLL plus the MoE aux loss.
 With ``cfg.remat`` set, a differentiated forward checkpoints each layer of
@@ -28,13 +28,13 @@ kept.  Serving differentiates nothing and takes no checkpoint.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device, rng
-from repro_torch.launch.sharding import map_with_path
 from repro_torch.models import blocks, layers, parallel
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_leaves, tree_map
@@ -48,28 +48,16 @@ def _layer(stack: PyTree, i: int) -> PyTree:
 
 
 # ------------------------------------------------------------------- init --
-def _keep(shard, prefix: tuple, tree: PyTree) -> PyTree:
-    """``tree`` whole without a ``shard``, else each leaf's block (a copy:
-    the whole leaf is freed)."""
-    if shard is None:
-        return tree
-    return map_with_path(lambda p, w: shard(prefix + p, w).contiguous(),
-                         tree)
-
-
-def _stacked_init(key: torch.Tensor, n: int, init_fn,
-                  keep=lambda layer: layer) -> PyTree:
+def _stacked_init(key: torch.Tensor, n: int, init_fn) -> PyTree:
     """``vmap(init_fn)(split(key, n))`` of the JAX package, built layer by
-    layer into preallocated stacks, so no draw is ever n layers wide;
-    ``keep`` takes what a stack holds of each drawn layer (a rank's
-    blocks)."""
+    layer into preallocated stacks, so no draw is ever n layers wide."""
     keys = rng.split(key, n)
     if n == 0:      # vmap over no keys: empty stacks of the layer's shapes
         return tree_map(lambda w: w.new_empty((0,) + tuple(w.shape)),
-                        keep(init_fn(rng.split(key, 1)[0])))
+                        init_fn(rng.split(key, 1)[0]))
     stack = None
     for i in range(n):
-        layer = keep(init_fn(keys[i]))
+        layer = init_fn(keys[i])
         if stack is None:
             stack = tree_map(lambda w: w.new_empty((n,) + tuple(w.shape)),
                              layer)
@@ -80,29 +68,34 @@ def _stacked_init(key: torch.Tensor, n: int, init_fn,
 
 def init_params(key: torch.Tensor, cfg: ModelConfig) -> PyTree:
     """Weights on ``key.device``, the same numbers as JAX's from the same
-    key; for a local config (the dense family: an embedding and a stack),
-    the rank's blocks of the whole model's weights (its peak: its shard
-    and one whole layer)."""
-    cfg, shard = parallel.draw_plan(cfg)
+    key; for a local config, the rank's blocks of the whole model's
+    weights, each placed by ``parallel.placement`` and drawn alone
+    (``parallel.draw_plan``)."""
+    cfg, place = parallel.draw_plan(cfg)
     ks = rng.split(key, 6).unbind(0)
     params: dict = {
-        "embed": _keep(shard, ("embed",), layers.embed_init(ks[0], cfg)),
+        "embed": layers.embed_init(ks[0], cfg, parallel.scope(place,
+                                                              "embed")),
         "final_norm": layers.norm_init(cfg, cfg.d_model, key.device)}
-    main_kind = cfg.layer_kinds()[-1]
+    block_init = blocks.BLOCK_INIT[cfg.layer_kinds()[-1]]
+    if place is not None:
+        block_init = functools.partial(
+            block_init, place=parallel.scope(place, "layers"))
     params["layers"] = _stacked_init(
-        ks[1], cfg.n_layers - cfg.first_k_dense,
-        lambda k: blocks.BLOCK_INIT[main_kind](k, cfg),
-        lambda layer: _keep(shard, ("layers",), layer))
+        ks[1], cfg.n_layers - cfg.first_k_dense, lambda k: block_init(k, cfg))
     if cfg.first_k_dense:
         params["first_dense"] = [
-            blocks.dense_block_init(rng.fold_in(ks[2], i), cfg,
-                                    d_ff=cfg.d_ff_dense or cfg.d_ff)
+            blocks.dense_block_init(
+                rng.fold_in(ks[2], i), cfg, d_ff=cfg.d_ff_dense or cfg.d_ff,
+                place=parallel.scope(place, "first_dense", f"[{i}]"))
             for i in range(cfg.first_k_dense)]
     if cfg.arch_type == "hybrid":
         params["shared"] = blocks.dense_block_init(ks[3], cfg)
     if cfg.frontend == "vision":
+        shape = (cfg.frontend_dim, cfg.d_model)
         params["patch_proj"] = layers.dense_init(
-            ks[4], cfg.frontend_dim, cfg.d_model, cfg.param_dtype)
+            ks[4], *shape, cfg.param_dtype,
+            parallel.block(place, "patch_proj", shape))
     return params
 
 
@@ -148,11 +141,13 @@ def _hybrid_groups(cfg: ModelConfig) -> tuple[int, int]:
 
 def _embed_sequence(params, cfg: ModelConfig, tokens,
                     patch_embeds=None) -> torch.Tensor:
-    """Token (+ projected patch prefix) embedding -> [B, S, d]."""
+    """Token (+ projected patch prefix) embedding -> [B, S, d]; under a
+    model mesh the column-parallel projection's [B, P, d / m] blocks are
+    gathered whole before they join the text."""
     x = layers.embed_apply(params["embed"], tokens, cfg)
     if cfg.frontend == "vision":
         patches = patch_embeds.to(cfg.param_dtype) @ params["patch_proj"]
-        x = torch.cat([patches, x], dim=1)
+        x = torch.cat([parallel.gather_columns(cfg, patches), x], dim=1)
     return x
 
 

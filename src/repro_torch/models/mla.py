@@ -14,6 +14,12 @@ output is made contiguous first: the kernel takes no strided rows).  The
 absorbed attention stays plain torch, as in JAX: a qk head of nope + rope
 (192 at full width), a v head of 128 and a 512-wide latent are not a
 kernel-7 shape.
+
+Under a model mesh a rank holds its heads' columns of ``wq_b`` and
+``wkv_b`` (both head-major, so a contiguous column block is whole heads)
+and their rows of ``wo``, whose product sums over the model group
+(:func:`repro_torch.models.parallel.row_matmul`); ``wq_a``, ``wkv_a`` and
+the latent cache (``ckv``, ``kpe``) are whole on every rank.
 """
 from __future__ import annotations
 
@@ -22,25 +28,32 @@ import math
 import torch
 
 from repro_torch import rng
+from repro_torch.models import parallel
 from repro_torch.models.attention import window_slice
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, dense_init, rms_norm,
                                        rope_freqs)
 
 
-def mla_init(key: torch.Tensor, cfg: ModelConfig):
+def mla_init(key: torch.Tensor, cfg: ModelConfig, place=None):
+    """``place``: the blocks a rank draws (``parallel.draw_plan``)."""
     h = cfg.n_heads
     nope, rope, v = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     dt, dev = cfg.param_dtype, key.device
     ks = rng.split(key, 5).unbind(0)
+
+    def draw(k, name, d_in, d_out):
+        return dense_init(k, d_in, d_out, dt,
+                          parallel.block(place, name, (d_in, d_out)))
+
     return {
-        "wq_a": dense_init(ks[0], cfg.d_model, cfg.q_lora_rank, dt),
+        "wq_a": draw(ks[0], "wq_a", cfg.d_model, cfg.q_lora_rank),
         "q_norm": torch.ones((cfg.q_lora_rank,), dtype=dt, device=dev),
-        "wq_b": dense_init(ks[1], cfg.q_lora_rank, h * (nope + rope), dt),
-        "wkv_a": dense_init(ks[2], cfg.d_model, cfg.kv_lora_rank + rope, dt),
+        "wq_b": draw(ks[1], "wq_b", cfg.q_lora_rank, h * (nope + rope)),
+        "wkv_a": draw(ks[2], "wkv_a", cfg.d_model, cfg.kv_lora_rank + rope),
         "kv_norm": torch.ones((cfg.kv_lora_rank,), dtype=dt, device=dev),
-        "wkv_b": dense_init(ks[3], cfg.kv_lora_rank, h * (nope + v), dt),
-        "wo": dense_init(ks[4], h * v, cfg.d_model, dt),
+        "wkv_b": draw(ks[3], "wkv_b", cfg.kv_lora_rank, h * (nope + v)),
+        "wo": draw(ks[4], "wo", h * v, cfg.d_model),
     }
 
 
@@ -82,7 +95,7 @@ def _attend(params, cfg: ModelConfig, q_nope, q_pe, c_kv, k_pe, mask):
     probs = torch.softmax(scores, dim=-1).to(c_kv.dtype)
     out_lat = torch.einsum("bhst,btr->bshr", probs, c_kv)
     out = torch.einsum("bshr,rhv->bshv", out_lat, w_uv)
-    return out.reshape(b, s, h * v) @ params["wo"]
+    return parallel.row_matmul(cfg, out.reshape(b, s, h * v), params["wo"])
 
 
 def mla_self_attention(params, cfg: ModelConfig, x, positions,

@@ -11,6 +11,15 @@ and combine) and the gather / scatter of token indices.  Shared experts
 
 The router, softmax and expert products are plain torch: JAX computes them
 outside any Pallas kernel.
+
+Under a model mesh (expert parallelism) a rank holds the experts
+``parallel.expert_block(cfg)``: every rank routes every token over all E
+experts with the replicated router, in the same order as without a mesh,
+dispatches to and runs only its own, and the model group sums their
+contributions in float32, rounded once (``parallel.row_einsum``).  The
+shared experts are whole on every rank, so their output is added after
+that sum.  Under a data axis the data group's rows are routed together
+(``parallel.gather_data``), in the groups JAX forms over the whole batch.
 """
 from __future__ import annotations
 
@@ -18,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import rng
+from repro_torch.models import parallel
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, mlp_apply, mlp_init
 
@@ -26,19 +36,28 @@ from repro_torch.models.layers import dense_init, mlp_apply, mlp_init
 FLOAT32_LEAVES = ("router",)
 
 
-def moe_init(key: torch.Tensor, cfg: ModelConfig):
+def moe_init(key: torch.Tensor, cfg: ModelConfig, place=None):
+    """The layer's weights; ``place``: the blocks a rank draws
+    (``parallel.draw_plan``: its experts, the shared expert whole)."""
     e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
     ks = rng.split(key, 5).unbind(0)
     scale = (2.0 / (d + f)) ** 0.5
+
+    def expert_leaf(k, name, shape):
+        return (rng.normal(k, shape, block=parallel.block(place, name, shape))
+                * scale).to(cfg.param_dtype)
+
     p = {
-        "router": dense_init(ks[0], d, e, torch.float32),
-        "gate": (rng.normal(ks[1], (e, d, f)) * scale).to(cfg.param_dtype),
-        "up": (rng.normal(ks[2], (e, d, f)) * scale).to(cfg.param_dtype),
-        "down": (rng.normal(ks[3], (e, f, d)) * scale).to(cfg.param_dtype),
+        "router": dense_init(ks[0], d, e, torch.float32,
+                             parallel.block(place, "router", (d, e))),
+        "gate": expert_leaf(ks[1], "gate", (e, d, f)),
+        "up": expert_leaf(ks[2], "up", (e, d, f)),
+        "down": expert_leaf(ks[3], "down", (e, f, d)),
     }
     if cfg.n_shared_experts:
         p["shared"] = mlp_init(ks[4], cfg, d,
-                               cfg.n_shared_experts * cfg.d_ff_expert)
+                               cfg.n_shared_experts * cfg.d_ff_expert,
+                               parallel.scope(place, "shared"))
     return p
 
 
@@ -53,17 +72,31 @@ def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
     return oh.to(dtype)
 
 
+def router(params, xg: torch.Tensor):
+    """The router on grouped tokens xg [G, Tg, d]: (probs [G, Tg, E] in
+    float32, the experts ranked by them [G, Tg, E]).  The ranking is
+    ``lax.top_k``'s order: descending, the lower expert first on a tie
+    (a stable descending sort)."""
+    probs = torch.softmax(xg.float() @ params["router"], dim=-1)
+    return probs, torch.sort(probs, dim=-1, descending=True,
+                             stable=True).indices
+
+
 def route(params, cfg: ModelConfig, xg: torch.Tensor):
-    """Routing of grouped tokens xg [G, Tg, d]: (top_p [G, Tg, k] (the
-    renormalised weights), top_i [G, Tg, k], slot [G, Tg, k], keep
-    [G, Tg, k], aux).  The top-k order is ``lax.top_k``'s: descending,
-    the lower expert first on a tie (a stable descending sort)."""
-    g, tg, _ = xg.shape
-    e, k = cfg.n_experts, cfg.moe_top_k
-    logits = xg.float() @ params["router"]                     # [G,Tg,E]
-    probs = torch.softmax(logits, dim=-1)
-    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_p, top_i = top_p[..., :k], top_i[..., :k]              # [G,Tg,k]
+    """Routing of grouped tokens xg [G, Tg, d]: the top ``moe_top_k`` of
+    :func:`router`'s ranking, assigned (:func:`assign`)."""
+    probs, ranked = router(params, xg)
+    return assign(cfg, probs, ranked[..., :cfg.moe_top_k])
+
+
+def assign(cfg: ModelConfig, probs: torch.Tensor, top_i: torch.Tensor):
+    """The tokens' chosen experts top_i [G, Tg, k] under the router's
+    probs [G, Tg, E]: (top_p [G, Tg, k] (their probabilities renormalised
+    over the k), top_i, slot [G, Tg, k] (each choice's place in its
+    expert, by priority), keep [G, Tg, k] (within the capacity), aux)."""
+    g, tg, k = top_i.shape
+    e = cfg.n_experts
+    top_p = probs.gather(-1, top_i)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
 
     # load-balance aux loss (fraction-of-tokens * mean-prob per expert)
@@ -81,15 +114,24 @@ def route(params, cfg: ModelConfig, xg: torch.Tensor):
 
 def moe_apply(params, cfg: ModelConfig, x: torch.Tensor):
     """x: [B, S, d] -> (y [B, S, d], aux_loss scalar)."""
-    b, s, d = x.shape
+    x_all, mine_rows = parallel.gather_data(cfg, x)
+    b, s, d = x_all.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     t = b * s
     tg = min(cfg.moe_group_size, t)
     g = t // tg
-    xg = x.reshape(g, tg, d)
+    xg = x_all.reshape(g, tg, d)
     dt = cfg.param_dtype
     top_p, top_i, slot, keep, aux = route(params, cfg, xg)
     cap = _capacity(cfg, tg)
+    lo, el = parallel.expert_block(cfg)
+    if el != e:
+        # the rank's experts [lo, lo + el) by their local index; a choice
+        # of another rank's expert is dropped here (its weight 0, its
+        # slot the cut-off column) and summed in from that rank
+        local = top_i - lo
+        mine = (local >= 0) & (local < el)
+        top_i, keep = torch.where(mine, local, 0), keep & mine
 
     if cfg.moe_dispatch == "gather":
         # token index of each (group, expert, slot); tg = an empty slot
@@ -97,18 +139,18 @@ def moe_apply(params, cfg: ModelConfig, x: torch.Tensor):
         # past cap, which is cut off
         safe_slot = torch.where(keep, slot, cap)
         gi = torch.arange(g, device=x.device)[:, None, None]
-        flat = (gi * e + top_i) * (cap + 1) + safe_slot        # [G,Tg,k]
+        flat = (gi * el + top_i) * (cap + 1) + safe_slot       # [G,Tg,k]
         ti = torch.arange(tg, device=x.device)[None, :, None].expand(g, tg, k)
-        token_idx = torch.full((g * e * (cap + 1),), tg, dtype=torch.int64,
+        token_idx = torch.full((g * el * (cap + 1),), tg, dtype=torch.int64,
                                device=x.device)
         token_idx[flat.reshape(-1)] = ti.reshape(-1)
-        token_idx = token_idx.reshape(g, e, cap + 1)[..., :cap]
+        token_idx = token_idx.reshape(g, el, cap + 1)[..., :cap]
         xg_pad = torch.cat([xg, xg.new_zeros((g, 1, d))], dim=1)
-        xin = torch.gather(xg_pad, 1, token_idx.reshape(g, e * cap, 1)
-                           .expand(g, e * cap, d)).reshape(g, e, cap, d)
+        xin = torch.gather(xg_pad, 1, token_idx.reshape(g, el * cap, 1)
+                           .expand(g, el * cap, d)).reshape(g, el, cap, d)
     else:
         slot_oh = _one_hot(torch.where(keep, slot, cap), cap, dt)
-        exp_oh = _one_hot(top_i, e, dt)                        # [G,Tg,k,E]
+        exp_oh = _one_hot(top_i, el, dt)                       # [G,Tg,k,E]
         dispatch = torch.einsum("gtke,gtkc->gtec", exp_oh,
                                 slot_oh * keep[..., None].to(dt))
         xin = torch.einsum("gtec,gtd->gecd", dispatch, xg)     # [G,E,C,d]
@@ -119,17 +161,17 @@ def moe_apply(params, cfg: ModelConfig, x: torch.Tensor):
 
     if cfg.moe_dispatch == "gather":
         # combine: gather each (token, choice)'s expert output and blend
-        flat = xout.reshape(g, e * cap, d)
+        flat = xout.reshape(g, el * cap, d)
         idx = top_i * cap + torch.clamp(slot, max=cap - 1)     # [G,Tg,k]
         vals = torch.gather(flat, 1, idx.reshape(g, tg * k, 1)
                             .expand(g, tg * k, d)).reshape(g, tg, k, d)
         w = (top_p * keep).to(vals.dtype)                      # [G,Tg,k]
-        y = torch.einsum("gtkd,gtk->gtd", vals, w)
+        y = parallel.row_einsum(cfg, "gtkd,gtk->gtd", vals, w)
     else:
         combine = torch.einsum("gtke,gtkc,gtk->gtec", exp_oh, slot_oh,
                                (top_p * keep).to(dt))
-        y = torch.einsum("gtec,gecd->gtd", combine, xout)
+        y = parallel.row_einsum(cfg, "gtec,gecd->gtd", combine, xout)
 
     if cfg.n_shared_experts:
-        y = y + mlp_apply(cfg, params["shared"], xg)
-    return y.reshape(b, s, d), aux
+        y = y + mlp_apply(cfg, params["shared"], xg, row_parallel=False)
+    return y.reshape(b, s, d)[mine_rows], aux

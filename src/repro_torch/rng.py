@@ -60,39 +60,63 @@ def threefry2x32(k1, k2, x1, x2) -> tuple[torch.Tensor, torch.Tensor]:
 BLOCK = 1 << 24
 
 
-def _hash(key: torch.Tensor, start: int,
-          stop: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """threefry of the 64-bit counters ``start`` .. ``stop - 1`` under each
-    key: two words of shape ``key.shape[:-1] + (stop - start,)``."""
+def _hash(key: torch.Tensor, start: int, stop: int,
+          counters=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """threefry of the 64-bit counters ``start`` .. ``stop - 1`` (or
+    ``counters`` of that iota) under each key: two words of shape
+    ``key.shape[:-1] + (stop - start,)``."""
     if key.device.type == "meta":
         words = key.new_empty(tuple(key.shape[:-1]) + (stop - start,))
         return words, words
     idx = torch.arange(start, stop, dtype=torch.int64, device=key.device)
+    if counters is not None:
+        idx = counters(idx)
     k1, k2 = key[..., 0, None], key[..., 1, None]
     return threefry2x32(k1, k2, idx >> 32, idx & _M32)
 
 
+def _block_counters(shape: tuple, block):
+    """The counters of a ``block`` = (dim, first, count) of a draw of
+    ``shape`` (the draw's ``narrow(dim, first, count)``), as a function
+    of the block's own row-major iota."""
+    dim, first, count = block
+    inner = math.prod(shape[dim + 1:])
+
+    def counters(idx):
+        outer, rest = idx // (count * inner), idx % (count * inner)
+        return (outer * shape[dim] + first) * inner + rest
+
+    return counters
+
+
 def _blocked(key: torch.Tensor, shape: tuple, fn,
-             dtype: torch.dtype) -> torch.Tensor:
+             dtype: torch.dtype, block=None) -> torch.Tensor:
     """``fn(bits)`` of every element's 32 random bits (the counters of a
     draw of ``shape`` are its row-major iota), ``key.shape[:-1] + shape``
     of ``dtype``: in one piece up to :data:`BLOCK` elements over all keys,
     else in blocks of the counter range written into one preallocated
     output.  ``fn`` works element by element, so the blocks give the
-    one-piece numbers bit for bit."""
+    one-piece numbers bit for bit.  ``block`` = (dim, first, count)
+    hashes only that block of the draw: its ``narrow(dim, first,
+    count)``."""
     shape = tuple(shape)
     lead = tuple(key.shape[:-1])
+    counters = None
+    if block is not None:
+        counters = _block_counters(shape, block)
+        dim, _, count = block
+        shape = shape[:dim] + (count,) + shape[dim + 1:]
     if key.device.type == "meta":
         return torch.empty(lead + shape, dtype=dtype, device="meta")
     n = math.prod(shape)
     per = max(1, BLOCK // max(1, math.prod(lead)))
     if n <= per:
-        b1, b2 = _hash(key, 0, n)
+        b1, b2 = _hash(key, 0, n, counters)
         return fn(b1 ^ b2).reshape(lead + shape)
     out = torch.empty(lead + (n,), dtype=dtype, device=key.device)
     for start in range(0, n, per):
         stop = min(n, start + per)
-        b1, b2 = _hash(key, start, stop)
+        b1, b2 = _hash(key, start, stop, counters)
         out[..., start:stop] = fn(b1 ^ b2)
         del b1, b2
     return out.reshape(lead + shape)
@@ -184,20 +208,23 @@ def _erfinv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
 
 
-def normal(key: torch.Tensor, shape: tuple, divisor: float = 1.0
-           ) -> torch.Tensor:
+def normal(key: torch.Tensor, shape: tuple, divisor: float = 1.0,
+           block=None) -> torch.Tensor:
     """f32 standard normal: ``sqrt(2) * erfinv(U(nextafter(-1, 0), 1))``.
 
     ``divisor`` gives ``normal / divisor`` as jitted XLA computes it: the
     two constants fold into one, ``erfinv(u) * f32(f32(sqrt 2) /
-    divisor)``."""
+    divisor)``.  ``block`` = (dim, first, count) draws only that block,
+    ``normal(key, shape).narrow(dim, first, count)`` bit for bit (an
+    element's bits are a function of the key and its index alone): a
+    rank's share of a sharded weight."""
     dev = key.device
     lo = _f32(float(np.nextafter(np.float32(-1.0), np.float32(0.0))), dev)
     one = _f32(1.0, dev)
     c = _f32(np.float32(np.sqrt(2.0)) / np.float32(divisor), dev)
     return _blocked(key, shape,
                     lambda bits: c * _erfinv(_uniform_of(bits, lo, one)),
-                    torch.float32)
+                    torch.float32, block)
 
 
 def exponential(key: torch.Tensor, shape: tuple) -> torch.Tensor:

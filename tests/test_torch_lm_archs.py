@@ -175,7 +175,9 @@ def test_cast_params_is_the_bfloat16_init(arch):
 @pytest.mark.parametrize("block", [1, 5, 64, 1000])
 def test_blockwise_draw_equals_one_piece(monkeypatch, block):
     """A draw walked in blocks of its flat counter range (over batched
-    keys too) gives the one-piece numbers bit for bit."""
+    keys too) gives the one-piece numbers bit for bit, and so does a draw
+    of one block alone along any dim (``block``: a rank's share of a
+    weight)."""
     key = rng.PRNGKey(7)
     keys = rng.split(key, 3)
     cases = ((key, (37, 11)), (keys, (4, 9)), (key, ()))
@@ -186,6 +188,11 @@ def test_blockwise_draw_equals_one_piece(monkeypatch, block):
         assert torch.equal(rng.normal(k, s), normal)
         assert torch.equal(rng.uniform(k, s, -2.0, 3.0), uniform)
         assert torch.equal(rng.random_bits(k, s), bits)
+        for dim in range(len(s)):
+            for first, count in ((1, 2), (0, s[dim]), (s[dim] - 3, 3)):
+                assert torch.equal(
+                    rng.normal(k, s, block=(dim, first, count)),
+                    normal.narrow(normal.dim() - len(s) + dim, first, count))
 
 
 # --------------------------------------------------------------- the slice --

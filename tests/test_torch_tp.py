@@ -7,20 +7,32 @@ rules and live runs, and against the unsharded port.
   ``jax.eval_shape(init_params)`` leaf for leaf at model sizes 1, 2, 4, 8
   and 16; ``batch_pspecs`` at data 1 and 2; ``cache_pspecs`` in all four
   ``cache_seq_shard`` modes.  The mesh is a stand-in carrying
-  ``axis_names``, ``shape`` and ``devices.shape``.
+  ``axis_names``, ``shape`` and ``devices.shape``.  JAX's spec of a
+  stacked MoE shared expert is pinned at deepseek-v2's 59 stacked layers
+  (replicated) and at 8 (the layer axis sharded); the executor keeps it
+  whole at both (``parallel.placement``).
+* Local configs at full width: qwen3-moe-30b-a3b, qwen2-vl-7b and
+  deepseek-v2-236b's heads, experts a rank, ``d_ff_dense`` and the shared
+  width, and their leaves' shapes on a rank.
 * A world of one, in this process: a (1, 1) mesh serves the four dense
-  configs bit-equal to the unsharded port.
+  configs and the three MoE / VLM runs bit-equal to the unsharded port.
+  Each model rank of the job's runs, in this process: its init hashes
+  only its blocks and gets ``shard_params`` of the whole init.
 * Refusals: a model axis that does not divide ``n_kv_heads`` (reduced
-  deepseek-67b has KV = 1), a config outside the dense family, a
-  ``--mesh`` of several ranks without torchrun.
+  deepseek-67b has KV = 1) or ``n_experts``, the SSM, hybrid and
+  encoder-decoder configs, a ``--mesh`` of several ranks without
+  torchrun.
 * One four-rank ``torchrun`` job (``tests/_torch_tp_job.py``, gloo on the
-  CPU): reduced qwen3-0.6b at mesh (2, 2) and reduced olmo-1b at (1, 4),
-  in float32.  Each rank's weights are its blocks of the unsharded init,
-  bit for bit.  Prefill logits are within 1e-5 of the largest magnitude
-  of the unsharded port's and within 1e-4 of live JAX
-  ``repro.models.api.prefill_fn``'s.  The 8 greedy decode tokens equal
-  JAX's (``examples/serve_decode.py``'s loop) and are the same on every
-  rank, through ``serve(mesh=)`` and the ``--mesh`` CLI.
+  CPU), in float32: reduced qwen3-0.6b at mesh (2, 2) and reduced olmo-1b
+  at (1, 4); qwen3-moe and qwen2-vl (with patches) at (2, 2), each
+  reduced with two KV heads; deepseek-v2 reduced at three layers with
+  the gather dispatch at (2, 2).  Each rank's weights are its blocks of
+  the unsharded init, bit for bit, the shared experts whole.  Prefill
+  logits are within 1e-5 of the largest magnitude of the unsharded
+  port's and within 1e-4 of live JAX ``repro.models.api.prefill_fn``'s.
+  The 8 greedy decode tokens equal JAX's (``examples/serve_decode.py``'s
+  loop) and are the same on every rank, through ``serve(mesh=)`` and the
+  ``--mesh`` CLI (qwen3-0.6b and deepseek-v2).
 """
 import dataclasses
 import functools
@@ -58,16 +70,24 @@ ARCHS = ["qwen3_0_6b", "qwen3_32b", "deepseek_67b", "olmo_1b",
          "mamba2_2_7b", "qwen3_moe_30b_a3b", "deepseek_v2_236b",
          "whisper_tiny", "qwen2_vl_7b", "zamba2_1_2b"]
 DENSE = ["qwen3_0_6b", "qwen3_32b", "deepseek_67b", "olmo_1b"]
+MOE_VLM = ["qwen3_moe_30b_a3b", "qwen2_vl_7b", "deepseek_v2_236b"]
 MODEL_SIZES = [1, 2, 4, 8, 16]
 MODES = ["none", "model", "dp_model", "auto"]
 CACHE_MESHES = [(1, 1), (2, 2), (2, 8), (1, 16)]
 
 
-def _mesh(data: int, model: int):
-    """A mesh stand-in both packages' rules read."""
+def _mesh(data: int, model: int, model_rank: int = 0):
+    """A mesh stand-in both packages' rules read (and a rank of it, for
+    ``models.parallel``)."""
     return types.SimpleNamespace(axis_names=("data", "model"),
                                  shape=(data, model),
-                                 devices=np.empty((data, model)))
+                                 devices=np.empty((data, model)),
+                                 data=data, model=model, data_rank=0,
+                                 model_rank=model_rank)
+
+
+def _torch_batch(batch: dict) -> dict:
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
 def _specs(tree) -> list:
@@ -154,12 +174,97 @@ def test_cache_pspecs_match_jax(arch, mode):
                 assert got == want, (shape, b, seq_shard)
 
 
+@pytest.mark.parametrize("n_layers, want", [(60, (None, None, None)),
+                                             (9, ("model", None, None))])
+def test_jax_reads_a_stacked_shared_experts_layer_axis(n_layers, want):
+    """JAX's rule takes a stacked ``moe/shared`` leaf's layer axis for the
+    expert axis: replicated at deepseek-v2's 59 stacked layers (4 does
+    not divide them), the layer axis sharded at 8.  The port's rule is
+    JAX's; the executor keeps the leaf whole at either depth."""
+    jc = dataclasses.replace(j_get_config("deepseek_v2_236b"),
+                             n_layers=n_layers)
+    shapes = jax.eval_shape(lambda: j_api.init_params(jax.random.PRNGKey(0),
+                                                      jc))
+    specs = j_sharding.param_pspecs(jc, shapes, _mesh(1, 4))
+    for leaf in ("gate", "up", "down"):
+        path = ("layers", "moe", "shared", leaf)
+        shape = tuple(shapes["layers"]["moe"]["shared"][leaf].shape)
+        assert shape[0] == n_layers - 1
+        assert tuple(specs["layers"]["moe"]["shared"][leaf]) == want
+        assert sharding._rule(path, shape, 4) == want
+        assert parallel.placement(path, shape, 4) == (None, None, None)
+        # one drawn layer: JAX's rule splits [d, f] as a dense MLP's
+        assert parallel.placement(path, shape[1:], 4) == (None, None)
+
+
+# ----------------------------------------------------------- local configs --
+@pytest.mark.parametrize("arch, model, want", [
+    ("qwen3_moe_30b_a3b", 4, dict(n_heads=8, n_kv_heads=1, head_dim=128,
+                                  n_experts=128, d_ff_expert=768,
+                                  per_rank=32)),
+    ("qwen2_vl_7b", 2, dict(n_heads=14, n_kv_heads=2, head_dim=128,
+                            d_ff=9472, frontend_dim=1280, n_patches=1024)),
+    ("deepseek_v2_236b", 4, dict(n_heads=32, n_kv_heads=32, d_ff_dense=3072,
+                                 n_experts=160, d_ff_expert=1536,
+                                 n_shared_experts=2, per_rank=40,
+                                 q_lora_rank=1536, kv_lora_rank=512))])
+def test_local_config_of_the_moe_and_vlm_configs(arch, model, want):
+    """A rank's fields at full width, its expert block, and the shapes of
+    its leaves (a ``meta`` init): heads, the dense first layer's ``d_ff``
+    and the patch projection's columns split, the experts a block a
+    rank, the shared experts and MLA's down projections whole."""
+    cfg = get_config(arch)
+    per_rank = want.pop("per_rank", None)
+    for r in range(model):
+        lcfg = parallel.local_config(cfg, _mesh(1, model, r))
+        for name, value in want.items():
+            assert getattr(lcfg, name) == value, name
+        if per_rank:
+            assert parallel.expert_block(lcfg) == (r * per_rank, per_rank)
+    p = api.init_params(rng.PRNGKey(0, device="meta"), lcfg)
+    layers_, n = p["layers"], cfg.n_layers - cfg.first_k_dense
+    d = cfg.d_model
+    assert p["embed"]["table"].shape == (cfg.padded_vocab // model, d)
+    if cfg.is_moe:
+        f = cfg.d_ff_expert
+        assert layers_["moe"]["gate"].shape == (n, per_rank, d, f)
+        assert layers_["moe"]["down"].shape == (n, per_rank, f, d)
+        assert layers_["moe"]["router"].shape == (n, d, cfg.n_experts)
+    if cfg.n_shared_experts:
+        width = cfg.n_shared_experts * cfg.d_ff_expert
+        assert layers_["moe"]["shared"]["gate"].shape == (n, d, width)
+        assert layers_["moe"]["shared"]["down"].shape == (n, width, d)
+    if cfg.attention == "mla":
+        h = cfg.n_heads // model
+        attn = layers_["attn"]
+        assert attn["wq_a"].shape == (n, d, cfg.q_lora_rank)
+        assert attn["wkv_a"].shape == (n, d, cfg.kv_lora_rank
+                                       + cfg.qk_rope_head_dim)
+        assert attn["wq_b"].shape == (n, cfg.q_lora_rank, h * (
+            cfg.qk_nope_head_dim + cfg.qk_rope_head_dim))
+        assert attn["wkv_b"].shape == (n, cfg.kv_lora_rank, h * (
+            cfg.qk_nope_head_dim + cfg.v_head_dim))
+        assert attn["wo"].shape == (n, h * cfg.v_head_dim, d)
+        dense = p["first_dense"][0]
+        assert dense["mlp"]["gate"].shape == (d, cfg.d_ff_dense // model)
+        assert dense["mlp"]["down"].shape == (cfg.d_ff_dense // model, d)
+        assert dense["attn"]["wo"].shape == (h * cfg.v_head_dim, d)
+    if cfg.frontend == "vision":
+        assert p["patch_proj"].shape == (cfg.frontend_dim, d // model)
+    cache = api.init_cache(lcfg, 2, 16, device="meta")
+    if cfg.attention == "mla":      # the latent cache whole on every rank
+        assert cache["layers"]["ckv"].shape == (n, 2, 16, cfg.kv_lora_rank)
+    else:
+        assert cache["layers"]["k"].shape == (n, 2, 16, lcfg.n_kv_heads,
+                                              cfg.head_dim)
+
+
 # ------------------------------------------------------- a world of one --
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE_VLM)
 def test_world_of_one_is_the_unsharded_port(arch):
     """A (1, 1) mesh: the local config draws the same weights, and the
     prefill logits and the served tokens are bit-equal."""
-    cfg = get_config(arch).reduced()
+    cfg = job.config(arch)
     mesh = smoke_mesh(1, 1, device="cpu")
     lcfg = parallel.local_config(cfg, mesh)
     assert lcfg.head_dim == cfg.head_dim and lcfg.n_heads == cfg.n_heads
@@ -167,9 +272,9 @@ def test_world_of_one_is_the_unsharded_port(arch):
     got_p = api.init_params(rng.PRNGKey(0), lcfg)
     for g, w in zip(tree_leaves(got_p), tree_leaves(want_p)):
         assert torch.equal(g, w)
-    tokens = torch.from_numpy(job.prefill_tokens(cfg))
-    assert torch.equal(api.prefill_fn(got_p, lcfg, {"tokens": tokens}),
-                       api.prefill_fn(want_p, cfg, {"tokens": tokens}))
+    batch = _torch_batch(job.prefill_batch(cfg))
+    assert torch.equal(api.prefill_fn(got_p, lcfg, batch),
+                       api.prefill_fn(want_p, cfg, batch))
     want = serve_decode.serve(cfg, arch, device="cpu", params=want_p,
                               **job.SERVE)
     got = serve_decode.serve(cfg, arch, device="cpu", params=got_p,
@@ -204,11 +309,32 @@ def test_refuses_a_split_kv_head():
         parallel.local_config(get_config("deepseek_67b"), mesh)
 
 
-@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "mamba2_2_7b",
-                                  "whisper_tiny", "deepseek_v2_236b"])
-def test_refuses_configs_outside_the_dense_family(arch):
-    with pytest.raises(ValueError, match="dense attention family"):
-        parallel.local_config(get_config(arch).reduced(), _mesh(1, 2))
+@pytest.mark.parametrize("arch, model, match", [
+    ("mamba2_2_7b", 2, "serves the attention configs"),
+    ("whisper_tiny", 2, "serves the attention configs"),
+    ("zamba2_1_2b", 2, "serves the attention configs"),
+    # full width: 64 divides its heads, d_ff, d_ff_dense and vocab
+    ("deepseek_v2_236b", 64, "divide n_experts = 160")])
+def test_refuses_what_the_executor_does_not_serve(arch, model, match):
+    """The SSM, hybrid and encoder-decoder configs, and a MoE config whose
+    experts the model axis does not divide."""
+    cfg = get_config(arch)
+    if model == 2:
+        cfg = cfg.reduced()
+    with pytest.raises(ValueError, match=match):
+        parallel.local_config(cfg, _mesh(1, model))
+
+
+def test_refuses_a_moe_batch_split_unevenly():
+    """A MoE layer routes the data group's rows together, so a batch that
+    does not divide over the data axis is refused."""
+    cfg = job.config("qwen3_moe_30b_a3b")
+    with pytest.raises(ValueError, match="does not divide over a data axis"):
+        parallel.batch_rows(cfg, {"tokens": torch.zeros(3, 4)},
+                            _mesh(2, 2))
+    rows = parallel.batch_rows(cfg, {"tokens": torch.arange(8)[:, None]},
+                               _mesh(2, 2))
+    assert rows["tokens"].shape == (4, 1)
 
 
 def test_cli_mesh_needs_torchrun(monkeypatch):
@@ -245,15 +371,19 @@ def four_ranks(tmp_path_factory):
 @functools.cache
 def _reference(arch):
     """(the unsharded port's prefill logits and served tokens, live JAX's
-    prefill logits and greedy tokens) of ``arch`` reduced."""
-    cfg = get_config(arch).reduced()
-    tokens = job.prefill_tokens(cfg)
+    prefill logits and greedy tokens) of ``arch``'s run config."""
+    cfg = job.config(arch)
+    batch = job.prefill_batch(cfg)
     params = api.init_params(rng.PRNGKey(0), cfg)
-    port = (api.prefill_fn(params, cfg, {"tokens": torch.from_numpy(tokens)}
-                           ).numpy(),
+    port = (api.prefill_fn(params, cfg, _torch_batch(batch)).numpy(),
             serve_decode.serve(cfg, arch, device="cpu", params=params,
                                **job.SERVE).tokens.numpy())
-    jc = j_get_config(arch).reduced()
+    return port, _jax_reference(job.config(arch, j_get_config), batch)
+
+
+def _jax_reference(jc, batch):
+    """Live JAX's prefill logits of ``batch`` and greedy tokens of
+    ``examples/serve_decode.py``'s loop, for the config ``jc``."""
     b, prompt_len, gen_len = (job.SERVE[k] for k in
                               ("batch", "prompt_len", "gen_len"))
     with jax.threefry_partitionable(True):
@@ -261,7 +391,7 @@ def _reference(arch):
         jp = j_api.init_params(key, jc)
         cache = j_api.init_cache(jc, b, prompt_len + gen_len)
         prompt = jax.random.randint(key, (b, prompt_len), 0, jc.vocab)
-    want_logits = np.asarray(j_api.prefill_fn(jp, jc, {"tokens": tokens}))
+    want_logits = np.asarray(j_api.prefill_fn(jp, jc, batch))
     decode = jax.jit(lambda p, c, t, pos: j_api.decode_step(p, jc, c, t, pos))
     for t in range(prompt_len):
         logits, cache = decode(jp, cache, prompt[:, t:t + 1], jnp.int32(t))
@@ -271,7 +401,7 @@ def _reference(arch):
         want_tokens.append(np.asarray(nxt))
         logits, cache = decode(jp, cache, nxt.astype(jnp.int32),
                                jnp.int32(t))
-    return port, (want_logits, np.concatenate(want_tokens, axis=1))
+    return want_logits, np.concatenate(want_tokens, axis=1)
 
 
 RUNS = dict(job.RUNS)
@@ -287,27 +417,69 @@ def test_four_ranks_lay_the_mesh_out_data_major(four_ranks):
 
 @pytest.mark.parametrize("arch", list(RUNS))
 def test_each_rank_holds_its_blocks_of_the_init(four_ranks, arch):
-    """The layer-by-layer sharded draw keeps exactly ``shard_params`` of
-    the unsharded init; the batch rows follow ``batch_pspecs``."""
-    cfg = get_config(arch).reduced()
+    """Each rank's draw of its blocks is exactly ``shard_params`` of the
+    unsharded init (a MoE shared expert whole); the batch rows follow
+    ``batch_pspecs``."""
+    cfg = job.config(arch)
     data, model = RUNS[arch]
     full = api.init_params(rng.PRNGKey(0), cfg)
-    tokens = job.prefill_tokens(cfg)
+    batch = job.prefill_batch(cfg)
     for r, res in enumerate(four_ranks):
-        mesh = types.SimpleNamespace(axis_names=("data", "model"),
-                                     shape=(data, model), data=data,
-                                     model=model, model_rank=r % model)
-        want = parallel.shard_params(full, mesh)
+        want = parallel.shard_params(full, _mesh(data, model, r % model))
         got = res[arch]["params"]
         assert [w.shape for w in tree_leaves(want)] == [
             np.shape(g) for g in jax.tree_util.tree_leaves(got)]
         for g, w in zip(jax.tree_util.tree_leaves(got), tree_leaves(want)):
             np.testing.assert_array_equal(g, w.numpy())
+        if cfg.n_shared_experts:
+            for leaf, w in full["layers"]["moe"]["shared"].items():
+                np.testing.assert_array_equal(
+                    got["layers"]["moe"]["shared"][leaf], w.numpy())
         n = job.B // data
-        np.testing.assert_array_equal(
-            res[arch]["rows"], tokens[(r // model) * n:(r // model + 1) * n])
+        assert sorted(res[arch]["rows"]) == sorted(batch)
+        for k, v in batch.items():
+            np.testing.assert_array_equal(
+                res[arch]["rows"][k], v[(r // model) * n:(r // model + 1) * n])
         assert res[arch]["local_logits_shape"] == (n, cfg.padded_vocab
                                                    // model)
+
+
+@pytest.mark.parametrize("arch", list(RUNS))
+def test_a_rank_draws_its_blocks_alone(arch):
+    """In this process, for each model rank of the run's mesh: the local
+    config's init hashes only the rank's blocks and gets ``shard_params``
+    of the unsharded init bit for bit (on ``meta``, their shapes)."""
+    cfg = job.config(arch)
+    data, model = RUNS[arch]
+    full = api.init_params(rng.PRNGKey(0), cfg)
+    for r in range(model):
+        mesh = _mesh(data, model, r)
+        lcfg = parallel.local_config(cfg, mesh)
+        want = tree_leaves(parallel.shard_params(full, mesh))
+        got = tree_leaves(api.init_params(rng.PRNGKey(0), lcfg))
+        meta = tree_leaves(api.init_params(rng.PRNGKey(0, device="meta"),
+                                           lcfg))
+        assert [m.shape for m in meta] == [w.shape for w in want]
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_deepseek_v2_run_shards_jax_s_shared_layer_axis():
+    """The deepseek-v2 run is a depth where JAX's stacked shared-expert
+    spec shards the layer axis at model 2 (two stacked MoE layers), while
+    the executor keeps the leaf whole: its outputs' agreement with the
+    unsharded port and JAX (the tests above) does not rest on it."""
+    jc = job.config("deepseek_v2_236b", j_get_config)
+    shapes = jax.eval_shape(lambda: j_api.init_params(jax.random.PRNGKey(0),
+                                                      jc))
+    model = RUNS["deepseek_v2_236b"][1]
+    specs = j_sharding.param_pspecs(jc, shapes, _mesh(1, model))
+    for leaf, spec in specs["layers"]["moe"]["shared"].items():
+        assert tuple(spec) == ("model", None, None), leaf
+        shape = shapes["layers"]["moe"]["shared"][leaf].shape
+        assert parallel.placement(("layers", "moe", "shared", leaf), shape,
+                                  model) == (None, None, None)
 
 
 @pytest.mark.parametrize("arch", list(RUNS))
@@ -333,7 +505,13 @@ def test_tp_greedy_tokens_equal_jax(four_ranks, arch):
                                       four_ranks[0][arch]["prompt_logits"])
 
 
-def test_tp_cli_serves_the_same_tokens(four_ranks):
-    (_, _), (_, jax_tokens) = _reference("qwen3_0_6b")
+@pytest.mark.parametrize("arch", list(job.CLIS))
+def test_tp_cli_serves_the_same_tokens(four_ranks, arch):
+    """``serve_decode --mesh 2,2`` of the CLI's ``--reduced`` config (no
+    EDITS): the same greedy tokens as live JAX on every rank."""
+    jc = j_get_config(arch).reduced()
+    batch = job.prefill_batch(jc)
+    _, jax_tokens = (_reference(arch)[1] if not job.EDITS.get(arch)
+                     else _jax_reference(jc, batch))
     for res in four_ranks:
-        np.testing.assert_array_equal(res["cli_tokens"], jax_tokens)
+        np.testing.assert_array_equal(res["cli_tokens"][arch], jax_tokens)
