@@ -230,19 +230,25 @@
       exact; (b) qwen3-32b (8 of 64 layers, mesh (1, 2)), (c)
       deepseek-67b (8 of 95, (1, 4)), (d) qwen3-moe-30b-a3b (8 of 48, (1,
       4)), (e) qwen2-vl-7b (8 of 28, (1, 2), 1,024 patches ahead of the
-      prompt) and (f) deepseek-v2-236b (3 of 60, (1, 4)) at full width in
-      bfloat16, B = 4, each rank drawing its blocks alone: a one-shot
-      prefill of 512 tokens (a free warm-up, then two timed), its first 64
-      ((b), (c)) or 16 tokens stepped through the cache (timed), 16
-      decode steps fed the unsharded run's greedy tokens; a MoE config
+      prompt), (f) deepseek-v2-236b (3 of 60, (1, 4)), (g) mamba2-2.7b
+      (16 of 64, (1, 4): every SSM leaf whole on each rank), (h)
+      zamba2-1.2b (12 of 38, two groups, (1, 4): its shared block split)
+      and (i)
+      whisper-tiny (4 + 4, (1, 2): 1,500 audio frames, 448 decoder
+      tokens, the fill and steps attending to the encoded memory) at full
+      width in bfloat16, B = 4, each rank drawing its blocks alone: a
+      one-shot prefill of 512 tokens (a free warm-up, then two timed), its
+      first 64 ((b), (c)) or 16 tokens stepped through the cache (timed),
+      16 decode steps fed the unsharded run's greedy tokens; a MoE config
       drives its prefill, fill and steps again, untimed, with the routing
       forced to the unsharded run's (``route_spy``: every flip of the
       ranks' own routing counted, with its router margin), its free
       prefill held to a looser bound and its set flips counted against
       the float32-row witness's (``f32_rows``); every judged logits set
       within 2e-2 of the unsharded port's largest |logit| on the same
-      weights, the argmax agreements counted, kernels 7 and 8 launched on
-      every rank as
+      weights, the argmax agreements counted, the residual stream the
+      final norm takes bit-equal on the model ranks, kernels 7, 8 and 9
+      launched on every rank as
       ``tp_expected_launches`` says (counts zeroed on each rank just
       before the path); each rank's peak allocated bytes, init, prefill
       and decode times beside the unsharded run's (``{"tp_small": ...}``,
@@ -2893,12 +2899,18 @@ def check_lm_arch_kernels(dev, results: dict, main=(4, 512)) -> None:
     ("whisper_cross_decode") and over 1,500 encoder frames, and one tp
     rank's heads (qwen3-32b at model 2, 32/4; deepseek-67b at model 4,
     16/2; qwen3-moe at model 4, 8/1; qwen2-vl at model 2, 14/2 over its
-    1,536 positions); kernel 8 bf16 at each new row width over the 4 x
+    1,536 positions; zamba2's shared block at model 4, 8/8 of 64;
+    whisper at model 2, 3/3 of 64: the encoder over 1,500 frames, the
+    decoder over 448 tokens, its cross attention 448 x 1,500 and a decode
+    step's 1 x 1,500); kernel 8 bf16 at each new row width over the 4 x
     512 prefill rows ("d384" ... "d8192", deepseek-v2's q / kv latents
     among them; the per-head qk_norm width 128 is check_lm_kernels'
-    "qk_norm") and at the q / k norm rows of one tp rank: qwen3-32b's
+    "qk_norm"), at the q / k norm rows of one tp rank: qwen3-32b's
     ("tp_q_norm_m2", "tp_k_norm_m2") and qwen3-moe's
-    ("tp_moe_q_norm_m4", "tp_moe_k_norm_m4")."""
+    ("tp_moe_q_norm_m4", "tp_moe_k_norm_m4"), and at whisper's tp
+    prefill rows (4 x 1,500 encoder and 4 x 448 decoder rows of 384).
+    Kernel 9 at the tp paths' shapes (zamba2's and mamba2-2.7b's layers,
+    every head on every rank) is check_lm_kernels' "main" / "state128"."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kfa
@@ -2944,6 +2956,17 @@ def check_lm_arch_kernels(dev, results: dict, main=(4, 512)) -> None:
              torch.bfloat16, 10),
             ("tp_qwen2_vl_m2", (b0, 1536, 1536), 14, 2, 128, True, 0,
              torch.bfloat16, 5),
+            # ... zamba2's shared block at model 4, whisper at model 2
+            ("tp_zamba2_m4", (b0, s0, s0), 8, 8, 64, True, 0,
+             torch.bfloat16, 10),
+            ("tp_whisper_enc_m2", (b0, 1500, 1500), 3, 3, 64, False, 0,
+             torch.bfloat16, 10),
+            ("tp_whisper_dec_m2", (b0, 448, 448), 3, 3, 64, True, 0,
+             torch.bfloat16, 20),
+            ("tp_whisper_cross_m2", (b0, 448, 1500), 3, 3, 64, False, 0,
+             torch.bfloat16, 20),
+            ("tp_whisper_cross_decode_m2", (b0, 1, 1500), 3, 3, 64, False,
+             0, torch.bfloat16, 50),
             ("whisper_enc", (b0, 1500, 1500), 6, 6, 64, False, 0,
              torch.bfloat16, 10),
             ("whisper_dec", (b0, 375, 375), 6, 6, 64, True, 0,
@@ -2986,12 +3009,15 @@ def check_lm_arch_kernels(dev, results: dict, main=(4, 512)) -> None:
     rows = b0 * s0
     # the d-wide norms of the configs (deepseek-v2's q / kv latents: d1536,
     # d512), then the q / k norms over one rank's heads of 128 in the tp
-    # phase: qwen3-32b's 32 / 4 at model 2, qwen3-moe's 8 / 1 at model 4
+    # phase: qwen3-32b's 32 / 4 at model 2, qwen3-moe's 8 / 1 at model 4;
+    # whisper's tp prefill rows (its encoder's 1,500 frames, 448 tokens)
     for label, n, d in [(f"d{d}", rows, d) for d in (
             384, 512, 1024, 1536, 2048, 2560, 3584, 5120, 8192)] + [
             ("tp_q_norm_m2", rows * 32, 128), ("tp_k_norm_m2", rows * 4, 128),
             ("tp_moe_q_norm_m4", rows * 8, 128),
-            ("tp_moe_k_norm_m4", rows, 128)]:
+            ("tp_moe_k_norm_m4", rows, 128),
+            ("tp_whisper_enc_d384", b0 * 1500, 384),
+            ("tp_whisper_dec_d384", b0 * 448, 384)]:
         x = normal((n, d), torch.bfloat16)
         scale = (1.0 + 0.1 * normal((d,), torch.float32)).to(torch.bfloat16)
         err = _close_tol(f"rmsnorm {label}", krn.rmsnorm(x, scale),
@@ -3435,8 +3461,8 @@ def run_lm_archs(dev) -> dict:
 
 # ------------------------------------------------- the tensor-parallel slice --
 # (a) reduced qwen3-0.6b in float32, tensor-parallel on the card against the
-# same ranks on the CPU; (b)-(f) attention configs at full width in
-# bfloat16, depth cut, against the unsharded port on the same weights:
+# same ranks on the CPU; (b)-(i) configs at full width in bfloat16, most
+# depth cut, against the unsharded port on the same weights:
 # (config, layers, (data, model), prompt tokens stepped through the cache).
 # deepseek-67b (~134 GB in bfloat16) needs the mesh; its full depth waits
 # for a machine with four cards (ROADMAP).  qwen3-32b and deepseek-67b keep
@@ -3445,14 +3471,26 @@ def run_lm_archs(dev) -> dict:
 # tokens, deepseek-v2 its dense first layer and 2 MoE layers (each 7.5 GB
 # of experts; the reference's init draws an expert leaf whole in float32,
 # 5 GB) and 16 tokens: the run's time is taken from the new paths' fill.
+# mamba2-2.7b (16 of 64 layers; every SSM leaf whole on each rank, so a
+# rank's draw is nearly a whole init), zamba2-1.2b (12 of 38 Mamba2 layers:
+# two groups, so the shared block, split over 4 ranks, and its cache are
+# reused) and whisper-tiny at full depth (1,500 audio frames, 448 decoder
+# tokens; its 6 heads divide over 2, not 4) step 16 tokens too.  zamba2 at
+# all 38 layers sits 2.0e-2 to 2.9e-2 from one process, past TP_TOL, and
+# so does one process whose row sums round as a rank's do (the witness,
+# 2.5e-2): any rounding change at its six shared blocks moves the logits
+# that far through the Mamba2 stack (ROADMAP C.19), so the path is cut.
 TP_SMALL = ("qwen3_0_6b", (1, 2))
 TP_SMALL_SERVE = dict(batch=4, prompt_len=16, gen_len=8)
 TP_SMALL_TOL = 1e-4          # card vs CPU, of the largest |logit|
 TP_FULL = (("qwen3_32b", 8, (1, 2), 64), ("deepseek_67b", 8, (1, 4), 64),
            ("qwen3_moe_30b_a3b", 8, (1, 4), 16),
            ("qwen2_vl_7b", 8, (1, 2), 16),
-           ("deepseek_v2_236b", 3, (1, 4), 16))
+           ("deepseek_v2_236b", 3, (1, 4), 16),
+           ("mamba2_2_7b", 16, (1, 4), 16), ("zamba2_1_2b", 12, (1, 4), 16),
+           ("whisper_tiny", 4, (1, 2), 16))
 TP_BATCH, TP_PROMPT, TP_STEPS = 4, 512, 16
+TP_WHISPER = (1500, 448)     # audio frames (its 30 s window), decoder tokens
 TP_TOL = 2e-2                # of the largest |logit|: PERF.md §2's bf16 bound
 TP_PREFILL_REPS = 2          # timed one-shot prefills after a warm-up
 TP_FLIPS_SHOWN = 20          # routing flips listed a path (all counted)
@@ -3480,21 +3518,45 @@ def _reset_peak(dev) -> None:
 
 
 def tp_expected_launches(cfg, fill: int) -> dict:
-    """Kernel 7 and 8 launches of :func:`tp_drive` on each rank (and in one
-    process): kernel 7 once a GQA layer a prefill (decode attends with the
-    plain ``_sdpa``, and MLA's attention is plain, as in JAX); kernel 8 in
-    both block norms, qwen3's q / k norms over the rank's heads, MLA's
-    ``q_norm`` / ``kv_norm`` and the final norm, a prefill and a decode
-    step alike.  A MoE config drives one prefill and one fill more (the
-    forced routing's run)."""
+    """Kernel 7, 8 and 9 launches of :func:`tp_drive` on each rank (and in
+    one process), from the code:
+
+    * a decoder-only config's prefill: kernel 7 once an attention block
+      (each GQA layer, zamba2's shared block once a group; MLA's attention
+      is plain, as in JAX), kernel 9 once a Mamba2 layer; kernel 8 in the
+      two norms of an attention block (the one of a Mamba2 block: its
+      gated norm is plain), qwen3's q / k norms over the rank's heads,
+      MLA's ``q_norm`` / ``kv_norm`` and the final norm.  A decode step
+      launches kernel 8 as a prefill does and neither 7 (decode attends
+      with the plain ``_sdpa``) nor 9 (the recurrence is plain);
+    * the encoder-decoder's prefill: the encoder (kernel 7 a layer,
+      bidirectional; kernel 8 its two norms a layer and ``enc_norm``),
+      then the decoder (kernel 7 twice a layer, causal self and cross
+      attention; kernel 8 its three norms a layer and the final norm); a
+      decode step attends to the memory through kernel 7 once a layer
+      (the cached self-attention is plain) and runs the decoder's norms;
+      :func:`tp_drive` encodes the memory once more for the fill.
+
+    A MoE config drives one prefill and one fill more (the forced
+    routing's run)."""
     n_prefills = 1 + TP_PREFILL_REPS + cfg.is_moe
     n_steps = fill + TP_STEPS + fill * cfg.is_moe
-    per_call = ((2 * cfg.n_layers + 1) * (cfg.norm == "rmsnorm")
-                + 2 * cfg.n_layers * (bool(cfg.qk_norm)
-                                      or cfg.attention == "mla"))
-    return {"flash_attention":
-            cfg.n_layers * n_prefills * (cfg.attention == "gqa"),
-            "rmsnorm": per_call * (n_prefills + n_steps)}
+    rms = cfg.norm == "rmsnorm"
+    if cfg.encoder_decoder:         # (kernel 7, kernel 8) a call
+        enc = (cfg.n_enc_layers, (2 * cfg.n_enc_layers + 1) * rms)
+        dec = (2 * cfg.n_layers, (3 * cfg.n_layers + 1) * rms)
+        step = (cfg.n_layers, (3 * cfg.n_layers + 1) * rms)
+        return {k: e * (n_prefills + 1) + d * n_prefills + t * n_steps
+                for k, e, d, t in zip(("flash_attention", "rmsnorm"),
+                                      enc, dec, step)} | {"ssd_scan": 0}
+    n_ssm = cfg.n_layers * (cfg.arch_type in ("ssm", "hybrid"))
+    n_attn = (cfg.n_layers // cfg.shared_attn_every
+              if cfg.arch_type == "hybrid" else cfg.n_layers - n_ssm)
+    per_call = ((2 * n_attn + n_ssm + 1) * rms
+                + 2 * n_attn * (bool(cfg.qk_norm) or cfg.attention == "mla"))
+    return {"flash_attention": n_attn * n_prefills * (cfg.attention == "gqa"),
+            "rmsnorm": per_call * (n_prefills + n_steps),
+            "ssd_scan": n_ssm * n_prefills}
 
 
 @contextlib.contextmanager
@@ -3534,6 +3596,46 @@ def route_spy(cfg, forced=None):
 
 
 @contextlib.contextmanager
+def final_streams(params):
+    """Records the residual stream each call hands the model's final norm
+    (``params["final_norm"]``), in call order: every Mamba2 layer's and
+    row-parallel sum's output runs into it, so the model ranks must hold
+    it bit for bit (:func:`_model_ranks_alike`)."""
+    from repro_torch.models import layers
+
+    inner = layers.norm_apply
+    log = []
+
+    def spy(cfg, p, x):
+        if p is params["final_norm"]:
+            log.append(x)
+        return inner(cfg, p, x)
+
+    layers.norm_apply = spy
+    try:
+        yield log
+    finally:
+        layers.norm_apply = inner
+
+
+def _model_ranks_alike(cfg, streams: list):
+    """Whether every model rank of ``cfg``'s mesh holds each tensor of
+    ``streams`` bit for bit, and the largest |difference| from model rank
+    0's (a collective: every model rank calls it); None without a model
+    mesh."""
+    mesh = getattr(cfg, "mesh", None)
+    if mesh is None or mesh.model == 1:
+        return None
+    equal, worst = True, 0.0
+    for x in streams:
+        every = mesh.model_gather(x)
+        equal &= all(torch.equal(y, every[0]) for y in every[1:])
+        worst = max(worst, float((every.float() - every[0].float())
+                                 .abs().max()))
+    return {"equal": equal, "max_abs_diff": worst, "compared": len(streams)}
+
+
+@contextlib.contextmanager
 def f32_rows():
     """The unsharded port with its row-parallel products
     (``parallel.row_matmul``, the MoE combine's ``row_einsum``) in float32,
@@ -3569,10 +3671,12 @@ def tp_drive(params, cfg, batch, dev, fill: int, teacher=None,
              routes=None) -> dict:
     """The tp path on one rank of ``cfg``'s mesh (or in one process):
     a warm-up one-shot ``prefill_fn`` of ``batch`` (tokens [B, S],
-    qwen2-vl's patch embeddings too), free (a MoE config's routing its
-    own, recorded: :func:`route_spy`); TP_PREFILL_REPS timed prefills;
-    the prompt's first ``fill`` tokens stepped through the cache (the
-    serving path's fill, text only, timed: decode ms a step).  A dense
+    qwen2-vl's patch embeddings or whisper's audio frames too), free (a
+    MoE config's routing its own, recorded: :func:`route_spy`);
+    TP_PREFILL_REPS timed prefills; the prompt's first ``fill`` tokens
+    stepped through the cache (the serving path's fill, text only, timed:
+    decode ms a step; an encoder-decoder's cache holds the memory encoded
+    once, untimed, before the free prefill).  A dense
     config then takes TP_STEPS decode steps fed ``teacher``'s tokens
     [B, TP_STEPS] (without one, its own greedy picks).  A MoE config
     drives the prefill, the fill and the steps again, untimed, with its
@@ -3580,10 +3684,12 @@ def tp_drive(params, cfg, batch, dev, fill: int, teacher=None,
     call), forced to the reference's after the free prefill's calls.  The
     timed calls run without the spy.  Returns the free prefill's, the
     judged prefill's and the fill's last and every step's whole-vocab
-    logits (host), the greedy picks, the routing record, the times, and
-    the kernels' launches over the path."""
+    logits (host), the greedy picks, the routing record, whether the
+    model ranks' residual streams (the free prefill's and each step's, as
+    the final norm takes them) are bit-equal, the times, and the kernels'
+    launches over the path."""
     from repro_torch.kernels import _lib
-    from repro_torch.models import api, parallel
+    from repro_torch.models import api, encdec, parallel
 
     prompt = batch["tokens"]
     b = prompt.shape[0]
@@ -3596,15 +3702,21 @@ def tp_drive(params, cfg, batch, dev, fill: int, teacher=None,
         if mesh is not None:
             mesh.barrier()
 
+    memory = None
+
     def filled():
         cache = api.init_cache(cfg, b, fill + TP_STEPS, device=dev)
+        if memory is not None:       # the audio the decode attends to
+            cache["memory"] = memory
         for t in range(fill):
             logits, cache = api.decode_step(params, cfg, cache,
                                             prompt[:, t:t + 1], t)
         return logits, cache
 
     _lib.reset_launches()
-    with route_spy(cfg) as free_log:
+    if cfg.encoder_decoder:          # the caller's route to the audio (C.15)
+        memory = encdec.encode(params, cfg, batch["audio_embeds"])
+    with route_spy(cfg) as free_log, final_streams(params) as streams:
         free = api.prefill_fn(params, cfg, batch)
     _sync(dev)
     barrier()
@@ -3625,6 +3737,7 @@ def tp_drive(params, cfg, batch, dev, fill: int, teacher=None,
             pre = api.prefill_fn(params, cfg, batch)
             logits, cache = filled()
         steps, picks = [_whole(cfg, logits)], []
+        step_streams = stack.enter_context(final_streams(params))
         for i in range(TP_STEPS):
             nxt = parallel.greedy(cfg, logits)
             picks.append(nxt)
@@ -3634,11 +3747,13 @@ def tp_drive(params, cfg, batch, dev, fill: int, teacher=None,
             steps.append(_whole(cfg, logits))
         _sync(dev)
     launches = dict(_lib.LAUNCHES)
+    alike = _model_ranks_alike(cfg, streams + step_streams)
     return {"free_prefill_logits": _whole(cfg, free),
             "prefill_logits": _whole(cfg, pre),
             "step_logits": torch.stack(steps),
             "picks": torch.cat(picks, dim=1).cpu(),
             "routing": _route_record(free_log + log),
+            "streams_alike": alike,
             "prefill_ms": prefill_ms, "fill_s": fill_s,
             "decode_ms_per_step": fill_s / fill * 1e3, "launches": launches}
 
@@ -3650,8 +3765,15 @@ def _tp_prompt(cfg, dev, b: int = TP_BATCH, s: int = TP_PROMPT):
 
 def _tp_batch(cfg, dev) -> dict:
     """The tp path's prefill batch: TP_BATCH x TP_PROMPT tokens, and
-    qwen2-vl's 1,024 patch embeddings ahead of them."""
+    qwen2-vl's 1,024 patch embeddings ahead of them; whisper's TP_WHISPER
+    audio frames and decoder tokens."""
     from repro_torch import rng
+    if cfg.encoder_decoder:
+        frames, tokens = TP_WHISPER
+        return {"tokens": _tp_prompt(cfg, dev, s=tokens),
+                "audio_embeds": rng.normal(
+                    rng.PRNGKey(3, device=dev),
+                    (TP_BATCH, frames, cfg.frontend_dim)).to(cfg.param_dtype)}
     batch = {"tokens": _tp_prompt(cfg, dev)}
     if cfg.frontend == "vision":
         batch["patch_embeds"] = rng.normal(
@@ -3784,10 +3906,11 @@ def _tp_job(world: int, out_dir: Path, small: bool, full: list) -> list:
 
 
 def _tp_reference(arch: str, depth: int, fill: int, dev) -> dict:
-    """(b)-(f)'s reference: the unsharded port on the same weights, in
-    this process, then freed (the ranks share the card after it).  A MoE
-    config's witness too: one free prefill with the row products in
-    float32 (:func:`f32_rows`), its logits and routing."""
+    """(b)-(i)'s reference: the unsharded port on the same weights, in
+    this process, then freed (the ranks share the card after it).  Its
+    witness too: one free prefill with the row products in float32
+    (:func:`f32_rows`), its logits and a MoE config's routing: how far
+    one process moves under the ranks' rounding of the row sums."""
     from repro_torch import rng
     from repro_torch.models import api
 
@@ -3803,11 +3926,10 @@ def _tp_reference(arch: str, depth: int, fill: int, dev) -> dict:
     out.update(init_s=init_s,
                peak_bytes=torch.cuda.max_memory_allocated(dev),
                param_bytes=_param_bytes(params))
-    if cfg.is_moe:
-        with f32_rows(), route_spy(cfg) as log:
-            out["witness_logits"] = _whole(
-                cfg, api.prefill_fn(params, cfg, batch))
-        out["witness_routing"] = _route_record(log)
+    with f32_rows(), route_spy(cfg) as log:
+        out["witness_logits"] = _whole(cfg, api.prefill_fn(params, cfg,
+                                                           batch))
+    out["witness_routing"] = _route_record(log)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3913,7 +4035,7 @@ def _rel(got, want) -> float:
 
 
 def _tp_compare(label, cfg, fill: int, ref: dict, ranks: list) -> dict:
-    """(b)-(f)'s verdicts: every judged logits set (the prefill, the
+    """(b)-(i)'s verdicts: every judged logits set (the prefill, the
     fill's last, each teacher-forced step; a MoE config's under the
     forced routing) within TP_TOL of the reference's largest |logit|, the
     free prefill within TP_TOL (TP_FREE_TOL under a MoE config's own
@@ -3921,8 +4043,10 @@ def _tp_compare(label, cfg, fill: int, ref: dict, ranks: list) -> dict:
     its token-layers and, against the float32-row witness, no more than
     the reference's (the ranks' own routing inside the spread of two
     one-process roundings), its routing recorded in full and alike on
-    every rank, exact launch counts on every rank; the argmax agreements,
-    the routing flips, the witness's errors and each rank's numbers."""
+    every rank, exact launch counts on every rank, the residual streams
+    bit-equal on the model ranks (:func:`_model_ranks_alike`); the argmax
+    agreements, the routing flips, the witness's errors and each rank's
+    numbers."""
     want_launch = tp_expected_launches(cfg, fill)
     got = ranks[0][label]
     sets = [("prefill", got["prefill_logits"], ref["prefill_logits"])] + [
@@ -3944,7 +4068,8 @@ def _tp_compare(label, cfg, fill: int, ref: dict, ranks: list) -> dict:
                          "init_peak_bytes", "peak_bytes", "param_bytes",
                          "prefill_ms", "fill_s", "decode_ms_per_step")},
                      "launches": {k: res[label]["launches"][k]
-                                  for k in want_launch}})
+                                  for k in want_launch},
+                     "streams_alike": res[label]["streams_alike"]})
     routing = _routing_flips(cfg, fill, ref,
                              [res[label]["routing"] for res in ranks])
     verdicts = {
@@ -3952,10 +4077,11 @@ def _tp_compare(label, cfg, fill: int, ref: dict, ranks: list) -> dict:
         "free_prefill_within_bound":
             free_rel <= (TP_FREE_TOL if cfg.is_moe else TP_TOL),
         "launches_exact": all(r["launches"] == want_launch for r in rows),
+        "streams_same_on_model_ranks": all(
+            r["streams_alike"]["equal"] for r in rows),
         "picks_same_on_every_rank": all(
             torch.equal(r[label]["picks"], ranks[0][label]["picks"])
             for r in ranks)}
-    witness = {}
     if routing:
         free = routing["flips"]["prefill_free"]
         verdicts["free_set_flips_within_bound"] = \
@@ -3966,10 +4092,10 @@ def _tp_compare(label, cfg, fill: int, ref: dict, ranks: list) -> dict:
         verdicts["routing_recorded"] = routing["recorded"]
         verdicts["routing_same_on_every_rank"] = \
             routing["same_on_every_rank"]
-        witness = {"free_prefill_rel_err": _rel(got["free_prefill_logits"],
-                                                ref["witness_logits"]),
-                   "reference_rel_err": _rel(ref["free_prefill_logits"],
-                                             ref["witness_logits"])}
+    witness = {"free_prefill_rel_err": _rel(got["free_prefill_logits"],
+                                            ref["witness_logits"]),
+               "reference_rel_err": _rel(ref["free_prefill_logits"],
+                                         ref["witness_logits"])}
     return {"rel_err": rel, "max_rel_err": max(rel.values()),
             "free_prefill_rel_err": free_rel,
             "argmax_agree": [agree, TP_STEPS * TP_BATCH],
@@ -3983,16 +4109,21 @@ def run_tp_phase(dev) -> dict:
     the card against the same two ranks on the CPU (prefill logits within
     TP_SMALL_TOL of the largest, greedy tokens exact); (b) qwen3-32b, (c)
     deepseek-67b, (d) qwen3-moe-30b-a3b, (e) qwen2-vl-7b and (f)
-    deepseek-v2-236b at full width in bfloat16 (TP_FULL: depth cut, mesh
-    (1, 2) or (1, 4)): a one-shot prefill of TP_BATCH x TP_PROMPT tokens
-    (qwen2-vl's behind its 1,024 patches), the prompt's first tokens
+    deepseek-v2-236b, (g) mamba2-2.7b, (h) zamba2-1.2b and (i)
+    whisper-tiny at full width in bfloat16 (TP_FULL: depth cut but
+    whisper's, mesh (1, 2) or (1, 4)): a one-shot prefill of
+    TP_BATCH x TP_PROMPT tokens (qwen2-vl's behind its 1,024 patches;
+    whisper's TP_WHISPER frames and decoder tokens, its fill and steps
+    attending to the memory encoded from them), the prompt's first tokens
     stepped through the cache and TP_STEPS teacher-forced decode steps,
     every judged logits set (the real vocab's) within TP_TOL of the
     unsharded port's largest |logit| on the same weights, a MoE config's
     routing forced to the reference's in the judged run and its own free
     run held to TP_FREE_TOL and TP_FREE_SET_SHARE, every flip counted
     (:func:`route_spy`) and set beside the float32-row witness's
-    (:func:`f32_rows`), kernels 7 and 8 launched as
+    (:func:`f32_rows`; every path's witness logits reported beside the
+    ranks' and the reference's), the residual streams bit-equal on the
+    model ranks, kernels 7, 8 and 9 launched as
     :func:`tp_expected_launches` says on every rank.  The references of a
     mesh shape run first, one after another (each freed), then one
     torchrun job serves its configs.  Prints a ``{"tp_small": ...}`` and a
@@ -4060,7 +4191,11 @@ def run_tp_phase(dev) -> dict:
                 "config": arch, "layers": depth, "mesh": [data, model],
                 "moe_dispatch": cfg.moe_dispatch if cfg.is_moe else None,
                 "patches": cfg.n_patches if cfg.frontend == "vision" else 0,
-                "batch": TP_BATCH, "prompt": TP_PROMPT, "fill": fill,
+                "audio_frames":
+                    TP_WHISPER[0] if cfg.encoder_decoder else 0,
+                "batch": TP_BATCH,
+                "prompt": TP_WHISPER[1] if cfg.encoder_decoder
+                else TP_PROMPT, "fill": fill,
                 "steps": TP_STEPS,
                 "card": CARD,
                 "unsharded": {k: ref[k] for k in (

@@ -16,6 +16,9 @@ W-token attention window, as the JAX example's windowed run does.
     PYTHONPATH=src torchrun --nproc-per-node 4 -m \
         repro_torch.launch.serve_decode --config deepseek_v2_236b \
         --reduced --device cpu --mesh 2,2
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m \
+        repro_torch.launch.serve_decode --config mamba2_2_7b --reduced \
+        --device cpu --mesh 1,4
 
 Runs on CUDA by default (``--device cpu`` to run on the CPU) and raises
 without it.  The weights and the prompt both come from ``PRNGKey(0)``, as
@@ -23,17 +26,20 @@ in the JAX example, so the port serves the same model the same tokens.
 An encoder-decoder (Whisper) decodes against the cache's zero encoder
 memory, as the JAX example does (ROADMAP.md C.15).
 
-``--mesh DATA,MODEL`` serves an attention config tensor-parallel over
+``--mesh DATA,MODEL`` serves any of the ten configs tensor-parallel over
 ``DATA x MODEL`` ranks (``torchrun``, gloo;
-:func:`repro_torch.launch.mesh.smoke_mesh`): the dense family (qwen3,
-deepseek-67b, olmo), qwen2-vl, qwen3-moe-30b-a3b (a rank its block of
-the experts) and deepseek-v2-236b (MLA's heads and the experts split);
-mamba2, zamba2 and whisper are refused.  A rank draws the whole model's
-numbers (a MoE rank its experts alone) and keeps its blocks, takes its
-data rank's batch rows (a MoE batch must divide over them), and every
-rank ends with the whole batch's tokens, those of a model group being one
-greedy pick.  A mesh above one rank refuses to run without torchrun.
-Rank 0 alone prints.
+:func:`repro_torch.launch.mesh.smoke_mesh`), as JAX's specs place it: the
+dense family (qwen3, deepseek-67b, olmo), qwen2-vl, qwen3-moe-30b-a3b (a
+rank its block of the experts), deepseek-v2-236b (MLA's heads and the
+experts split), mamba2-2.7b (its SSM layers whole on every rank, the
+vocab split), zamba2-1.2b (the SSM layers whole, the shared attention
+block split as a dense block) and whisper-tiny (encoder, decoder and
+cross attention split as dense blocks).  A model axis that does not
+divide the KV heads, heads, ``d_ff``, padded vocab or experts is refused.
+A rank draws its blocks alone, takes its data rank's batch rows (a MoE
+batch must divide over them), and every rank ends with the whole batch's
+tokens, those of a model group being one greedy pick.  A mesh above one
+rank refuses to run without torchrun.  Rank 0 alone prints.
 """
 from __future__ import annotations
 

@@ -8,8 +8,9 @@ module's docstring says the TPU path belongs; the JAX code itself computes
 :func:`_sdpa` in jnp, and so does the one-token :func:`decode_attention`
 here, as in JAX.  Layouts are the JAX package's: q [B, S, H, D], k/v
 [B, S, KV, D].  Under a model mesh a rank holds its heads' columns of
-wq / wk / wv and rows of wo; the ``@ wo`` of self and decode attention
-sums over the model group (:func:`repro_torch.models.parallel.row_matmul`).
+wq / wk / wv and rows of wo; the ``@ wo`` of self, decode and cross
+attention sums over the model group
+(:func:`repro_torch.models.parallel.row_matmul`).
 """
 from __future__ import annotations
 
@@ -129,8 +130,9 @@ def decode_attention(params, cfg: ModelConfig, x, cache_k, cache_v,
 
 
 # ------------------------------------------------------- cross-attention --
-def cross_attn_init(key: torch.Tensor, cfg: ModelConfig):
-    return attn_init(key, cfg)
+def cross_attn_init(key: torch.Tensor, cfg: ModelConfig, place=None):
+    """``place``: the blocks a rank draws (``parallel.draw_plan``)."""
+    return attn_init(key, cfg, place=place)
 
 
 def cross_attention(params, cfg: ModelConfig, x, memory):
@@ -146,4 +148,4 @@ def cross_attention(params, cfg: ModelConfig, x, memory):
         q = layers.rms_norm(q, params["q_norm"])
         k = layers.rms_norm(k, params["k_norm"])
     out = flash_attention(q, k, v, causal=False)
-    return out.reshape(b, s, -1) @ params["wo"]
+    return parallel.row_matmul(cfg, out.reshape(b, s, -1), params["wo"])

@@ -98,7 +98,10 @@ def moe_block_decode(params, cfg: ModelConfig, x, cache, pos: int):
 
 
 # -------------------------------------------------------------------- ssm --
-def ssm_block_init(key: torch.Tensor, cfg: ModelConfig):
+def ssm_block_init(key: torch.Tensor, cfg: ModelConfig, place=None):
+    """``place`` draws nothing in blocks here: JAX's rule keeps every SSM
+    leaf (and both norms) whole on every model rank."""
+    del place
     return {"norm": layers.norm_init(cfg, cfg.d_model, key.device),
             "ssm": ssm.ssm_init(key, cfg)}
 

@@ -17,8 +17,9 @@ Serving: :func:`prefill` is the one-shot prompt forward (kernels 7, 8 and
 :func:`decode_step` updates the cache in place and returns it.  With a
 :func:`repro_torch.models.parallel.local_config` the same functions run
 one rank of a tensor-parallel mesh: the init draws the rank's blocks of
-the whole model's numbers alone, the cache holds the rank's KV heads,
-and the logits are the rank's vocab shard.
+the whole model's numbers alone (the SSM layers whole, zamba2's shared
+block split as a dense block), the cache holds the rank's KV heads (the
+SSM's conv and state whole), and the logits are the rank's vocab shard.
 
 Training: :func:`loss_fn` is the next-token NLL plus the MoE aux loss.
 With ``cfg.remat`` set, a differentiated forward checkpoints each layer of
@@ -90,7 +91,8 @@ def init_params(key: torch.Tensor, cfg: ModelConfig) -> PyTree:
                 place=parallel.scope(place, "first_dense", f"[{i}]"))
             for i in range(cfg.first_k_dense)]
     if cfg.arch_type == "hybrid":
-        params["shared"] = blocks.dense_block_init(ks[3], cfg)
+        params["shared"] = blocks.dense_block_init(
+            ks[3], cfg, place=parallel.scope(place, "shared"))
     if cfg.frontend == "vision":
         shape = (cfg.frontend_dim, cfg.d_model)
         params["patch_proj"] = layers.dense_init(

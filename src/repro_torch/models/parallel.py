@@ -4,17 +4,22 @@ of ranks: what JAX's SPMD partitioner does for
 
 JAX places a model by its specs and XLA inserts the collectives.  The
 port runs one process a rank (:class:`repro_torch.launch.mesh.Mesh`), so
-this module does that work by hand for the attention configs: the dense
-family (qwen3, deepseek-67b, olmo), the VLM (qwen2-vl) and the MoE
-configs (qwen3-moe; deepseek-v2 with MLA):
+this module does that work by hand for all ten configs: the dense family
+(qwen3, deepseek-67b, olmo), the VLM (qwen2-vl), the MoE configs
+(qwen3-moe; deepseek-v2 with MLA), the SSM and hybrid configs (mamba2;
+zamba2, whose shared attention block splits as a dense block) and the
+encoder-decoder (whisper):
 
 * :func:`local_config` is the config a rank runs: ``n_heads / m``,
   ``n_kv_heads / m``, ``d_ff / m`` and ``d_ff_dense / m`` for a model
   axis of ``m``, the head width pinned (``head_dim`` would fall back to
   ``d_model // n_heads``), the vocab and its padding kept whole, so each
   rank's vocab shard is its block of the padded table; the experts and
-  their width kept whole, since every rank routes over all of them.  It
-  carries the mesh, so every hook below finds it through ``cfg``.
+  their width kept whole, since every rank routes over all of them; an
+  attention-free config's head fields and every SSM field whole, since
+  JAX's rule replicates the SSM leaves and every model rank runs the
+  whole Mamba2 layer on the same rows.  It carries the mesh, so every
+  hook below finds it through ``cfg``.
 * :func:`placement` / :func:`shard_leaf` / :func:`shard_params` keep a
   rank's contiguous block of a leaf along the dim its spec names
   ``"model"``; ``lm.init_params`` of a local config hashes only those
@@ -34,7 +39,7 @@ configs (qwen3-moe; deepseek-v2 with MLA):
   index; :func:`greedy` is the argmax over the shards, the lowest index
   on ties as ``torch.argmax``; :func:`gather_columns` assembles a
   column-parallel product's whole last dim (the vocab's logits, the
-  projected patch prefix).
+  projected patch prefix, the projected audio frames).
 * The batch: :func:`batch_rows` / :func:`gather_rows` split and join the
   leading dim over the data axis as ``batch_pspecs`` says;
   :func:`gather_data` joins a MoE layer's input over the data group, so
@@ -68,33 +73,21 @@ class LocalConfig(ModelConfig):
     full: Optional[ModelConfig] = None
 
 
-# The configs the executor serves: attention models whose layers are dense
-# or MoE blocks, with or without the VLM's patch prefix.
-SERVED_ARCHS = ("dense", "moe", "vlm")
-SERVED_ATTENTION = ("gqa", "mla")
-
-
 def local_config(cfg: ModelConfig, mesh) -> LocalConfig:
-    """The config a rank of ``mesh`` runs for ``cfg``; ValueError for a
-    config outside the attention configs (SSM, hybrid, encoder-decoder)
-    or a model axis that does not divide its KV heads, heads, ``d_ff``,
-    padded vocab, experts or ``d_ff_dense``."""
+    """The config a rank of ``mesh`` runs for ``cfg`` (any arch the ten
+    configs use); ValueError for a model axis that does not divide its KV
+    heads and heads (where it has attention), ``d_ff``, padded vocab,
+    experts or ``d_ff_dense``."""
     m = sharding.axis_sizes(mesh)["model"]
-    if (cfg.arch_type not in SERVED_ARCHS
-            or cfg.attention not in SERVED_ATTENTION
-            or cfg.encoder_decoder or cfg.frontend not in (None, "vision")):
-        raise ValueError(
-            f"{cfg.name}: the tensor-parallel executor serves the attention "
-            f"configs (arch_type {' / '.join(SERVED_ARCHS)}, attention "
-            f"{' / '.join(SERVED_ATTENTION)}), not arch_type "
-            f"{cfg.arch_type!r} / attention {cfg.attention!r}")
-    if cfg.n_kv_heads % m:
+    heads = cfg.attention != "none"     # mamba2's head fields: placeholders
+    if heads and cfg.n_kv_heads % m:
         raise ValueError(
             f"{cfg.name}: a model axis of {m} does not divide n_kv_heads = "
             f"{cfg.n_kv_heads}; JAX's column rule would split a head across "
             f"ranks, which a rank's local attention cannot run")
-    divided = [("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff),
-               ("the padded vocab", cfg.padded_vocab)]
+    divided = [("d_ff", cfg.d_ff), ("the padded vocab", cfg.padded_vocab)]
+    if heads:
+        divided.insert(0, ("n_heads", cfg.n_heads))
     if cfg.is_moe:
         divided.append(("n_experts", cfg.n_experts))
     if cfg.first_k_dense:
@@ -105,9 +98,11 @@ def local_config(cfg: ModelConfig, mesh) -> LocalConfig:
                              f"divide {what} = {n}")
     fields = {f.name: getattr(cfg, f.name)
               for f in dataclasses.fields(ModelConfig)}
-    fields.update(n_heads=cfg.n_heads // m, n_kv_heads=cfg.n_kv_heads // m,
-                  d_ff=cfg.d_ff // m, d_ff_dense=cfg.d_ff_dense // m,
+    fields.update(d_ff=cfg.d_ff // m, d_ff_dense=cfg.d_ff_dense // m,
                   d_head=cfg.head_dim)
+    if heads:
+        fields.update(n_heads=cfg.n_heads // m,
+                      n_kv_heads=cfg.n_kv_heads // m)
     return LocalConfig(**fields, mesh=mesh, full=cfg)
 
 
@@ -122,13 +117,14 @@ def _model_mesh(cfg):
 def placement(path: tuple, shape: tuple, model_size: int) -> tuple:
     """The spec a rank places the parameter at ``path`` (dict keys from
     the root) by: JAX's rule, but MoE's shared expert (``moe/shared/*``)
-    whole on every rank.  JAX's rule reads a stacked shared leaf
-    ``[L, d, f]``'s layer axis as the expert axis, so its spec turns on
-    whether the model axis divides the depth (replicated at deepseek-v2's
-    59 stacked layers, the layer axis sharded at 8), and a single layer's
-    ``[d, f]`` gets the dense MLP's column / row split: XLA gathers any
-    of them.  Whole is JAX's spec at full depth, and the shared expert's
-    output then needs no sum."""
+    whole on every rank (zamba2's top-level shared attention block,
+    ``shared/attn/*`` and ``shared/mlp/*``, keeps JAX's rule).  JAX's
+    rule reads a stacked shared leaf ``[L, d, f]``'s layer axis as the
+    expert axis, so its spec turns on whether the model axis divides the
+    depth (replicated at deepseek-v2's 59 stacked layers, the layer axis
+    sharded at 8), and a single layer's ``[d, f]`` gets the dense MLP's
+    column / row split: XLA gathers any of them.  Whole is JAX's spec at
+    full depth, and the shared expert's output then needs no sum."""
     if "moe" in path and "shared" in path:
         return (None,) * len(shape)
     return sharding._rule(tuple(path), tuple(shape), model_size)

@@ -13,26 +13,35 @@ rules and live runs, and against the unsharded port.
   whole at both (``parallel.placement``).
 * Local configs at full width: qwen3-moe-30b-a3b, qwen2-vl-7b and
   deepseek-v2-236b's heads, experts a rank, ``d_ff_dense`` and the shared
-  width, and their leaves' shapes on a rank.
+  width; mamba2-2.7b (everything whole but the vocab), zamba2-1.2b (the
+  shared block's heads and ``d_ff`` split, the SSM fields whole) and
+  whisper-tiny (heads and ``d_ff`` split, ``frontend_proj`` a column
+  block); their leaves' shapes on a rank.  Zamba2's top-level
+  ``shared/*`` block takes JAX's split while ``moe/shared/*`` stays whole.
 * A world of one, in this process: a (1, 1) mesh serves the four dense
-  configs and the three MoE / VLM runs bit-equal to the unsharded port.
-  Each model rank of the job's runs, in this process: its init hashes
-  only its blocks and gets ``shard_params`` of the whole init.
+  configs, the three MoE / VLM runs and the SSM, hybrid and
+  encoder-decoder runs bit-equal to the unsharded port.  Each model rank
+  of the job's runs, in this process: its init hashes only its blocks
+  and gets ``shard_params`` of the whole init.
 * Refusals: a model axis that does not divide ``n_kv_heads`` (reduced
-  deepseek-67b has KV = 1) or ``n_experts``, the SSM, hybrid and
-  encoder-decoder configs, a ``--mesh`` of several ranks without
-  torchrun.
+  deepseek-67b has KV = 1; whisper-tiny's 6 at model 4, zamba2-1.2b's 32
+  at 64), the padded vocab (mamba2-2.7b's 50,432 at 3) or ``n_experts``,
+  a ``--mesh`` of several ranks without torchrun.
 * One four-rank ``torchrun`` job (``tests/_torch_tp_job.py``, gloo on the
   CPU), in float32: reduced qwen3-0.6b at mesh (2, 2) and reduced olmo-1b
   at (1, 4); qwen3-moe and qwen2-vl (with patches) at (2, 2), each
   reduced with two KV heads; deepseek-v2 reduced at three layers with
-  the gather dispatch at (2, 2).  Each rank's weights are its blocks of
-  the unsharded init, bit for bit, the shared experts whole.  Prefill
-  logits are within 1e-5 of the largest magnitude of the unsharded
-  port's and within 1e-4 of live JAX ``repro.models.api.prefill_fn``'s.
-  The 8 greedy decode tokens equal JAX's (``examples/serve_decode.py``'s
-  loop) and are the same on every rank, through ``serve(mesh=)`` and the
-  ``--mesh`` CLI (qwen3-0.6b and deepseek-v2).
+  the gather dispatch at (2, 2); reduced mamba2 at (1, 4), reduced zamba2
+  at four layers (two groups) at (2, 2) and reduced whisper (with audio
+  frames) at (2, 2).  Each rank's weights are its blocks of the
+  unsharded init, bit for bit, the shared experts and the SSM layers
+  whole.  Prefill logits are within 1e-5 of the largest magnitude of the
+  unsharded port's and within 1e-4 of live JAX
+  ``repro.models.api.prefill_fn``'s; the residual stream the final norm
+  takes is bit-equal on the model ranks of a data group.  The 8 greedy
+  decode tokens equal JAX's (``examples/serve_decode.py``'s loop) and
+  are the same on every rank, through ``serve(mesh=)`` and the ``--mesh``
+  CLI (qwen3-0.6b, deepseek-v2 and zamba2).
 """
 import dataclasses
 import functools
@@ -71,6 +80,7 @@ ARCHS = ["qwen3_0_6b", "qwen3_32b", "deepseek_67b", "olmo_1b",
          "whisper_tiny", "qwen2_vl_7b", "zamba2_1_2b"]
 DENSE = ["qwen3_0_6b", "qwen3_32b", "deepseek_67b", "olmo_1b"]
 MOE_VLM = ["qwen3_moe_30b_a3b", "qwen2_vl_7b", "deepseek_v2_236b"]
+SSM_AUDIO = ["mamba2_2_7b", "zamba2_1_2b", "whisper_tiny"]
 MODEL_SIZES = [1, 2, 4, 8, 16]
 MODES = ["none", "model", "dp_model", "auto"]
 CACHE_MESHES = [(1, 1), (2, 2), (2, 8), (1, 16)]
@@ -259,8 +269,93 @@ def test_local_config_of_the_moe_and_vlm_configs(arch, model, want):
                                               cfg.head_dim)
 
 
+@pytest.mark.parametrize("arch, model, want", [
+    ("mamba2_2_7b", 4, dict(n_heads=1, n_kv_heads=1, d_ff=0)),
+    ("zamba2_1_2b", 4, dict(n_heads=8, n_kv_heads=8, d_ff=2048,
+                            head_dim=64)),
+    ("whisper_tiny", 2, dict(n_heads=3, n_kv_heads=3, d_ff=768,
+                             head_dim=64))])
+def test_local_config_of_the_ssm_hybrid_and_audio_configs(arch, model, want):
+    """A rank's fields at full width and the shapes of its leaves (a
+    ``meta`` init and cache): the SSM fields and every SSM leaf whole (an
+    attention-free config's head fields too), zamba2's shared block and
+    whisper's blocks split as dense blocks, ``frontend_proj`` a column
+    block, the vocab a row block."""
+    cfg = get_config(arch)
+    lcfg = parallel.local_config(cfg, _mesh(1, model, model - 1))
+    for name, value in want.items():
+        assert getattr(lcfg, name) == value, name
+    for name in ("d_model", "d_inner", "ssm_heads", "ssm_state",
+                 "ssm_head_dim", "padded_vocab", "n_layers", "n_enc_layers",
+                 "frontend_dim"):
+        assert getattr(lcfg, name) == getattr(cfg, name), name
+    p = api.init_params(rng.PRNGKey(0, device="meta"), lcfg)
+    full = api.init_params(rng.PRNGKey(0, device="meta"), cfg)
+    d = cfg.d_model
+    assert p["embed"]["table"].shape == (cfg.padded_vocab // model, d)
+    if "layers" in p:                 # the SSM stack whole on every rank
+        for got, whole in zip(tree_leaves(p["layers"]),
+                              tree_leaves(full["layers"])):
+            assert got.shape == whole.shape
+    if cfg.arch_type == "hybrid":
+        h = cfg.n_heads // model * cfg.head_dim
+        shared = p["shared"]
+        assert shared["attn"]["wq"].shape == (d, h)
+        assert shared["attn"]["wk"].shape == (d, h)
+        assert shared["attn"]["wo"].shape == (h, d)
+        assert shared["mlp"]["gate"].shape == (d, cfg.d_ff // model)
+        assert shared["mlp"]["down"].shape == (cfg.d_ff // model, d)
+    if cfg.encoder_decoder:
+        h = cfg.n_heads // model * cfg.head_dim
+        assert p["frontend_proj"].shape == (cfg.frontend_dim, d // model)
+        for stack, n in (("enc_layers", cfg.n_enc_layers),
+                         ("dec_layers", cfg.n_layers)):
+            for attn in ("attn", "self_attn", "cross_attn"):
+                if attn in p[stack]:
+                    assert p[stack][attn]["wv"].shape == (n, d, h)
+                    assert p[stack][attn]["wo"].shape == (n, h, d)
+            assert p[stack]["mlp"]["up"].shape == (n, d, cfg.d_ff // model)
+    cache = api.init_cache(lcfg, 2, 16, device="meta")
+    whole = api.init_cache(cfg, 2, 16, device="meta")
+    if cfg.arch_type in ("ssm", "hybrid"):
+        for leaf in ("conv", "state"):
+            assert cache["layers"][leaf].shape == whole["layers"][leaf].shape
+    if cfg.arch_type == "hybrid":
+        assert cache["shared"]["k"].shape == (
+            cfg.n_layers // cfg.shared_attn_every, 2, 16,
+            cfg.n_kv_heads // model, cfg.head_dim)
+    if cfg.encoder_decoder:
+        assert cache["memory"].shape == whole["memory"].shape
+        assert cache["k"].shape == (cfg.n_layers, 2, 16,
+                                    cfg.n_kv_heads // model, cfg.head_dim)
+
+
+def test_zamba2_shared_block_is_split_and_moe_shared_is_whole():
+    """"shared" names two things: zamba2's top-level shared attention
+    block, which JAX's rule splits as a dense block (and so does the
+    executor), and MoE's shared expert (``moe/shared/*``), which the
+    executor keeps whole (:func:`test_jax_reads_a_stacked_shared_experts_
+    layer_axis`)."""
+    want_shape, _ = _params_shape("zamba2_1_2b")
+    specs = j_sharding.param_pspecs(j_get_config("zamba2_1_2b"), want_shape,
+                                    _mesh(1, 4))
+    for sub, leaf, spec in (("attn", "wq", (None, "model")),
+                            ("attn", "wo", ("model", None)),
+                            ("mlp", "gate", (None, "model")),
+                            ("mlp", "down", ("model", None))):
+        path = ("shared", sub, leaf)
+        shape = tuple(want_shape["shared"][sub][leaf].shape)
+        assert tuple(specs["shared"][sub][leaf]) == spec
+        assert parallel.placement(path, shape, 4) == spec
+    _, moe_shape = _params_shape("deepseek_v2_236b")
+    for leaf, w in moe_shape["layers"]["moe"]["shared"].items():
+        path = ("layers", "moe", "shared", leaf)
+        assert parallel.placement(path, tuple(w.shape), 4) == (None,) * 3
+        assert parallel.placement(path, tuple(w.shape[1:]), 4) == (None,) * 2
+
+
 # ------------------------------------------------------- a world of one --
-@pytest.mark.parametrize("arch", DENSE + MOE_VLM)
+@pytest.mark.parametrize("arch", DENSE + MOE_VLM + SSM_AUDIO)
 def test_world_of_one_is_the_unsharded_port(arch):
     """A (1, 1) mesh: the local config draws the same weights, and the
     prefill logits and the served tokens are bit-equal."""
@@ -310,19 +405,18 @@ def test_refuses_a_split_kv_head():
 
 
 @pytest.mark.parametrize("arch, model, match", [
-    ("mamba2_2_7b", 2, "serves the attention configs"),
-    ("whisper_tiny", 2, "serves the attention configs"),
-    ("zamba2_1_2b", 2, "serves the attention configs"),
-    # full width: 64 divides its heads, d_ff, d_ff_dense and vocab
+    ("whisper_tiny", 4, "divide n_kv_heads = 6"),
+    ("mamba2_2_7b", 3, "divide the padded vocab = 50432"),
+    ("zamba2_1_2b", 64, "divide n_kv_heads = 32"),
+    # 64 divides its heads, d_ff, d_ff_dense and vocab
     ("deepseek_v2_236b", 64, "divide n_experts = 160")])
 def test_refuses_what_the_executor_does_not_serve(arch, model, match):
-    """The SSM, hybrid and encoder-decoder configs, and a MoE config whose
-    experts the model axis does not divide."""
-    cfg = get_config(arch)
-    if model == 2:
-        cfg = cfg.reduced()
+    """Full-width configs on a model axis that does not divide their KV
+    heads (whisper-tiny's 6, zamba2-1.2b's 32), their padded vocab
+    (mamba2-2.7b, attention-free, has no heads to check) or their
+    experts."""
     with pytest.raises(ValueError, match=match):
-        parallel.local_config(cfg, _mesh(1, model))
+        parallel.local_config(get_config(arch), _mesh(1, model))
 
 
 def test_refuses_a_moe_batch_split_unevenly():
@@ -442,6 +536,19 @@ def test_each_rank_holds_its_blocks_of_the_init(four_ranks, arch):
                 res[arch]["rows"][k], v[(r // model) * n:(r // model + 1) * n])
         assert res[arch]["local_logits_shape"] == (n, cfg.padded_vocab
                                                    // model)
+
+
+@pytest.mark.parametrize("arch", list(RUNS))
+def test_model_ranks_hold_the_same_stream(four_ranks, arch):
+    """The residual stream the final norm takes (every SSM layer's output
+    runs into it) is bit-equal on the model ranks of a data group: each
+    runs the replicated layers on the same rows, and the row-parallel
+    sums and the vocab-parallel lookup give every rank the same numbers."""
+    model = RUNS[arch][1]
+    for r, res in enumerate(four_ranks):
+        first = four_ranks[r - r % model][arch]["stream"]
+        np.testing.assert_array_equal(res[arch]["stream"], first)
+        assert res[arch]["stream"].shape[-1] == job.config(arch).d_model
 
 
 @pytest.mark.parametrize("arch", list(RUNS))
